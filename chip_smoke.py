@@ -6,8 +6,8 @@ NVIDIA H100. Run from the repository root, with no arguments:
 
 It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version, serves GPT-2 small at full width
-(random weights from a fixed seed) through `DecodeEngine` on the card, and
-prints one JSON object per line:
+(random weights from a fixed seed) through `DecodeEngine` on the card,
+trains it through `ScanTrainStep`, and prints one JSON object per line:
 
 1. ``device``: the card's name and power limit as nvidia-smi gives them
    (that raw line is also printed alone), and its compute capability,
@@ -23,22 +23,44 @@ prints one JSON object per line:
    median of 25 launches timed with CUDA events after a 128 MiB write that
    evicts the 50 MB L2; and ``bound_ms``, the larger of the bytes the call
    must move over 3.35 TB/s and its operations over the dtype's peak (67
-   TFLOP/s float32, 989 TFLOP/s bfloat16).
+   TFLOP/s float32, 989 TFLOP/s bfloat16). The three flash-attention
+   kernels (forward, dq, dk/dv) are held the same way at the training
+   shape (B=8, H=12, S=1024, D=64, causal), a ragged causal S=200, a
+   cross-length causal Sq=64 / Sk=300 and a non-causal S=256; their
+   tolerances are 2e-5 (forward) and 1e-4 (gradients) times the largest
+   reference value when that exceeds 1 in float32, and in bfloat16 one
+   bfloat16 step of the largest reference value (2^-7 of it), never less
+   than the float32 bound. Their library yardstick is SDPA forward, and
+   SDPA forward plus backward for the backward pair.
 4. ``serve_parity``: float32 engines on the card and on the CPU serve the
    same 4 requests (chunked prefill on); the greedy tokens must agree
    wherever the CPU logits' top-2 margin exceeds 1e-3, and the prefill
    logits must agree within 5e-4 (`quantization/serving.py`).
 5. ``serve``: the bfloat16 engine on the card serves 8 requests of 7-900
    prompt tokens, 32 new tokens each, through one-shot bucketed prefill.
-6. ``kernels``: per kernel, its source, the TPU kernel it replaces, its
-   launches in the serve run and its numbers at the serve run's shapes.
-7. The last line: ``{"ok": true, "device": {...}}``.
+6. ``train_parity``: float32 `ScanTrainStep`s on the card and on the CPU
+   take 3 steps of GPT-2 small's width at 2 layers (S=256, B=4 as 2
+   microbatches, AdamW lr 1e-3, clip 1.0); every step's loss must agree
+   within 1e-3 (see TRAIN_LOSS_TOL).
+7. ``train``: GPT-2 small (12 layers) in bfloat16 with float32 masters,
+   B=16 as 2 microbatches of 8, S=1024, AdamW lr 1e-4, clip 1.0: 2 warm-up
+   steps, then 8 timed steps on one fixed batch; tokens/s, step ms p50,
+   MFU against the H100's 989 TFLOP/s, peak memory and the losses, which
+   must be finite and fall.
+8. ``kernels``: per kernel, its source, the TPU kernel it replaces, its
+   launches in the run of the path that uses it (serve for the paged
+   kernels, train for the flash kernels) and its numbers at that run's
+   shapes.
+9. The last line: ``{"ok": true, "device": {...}}``.
 
-The two card engine runs (4 and 5) are the two paths of the main path:
-every kernel's launch count is set to 0 just before each and read just
-after, and the run fails unless each kernel launched exactly as many times
-as the engine's steps imply (one per layer per decode step, one per layer
-per one-shot prefill or chunk). Both lines report their counts.
+The four card runs (4 to 7) are the paths of the main path: every
+kernel's launch count is set to 0 just before each and read just after.
+Each path states the kernels it must launch and how many times (the
+engine's steps imply one paged-decode launch per layer per decode step and
+one paged-prefill launch per layer per one-shot prefill or chunk; a train
+step launches each flash kernel once per layer per microbatch), every other
+kernel must show 0, and the run fails otherwise. Each line reports its
+counts.
 
 Any failure raises and exits non-zero. Without CUDA, or without the
 `paddle_tpu_torch` package beside it, it exits non-zero and prints no
@@ -56,12 +78,16 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
-from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import _build, registry
+from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import paged_attention as pa
+from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
 from paddle_tpu_torch.kernels.cuda import paged_attention as cdec
 from paddle_tpu_torch.kernels.cuda import prefill_attention as cpre
 from paddle_tpu_torch.models import gpt as gpt_mod
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.quantization.serving import margin_gated_parity
+from paddle_tpu_torch.train import H100_BF16_PEAK, ScanTrainStep
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
@@ -70,11 +96,26 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 REPLACES = {
     "paged_decode": "paddle_tpu/kernels/pallas/paged_attention.py:48",
     "paged_prefill": "paddle_tpu/kernels/pallas/prefill_attention.py:69",
+    "flash_fwd": "paddle_tpu/kernels/pallas/flash_attention.py:31",
+    "flash_dq": "paddle_tpu/kernels/pallas/flash_attention.py:123",
+    "flash_dkv": "paddle_tpu/kernels/pallas/flash_attention.py:161",
 }
 PS, MAXP, NUM_PAGES = 16, 64, 513              # page size, pages per slot, pool
 NH, DH = 12, 64                                # GPT-2 small's heads
 VOCAB = 50257                                  # GPT-2's tokenizer
 LOGIT_BOUND, MARGIN = 5e-4, 1e-3
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+# (name, B, H, Sq, Sk, D, causal) of the flash kernel checks
+FLASH_CASES = (("train", 8, 12, 1024, 1024, 64, True),
+               ("ragged", 1, 12, 200, 200, 64, True),
+               ("cross", 1, 12, 64, 300, 64, True),
+               ("noncausal", 2, 12, 256, 256, 64, False))
+# card vs CPU float32 train steps: both sum in other orders, and the fused
+# cross-entropy rounds h, w and dlogits to bf16, where a value one f32 bit
+# from a rounding boundary can round one bf16 step apart; Adam then moves
+# the elements whose gradient is near zero by +-lr on either side. Losses
+# of about 10.8 agree within 1e-3.
+TRAIN_LOSS_TOL = 1e-3
 
 
 def emit(obj):
@@ -236,36 +277,142 @@ def check_prefill(dev, timer, dtype, c, start, valid):
     return line
 
 
+def visible_pairs(sq, sk, causal):
+    """(query, key) pairs the attention sees: every pair, or those on or
+    below the bottom-right causal diagonal."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, i + sk - sq + 1) for i in range(sq))
+
+
+def flash_tol(dtype, ref, f32_tol):
+    """f32: ``f32_tol`` times the largest reference value when it exceeds
+    1; bf16: one bf16 step of the largest reference value, and never less
+    than the f32 bound."""
+    big = ref.float().abs().max().item()
+    f32 = f32_tol * max(1.0, big)
+    return f32 if dtype == torch.float32 else max(f32, 2.0 ** -7 * big)
+
+
+def check_flash(dev, timer, dtype, case):
+    """The three flash kernels against their plain versions at one shape,
+    timed beside SDPA; one ``kernel`` line per kernel."""
+    name, b, h, sq, sk, d, causal = case
+    rng = np.random.default_rng(SEED + sq + sk)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev, dtype)
+    q, k, v, do = rand(b * h, sq, d), rand(b * h, sk, d), \
+        rand(b * h, sk, d), rand(b * h, sq, d)
+    scale = 1.0 / float(np.sqrt(d))
+
+    out, lse = cfa.flash_fwd(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    rout, rlse = tfa._plain_flash_fwd(q, k, v, scale, causal)
+    delta = (do.float() * rout.float()).sum(-1)
+    dq = cfa.flash_dq(q, k, v, do, rlse, delta, scale, causal)
+    dk, dv = cfa.flash_dkv(q, k, v, do, rlse, delta, scale, causal)
+    torch.cuda.synchronize()
+    rdq = tfa._plain_flash_dq(q, k, v, do, rlse, delta, scale, causal)
+    rdk, rdv = tfa._plain_flash_dkv(q, k, v, do, rlse, delta, scale, causal)
+    checks = {
+        "flash_fwd": [(out, rout, 2e-5), (lse, rlse, 2e-5)],
+        "flash_dq": [(dq, rdq, 1e-4)],
+        "flash_dkv": [(dk, rdk, 1e-4), (dv, rdv, 1e-4)]}
+
+    # yardsticks: SDPA forward, and forward plus backward
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4, do4 = (t.view(b, h, t.shape[1], d) for t in (q, k, v, do))
+    mask = tfa._visible(sq, sk, causal, dev) if causal and sq != sk else None
+    kw = {"attn_mask": mask, "is_causal": causal and mask is None}
+    gq, gk, gv = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
+    library = {"flash_fwd": lambda: sdpa(q4, k4, v4, **kw)}
+    library["flash_dq"] = library["flash_dkv"] = \
+        lambda: sdpa(gq, gk, gv, **kw).backward(do4)
+    runs = {
+        "flash_fwd": (lambda: cfa.flash_fwd(q, k, v, scale, causal),
+                      lambda: tfa._plain_flash_fwd(q, k, v, scale, causal)),
+        "flash_dq": (lambda: cfa.flash_dq(q, k, v, do, rlse, delta, scale,
+                                          causal),
+                     lambda: tfa._plain_flash_dq(q, k, v, do, rlse, delta,
+                                                 scale, causal)),
+        "flash_dkv": (lambda: cfa.flash_dkv(q, k, v, do, rlse, delta, scale,
+                                            causal),
+                      lambda: tfa._plain_flash_dkv(q, k, v, do, rlse, delta,
+                                                   scale, causal))}
+    item = q.element_size()
+    pairs = b * h * visible_pairs(sq, sk, causal)
+    qbytes, kbytes = q.numel() * item, k.numel() * item
+    rows = 4 * b * h * sq                          # one f32 per query row
+    cost = {   # (bytes: inputs read once, outputs written once; operations)
+        "flash_fwd": (2 * qbytes + 2 * kbytes + rows, 4 * d * pairs),
+        "flash_dq": (3 * qbytes + 2 * kbytes + 2 * rows, 6 * d * pairs),
+        "flash_dkv": (2 * qbytes + 4 * kbytes + 2 * rows, 8 * d * pairs)}
+    lines = {}
+    for kern, outs in checks.items():
+        errs = [((g.float() - r.float()).abs().max().item(),
+                 flash_tol(dtype, r, t)) for g, r, t in outs]
+        err = max(e for e, _ in errs)
+        ok = all(e <= t for e, t in errs)
+        nbytes, ops = cost[kern]
+        b_ms, b_by = bound(nbytes, ops, dtype)
+        line = {
+            "phase": "kernel", "kernel": kern, "dtype": dtype_name(dtype),
+            "case": name,
+            "shape": {"B": b, "H": h, "Sq": sq, "Sk": sk, "D": d,
+                      "causal": causal},
+            "max_abs_err": err, "tol": [t for _, t in errs], "within_tol": ok,
+            "kernel_ms": timer.ms(runs[kern][0]),
+            "plain_ms": timer.ms(runs[kern][1]),
+            "library_ms": timer.ms(library[kern]),
+            "library": "sdpa forward" if kern == "flash_fwd"
+                       else "sdpa forward + backward",
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops}
+        emit(line)
+        if not ok:
+            raise SystemExit(f"{kern} {dtype} {name}: err {err} over "
+                             f"{line['tol']}")
+        lines[kern] = line
+    return lines
+
+
 def serve(engine, prompts, n):
     reqs = [engine.submit(p, max_new_tokens=n) for p in prompts]
     engine.run_until_idle(max_steps=10_000)
     return [r.result(timeout=0) for r in reqs]
 
 
-def reset_launches(engine):
-    """Set every kernel's launch count to 0 just before a path's run, and
-    return the engine's step counters to measure the run against."""
+def reset_launches():
+    """Set every kernel's launch count to 0, just before a path's run."""
     for k in _build.kernels():
         k.launches = 0
-    return dict(engine.counters)
 
 
-def read_launches(engine, before, phase):
-    """Every kernel's launches since `reset_launches`, and the counts the
-    engine's steps imply: one decode launch per layer per decode step, one
-    prefill launch per layer per one-shot prefill or chunk. A kernel that
-    did not launch, or launched another number of times, fails the run."""
+def read_launches(phase, expected):
+    """Every kernel's launches since `reset_launches`. ``expected`` maps the
+    kernels the path must launch to their counts; every other kernel must
+    show 0. A kernel that launched another number of times fails the run.
+    """
     launches = {k.source: k.launches for k in _build.kernels()}
+    for name, n in launches.items():
+        want = expected.get(name, 0)
+        if n != want or (name in expected and n <= 0):
+            raise SystemExit(f"{phase}: {name} launched {n} times, expected "
+                             f"{want}")
+    return launches
+
+
+def engine_launches(engine, before, phase):
+    """The serve path's launches against the counts the engine's steps
+    since ``before`` imply: one decode launch per layer per decode step,
+    one prefill launch per layer per one-shot prefill or chunk."""
     ran = {k: engine.counters[k] - before[k] for k in before}
     nl = engine.cfg.num_layers
     expected = {"paged_decode": nl * ran["steps"],
                 "paged_prefill": nl * (ran["prefills"]
                                        + ran["prefill_chunks"])}
-    for name, n in launches.items():
-        if n <= 0 or n != expected[name]:
-            raise SystemExit(f"{phase}: {name} launched {n} times, expected "
-                             f"{expected[name]}")
-    return launches, expected, ran
+    return read_launches(phase, expected), expected, ran
 
 
 def prefill_logits(params, prompt, dev, cfg):
@@ -296,9 +443,10 @@ def serve_parity(model, dev):
     ecfg = EngineConfig(prefill_chunk_tokens=256)
     eng = DecodeEngine(model, ecfg, device=dev)
     t0 = time.perf_counter()
-    counters0 = reset_launches(eng)        # the chunked path's run
+    counters0 = dict(eng.counters)
+    reset_launches()                       # the chunked path's run
     card = serve(eng, prompts, 16)
-    launches, expected, ran = read_launches(eng, counters0, "serve_parity")
+    launches, expected, ran = engine_launches(eng, counters0, "serve_parity")
     t_card = time.perf_counter() - t0
     t0 = time.perf_counter()
     cpu = serve(DecodeEngine(model, ecfg, device="cpu"), prompts, 16)
@@ -358,7 +506,8 @@ def serve_bf16(model, dev, smi):
     lens, cfg = SERVE_LENS, model.cfg
     eng, prompts = serve_engine(model, dev)
 
-    counters0 = reset_launches(eng)        # the bucketed path's run
+    counters0 = dict(eng.counters)
+    reset_launches()                       # the bucketed path's run
     torch.cuda.reset_peak_memory_stats(dev)
     reqs = [eng.submit(p, max_new_tokens=32) for p in prompts]
     step_ms, step_tokens = [], []
@@ -372,7 +521,7 @@ def serve_bf16(model, dev, smi):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         step_tokens.append(sum(len(r.generated) for r in reqs) - before)
     wall = time.perf_counter() - t_run
-    launches, expected, _ = read_launches(eng, counters0, "serve")
+    launches, expected, _ = engine_launches(eng, counters0, "serve")
 
     outs = [r.result(timeout=0) for r in reqs]
     ok = all(o.shape == (n + 32,) and ((o >= 0) & (o < cfg.vocab_size)).all()
@@ -394,6 +543,84 @@ def serve_bf16(model, dev, smi):
     emit(line)
     if not ok:
         raise SystemExit("serve: malformed outputs")
+    return launches
+
+
+def train_batch(rng, b, s, vocab):
+    ids = rng.integers(0, vocab, (b, s + 1))
+    return ids[:, :-1].astype(np.int32), ids[:, 1:].astype(np.int32)
+
+
+def train_parity(dev):
+    """float32 train steps of a 2-layer GPT-2-small-width model on the card
+    and on the CPU, from the same weights and batch."""
+    cfg = dict(num_layers=2, hidden_dropout=0.0, attention_dropout=0.0)
+    x, y = train_batch(np.random.default_rng(SEED + 3), 4, 256, VOCAB)
+    losses, launches = {}, None
+    for where in (dev, "cpu"):
+        model = gpt_mod.gpt2_small(
+            generator=torch.Generator().manual_seed(SEED), **cfg)
+        step = ScanTrainStep(model, AdamW(learning_rate=1e-3, clip_norm=1.0),
+                             microbatches=2, device=where)
+        t0 = time.perf_counter()
+        if where == dev:
+            reset_launches()               # the train path's run, float32
+            registry.reset_counts()
+        losses[str(where)] = [step.step(x, y) for _ in range(3)]
+        if where == dev:
+            n = 2 * 2 * 3                  # layers x microbatches x steps
+            launches = read_launches("train_parity",
+                                     dict.fromkeys(FLASH_KERNELS, n))
+            dispatch = registry.counts()
+            card_s = time.perf_counter() - t0
+    card, cpu = losses[str(dev)], losses["cpu"]
+    diff = max(abs(a - c) for a, c in zip(card, cpu))
+    ok = diff <= TRAIN_LOSS_TOL and dispatch == {
+        "kernel.dispatch.flash_attention.cuda": 12}
+    emit({"phase": "train_parity", "model": "gpt2-small width, 2 layers",
+          "dtype": "float32", "batch": 4, "microbatches": 2, "seq": 256,
+          "steps": 3, "card_losses": card, "cpu_losses": cpu,
+          "loss_max_abs_diff": diff, "tol": TRAIN_LOSS_TOL,
+          "launches": launches, "dispatch": dispatch,
+          "card_seconds": card_s, "ok": ok})
+    if not ok:
+        raise SystemExit("train_parity: card and CPU train steps disagree")
+
+
+def train_run(dev, smi, warmup=2, timed=8):
+    """GPT-2 small in bf16 with f32 masters: warm-up steps, then timed
+    steps on one fixed batch. Returns the flash kernels' launches."""
+    model = gpt_mod.gpt2_small(generator=torch.Generator().manual_seed(SEED),
+                               hidden_dropout=0.0, attention_dropout=0.0)
+    model = model.to(torch.bfloat16)
+    step = ScanTrainStep(model, AdamW(learning_rate=1e-4, clip_norm=1.0),
+                         microbatches=2, device=dev)
+    x, y = train_batch(np.random.default_rng(SEED + 4), 16, 1024, VOCAB)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [step.step(x, y) for _ in range(warmup)]
+    reset_launches()                       # the train path's timed run
+    losses += [step.step(x, y) for _ in range(timed)]
+    n = model.cfg.num_layers * 2 * timed   # layers x microbatches x steps
+    launches = read_launches("train", dict.fromkeys(FLASH_KERNELS, n))
+    recs = step.records[warmup:]
+    step_ms = statistics.median(r["step_ms"] for r in recs)
+    tokens = x.size
+    flops = gpt_mod.analytic_flops_per_token(model.cfg, x.shape[1]) * tokens
+    ok = bool(np.isfinite(losses).all()) and losses[-1] < losses[0] \
+        and step.bad_steps == 0
+    emit({"phase": "train", "model": "gpt2-small", "dtype": "bfloat16",
+          "master_weights": "float32", "card": smi, "batch": 16,
+          "microbatches": 2, "seq": 1024, "tokens_per_step": tokens,
+          "warmup_steps": warmup, "timed_steps": timed,
+          "step_ms_p50": step_ms, "step_ms": [r["step_ms"] for r in recs],
+          "tokens_per_s": tokens / (step_ms / 1e3),
+          "mfu": flops / (step_ms / 1e3 * H100_BF16_PEAK),
+          "flops_per_step": flops,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+          "losses": losses, "launches": launches, "expected_launches": n,
+          "ok": ok})
+    if not ok:
+        raise SystemExit(f"train: losses {losses} not finite and falling")
     return launches
 
 
@@ -437,15 +664,27 @@ def main():
                                 (256, 496, 100)):
             cases[("paged_prefill", dtype, c)] = check_prefill(
                 dev, timer, dtype, c, start, valid)
+        for case in FLASH_CASES:
+            for kern, line in check_flash(dev, timer, dtype, case).items():
+                cases[(kern, dtype, case[0])] = line
     del timer
+    torch.cuda.empty_cache()
 
     model = gpt_mod.gpt2_small(generator=torch.Generator().manual_seed(SEED))
     serve_parity(model, dev)
     launches = serve_bf16(model.to(torch.bfloat16), dev, smi)
+    del model
+    torch.cuda.empty_cache()
+    train_parity(dev)
+    trained = train_run(dev, smi)
+    launches.update((k, trained[k]) for k in FLASH_KERNELS)
 
-    # the serve run's shapes: bfloat16, decode at B=8, prefill up to C=1024
-    head = {"paged_decode": cases[("paged_decode", torch.bfloat16)],
-            "paged_prefill": cases[("paged_prefill", torch.bfloat16, 1024)]}
+    # the shapes of the paths' runs: bfloat16, decode at B=8, prefill up to
+    # C=1024, flash at the train shape
+    bf16 = torch.bfloat16
+    head = {"paged_decode": cases[("paged_decode", bf16)],
+            "paged_prefill": cases[("paged_prefill", bf16, 1024)],
+            **{k: cases[(k, bf16, "train")] for k in FLASH_KERNELS}}
     summary = []
     for k in _build.kernels():
         h = head[k.source]

@@ -1,6 +1,7 @@
 """Kernel registry of the port: named op -> its impls -> the impl one call
 takes (counterpart of `paddle_tpu/kernels/registry.py`, reduced to the ops
-of the serving slice).
+of the ported slices: serving's two paged-attention ops and training's
+flash attention).
 
 The JAX registry chooses among impls by a forced flag, a viability probe
 and a measured winner. Here the choice is the tensor's device and nothing
@@ -19,6 +20,7 @@ __all__ = ["OPS", "dispatch", "counts", "reset_counts"]
 OPS = {
     "paged_attention": ("plain", "cuda"),
     "prefill_attention": ("plain", "cuda"),
+    "flash_attention": ("plain", "cuda"),
 }
 
 _COUNTS: dict[str, int] = {}

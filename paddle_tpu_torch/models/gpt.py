@@ -1,5 +1,6 @@
-"""GPT-2 for serving over a paged KV cache (counterpart of the serving half
-of `paddle_tpu/models/gpt.py`).
+"""GPT-2 for serving over a paged KV cache and for training (counterpart of
+`paddle_tpu/models/gpt.py`: its serving step functions and its scanned
+training forward, `scan_hidden` / `scan_logits` / `scan_loss`).
 
 The weights keep the JAX package's layout and names, so carrying a JAX
 state_dict across is a copy (`models/convert.py`): ``x @ W`` with ``W``
@@ -21,9 +22,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from paddle_tpu_torch.kernels import paged_attention as pa
+from paddle_tpu_torch.kernels.flash_attention import (NEG_INF,
+                                                      flash_attention_fn)
+from paddle_tpu_torch.kernels.fused_ce import fused_linear_cross_entropy
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "gpt2_small", "decode_step",
-           "prefill_step", "prefill_chunk_step"]
+           "prefill_step", "prefill_chunk_step", "BLOCK_SUFFIXES",
+           "analytic_param_count", "analytic_flops_per_token",
+           "stack_gpt_params", "unstack_gpt_params", "check_trainable",
+           "scan_blocks", "scan_hidden", "scan_logits", "scan_loss"]
 
 
 @dataclass
@@ -34,7 +41,12 @@ class GPTConfig:
     num_heads: int = 12
     intermediate_size: int = 3072
     max_position_embeddings: int = 1024
+    hidden_dropout: float = 0.1      # training only; > 0 is not ported yet
+    attention_dropout: float = 0.1   # training only; > 0 is not ported yet
     initializer_range: float = 0.02
+    use_flash: bool = True           # flash attention in training, else dense
+    recompute: bool = False          # block rematerialization: not ported yet
+    fused_ce: bool = True            # chunked LM-head CE, no [N, V] logits
 
 
 class _Table(nn.Module):
@@ -276,3 +288,141 @@ def prefill_chunk_step(params, ids, start, valid, page_table, k_pages,
     x = _block_stack(params, x, nl, nh, dh, attend)
     last = x[0, min(max(int(valid) - 1, 0), c - 1)]
     return _final_logits(params, last), k_pages, v_pages
+
+
+# --------------------------------------------------------------------------
+# Training forward over STACKED block weights (the JAX package's scanned
+# layer stack). The stacked layout {"blocks": {suffix: [nl, ...]}, "top":
+# {name: tensor}} is the training state's layout, so one optimizer update
+# covers a suffix of every layer at once. PyTorch has no `lax.scan`: the
+# layers run in a Python loop over `unbind`, whose backward stacks the
+# per-layer gradients into one [nl, ...] gradient.
+
+BLOCK_SUFFIXES = (
+    "ln_1.weight", "ln_1.bias",
+    "attn.qkv_proj.weight", "attn.qkv_proj.bias",
+    "attn.out_proj.weight", "attn.out_proj.bias",
+    "ln_2.weight", "ln_2.bias",
+    "mlp.fc_in.weight", "mlp.fc_in.bias",
+    "mlp.fc_out.weight", "mlp.fc_out.bias",
+)
+
+_BLOCK_PREFIX = "gpt.h."
+
+
+def analytic_param_count(cfg) -> int:
+    """Parameter count from the config: embeddings (tied LM head), the
+    blocks' qkv, projection, MLP and two layernorms, and the final
+    layernorm."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    per_block = (3 * h * h + 3 * h + h * h + h + h * i + i + i * h + h
+                 + 4 * h)
+    return (cfg.vocab_size * h + cfg.max_position_embeddings * h
+            + cfg.num_layers * per_block + 2 * h)
+
+
+def analytic_flops_per_token(cfg, seq_len: int) -> float:
+    """Training FLOPs per token: 6 per parameter (forward and backward) plus
+    the attention scores and context, 12 * layers * hidden * seq_len."""
+    return (6.0 * analytic_param_count(cfg)
+            + 12.0 * cfg.num_layers * cfg.hidden_size * seq_len)
+
+
+def _num_layers(params) -> int:
+    idx = [int(k[len(_BLOCK_PREFIX):].split(".", 1)[0]) for k in params
+           if k.startswith(_BLOCK_PREFIX)]
+    if not idx:
+        raise ValueError("no gpt.h.<i>.* leaves: not a GPT state dict")
+    return 1 + max(idx)
+
+
+def stack_gpt_params(params):
+    """state_dict layout {name: tensor} -> {"blocks": {suffix: [nl, ...]},
+    "top": {name: tensor}}."""
+    nl = _num_layers(params)
+    blocks = {s: torch.stack([params[f"{_BLOCK_PREFIX}{i}.{s}"]
+                              for i in range(nl)])
+              for s in BLOCK_SUFFIXES}
+    top = {k: v for k, v in params.items() if not k.startswith(_BLOCK_PREFIX)}
+    return {"blocks": blocks, "top": top}
+
+
+def unstack_gpt_params(stacked):
+    """Inverse of :func:`stack_gpt_params` (per-layer views of the stacked
+    leaves)."""
+    out = dict(stacked["top"])
+    for suffix, leaf in stacked["blocks"].items():
+        for i, t in enumerate(leaf.unbind(0)):
+            out[f"{_BLOCK_PREFIX}{i}.{suffix}"] = t
+    return out
+
+
+def check_trainable(cfg):
+    """Raise NotImplementedError for what training does not port yet."""
+    if cfg.hidden_dropout or cfg.attention_dropout:
+        raise NotImplementedError(
+            "training with dropout > 0 is not ported (ROADMAP A8: dropout "
+            "that matches the JAX package's threefry bits); set "
+            "hidden_dropout=0 and attention_dropout=0")
+    if cfg.recompute:
+        raise NotImplementedError(
+            "recompute=True is not ported (ROADMAP A8: block "
+            "rematerialization)")
+
+
+def _dense_causal_attend(q, k, v):
+    """Causal attention on [B, S, nh, dh] with a dense f32 softmax (the JAX
+    `_causal_attend`), result in q.dtype."""
+    s = q.shape[1]
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    sc = sc.masked_fill(~mask, NEG_INF)
+    pr = torch.softmax(sc, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", pr, v.float()).to(q.dtype)
+
+
+def scan_blocks(blocks, x, cfg, *, training=False):
+    """All nl transformer blocks over x [B, S, H], from the stacked block
+    leaves; attention is causal flash attention (``cfg.use_flash``) or the
+    dense softmax."""
+    if training:
+        check_trainable(cfg)
+    nh = cfg.num_heads
+    nl = next(iter(blocks.values())).shape[0]
+    per_layer = unstack_gpt_params({"blocks": blocks, "top": {}})
+    attend = flash_attention_fn(causal=True) if cfg.use_flash \
+        else _dense_causal_attend
+    return _block_stack(per_layer, x, nl, nh, cfg.hidden_size // nh,
+                        lambda i, q, k, v: attend(q, k, v))
+
+
+def scan_hidden(stacked, ids, cfg, *, training=False):
+    """[B, S] ids -> final-layernorm hidden states [B, S, H]."""
+    top = stacked["top"]
+    s = ids.shape[-1]
+    x = top["gpt.wte.weight"][ids.long()] + top["gpt.wpe.weight"][:s]
+    x = scan_blocks(stacked["blocks"], x, cfg, training=training)
+    return _ln_ref(x, top["gpt.ln_f.weight"], top["gpt.ln_f.bias"])
+
+
+def scan_logits(stacked, ids, cfg, *, training=False):
+    """[B, S] ids -> [B, S, V] f32 logits (tied LM head)."""
+    h = scan_hidden(stacked, ids, cfg, training=training)
+    return (h @ stacked["top"]["gpt.wte.weight"].T).float()
+
+
+def scan_loss(stacked, ids, labels, cfg, *, training=True):
+    """Scalar f32 causal-LM loss, the mean over the tokens: the fused
+    LM-head cross-entropy (``cfg.fused_ce``) or dense logits and
+    log-softmax."""
+    h = scan_hidden(stacked, ids, cfg, training=training)
+    wte = stacked["top"]["gpt.wte.weight"]
+    n = h.shape[0] * h.shape[1]
+    labels = labels.reshape(-1).long()
+    if cfg.fused_ce:
+        loss = fused_linear_cross_entropy(h.reshape(n, -1), wte, labels)
+    else:
+        logits = (h @ wte.T).float().reshape(n, -1)
+        loss = -F.log_softmax(logits, dim=-1).gather(1, labels[:, None])[:, 0]
+    return loss.mean()

@@ -1,0 +1,210 @@
+"""The GPT train step (counterpart of
+`paddle_tpu/train/scan_step.py::ScanTrainStep`).
+
+One call of `step` is the JAX step's one program, run eagerly:
+
+- forward and backward of `models/gpt.py::scan_loss` over the STACKED
+  block leaves, once per microbatch, the gradients accumulated in float32
+  and the loss and gradients averaged over the microbatches;
+- an all-finite check over the loss and the raw gradients: a step that
+  fails it changes nothing, is not counted as an optimizer step, and
+  counts in ``bad_steps``;
+- the global-norm clip ``clip_norm / max(norm, clip_norm)``;
+- the AdamW update of each stacked leaf in float32, on float32 master
+  weights where the parameters are held in bfloat16, at ``t = global_step
+  + 1``.
+
+Each step records its time, tokens/s and MFU (``records``). MFU is
+``analytic_flops_per_token * tokens / (seconds * peak)`` with the H100 SXM
+bf16 dense peak from NVIDIA's data sheet; a CPU step records no MFU.
+
+Not ported yet (ROADMAP A8): ZeRO-1, the cross-process grad reducer, the
+CUDA graph of the whole step, loss masks.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+from paddle_tpu_torch.models.gpt import (analytic_flops_per_token,
+                                         check_trainable, scan_loss,
+                                         stack_gpt_params, unstack_gpt_params)
+
+__all__ = ["H100_BF16_PEAK", "ScanTrainStep"]
+
+H100_BF16_PEAK = 989e12     # FLOP/s, H100 SXM bf16 dense (NVIDIA data sheet)
+
+
+def _resolve_device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "ScanTrainStep runs on the CUDA card by default and CUDA is "
+                "not available here; pass device=\"cpu\" to train with the "
+                "plain PyTorch kernels on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _leaf_keys(tree):
+    for grp in ("blocks", "top"):
+        for k in tree[grp]:
+            yield grp, k
+
+
+class ScanTrainStep:
+    """Train step for a `models/gpt.py::GPTForCausalLM` with an
+    `optimizer.AdamW`.
+
+    The step holds a copy of the parameters stacked, as leaves on
+    ``device``, and the optimizer state beside them, both seeded from the
+    model and the optimizer when it is built; ``sync_to_model`` writes them
+    back.
+    ``device=None`` means ``cuda`` and raises where CUDA is absent.
+    """
+
+    def __init__(self, model, optimizer, *, microbatches=1, device=None):
+        self.device = _resolve_device(device)
+        check_trainable(model.cfg)
+        self.model, self.opt, self.cfg = model, optimizer, model.cfg
+        self.microbatches = max(1, int(microbatches))
+        self.bad_steps = 0
+        self.consecutive_bad_steps = 0
+        self.last_step_ok = True
+        self.records: list[dict] = []
+        self._load_state()
+
+    # ------------------------------------------------------------- state io
+
+    def _load_state(self):
+        """Copy the model's parameters onto the device as stacked leaves, and
+        stack the optimizer state beside them from ``optimizer.state``:
+        zero moments where a name has none, and float32 masters (the
+        parameters' values where a name has none) unless every parameter
+        is float32."""
+        params = {n: t.detach().to(self.device, copy=True)
+                  for n, t in self.model.state_dict().items()}
+        names = list(self.opt.state_names)
+        if any(p.dtype != torch.float32 for p in params.values()):
+            names.append("master")
+        per_state = {s: {} for s in names}
+        for n, p in params.items():
+            saved = self.opt.state.get(n, {})
+            for s in names:
+                v = saved.get(s)
+                if v is None:
+                    v = p if s == "master" else torch.zeros_like(p)
+                per_state[s][n] = v.to(self.device, torch.float32)
+        stacked = {s: stack_gpt_params(d) for s, d in per_state.items()}
+        self._params = stack_gpt_params(params)
+        self._opt_state = {"blocks": {}, "top": {}}
+        for grp, key in _leaf_keys(self._params):
+            self._params[grp][key].requires_grad_(True)
+            self._opt_state[grp][key] = {s: stacked[s][grp][key]
+                                         for s in names}
+
+    def sync_to_model(self):
+        """Write the step's parameters into the model and its optimizer state
+        into ``optimizer.state``, per state_dict name."""
+        params = unstack_gpt_params(self._params)
+        with torch.no_grad():
+            for name, t in self.model.state_dict().items():
+                t.copy_(params[name])
+        nl = self.cfg.num_layers
+        for grp, key in _leaf_keys(self._opt_state):
+            st = self._opt_state[grp][key]
+            names = ([f"gpt.h.{i}.{key}" for i in range(nl)]
+                     if grp == "blocks" else [key])
+            for i, n in enumerate(names):
+                self.opt.state[n] = {
+                    s: (v[i] if grp == "blocks" else v).detach().clone()
+                    for s, v in st.items()}
+
+    # ------------------------------------------------------------- the step
+
+    def _grads(self, xs, ys):
+        """(mean loss f32, mean f32 grads in `_leaf_keys` order)."""
+        keys = list(_leaf_keys(self._params))
+        leaves = [self._params[g][k] for g, k in keys]
+
+        def one(x, y):
+            loss = scan_loss(self._params, x, y, self.cfg, training=True)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+        if xs.shape[0] == 1:
+            loss, g = one(xs[0], ys[0])
+            return loss, [a.float() for a in g]
+        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for p in leaves]
+        lsum = torch.zeros((), dtype=torch.float32, device=self.device)
+        for x, y in zip(xs, ys):
+            loss, g = one(x, y)
+            gsum = [a + b.float() for a, b in zip(gsum, g)]
+            lsum = lsum + loss
+        inv = 1.0 / xs.shape[0]
+        return lsum * inv, [a * inv for a in gsum]
+
+    @torch.no_grad()
+    def _apply(self, grads, t):
+        """Global-norm clip, then the AdamW update of every leaf in place."""
+        keys = list(_leaf_keys(self._params))
+        clip = self.opt.clip_norm
+        if clip is not None:
+            sq = torch.zeros((), dtype=torch.float32, device=self.device)
+            for g in grads:
+                sq = sq + torch.sum(g ** 2)
+            scale = clip / torch.clamp(torch.sqrt(sq), min=clip)
+            grads = [g * scale for g in grads]
+        names = list(self.opt.state_names)
+        for (grp, k), g in zip(keys, grads):
+            p, st = self._params[grp][k], self._opt_state[grp][k]
+            p32 = st["master"] if "master" in st else p
+            new_p32, new_st = self.opt.update(p32, g,
+                                              [st[n] for n in names], t)
+            st.update(zip(names, new_st))
+            if "master" in st:
+                st["master"] = new_p32
+            p.copy_(new_p32.to(p.dtype))
+
+    def step(self, x, y, *, inject_nan=False):
+        """One train step. x: [B, S] int token ids, y: [B, S] int labels
+        (tensors or arrays); B must divide by the microbatch count.
+        ``inject_nan`` adds NaN to the loss, the counterpart of the JAX
+        step's ``train.step_nan`` fault, to drive the skip. Returns the mean
+        f32 loss as a Python float."""
+        x = torch.as_tensor(x).to(self.device)
+        y = torch.as_tensor(y).to(self.device)
+        m, b = self.microbatches, x.shape[0]
+        if b % m:
+            raise ValueError(f"batch {b} not divisible by microbatches {m}")
+        xs = x.reshape(m, b // m, *x.shape[1:])
+        ys = y.reshape(m, b // m, *y.shape[1:])
+        t0 = time.perf_counter()
+        loss, grads = self._grads(xs, ys)
+        if inject_nan:
+            loss = loss + float("nan")
+        with torch.no_grad():
+            ok = torch.stack([torch.isfinite(loss)]
+                             + [torch.isfinite(g).all() for g in grads]).all()
+        lossf, okb = float(loss), bool(ok)
+        self.last_step_ok = okb
+        if not okb:
+            # the step never happened as far as the optimizer clock goes
+            self.bad_steps += 1
+            self.consecutive_bad_steps += 1
+            return lossf
+        self._apply(grads, self.opt.global_step + 1)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0
+        tokens = int(x.numel())
+        flops = analytic_flops_per_token(self.cfg, int(x.shape[-1])) * tokens
+        self.records.append({
+            "step": self.opt.global_step + 1, "loss": lossf,
+            "step_ms": dt * 1e3, "tokens_per_s": tokens / dt,
+            "mfu": (min(1.0, flops / (dt * H100_BF16_PEAK))
+                    if self.device.type == "cuda" else None)})
+        self.consecutive_bad_steps = 0
+        self.opt.global_step += 1
+        return lossf

@@ -8,6 +8,11 @@ machine has none), so run it there without the JAX-loading conftest:
 
 Tolerances: 2e-5 in float32 (online softmax against a full softmax, f32
 throughout); 2e-2 in bfloat16, where both outputs are rounded to bfloat16.
+The flash kernels: in float32 2e-5 (forward) and 1e-4 (gradients) times
+the largest reference value when that exceeds 1; in bfloat16 one bfloat16
+step of the largest reference value, never less than the float32 bound.
+The fused cross-entropy on the card against the CPU: losses within 1e-4,
+gradients within one bf16 step (2^-8) of their largest value.
 """
 import numpy as np
 import pytest
@@ -106,3 +111,103 @@ def test_card_engine_matches_cpu_engine(card):
         assert eng.allocator.free_pages == eng.allocator.num_pages - 1
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------------------ flash attention
+# (bh, sq, sk, d, causal): ragged S, Sq < Sk bottom-right, head dims of
+# every template width, a tail shorter than a tile
+FLASH_CASES = [(3, 200, 200, 64, True), (2, 64, 300, 64, True),
+               (2, 130, 70, 32, False), (1, 77, 77, 128, True),
+               (2, 33, 90, 16, True), (1, 65, 65, 256, False),
+               (4, 1, 1, 64, True)]
+
+
+def _flash_inputs(case, dev, dtype, seed=0):
+    bh, sq, sk, d, _ = case
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(dev, dtype)
+    return t(bh, sq, d), t(bh, sk, d), t(bh, sk, d), t(bh, sq, d)
+
+
+def _flash_tol(dtype, ref, f32_tol):
+    """f32: the stated bound, scaled by the largest value when that exceeds
+    1; bf16: one bf16 step of the largest value (both sides round an f32
+    result to bf16), and never less than the f32 bound."""
+    big = ref.float().abs().max().item()
+    f32 = f32_tol * max(1.0, big)
+    return f32 if dtype == torch.float32 else max(f32, 2.0 ** -7 * big)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_match_plain(card, dtype, case):
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    causal = case[4]
+    scale = 1.0 / np.sqrt(case[3])
+    q, k, v, do = _flash_inputs(case, card, dtype)
+    out, lse = cfa.flash_fwd(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    rout, rlse = tfa._plain_flash_fwd(q, k, v, scale, causal)
+    err = (out.float() - rout.float()).abs().max().item()
+    assert err <= _flash_tol(dtype, rout, 2e-5)
+    assert (lse - rlse).abs().max().item() <= 2e-5 * max(
+        1.0, rlse.abs().max().item())
+    delta = (do.float() * rout.float()).sum(-1)
+    dq = cfa.flash_dq(q, k, v, do, rlse, delta, scale, causal)
+    dk, dv = cfa.flash_dkv(q, k, v, do, rlse, delta, scale, causal)
+    torch.cuda.synchronize()
+    rdq = tfa._plain_flash_dq(q, k, v, do, rlse, delta, scale, causal)
+    rdk, rdv = tfa._plain_flash_dkv(q, k, v, do, rlse, delta, scale, causal)
+    for got, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert got.dtype == dtype
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= _flash_tol(dtype, ref, 1e-4), err
+    # each output element is written by one block: runs repeat bit for bit
+    assert torch.equal(cfa.flash_dkv(q, k, v, do, rlse, delta, scale,
+                                     causal)[0], dk)
+
+
+def test_flash_op_takes_the_kernels_forward_and_backward(card):
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    q, k, v, do = _flash_inputs((6, 96, 96, 64, True), card, torch.float32)
+    ins = [t.reshape(2, 3, 96, 64).requires_grad_(True) for t in (q, k, v)]
+    before = [kern.launches for kern in (cfa.FWD, cfa.DQ, cfa.DKV)]
+    registry.reset_counts()
+    out = tfa.flash_attention(*ins, causal=True)
+    out.backward(do.reshape(2, 3, 96, 64))
+    assert [kern.launches for kern in (cfa.FWD, cfa.DQ, cfa.DKV)] == \
+        [b + 1 for b in before]
+    assert registry.counts() == {"kernel.dispatch.flash_attention.cuda": 1}
+    cpu = [t.detach().cpu().requires_grad_(True) for t in ins]
+    ref = tfa.flash_attention(*cpu, causal=True)
+    ref.backward(do.cpu().reshape(2, 3, 96, 64))
+    assert (out.detach().cpu() - ref.detach()).abs().max().item() <= 2e-5
+    for a, b in zip(ins, cpu):
+        assert (a.grad.cpu() - b.grad).abs().max().item() <= 1e-4
+
+
+def test_fused_ce_on_the_card_matches_the_cpu(card):
+    from paddle_tpu_torch.kernels.fused_ce import fused_linear_cross_entropy
+    rng = np.random.default_rng(5)
+    h = torch.from_numpy(rng.standard_normal((64, 96), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((12288, 96), dtype=np.float32)
+                         * 0.1)
+    labels = torch.from_numpy(rng.integers(0, 12288, 64))
+    labels[3] = -100
+    got, ref = [], []
+    for dev, out in (("cuda", got), ("cpu", ref)):
+        hh = h.to(dev).requires_grad_(True)
+        ww = w.to(dev).requires_grad_(True)
+        loss = fused_linear_cross_entropy(hh, ww, labels.to(dev))
+        loss.mean().backward()
+        out.extend(t.detach().cpu() for t in (loss, hh.grad, ww.grad))
+    # f32 results of bf16 products on both devices, summed in other orders
+    assert (got[0] - ref[0]).abs().max().item() <= 1e-4
+    for a, b in zip(got[1:], ref[1:]):
+        assert (a - b).abs().max().item() <= 2.0 ** -8 * b.abs().max().item()

@@ -1,0 +1,151 @@
+"""Flash attention of the PyTorch port (`paddle_tpu_torch/kernels/
+flash_attention.py`) held against the JAX package's authored Pallas kernels
+(`paddle_tpu/kernels/pallas/flash_attention.py`, run in interpret mode on
+the CPU, as the JAX package's own tests run them) on the same inputs.
+
+The port runs its plain PyTorch versions here, which is what a CPU tensor
+takes. Tolerances: in float32, out and lse within 2e-5 and dq/dk/dv within
+1e-4, the JAX package's own (`tests/test_pallas_kernels.py`); in bfloat16,
+where both sides compute in float32 and round the result to bfloat16, one
+bfloat16 step of the largest value, 2^-7 * max|ref|, for out and the
+gradients, and 1e-4 for lse (float32 on both sides from the same bfloat16
+inputs).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu.kernels.pallas.flash_attention import _bwd, _fwd
+from paddle_tpu.kernels.pallas.flash_attention import flash_attention as jflash
+from paddle_tpu_torch.kernels import flash_attention as tfa
+from paddle_tpu_torch.kernels import registry
+
+# (bh, sq, sk, d, causal, block): causal and not, a ragged S=48 with block
+# 32, and Sq < Sk with the diagonal aligned bottom-right (ragged too)
+CASES = [
+    (4, 64, 64, 32, False, 32),
+    (4, 64, 64, 32, True, 32),
+    (2, 48, 48, 16, True, 32),
+    (2, 48, 48, 16, False, 32),
+    (2, 16, 64, 16, True, 16),
+    (2, 20, 50, 16, True, 16),
+]
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _arrays(case, dtype, seed=0):
+    bh, sq, sk, d = case[:4]
+    rng = np.random.RandomState(seed)
+    q = rng.randn(bh, sq, d).astype(np.float32)
+    k = rng.randn(bh, sk, d).astype(np.float32)
+    v = rng.randn(bh, sk, d).astype(np.float32)
+    do = rng.randn(bh, sq, d).astype(np.float32)
+    jdt, tdt = DTYPES[dtype]
+    j = [jnp.asarray(a).astype(jdt) for a in (q, k, v, do)]
+    t = [torch.from_numpy(a).to(tdt) for a in (q, k, v, do)]
+    return j, t
+
+
+def _np(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy()
+    return np.array(jnp.asarray(a).astype(jnp.float32))
+
+
+def _close(got, ref, dtype, f32_tol):
+    got, ref = _np(got), _np(ref)
+    tol = f32_tol if dtype == "float32" else 2.0 ** -7 * np.abs(ref).max()
+    err = np.abs(got - ref).max()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", CASES)
+def test_plain_forward_matches_pallas(case, dtype):
+    (jq, jk, jv, _), (q, k, v, _) = _arrays(case, dtype)
+    scale = float(1.0 / np.sqrt(case[3]))
+    jout, jlse = _fwd(jq, jk, jv, scale, case[4], case[5], case[5], True)
+    out, lse = tfa._plain_flash_fwd(q, k, v, scale, case[4])
+    assert out.dtype == q.dtype and lse.dtype == torch.float32
+    _close(out, jout, dtype, 2e-5)
+    err = np.abs(lse.numpy() - np.asarray(jlse)).max()
+    assert err <= (2e-5 if dtype == "float32" else 1e-4), err
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", CASES)
+def test_plain_backward_matches_pallas(case, dtype):
+    (jq, jk, jv, jdo), (q, k, v, do) = _arrays(case, dtype, seed=1)
+    scale, causal, blk = float(1.0 / np.sqrt(case[3])), case[4], case[5]
+    jout, jlse = _fwd(jq, jk, jv, scale, causal, blk, blk, True)
+    jdq, jdk, jdv = _bwd(jq, jk, jv, jout, jlse, jdo, scale, causal, blk,
+                         blk, True)
+    # the same saved out and lse on both sides
+    out = torch.from_numpy(_np(jout)).to(q.dtype)
+    lse = torch.from_numpy(np.array(jlse))
+    delta = (do.float() * out.float()).sum(-1)
+    dq = tfa._plain_flash_dq(q, k, v, do, lse, delta, scale, causal)
+    dk, dv = tfa._plain_flash_dkv(q, k, v, do, lse, delta, scale, causal)
+    for got, ref in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        assert got.dtype == q.dtype
+        _close(got, ref, dtype, 1e-4)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_autograd_matches_jax_grad(case):
+    bh, sq, sk, d, causal, blk = case
+    (jq, jk, jv, jdo), (q, k, v, do) = _arrays(case, "float32", seed=2)
+    b, h = 2, bh // 2
+    shape = lambda a, s: a.reshape(b, h, s, d)   # noqa: E731
+
+    def jloss(q_, k_, v_):
+        out = jflash(shape(q_, sq), shape(k_, sk), shape(v_, sk),
+                     causal=causal, block_q=blk, block_k=blk, interpret=True)
+        return jnp.sum(out * shape(jdo, sq))
+
+    jout = jflash(shape(jq, sq), shape(jk, sk), shape(jv, sk), causal=causal,
+                  block_q=blk, block_k=blk, interpret=True)
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    registry.reset_counts()
+    out = tfa.flash_attention(shape(ins[0], sq), shape(ins[1], sk),
+                              shape(ins[2], sk), causal=causal)
+    out.backward(shape(do, sq))
+    assert registry.counts() == {"kernel.dispatch.flash_attention.plain": 1}
+    _close(out, jout, "float32", 2e-5)
+    for t, jg in zip(ins, jgrads):
+        _close(t.grad, jg, "float32", 1e-4)
+
+
+def test_model_layout_entry_matches_bhsd():
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(2, 24, 3, 8).astype(np.float32))
+               for _ in range(3))        # [B, S, H, D]
+    got = tfa.flash_attention_fn(causal=True)(q, k, v)
+    want = tfa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=True)
+    assert got.shape == q.shape
+    assert torch.equal(got, want.transpose(1, 2))
+
+
+def test_causal_longer_queries_raise():
+    q = torch.zeros(1, 2, 8, 4)
+    with pytest.raises(NotImplementedError, match="seq_q <= seq_k"):
+        tfa.flash_attention(q, q[:, :, :4], q[:, :, :4], causal=True)
+    # not causal: every row sees every key, so Sq > Sk is fine
+    assert tfa.flash_attention(q, q[:, :, :4], q[:, :, :4]).shape == q.shape
+
+
+@pytest.mark.parametrize("causal,sq,sk", [(True, 5, 7), (False, 6, 3)])
+def test_plain_gradcheck_float64(causal, sq, sk):
+    rng = np.random.RandomState(4)
+    q = torch.from_numpy(rng.randn(1, 2, sq, 4)).requires_grad_(True)
+    k = torch.from_numpy(rng.randn(1, 2, sk, 4)).requires_grad_(True)
+    v = torch.from_numpy(rng.randn(1, 2, sk, 4)).requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: tfa.flash_attention(a, b, c, causal=causal),
+        (q, k, v), eps=1e-6, atol=1e-6)

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
 from paddle_tpu_torch.kernels.cuda import paged_attention as cdec
 from paddle_tpu_torch.kernels.cuda import prefill_attention as cpre
 
@@ -22,7 +23,7 @@ import importlib, pkgutil, sys
 import paddle_tpu_torch
 for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
     importlib.import_module(m.name)
-import chip_smoke
+import chip_smoke, profile_serve, profile_train
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print("LOADED", len([m for m in sys.modules if m.startswith("paddle_tpu_torch")]))
@@ -36,7 +37,7 @@ def test_port_and_chip_smoke_import_no_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
-    assert int(r.stdout.split("LOADED ")[1].split()[0]) >= 14
+    assert int(r.stdout.split("LOADED ")[1].split()[0]) >= 20
 
 
 def test_engine_default_device_is_the_card():
@@ -105,7 +106,38 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         k.launch(*([None] * 7 + [1] * 6 + [None]))
     assert k.launches == before
-    assert {x.source for x in _build.kernels()} >= {"paged_decode",
-                                                    "paged_prefill"}
+    assert {x.source for x in _build.kernels()} >= {
+        "paged_decode", "paged_prefill", "flash_fwd", "flash_dq", "flash_dkv"}
     assert sorted(s.stem for s in _build.CSRC.glob("*.cu")) == [
-        "paged_decode", "paged_prefill"]
+        "flash_dkv", "flash_dq", "flash_fwd", "paged_decode", "paged_prefill"]
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu_tensors", "CUDA tensors"), ("float16", "not supported"),
+    ("head_dim_320", "head_dim 320"), ("causal_longer_q", "seq_q <= seq_k"),
+    ("noncontig_k", "contiguous"), ("mixed_dtype", "must be torch.float32"),
+    ("lse_shape", "lse must be")])
+def test_flash_wrappers_refuse_bad_input(case, match):
+    q, k = torch.zeros(2, 8, 16), torch.zeros(2, 12, 16)
+    v, do = k.clone(), q.clone()
+    lse, delta = torch.zeros(2, 8), torch.zeros(2, 8)
+    causal = True
+    if case == "float16":
+        q, k, v, do = (t.half() for t in (q, k, v, do))
+    elif case == "head_dim_320":
+        q, k, v, do = (torch.zeros(2, t.shape[1], 320) for t in (q, k, v, do))
+    elif case == "causal_longer_q":
+        q, do, lse, delta = (torch.cat([t, t], 1) for t in (q, do, lse, delta))
+    elif case == "noncontig_k":
+        k = torch.zeros(2, 12, 32)[..., ::2]
+    elif case == "mixed_dtype":
+        delta = delta.double()
+    elif case == "lse_shape":
+        lse = lse[:, :4]
+    if case not in ("mixed_dtype", "lse_shape"):
+        with pytest.raises(ValueError, match=match):
+            cfa.flash_fwd(q, k, v, 0.25, causal)
+    with pytest.raises(ValueError, match=match):
+        cfa.flash_dq(q, k, v, do, lse, delta, 0.25, causal)
+    with pytest.raises(ValueError, match=match):
+        cfa.flash_dkv(q, k, v, do, lse, delta, 0.25, causal)
