@@ -6,8 +6,9 @@ NVIDIA H100. Run from the repository root, with no arguments:
 
 It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version, serves GPT-2 small at full width
-(random weights from a fixed seed) through `DecodeEngine` on the card,
-trains it through `ScanTrainStep`, and prints one JSON object per line:
+(random weights from a fixed seed) through `DecodeEngine` on the card, in
+its native dtype and quantized (int8 KV pages, weight-only int8), trains
+it through `ScanTrainStep`, and prints one JSON object per line:
 
 1. ``device``: the card's name and power limit as nvidia-smi gives them
    (that raw line is also printed alone), and its compute capability,
@@ -31,13 +32,26 @@ trains it through `ScanTrainStep`, and prints one JSON object per line:
    reference value when that exceeds 1 in float32, and in bfloat16 one
    bfloat16 step of the largest reference value (2^-7 of it), never less
    than the float32 bound. Their library yardstick is SDPA forward, and
-   SDPA forward plus backward for the backward pair.
+   SDPA forward plus backward for the backward pair. The int8 paged
+   kernels (``paged_decode_int8``, ``paged_prefill_int8``) are held the
+   same way at the float kernels' shapes, q in float32 and bfloat16, on
+   int8 pools quantized from normal K/V (same tolerances); their library
+   yardstick is SDPA over the window gathered and dequantized (in q's
+   dtype) outside the timed region, and their bytes are the int8 values
+   plus 4 scale bytes per key and head.
 4. ``serve_parity``: float32 engines on the card and on the CPU serve the
    same 4 requests (chunked prefill on); the greedy tokens must agree
    wherever the CPU logits' top-2 margin exceeds 1e-3, and the prefill
    logits must agree within 5e-4 (`quantization/serving.py`).
+   ``serve_int8_parity`` does the same with ``kv_dtype="int8"``, counts
+   the int8 K/V values the card and the CPU wrote one step apart, and
+   holds the prefill logits within 2e-3 (see INT8_LOGIT_BOUND).
 5. ``serve``: the bfloat16 engine on the card serves 8 requests of 7-900
    prompt tokens, 32 new tokens each, through one-shot bucketed prefill.
+   ``serve_int8`` serves the same requests with ``kv_dtype="int8"`` and
+   ``weight_dtype="int8"``, reports the pool's bytes per token, and holds
+   each prompt's first-token logits against the native bfloat16 ones
+   within ``QUANT_LOGIT_BOUND`` (0.5), margin-gated.
 6. ``train_parity``: float32 `ScanTrainStep`s on the card and on the CPU
    take 3 steps of GPT-2 small's width at 2 layers (S=256, B=4 as 2
    microbatches, AdamW lr 1e-3, clip 1.0); every step's loss must agree
@@ -48,19 +62,19 @@ trains it through `ScanTrainStep`, and prints one JSON object per line:
    MFU against the H100's 989 TFLOP/s, peak memory and the losses, which
    must be finite and fall.
 8. ``kernels``: per kernel, its source, the TPU kernel it replaces, its
-   launches in the run of the path that uses it (serve for the paged
-   kernels, train for the flash kernels) and its numbers at that run's
-   shapes.
+   launches in the run of the path that uses it (serve for the float paged
+   kernels, serve_int8 for the int8 ones, train for the flash kernels) and
+   its numbers at that run's shapes.
 9. The last line: ``{"ok": true, "device": {...}}``.
 
-The four card runs (4 to 7) are the paths of the main path: every
+The six card runs (4 to 7) are the paths of the main path: every
 kernel's launch count is set to 0 just before each and read just after.
 Each path states the kernels it must launch and how many times (the
 engine's steps imply one paged-decode launch per layer per decode step and
-one paged-prefill launch per layer per one-shot prefill or chunk; a train
-step launches each flash kernel once per layer per microbatch), every other
-kernel must show 0, and the run fails otherwise. Each line reports its
-counts.
+one paged-prefill launch per layer per one-shot prefill or chunk, of the
+int8 kernels where the pool is int8; a train step launches each flash
+kernel once per layer per microbatch), every other kernel must show 0, and
+the run fails otherwise. Each line reports its counts.
 
 Any failure raises and exits non-zero. Without CUDA, or without the
 `paddle_tpu_torch` package beside it, it exits non-zero and prints no
@@ -86,7 +100,8 @@ from paddle_tpu_torch.kernels.cuda import paged_attention as cdec
 from paddle_tpu_torch.kernels.cuda import prefill_attention as cpre
 from paddle_tpu_torch.models import gpt as gpt_mod
 from paddle_tpu_torch.optimizer import AdamW
-from paddle_tpu_torch.quantization.serving import margin_gated_parity
+from paddle_tpu_torch.quantization.serving import (QUANT_LOGIT_BOUND,
+                                                   margin_gated_parity)
 from paddle_tpu_torch.train import H100_BF16_PEAK, ScanTrainStep
 
 SEED = 0
@@ -96,6 +111,9 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 REPLACES = {
     "paged_decode": "paddle_tpu/kernels/pallas/paged_attention.py:48",
     "paged_prefill": "paddle_tpu/kernels/pallas/prefill_attention.py:69",
+    # the quant=True arms of the same kernels
+    "paged_decode_int8": "paddle_tpu/kernels/pallas/paged_attention.py:60",
+    "paged_prefill_int8": "paddle_tpu/kernels/pallas/prefill_attention.py:79",
     "flash_fwd": "paddle_tpu/kernels/pallas/flash_attention.py:31",
     "flash_dq": "paddle_tpu/kernels/pallas/flash_attention.py:123",
     "flash_dkv": "paddle_tpu/kernels/pallas/flash_attention.py:161",
@@ -104,7 +122,17 @@ PS, MAXP, NUM_PAGES = 16, 64, 513              # page size, pages per slot, pool
 NH, DH = 12, 64                                # GPT-2 small's heads
 VOCAB = 50257                                  # GPT-2's tokenizer
 LOGIT_BOUND, MARGIN = 5e-4, 1e-3
+# card vs CPU prefill logits over int8 pools: the two devices' float32
+# products differ in summation order (the float logits agree within
+# 3.1e-06), and every K/V value within that difference of a rounding
+# boundary is written one quantization step (max|x| / 127 of its head's
+# row) apart, a jump the float path does not have. Measured on GPT-2 small
+# at f32 (4 prompts of 5-600 tokens, H100): 0.42% of the int8 values one
+# step apart, the logits 5.67e-04 apart; the bound leaves 3.5x room and
+# is 250x under QUANT_LOGIT_BOUND.
+INT8_LOGIT_BOUND = 2e-3
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+INT8_KERNELS = ("paged_decode_int8", "paged_prefill_int8")
 # (name, B, H, Sq, Sk, D, causal) of the flash kernel checks
 FLASH_CASES = (("train", 8, 12, 1024, 1024, 64, True),
                ("ragged", 1, 12, 200, 200, 64, True),
@@ -155,36 +183,63 @@ def bound(nbytes, ops, dtype):
                                    else "operations")
 
 
-def random_pools(rng, dev, dtype):
-    k = torch.from_numpy(rng.standard_normal(
-        (NUM_PAGES, PS, NH, DH), dtype=np.float32)).to(dev, dtype)
-    v = torch.from_numpy(rng.standard_normal(
-        (NUM_PAGES, PS, NH, DH), dtype=np.float32)).to(dev, dtype)
-    return k, v
+def random_pools(rng, dev, dtype, quant=False):
+    """K/V pools of normal values in ``dtype``, or (``quant``) int8 pools
+    quantized from them with their f32 scale pools. Returns (k, v, scales)
+    with scales None or (k_scale, v_scale)."""
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (NUM_PAGES, PS, NH, DH), dtype=np.float32)).to(dev) for _ in "kv")
+    if not quant:
+        return k.to(dtype), v.to(dtype), None
+    (kq, ks), (vq, vs) = pa.quantize_kv(k), pa.quantize_kv(v)
+    return kq, vq, (ks, vs)
 
 
-def check_decode(dev, timer, dtype):
+def pool_bytes(keys, item, quant):
+    """Bytes of K and V at ``keys`` token positions over all heads: the
+    values, plus one f32 scale per position and head for int8 pools."""
+    return 2 * keys * NH * (DH * item + (4 if quant else 0))
+
+
+def library_window(pages, scales, table, dtype):
+    """The paged window [B, nh, L, dh] gathered (and dequantized) in
+    ``dtype`` for the SDPA yardstick, outside its timed region."""
+    win = pa.gather_kv(pages, table)
+    if scales is not None:
+        win = pa.dequantize_window(win, pa.gather_scales(scales, table))
+    return win.to(dtype).transpose(1, 2).contiguous()
+
+
+def check_decode(dev, timer, dtype, quant=False):
     rng = np.random.default_rng(SEED)
     b = 8
     pos = np.array([0, 15, 16, 1023, MAXP * PS, 100, 511, 700], np.int32)
     table = (1 + rng.permutation(NUM_PAGES - 1)[:b * MAXP]).reshape(b, MAXP)
     table[4] = 0                     # inactive slot: all trash, at capacity
-    kp, vp = random_pools(rng, dev, dtype)
+    kp, vp, scales = random_pools(rng, dev, dtype, quant)
     q = torch.from_numpy(rng.standard_normal((b, NH, DH), dtype=np.float32)
                          ).to(dev, dtype)
     pt = torch.from_numpy(table.astype(np.int32)).to(dev)
     pos_t = torch.from_numpy(pos).to(dev)
+    sc = scales or ()
+    if quant:
+        name = "paged_decode_int8"
+        run = lambda **kw: cdec.paged_decode_int8(q, kp, vp, *sc, pt, pos_t,
+                                                  **kw)
+    else:
+        name = "paged_decode"
+        run = lambda **kw: cdec.paged_decode(q, kp, vp, pt, pos_t, **kw)
 
-    out, visits = cdec.paged_decode(q, kp, vp, pt, pos_t, return_visits=True)
+    out, visits = run(return_visits=True)
     torch.cuda.synchronize()
-    ref = pa._plain_paged_attention(q, kp, vp, pt, pos_t)
+    ref = pa._plain_paged_attention(q, kp, vp, pt, pos_t, *sc)
     err = (out.float() - ref.float()).abs().max().item()
     want = cdec.pages_needed(pos_t, PS, MAXP).to(torch.int32)
     visits_ok = bool(torch.equal(visits, want[:, None].expand_as(visits)))
 
-    # yardstick: SDPA over the already-gathered window, same mask
-    kw = pa.gather_kv(kp, pt).transpose(1, 2).contiguous()   # [B, nh, L, dh]
-    vw = pa.gather_kv(vp, pt).transpose(1, 2).contiguous()
+    # yardstick: SDPA over the already-gathered (dequantized) window
+    kw = library_window(kp, sc[0] if quant else None, pt, dtype)
+    vw = library_window(vp, sc[1] if quant else None, pt, dtype)
     lmax = kw.shape[2]
     mask = (torch.arange(lmax, device=dev)[None, :] <= pos_t[:, None].long()
             )[:, None, None, :]
@@ -194,44 +249,53 @@ def check_decode(dev, timer, dtype):
     walked = [int(n) for n in want]
     distinct = len({int(p) for bi in range(b) for p in table[bi, :walked[bi]]})
     keys = torch.clamp(pos_t.long() + 1, max=MAXP * PS)
-    item = kp.element_size()
-    nbytes = (2 * distinct * PS * NH * DH * item           # live K/V pages
+    item = q.element_size()
+    nbytes = (pool_bytes(distinct * PS, kp.element_size(), quant)  # pages
               + 2 * q.numel() * item                       # q in, out
               + 4 * sum(walked) + 4 * b)                   # table, pos
     ops = 4 * DH * NH * int(keys.sum())
     b_ms, b_by = bound(nbytes, ops, dtype)
     line = {
-        "phase": "kernel", "kernel": "paged_decode", "dtype": dtype_name(dtype),
+        "phase": "kernel", "kernel": name, "dtype": dtype_name(dtype),
+        "pool": "int8" if quant else dtype_name(dtype),
         "shape": {"B": b, "nh": NH, "dh": DH, "page_size": PS,
                   "pages_per_slot": MAXP, "num_pages": NUM_PAGES,
                   "pos": pos.tolist()},
         "max_abs_err": err, "tol": TOL[dtype], "visits_ok": visits_ok,
         "visits": visits[:, 0].tolist(), "pages_needed": want.tolist(),
-        "kernel_ms": timer.ms(lambda: cdec.paged_decode(q, kp, vp, pt,
-                                                        pos_t)),
+        "kernel_ms": timer.ms(run),
         "plain_ms": timer.ms(lambda: pa._plain_paged_attention(
-            q, kp, vp, pt, pos_t)),
+            q, kp, vp, pt, pos_t, *sc)),
         "library_ms": timer.ms(lambda: sdpa(qs, kw, vw, attn_mask=mask)),
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
     }
     emit(line)
     if not (err <= TOL[dtype] and visits_ok):
-        raise SystemExit(f"paged_decode {dtype}: err {err} or visits wrong")
+        raise SystemExit(f"{name} {dtype}: err {err} or visits wrong")
     return line
 
 
-def check_prefill(dev, timer, dtype, c, start, valid):
+def check_prefill(dev, timer, dtype, c, start, valid, quant=False):
     rng = np.random.default_rng(SEED + c + start)
-    kp, vp = random_pools(rng, dev, dtype)
+    kp, vp, scales = random_pools(rng, dev, dtype, quant)
     row = torch.from_numpy((1 + rng.permutation(NUM_PAGES - 1)[:MAXP])
                            .astype(np.int32)).to(dev)
     q = torch.from_numpy(rng.standard_normal((c, NH, DH), dtype=np.float32)
                          ).to(dev, dtype)
+    sc = scales or ()
+    if quant:
+        name = "paged_prefill_int8"
+        run = lambda **kw: cpre.paged_prefill_int8(q, kp, vp, *sc, row,
+                                                   start, valid, **kw)
+    else:
+        name = "paged_prefill"
+        run = lambda **kw: cpre.paged_prefill(q, kp, vp, row, start, valid,
+                                              **kw)
 
-    out, visits = cpre.paged_prefill(q, kp, vp, row, start, valid,
-                                     return_visits=True)
+    out, visits = run(return_visits=True)
     torch.cuda.synchronize()
-    ref = pa._plain_prefill_attention(q[None], kp, vp, row, start, valid)[0]
+    ref = pa._plain_prefill_attention(q[None], kp, vp, row, start, valid,
+                                      *sc)[0]
     err = (out.float() - ref.float()).abs().max().item()
     bq = cpre.default_block_q(c)
     want = [min(cpre.block_visits(start, valid, i * bq, bq, PS), MAXP)
@@ -240,8 +304,8 @@ def check_prefill(dev, timer, dtype, c, start, valid):
                                              device=dev)[:, None]).all())
     padded_zero = bool((out[valid:] == 0).all())
 
-    kw = pa.gather_kv(kp, row[None]).transpose(1, 2).contiguous()
-    vw = pa.gather_kv(vp, row[None]).transpose(1, 2).contiguous()
+    kw = library_window(kp, sc[0] if quant else None, row[None], dtype)
+    vw = library_window(vp, sc[1] if quant else None, row[None], dtype)
     lmax = kw.shape[2]
     qpos = start + torch.arange(c, device=dev)
     mask = torch.arange(lmax, device=dev)[None, :] <= qpos[:, None]
@@ -249,30 +313,29 @@ def check_prefill(dev, timer, dtype, c, start, valid):
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     npages = -(-(start + valid) // PS)
-    item = kp.element_size()
-    nbytes = (2 * npages * PS * NH * DH * item + 2 * q.numel() * item
-              + 4 * npages)
+    item = q.element_size()
+    nbytes = (pool_bytes(npages * PS, kp.element_size(), quant)
+              + 2 * q.numel() * item + 4 * npages)
     ops = 4 * DH * NH * sum(start + r + 1 for r in range(valid))
     b_ms, b_by = bound(nbytes, ops, dtype)
     line = {
-        "phase": "kernel", "kernel": "paged_prefill",
-        "dtype": dtype_name(dtype),
+        "phase": "kernel", "kernel": name, "dtype": dtype_name(dtype),
+        "pool": "int8" if quant else dtype_name(dtype),
         "shape": {"C": c, "start": start, "valid": valid, "nh": NH, "dh": DH,
                   "page_size": PS, "pages_per_slot": MAXP, "block_q": bq},
         "max_abs_err": err, "tol": TOL[dtype], "visits_ok": visits_ok,
         "padded_rows_zero": padded_zero,
         "visits": sorted(set(visits[:, 0].tolist())),
         "block_visits": sorted(set(want)),
-        "kernel_ms": timer.ms(lambda: cpre.paged_prefill(q, kp, vp, row,
-                                                         start, valid)),
+        "kernel_ms": timer.ms(run),
         "plain_ms": timer.ms(lambda: pa._plain_prefill_attention(
-            q[None], kp, vp, row, start, valid)),
+            q[None], kp, vp, row, start, valid, *sc)),
         "library_ms": timer.ms(lambda: sdpa(qs, kw, vw, attn_mask=mask)),
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
     }
     emit(line)
     if not (err <= TOL[dtype] and visits_ok and padded_zero):
-        raise SystemExit(f"paged_prefill {dtype} C={c}: err {err}, visits "
+        raise SystemExit(f"{name} {dtype} C={c}: err {err}, visits "
                          f"{visits_ok}, padded rows zero {padded_zero}")
     return line
 
@@ -406,47 +469,60 @@ def read_launches(phase, expected):
 def engine_launches(engine, before, phase):
     """The serve path's launches against the counts the engine's steps
     since ``before`` imply: one decode launch per layer per decode step,
-    one prefill launch per layer per one-shot prefill or chunk."""
+    one prefill launch per layer per one-shot prefill or chunk, of the int8
+    kernels on an int8 pool."""
     ran = {k: engine.counters[k] - before[k] for k in before}
     nl = engine.cfg.num_layers
-    expected = {"paged_decode": nl * ran["steps"],
-                "paged_prefill": nl * (ran["prefills"]
-                                       + ran["prefill_chunks"])}
+    suffix = "_int8" if engine._quant_kv else ""
+    expected = {"paged_decode" + suffix: nl * ran["steps"],
+                "paged_prefill" + suffix: nl * (ran["prefills"]
+                                                + ran["prefill_chunks"])}
     return read_launches(phase, expected), expected, ran
 
 
-def prefill_logits(params, prompt, dev, cfg):
+def prefill_logits(params, prompt, dev, cfg, quant=False):
     """Greedy logits after ``prompt``: one-shot `prefill_step` into a pool
-    just big enough for it."""
+    just big enough for it, int8 with scale pools under ``quant``. Returns
+    the logits and the pools ``(k, v[, k_scale, v_scale])``."""
     n = len(prompt)
     npages = -(-n // PS)
     bucket = min(max(16, 1 << (n - 1).bit_length()),
                  cfg.max_position_embeddings)
     ids = np.zeros(bucket, np.int32)
     ids[:n] = prompt
-    kp = torch.zeros((cfg.num_layers, npages + 1, PS, cfg.num_heads,
-                      cfg.hidden_size // cfg.num_heads),
-                     dtype=params["gpt.wte.weight"].dtype, device=dev)
+    nh = cfg.num_heads
+    shape = (cfg.num_layers, npages + 1, PS, nh, cfg.hidden_size // nh)
+    kp = torch.zeros(shape, device=dev, dtype=torch.int8 if quant
+                     else params["gpt.wte.weight"].dtype)
     vp = torch.zeros_like(kp)
+    scales = {}
+    if quant:
+        scales = {"k_scale": torch.zeros(shape[:4], device=dev),
+                  "v_scale": torch.zeros(shape[:4], device=dev)}
     row = torch.arange(1, npages + 1, dtype=torch.int32, device=dev)
-    logits, _, _ = gpt_mod.prefill_step(
-        params, torch.from_numpy(ids).to(dev), n, row, kp, vp, cfg=cfg)
-    return logits
+    out = gpt_mod.prefill_step(params, torch.from_numpy(ids).to(dev), n, row,
+                               kp, vp, cfg=cfg, **scales)
+    return out[0], out[1:]
 
 
-def serve_parity(model, dev):
+def serve_parity(model, dev, kv_dtype="native"):
+    """float32 engines on the card and on the CPU, chunked prefill at 256,
+    the same 4 requests; the phase ``serve_parity`` or, with an int8 pool,
+    ``serve_int8_parity``."""
+    quant = kv_dtype == "int8"
+    phase = "serve_int8_parity" if quant else "serve_parity"
     rng = np.random.default_rng(SEED + 1)
     lens = (5, 17, 300, 600)
     cfg = model.cfg
     prompts = [rng.integers(0, min(VOCAB, cfg.vocab_size), n)
                .astype(np.int32) for n in lens]
-    ecfg = EngineConfig(prefill_chunk_tokens=256)
+    ecfg = EngineConfig(prefill_chunk_tokens=256, kv_dtype=kv_dtype)
     eng = DecodeEngine(model, ecfg, device=dev)
     t0 = time.perf_counter()
     counters0 = dict(eng.counters)
     reset_launches()                       # the chunked path's run
     card = serve(eng, prompts, 16)
-    launches, expected, ran = engine_launches(eng, counters0, "serve_parity")
+    launches, expected, ran = engine_launches(eng, counters0, phase)
     t_card = time.perf_counter() - t0
     t0 = time.perf_counter()
     cpu = serve(DecodeEngine(model, ecfg, device="cpu"), prompts, 16)
@@ -454,57 +530,74 @@ def serve_parity(model, dev):
 
     cpu_params = {k: v.detach() for k, v in model.state_dict().items()}
     card_params = {k: v.to(dev) for k, v in cpu_params.items()}
-    lg_cpu = torch.stack([prefill_logits(cpu_params, p, "cpu", cfg)
-                          for p in prompts])
-    lg_card = torch.stack([prefill_logits(card_params, p, dev, cfg)
-                           for p in prompts])
-    diff, logits_ok = margin_gated_parity(lg_cpu, lg_card, LOGIT_BOUND)
+    runs = [[prefill_logits(params, p, where, cfg, quant) for p in prompts]
+            for params, where in ((cpu_params, "cpu"), (card_params, dev))]
+    lg_cpu = torch.stack([lg for lg, _ in runs[0]])
+    lg_card = torch.stack([lg for lg, _ in runs[1]])
+    bound = INT8_LOGIT_BOUND if quant else LOGIT_BOUND
+    diff, logits_ok = margin_gated_parity(lg_cpu, lg_card, bound)
+    line = {}
+    if quant:
+        # int8 K/V the card and the CPU wrote one quantization step apart
+        # (page 0, the trash page, left out: padding rows land there in
+        # an unspecified order)
+        steps = [(a[:, 1:].cpu().int() - b[:, 1:].int()).abs()
+                 for (_, pc), (_, pg) in zip(*runs) for a, b in
+                 zip(pg[:2], pc[:2])]
+        line = {"int8_values_off": sum(int((d > 0).sum()) for d in steps),
+                "int8_values": sum(d.numel() for d in steps),
+                "int8_max_step": max(int(d.max()) for d in steps)}
 
     reqs, tokens_ok = [], True
     for p, a, b in zip(prompts, card, cpu):
         rec = {"prompt_len": len(p), "tokens_equal": bool(np.array_equal(a, b))}
         if not rec["tokens_equal"]:
             t = int(np.flatnonzero(a != b)[0])          # first divergence
-            top2 = prefill_logits(cpu_params, b[:t], "cpu", cfg).topk(2).values
+            top2 = prefill_logits(cpu_params, b[:t], "cpu", cfg,
+                                  quant)[0].topk(2).values
             margin = float(top2[0] - top2[1])
             rec["first_divergence"] = {"position": t, "cpu_margin": margin}
             tokens_ok &= margin <= MARGIN
         reqs.append(rec)
-    emit({"phase": "serve_parity", "model": "gpt2-small", "dtype": "float32",
+    emit({"phase": phase, "model": "gpt2-small", "dtype": "float32",
+          "kv_dtype": kv_dtype,
           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "prefill_chunk_tokens": 256, "max_new_tokens": 16,
-          "prefill_logit_max_abs_diff": diff, "logit_bound": LOGIT_BOUND,
+          "prefill_logit_max_abs_diff": diff, "logit_bound": bound,
           "margin_gate": MARGIN, "logits_ok": logits_ok,
-          "tokens_ok": tokens_ok, "requests": reqs,
+          "tokens_ok": tokens_ok, "requests": reqs, **line,
           "one_shot_prefills": ran["prefills"],
           "prefill_chunks": ran["prefill_chunks"],
           "decode_steps": ran["steps"], "launches": launches,
           "expected_launches": expected,
           "card_seconds": t_card, "cpu_seconds": t_cpu})
     if not (logits_ok and tokens_ok):
-        raise SystemExit("serve_parity: card and CPU engines disagree")
+        raise SystemExit(f"{phase}: card and CPU engines disagree")
 
 
 SERVE_LENS = (7, 64, 129, 250, 380, 511, 700, 900)
 
 
-def serve_engine(model, dev):
-    """The serve run's bf16 engine, kernels built and warm, and its 8
-    prompts."""
+def serve_engine(model, dev, **quant):
+    """A serve run's engine (``quant``: its kv_dtype / weight_dtype), kernels
+    built and warm, and its 8 prompts."""
     rng = np.random.default_rng(SEED + 2)
     prompts = [rng.integers(0, min(VOCAB, model.cfg.vocab_size), n)
                .astype(np.int32) for n in SERVE_LENS]
-    eng = DecodeEngine(model, EngineConfig(page_size=PS, max_slots=8),
-                       device=dev)
+    eng = DecodeEngine(model, EngineConfig(page_size=PS, max_slots=8,
+                                           **quant), device=dev)
     eng.warmup()
     serve(eng, prompts[:1], 2)             # first cuBLAS/allocator touches
     torch.cuda.synchronize()
     return eng, prompts
 
 
-def serve_bf16(model, dev, smi):
+def serve_run(model, dev, smi, phase="serve", **quant):
+    """The bf16 engine on the card serves the 8 prompts, 32 new tokens
+    each, one-shot bucketed prefill. Returns the line (``launches`` in it).
+    """
     lens, cfg = SERVE_LENS, model.cfg
-    eng, prompts = serve_engine(model, dev)
+    eng, prompts = serve_engine(model, dev, **quant)
 
     counters0 = dict(eng.counters)
     reset_launches()                       # the bucketed path's run
@@ -521,14 +614,16 @@ def serve_bf16(model, dev, smi):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         step_tokens.append(sum(len(r.generated) for r in reqs) - before)
     wall = time.perf_counter() - t_run
-    launches, expected, _ = engine_launches(eng, counters0, "serve")
+    launches, expected, _ = engine_launches(eng, counters0, phase)
 
     outs = [r.result(timeout=0) for r in reqs]
     ok = all(o.shape == (n + 32,) and ((o >= 0) & (o < cfg.vocab_size)).all()
              for o, n in zip(outs, lens))
     # step 1 admits and prefills all 8 requests; the later steps only decode
     dec_ms, dec_tok = sum(step_ms[1:]), sum(step_tokens[1:])
-    line = {"phase": "serve", "model": "gpt2-small", "dtype": "bfloat16",
+    line = {"phase": phase, "model": "gpt2-small", "dtype": "bfloat16",
+            "kv_dtype": eng.ecfg.kv_dtype,
+            "weight_dtype": eng.ecfg.weight_dtype,
             "card": smi, "requests": len(prompts), "prompt_lens": list(lens),
             "max_new_tokens": 32, "tokens_served": sum(step_tokens),
             "wall_s": wall, "decode_steps": len(step_ms) - 1,
@@ -538,12 +633,25 @@ def serve_bf16(model, dev, smi):
             "step_ms_p50": statistics.median(step_ms[1:]),
             "first_step_ms": step_ms[0],
             "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+            "kv_bytes_per_token": eng.kv_bytes_per_token,
             "launches": launches, "expected_launches": expected,
             "outputs_ok": ok}
+    if quant:
+        # each prompt's first-token logits against the native bf16 ones
+        native = {k: v.detach().to(dev) for k, v in model.state_dict().items()}
+        lg_q = torch.stack([prefill_logits(eng._params, p, dev, cfg,
+                                           eng._quant_kv)[0]
+                            for p in prompts])
+        lg_n = torch.stack([prefill_logits(native, p, dev, cfg)[0]
+                            for p in prompts])
+        diff, parity_ok = margin_gated_parity(lg_n, lg_q, QUANT_LOGIT_BOUND)
+        line.update(first_token_logit_max_abs_diff=diff,
+                    logit_bound=QUANT_LOGIT_BOUND, parity_ok=parity_ok)
+        ok = ok and parity_ok
     emit(line)
     if not ok:
-        raise SystemExit("serve: malformed outputs")
-    return launches
+        raise SystemExit(f"{phase}: malformed outputs or logits out of bound")
+    return line
 
 
 def train_batch(rng, b, s, vocab):
@@ -659,11 +767,13 @@ def main():
     timer = Timer(dev)
     cases = {}
     for dtype in (torch.float32, torch.bfloat16):
-        cases[("paged_decode", dtype)] = check_decode(dev, timer, dtype)
-        for c, start, valid in ((16, 0, 7), (512, 0, 300), (1024, 0, 1024),
-                                (256, 496, 100)):
-            cases[("paged_prefill", dtype, c)] = check_prefill(
-                dev, timer, dtype, c, start, valid)
+        for quant, suffix in ((False, ""), (True, "_int8")):
+            cases[("paged_decode" + suffix, dtype)] = check_decode(
+                dev, timer, dtype, quant)
+            for c, start, valid in ((16, 0, 7), (512, 0, 300),
+                                    (1024, 0, 1024), (256, 496, 100)):
+                cases[("paged_prefill" + suffix, dtype, c)] = check_prefill(
+                    dev, timer, dtype, c, start, valid, quant)
         for case in FLASH_CASES:
             for kern, line in check_flash(dev, timer, dtype, case).items():
                 cases[(kern, dtype, case[0])] = line
@@ -672,7 +782,12 @@ def main():
 
     model = gpt_mod.gpt2_small(generator=torch.Generator().manual_seed(SEED))
     serve_parity(model, dev)
-    launches = serve_bf16(model.to(torch.bfloat16), dev, smi)
+    serve_parity(model, dev, kv_dtype="int8")
+    model = model.to(torch.bfloat16)
+    launches = serve_run(model, dev, smi)["launches"]
+    quantized = serve_run(model, dev, smi, "serve_int8", kv_dtype="int8",
+                          weight_dtype="int8")["launches"]
+    launches.update((k, quantized[k]) for k in INT8_KERNELS)
     del model
     torch.cuda.empty_cache()
     train_parity(dev)
@@ -682,9 +797,11 @@ def main():
     # the shapes of the paths' runs: bfloat16, decode at B=8, prefill up to
     # C=1024, flash at the train shape
     bf16 = torch.bfloat16
-    head = {"paged_decode": cases[("paged_decode", bf16)],
-            "paged_prefill": cases[("paged_prefill", bf16, 1024)],
-            **{k: cases[(k, bf16, "train")] for k in FLASH_KERNELS}}
+    head = {k: cases[(k, bf16)] for k in ("paged_decode",
+                                          "paged_decode_int8")}
+    head.update((k, cases[(k, bf16, 1024)]) for k in ("paged_prefill",
+                                                      "paged_prefill_int8"))
+    head.update((k, cases[(k, bf16, "train")]) for k in FLASH_KERNELS)
     summary = []
     for k in _build.kernels():
         h = head[k.source]

@@ -5,5 +5,6 @@ nothing from it and nothing of JAX. Each Pallas kernel of the JAX package
 becomes a kernel written by hand for Hopper (`kernels/csrc/`), beside a
 plain PyTorch version that runs on the CPU. Ported so far: GPT-2 serving
 (`inference/engine.py::DecodeEngine` over `models/gpt.py`'s paged decode
-and prefill steps).
+and prefill steps), native or quantized (int8 KV pages, weight-only int8:
+`quantization/`), and GPT-2 training (`train/scan_step.py`).
 """

@@ -18,14 +18,18 @@ reduced to the serving slice of the port).
   page-table row) go to the device in ONE packed int32 copy per step
   (``counters["h2d_transfers"]``); sampled tokens chain step to step on the
   device.
+- **Quantized serving** (``EngineConfig.kv_dtype="int8"``,
+  ``weight_dtype="int8"``): int8 KV pages with per-token-slot f32 scale
+  pools, and weight-only int8 matmul leaves dequantized at use.
 
 Harvest is synchronous: each step reads its sampled tokens back before the
 next step is dispatched (the JAX engine keeps ``inflight`` steps in flight).
 The tokens a request receives are the same either way.
 
 Not in this slice (see ROADMAP.md): prefix cache, speculative decode, KV
-tiers, handoff/migration, dedup, deadlines, cancel and degradation, int8 KV
-and weights, the fused sampler, metrics/tracing.
+tiers, handoff/migration, dedup, deadlines, cancel and degradation, the
+fused sampler, metrics/tracing, a float KV pool of another dtype than the
+weights (A9).
 
 Thread model: `submit()` is safe from any thread; `step()` /
 `run_until_idle()` must all run on ONE thread, the loop's owner.
@@ -41,8 +45,9 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.inference.errors import from_wire
-from paddle_tpu_torch.kernels.paged_attention import TRASH_PAGE
+from paddle_tpu_torch.kernels.paged_attention import KV_DTYPES, TRASH_PAGE
 from paddle_tpu_torch.models import gpt as gpt_mod
+from paddle_tpu_torch.quantization.serving import quantize_gpt_params
 
 __all__ = ["EngineConfig", "PageAllocator", "GenerateRequest", "DecodeEngine"]
 
@@ -66,6 +71,13 @@ class EngineConfig:
     prefill_chunk_tokens : prompts LONGER than this are prefilled in chunks
                    of this many tokens, one chunk per engine step after the
                    decode step; None keeps the one-shot bucketed prefill
+    kv_dtype     : page-pool storage: "native" (the weights' dtype) or
+                   "int8" (int8 pages plus per-token-slot per-head f32
+                   scale pools [nl, P, ps, nh]); "f32" / "bf16" are
+                   accepted where they equal the weights' dtype
+    weight_dtype : "native" or "int8": the GPT matmul leaves become int8
+                   with per-output-channel scales at construction
+                   (`quantization/serving.py`), dequantized at use
     """
     page_size: int = 16
     max_slots: int = 8
@@ -74,6 +86,8 @@ class EngineConfig:
     min_bucket: int = 16
     eos_id: int | None = None
     prefill_chunk_tokens: int | None = None
+    kv_dtype: str = "native"
+    weight_dtype: str = "native"
 
 
 class PageAllocator:
@@ -178,7 +192,7 @@ class DecodeEngine:
     ``device=None`` means ``cuda`` and raises where CUDA is absent; pass
     ``device="cpu"`` to run the plain PyTorch versions of the kernels. The
     engine computes in the model's parameter dtype and keeps its KV pools
-    in that dtype.
+    in that dtype, or in int8 with scale pools (``kv_dtype="int8"``).
     """
 
     def __init__(self, model, engine_config: EngineConfig | None = None,
@@ -187,9 +201,14 @@ class DecodeEngine:
         self.device = _resolve_device(device)
         self.cfg = model.cfg
         self.ecfg = ecfg
-        self._params = {k: v.detach().to(self.device)
-                        for k, v in model.state_dict().items()}
+        params = {k: v.detach() for k, v in model.state_dict().items()}
+        if ecfg.weight_dtype not in ("native", None):
+            # quantized where the weights lie, then moved: the card and the
+            # CPU engines hold the same int8 values and scales
+            params = quantize_gpt_params(params, ecfg.weight_dtype)
+        self._params = {k: v.to(self.device) for k, v in params.items()}
         self._cdtype = self._params["gpt.wte.weight"].dtype
+        self._quant_kv = self._resolve_kv_dtype(ecfg.kv_dtype)
         nh = self.cfg.num_heads
         dh, nl = self.cfg.hidden_size // nh, self.cfg.num_layers
         if ecfg.prefill_chunk_tokens is not None \
@@ -207,9 +226,22 @@ class DecodeEngine:
         self.allocator = PageAllocator(num_pages)
 
         B, maxp = ecfg.max_slots, self.pages_per_slot
+        pool_dtype = torch.int8 if self._quant_kv else self._cdtype
         self._kc = torch.zeros((nl, num_pages, ps, nh, dh),
-                               dtype=self._cdtype, device=self.device)
+                               dtype=pool_dtype, device=self.device)
         self._vc = torch.zeros_like(self._kc)
+        # int8 pools: one f32 scale per token slot and head, written by the
+        # same scatters as the values
+        self._ks = self._vs = None
+        if self._quant_kv:
+            self._ks = torch.zeros((nl, num_pages, ps, nh),
+                                   dtype=torch.float32, device=self.device)
+            self._vs = torch.zeros_like(self._ks)
+        # bytes one cached token costs across all layers: K and V values,
+        # plus their scales when quantized
+        self.kv_bytes_per_token = nl * 2 * (
+            nh * dh * self._kc.element_size()
+            + (nh * 4 if self._quant_kv else 0))
         # host-side mirrors of the per-slot state, fused into ONE packed
         # int32 upload per step; sampled tokens live on the device and only
         # the _tokens column is consulted for freshly admitted slots
@@ -230,6 +262,30 @@ class DecodeEngine:
         self._qlock = threading.Lock()
         self.counters = {"steps": 0, "h2d_transfers": 0, "prefills": 0,
                          "prefill_chunks": 0}
+
+    def _resolve_kv_dtype(self, kvd) -> bool:
+        """Check ``kv_dtype``; True for an int8 pool. A float dtype other
+        than the weights' is not ported: the CUDA kernels take q and float
+        pools of one dtype."""
+        if kvd in ("native", None):
+            return False
+        if kvd not in KV_DTYPES:
+            raise ValueError(f"kv_dtype={kvd!r}: expected 'native', "
+                             f"{sorted(KV_DTYPES)}")
+        if kvd == "int8":
+            return True
+        if KV_DTYPES[kvd] != self._cdtype:
+            raise NotImplementedError(
+                f"kv_dtype={kvd!r} under {self._cdtype} weights is not "
+                "ported (ROADMAP A9: a float KV pool of another dtype than "
+                "the weights); use 'native' or 'int8'")
+        return False
+
+    def _scales(self) -> dict:
+        """The scale pools as step-function keywords, or {} (float pools)."""
+        if not self._quant_kv:
+            return {}
+        return {"k_scale": self._ks, "v_scale": self._vs}
 
     # ----------------------------------------------------------- prefill
 
@@ -264,9 +320,9 @@ class DecodeEngine:
         packed[:s0] = ids
         packed[bucket:] = row
         dev = self._upload(packed)
-        logits, _, _ = gpt_mod.prefill_step(
+        logits = gpt_mod.prefill_step(
             self._params, dev[:bucket], s0, dev[bucket:], self._kc, self._vc,
-            cfg=self.cfg)
+            cfg=self.cfg, **self._scales())[0]
         self.counters["prefills"] += 1
         return int(logits.argmax(dim=-1))
 
@@ -280,9 +336,9 @@ class DecodeEngine:
         packed[:chunk.size] = chunk
         packed[c:] = row
         dev = self._upload(packed)
-        logits, _, _ = gpt_mod.prefill_chunk_step(
+        logits = gpt_mod.prefill_chunk_step(
             self._params, dev[:c], done, int(chunk.size), dev[c:], self._kc,
-            self._vc, cfg=self.cfg)
+            self._vc, cfg=self.cfg, **self._scales())[0]
         self.counters["prefill_chunks"] += 1
         return logits.argmax(dim=-1)
 
@@ -435,7 +491,7 @@ class DecodeEngine:
         toks = torch.where(fresh, state[:, _COL_TOKEN], self._tok_dev)
         cache = dict(k_pages=self._kc, v_pages=self._vc,
                      page_table=state[:, _STATE_COLS:].contiguous(),
-                     lengths=state[:, _COL_LENGTH])
+                     lengths=state[:, _COL_LENGTH], **self._scales())
         logits, _ = gpt_mod.decode_step(self._params, toks, cache, active,
                                         cfg=self.cfg)
         nxt = logits.argmax(dim=-1).to(torch.int32)

@@ -1,10 +1,13 @@
 // Device helpers shared by the paged decode and paged prefill kernels:
-// element conversion, warp reductions, and the online-softmax fold of one
-// tile of keys into one query row held by a warp.
+// element conversion, warp reductions, the read of one float or int8 K/V
+// pool element, and the online-softmax fold of one tile of keys into one
+// query row held by a warp.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace paddle_tpu_torch {
 
@@ -42,6 +45,23 @@ __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
     x = fmaxf(x, __shfl_xor_sync(kFullMask, x, o));
   return x;
+}
+
+// One element of a K or V pool [num_pages, page_size, nh, dh] as f32:
+// element `i` of the pool, whose token slot ((page * page_size + offset) *
+// nh + head) is `slot`. A float pool converts; an int8 pool widens the
+// value and multiplies it by its slot's f32 scale BEFORE any product, as
+// the Pallas quant arm does (`k = int8.astype(f32) * ks[:, None]`), so the
+// scores round as there. The pools are read-only while a kernel runs, so
+// the loads take the read-only path.
+template <typename P>
+__device__ __forceinline__ float pool_value(const P* __restrict__ pool,
+                                            const float* __restrict__ scale,
+                                            size_t i, size_t slot) {
+  if constexpr (std::is_same_v<P, signed char>)
+    return (float)__ldg(pool + i) * __ldg(scale + slot);
+  else
+    return to_float(__ldg(pool + i));
 }
 
 // Folds keys [0, n) of one tile (n <= 32; the caller has already cut the

@@ -1,164 +1,37 @@
-// Ragged paged-attention DECODE kernel for Hopper (sm_90a).
+// Ragged paged-attention DECODE kernel for Hopper (sm_90a), float pools.
 //
 // Replaces: paddle_tpu/kernels/pallas/paged_attention.py::_decode_kernel
-// (entry `paged_attention`). One decode token per (sequence b, head h)
-// attends over that sequence's K/V pages, looked up through its row of the
-// page table; the pools are [num_pages, page_size, nh, dh].
-//
-// Bound on the H100: memory. A (b, h) pair reads its live pages' K and V
-// slices once (2 * pages * page_size * dh * itemsize bytes) and does about
-// 4 * dh operations per key, so one operation per byte in bf16 against the
-// card's ~295 operations per byte: the least time is the live K/V bytes
-// over 3.35 TB/s.
-//
-// What the design does about it: the page loop stops at
-// min(ceil((pos + 1) / page_size), pages_per_slot), so traffic follows each
-// sequence's true length, never the slot's capacity. A warp reads one key's
-// dh contiguous values with its 32 lanes (coalesced), and the four warps of
-// the block walk interleaved pages with their own online softmax, merged
-// once at the end, so four page streams are in flight per (b, h). Known
-// gap: one block per (b, h) is 96 blocks for GPT-2 small at B=8, which does
-// not fill 132 SMs; splitting the page range across blocks (flash
-// decoding) is the next step.
-//
-// The pages_per_slot clamp is a guard the Pallas kernel does not have: a
-// slot whose position sits at or past its capacity (an occupied slot that
-// is no longer dispatched, or a trash-only row at pos = pages_per_slot *
-// page_size) would otherwise read past its page-table row.
+// (entry `paged_attention`), its float arm. The loop, its bound and its
+// design are in paged_decode.cuh, shared with the int8 kernel
+// (paged_decode_int8.cu).
 
-#include <cmath>
-
-#include "attention_common.cuh"
-
-namespace paddle_tpu_torch {
-namespace {
-
-constexpr int kWarps = 4;
-
-template <typename T, int DPL>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                    const T* __restrict__ v_pages,
-                    const int* __restrict__ page_table,
-                    const int* __restrict__ positions, T* __restrict__ out,
-                    int* __restrict__ visits, int nh, int dh, int ps,
-                    int maxp, float scale) {
-  extern __shared__ float smem[];   // [kWarps * dh] partial accumulators
-  __shared__ float sm_m[kWarps], sm_l[kWarps];
-
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int pos = positions[b];
-  const int npages = min((pos + ps) / ps, maxp);
-  if (visits != nullptr && threadIdx.x == 0) visits[b * nh + h] = npages;
-
-  const T* qrow = q + ((size_t)b * nh + h) * dh;
-  float qv[DPL], acc[DPL];
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    const int d = lane + 32 * i;
-    qv[i] = d < dh ? to_float(qrow[d]) * scale : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = kNegInf, l = 0.f;
-
-  const size_t tok = (size_t)nh * dh;   // stride between tokens of a page
-  const int* row = page_table + (size_t)b * maxp;
-  for (int j = warp; j < npages; j += kWarps) {
-    const size_t page_base = (size_t)row[j] * ps * tok + (size_t)h * dh;
-    const int visible = min(ps, pos - j * ps + 1);   // keys <= pos here
-    for (int t0 = 0; t0 < visible; t0 += 32) {
-      const T* kt = k_pages + page_base + t0 * tok;
-      const T* vt = v_pages + page_base + t0 * tok;
-      fold_tile<DPL>(
-          qv, acc, m, l, min(32, visible - t0), dh,
-          [&](int t, int d) { return to_float(kt[t * tok + d]); },
-          [&](int t, int d) { return to_float(vt[t * tok + d]); });
-    }
-  }
-
-  // merge the warps' partial softmax states
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    const int d = lane + 32 * i;
-    if (d < dh) smem[warp * dh + d] = acc[i];
-  }
-  __syncthreads();
-  float mx = kNegInf;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w]);
-  float denom = 0.f;
-  float wgt[kWarps];
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    wgt[w] = expf(sm_m[w] - mx);
-    denom += sm_l[w] * wgt[w];
-  }
-  denom = fmaxf(denom, 1e-30f);
-  T* orow = out + ((size_t)b * nh + h) * dh;
-  for (int d = threadIdx.x; d < dh; d += blockDim.x) {
-    float a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) a += smem[w * dh + d] * wgt[w];
-    orow[d] = from_float<T>(a / denom);
-  }
-}
-
-template <typename T>
-void launch(const void* q, const void* k_pages, const void* v_pages,
-            const int* page_table, const int* positions, void* out,
-            int* visits, int batch, int nh, int dh, int ps, int maxp,
-            cudaStream_t stream) {
-  const dim3 grid(batch, nh);
-  const dim3 block(kWarps * 32);
-  const size_t smem = (size_t)kWarps * dh * sizeof(float);
-  const float scale = (float)(1.0 / std::sqrt((double)dh));
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k_pages);
-  const T* vp = static_cast<const T*>(v_pages);
-  T* op = static_cast<T*>(out);
-#define PTT_DECODE(DPL)                                                   \
-  paged_decode_kernel<T, DPL><<<grid, block, smem, stream>>>(             \
-      qp, kp, vp, page_table, positions, op, visits, nh, dh, ps, maxp,    \
-      scale)
-  if (dh <= 32) PTT_DECODE(1);
-  else if (dh <= 64) PTT_DECODE(2);
-  else if (dh <= 128) PTT_DECODE(4);
-  else PTT_DECODE(8);
-#undef PTT_DECODE
-}
-
-}  // namespace
-}  // namespace paddle_tpu_torch
+#include "paged_decode.cuh"
 
 // C entry point, bound with ctypes by paddle_tpu_torch/kernels/cuda/
 // paged_attention.py. Every tensor is contiguous: q and out [batch, nh, dh],
-// pools [num_pages, ps, nh, dh], page_table [batch, maxp] int32, positions
-// [batch] int32, visits [batch, nh] int32 or null. Launches on `stream`
-// without synchronising; returns the launch's cudaGetLastError().
+// pools [num_pages, ps, nh, dh] of q's dtype, page_table [batch, maxp]
+// int32, positions [batch] int32, visits [batch, nh] int32 or null.
+// Launches on `stream` without synchronising; returns the launch's
+// cudaGetLastError().
 extern "C" int paged_decode(const void* q, const void* k_pages,
                             const void* v_pages, const void* page_table,
                             const void* positions, void* out, void* visits,
                             int batch, int nh, int dh, int ps, int maxp,
                             int dtype, void* stream) {
   using namespace paddle_tpu_torch;
-  if (batch <= 0 || nh <= 0 || dh <= 0 || dh > 256 || ps <= 0 || maxp <= 0)
+  if (!decode_args_ok(batch, nh, dh, ps, maxp))
     return (int)cudaErrorInvalidValue;
   const int* pt = static_cast<const int*>(page_table);
   const int* pos = static_cast<const int*>(positions);
   int* vis = static_cast<int*>(visits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    launch<float>(q, k_pages, v_pages, pt, pos, out, vis, batch, nh, dh, ps,
-                  maxp, s);
-  else if (dtype == kBFloat16)
-    launch<__nv_bfloat16>(q, k_pages, v_pages, pt, pos, out, vis, batch, nh,
-                          dh, ps, maxp, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_paged_decode<float, float>(q, k_pages, v_pages, nullptr,
+                                             nullptr, pt, pos, out, vis,
+                                             batch, nh, dh, ps, maxp, s);
+  if (dtype == kBFloat16)
+    return launch_paged_decode<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, pt, pos, out, vis, batch, nh,
+        dh, ps, maxp, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,179 +1,37 @@
-// Ragged paged-attention PREFILL kernel for Hopper (sm_90a).
+// Ragged paged-attention PREFILL kernel for Hopper (sm_90a), float pools.
 //
 // Replaces: paddle_tpu/kernels/pallas/prefill_attention.py::_prefill_kernel
-// (entry `prefill_attention`). One chunk of C queries of ONE sequence, the
-// chunk's first token at absolute position `start`, attends over that
-// sequence's K/V pages (the chunk's own K/V already written to them) with
-// an absolute-position causal mask: the query at position p sees keys
-// 0..p. Rows at or past `valid` are chunk padding and are written as 0.
-//
-// Bound on the H100: memory for the K/V bytes, operations for the scores.
-// The pages the chunk's live rows can see are read once (2 * pages *
-// page_size * dh * itemsize bytes over 3.35 TB/s); the causal score and
-// value products cost 4 * dh operations per visible (query, key) pair. At
-// C=1024 the products dominate, so the bound is the operation count over
-// the card's peak rate for the dtype.
-//
-// What the design does about it: grid (query block, head). A block loads
-// each visited page's [page_size, dh] K and V slice for its head into
-// shared memory ONCE and every query row of the block reads it there, so a
-// page costs one device-memory read per block instead of one per row. Each
-// warp owns a few rows; per row the keys past its causal limit are cut off
-// before any product is formed. The page loop runs block_visits pages: 0
-// for a block of padding rows, ceil((start + last live row + 1) /
-// page_size) otherwise, never the slot's capacity. Known gap: the products
-// run on the CUDA cores in f32, not on the tensor cores (wgmma), which is
-// where the operation-bound cases leave most of their time.
+// (entry `prefill_attention`), its float arm. The loop, its bound and its
+// design are in paged_prefill.cuh, shared with the int8 kernel
+// (paged_prefill_int8.cu). At C=1024 in bf16 the bound is the bytes; in
+// f32 it is the operations.
 
-#include <cmath>
-
-#include "attention_common.cuh"
-
-namespace paddle_tpu_torch {
-namespace {
-
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 4;   // block_q <= kWarps * kRowsPerWarp = 32
-
-template <typename T, int DPL>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                     const T* __restrict__ v_pages,
-                     const int* __restrict__ page_table, T* __restrict__ out,
-                     int* __restrict__ visits, int c, int nh, int dh, int ps,
-                     int maxp, int start, int valid, int block_q,
-                     float scale) {
-  extern __shared__ float smem[];   // K tile [ps, dh] then V tile [ps, dh]
-  float* ks = smem;
-  float* vs = smem + (size_t)ps * dh;
-
-  const int qb = blockIdx.x, h = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = qb * block_q;
-  const int nrows = max(0, min(valid - row0, block_q));   // live rows here
-  int npages = 0;
-  if (nrows > 0) npages = min((start + row0 + nrows - 1 + ps) / ps, maxp);
-  if (visits != nullptr && threadIdx.x == 0) visits[qb * nh + h] = npages;
-
-  const size_t tok = (size_t)nh * dh;
-  float qv[kRowsPerWarp][DPL], acc[kRowsPerWarp][DPL];
-  float m[kRowsPerWarp], l[kRowsPerWarp];
-#pragma unroll
-  for (int k = 0; k < kRowsPerWarp; ++k) {
-    const int r = warp + kWarps * k;
-    m[k] = kNegInf;
-    l[k] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      acc[k][i] = 0.f;
-      qv[k][i] = (r < nrows && d < dh)
-                     ? to_float(q[(size_t)(row0 + r) * tok + h * dh + d]) *
-                           scale
-                     : 0.f;
-    }
-  }
-
-  for (int j = 0; j < npages; ++j) {
-    const size_t page_base =
-        (size_t)page_table[j] * ps * tok + (size_t)h * dh;
-    __syncthreads();   // the previous tile is no longer read
-    for (int e = threadIdx.x; e < ps * dh; e += blockDim.x) {
-      const int t = e / dh, d = e - t * dh;
-      ks[e] = to_float(k_pages[page_base + t * tok + d]);
-      vs[e] = to_float(v_pages[page_base + t * tok + d]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kRowsPerWarp; ++k) {
-      const int r = warp + kWarps * k;
-      if (r >= nrows) continue;   // warp-uniform: r depends on warp only
-      const int pos = start + row0 + r;
-      const int visible = min(ps, pos - j * ps + 1);
-      for (int t0 = 0; t0 < visible; t0 += 32) {
-        const float* kt = ks + (size_t)t0 * dh;
-        const float* vt = vs + (size_t)t0 * dh;
-        fold_tile<DPL>(
-            qv[k], acc[k], m[k], l[k], min(32, visible - t0), dh,
-            [&](int t, int d) { return kt[t * dh + d]; },
-            [&](int t, int d) { return vt[t * dh + d]; });
-      }
-    }
-  }
-
-#pragma unroll
-  for (int k = 0; k < kRowsPerWarp; ++k) {
-    const int r = warp + kWarps * k;
-    if (r >= block_q || row0 + r >= c) continue;
-    const float inv = r < nrows ? 1.f / fmaxf(l[k], 1e-30f) : 0.f;
-    T* orow = out + (size_t)(row0 + r) * tok + (size_t)h * dh;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < dh) orow[d] = from_float<T>(r < nrows ? acc[k][i] * inv : 0.f);
-    }
-  }
-}
-
-template <typename T>
-int launch(const void* q, const void* k_pages, const void* v_pages,
-           const int* page_table, void* out, int* visits, int c, int nh,
-           int dh, int ps, int maxp, int start, int valid, int block_q,
-           cudaStream_t stream) {
-  const dim3 grid((c + block_q - 1) / block_q, nh);
-  const dim3 block(kWarps * 32);
-  const size_t smem = 2 * (size_t)ps * dh * sizeof(float);
-  const float scale = (float)(1.0 / std::sqrt((double)dh));
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k_pages);
-  const T* vp = static_cast<const T*>(v_pages);
-  T* op = static_cast<T*>(out);
-#define PTT_PREFILL(DPL)                                                     \
-  do {                                                                       \
-    auto kern = paged_prefill_kernel<T, DPL>;                                \
-    if (smem > 48 * 1024) {                                                  \
-      cudaError_t err = cudaFuncSetAttribute(                                \
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);     \
-      if (err != cudaSuccess) return (int)err;                               \
-    }                                                                        \
-    kern<<<grid, block, smem, stream>>>(qp, kp, vp, page_table, op, visits,  \
-                                        c, nh, dh, ps, maxp, start, valid,   \
-                                        block_q, scale);                     \
-  } while (0)
-  if (dh <= 32) PTT_PREFILL(1);
-  else if (dh <= 64) PTT_PREFILL(2);
-  else if (dh <= 128) PTT_PREFILL(4);
-  else PTT_PREFILL(8);
-#undef PTT_PREFILL
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-}  // namespace paddle_tpu_torch
+#include "paged_prefill.cuh"
 
 // C entry point, bound with ctypes by paddle_tpu_torch/kernels/cuda/
 // prefill_attention.py. Every tensor is contiguous: q and out [c, nh, dh],
-// pools [num_pages, ps, nh, dh], page_table [maxp] int32 (this sequence's
-// row), visits [ceil(c / block_q), nh] int32 or null. Launches on `stream`
-// without synchronising; returns the launch's cudaGetLastError().
+// pools [num_pages, ps, nh, dh] of q's dtype, page_table [maxp] int32 (this
+// sequence's row), visits [ceil(c / block_q), nh] int32 or null. Launches
+// on `stream` without synchronising; returns the launch's
+// cudaGetLastError().
 extern "C" int paged_prefill(const void* q, const void* k_pages,
                              const void* v_pages, const void* page_table,
                              void* out, void* visits, int c, int nh, int dh,
                              int ps, int maxp, int start, int valid,
                              int block_q, int dtype, void* stream) {
   using namespace paddle_tpu_torch;
-  if (c <= 0 || nh <= 0 || dh <= 0 || dh > 256 || ps <= 0 || maxp <= 0 ||
-      start < 0 || valid < 0 || valid > c || block_q <= 0 ||
-      block_q > kWarps * kRowsPerWarp)
+  if (!prefill_args_ok(c, nh, dh, ps, maxp, start, valid, block_q))
     return (int)cudaErrorInvalidValue;
   const int* pt = static_cast<const int*>(page_table);
   int* vis = static_cast<int*>(visits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch<float>(q, k_pages, v_pages, pt, out, vis, c, nh, dh, ps,
-                         maxp, start, valid, block_q, s);
+    return launch_paged_prefill<float, float>(
+        q, k_pages, v_pages, nullptr, nullptr, pt, out, vis, c, nh, dh, ps,
+        maxp, start, valid, block_q, s);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, pt, out, vis, c, nh,
-                                 dh, ps, maxp, start, valid, block_q, s);
+    return launch_paged_prefill<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, pt, out, vis, c, nh, dh, ps,
+        maxp, start, valid, block_q, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,11 +1,14 @@
-"""Wrapper of the ragged paged-attention PREFILL kernel
-(`kernels/csrc/paged_prefill.cu`), the Hopper counterpart of
-`paddle_tpu/kernels/pallas/prefill_attention.py::_prefill_kernel`.
+"""Wrappers of the ragged paged-attention PREFILL kernels, the Hopper
+counterparts of `paddle_tpu/kernels/pallas/prefill_attention.py::
+_prefill_kernel`: `kernels/csrc/paged_prefill.cu` for float pools and
+`kernels/csrc/paged_prefill_int8.cu` for int8 pools with f32 scales (the
+Pallas kernel's ``quant=True`` arm). Both run the loop of
+`csrc/paged_prefill.cuh`.
 
 Bound on the H100: the visible pages' K/V bytes over 3.35 TB/s, or at long
 chunks the causal products over the peak rate of the dtype (see the
-source's header). The wrapper takes CUDA tensors only and always launches
-the kernel; `kernels/paged_attention.py` sends CPU tensors to the plain
+sources' headers). The wrappers take CUDA tensors only and always launch
+their kernel; `kernels/paged_attention.py` sends CPU tensors to the plain
 version, `_plain_prefill_attention`.
 """
 from __future__ import annotations
@@ -18,14 +21,16 @@ from paddle_tpu_torch.kernels._build import CudaKernel
 from paddle_tpu_torch.kernels.cuda import (DTYPE_CODES, check_attention_args,
                                            require_cuda)
 
-__all__ = ["KERNEL", "MAX_BLOCK_Q", "block_visits", "default_block_q",
-           "paged_prefill"]
+__all__ = ["KERNEL", "KERNEL_INT8", "MAX_BLOCK_Q", "block_visits",
+           "default_block_q", "paged_prefill", "paged_prefill_int8"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("paged_prefill", "paged_prefill",
                     [_P] * 6 + [_I] * 9 + [_P])
+KERNEL_INT8 = CudaKernel("paged_prefill_int8", "paged_prefill_int8",
+                         [_P] * 8 + [_I] * 9 + [_P])
 
-MAX_BLOCK_Q = 32    # 8 warps x 4 rows per block (paged_prefill.cu)
+MAX_BLOCK_Q = 32    # 8 warps x 4 rows per block (paged_prefill.cuh)
 
 
 def block_visits(start, valid, row0, block_q, page_size):
@@ -46,6 +51,42 @@ def default_block_q(c: int) -> int:
     return min(int(c), MAX_BLOCK_Q)
 
 
+def _launch(op, kernel, q, k_pages, v_pages, scales, page_table, start,
+            valid, return_visits):
+    check_attention_args(op, q, k_pages, v_pages,
+                         {"page_table": page_table}, scales)
+    c, nh, dh = q.shape
+    _, ps, _, _ = k_pages.shape
+    maxp = page_table.shape[0]
+    start, valid = int(start), int(valid)
+    if page_table.dim() != 1:
+        raise ValueError(f"{op}: page_table must be one row "
+                         f"[pages_per_slot], got {tuple(page_table.shape)}")
+    if not (0 <= valid <= c and start >= 0
+            and start + valid <= maxp * ps):
+        raise ValueError(f"{op}: start={start}, valid={valid} out of range "
+                         f"for a chunk of {c} rows and a slot of "
+                         f"{maxp * ps} positions")
+    smem = 2 * ps * dh * 4
+    if smem > 227 * 1024:
+        raise ValueError(f"{op}: a [{ps}, {dh}] K/V page tile needs {smem} "
+                         "bytes of shared memory, more than 227 KB")
+    require_cuda(op, q)
+    bq = default_block_q(c)
+    out = torch.empty_like(q)
+    nq = -(-c // bq)
+    visits = torch.empty((nq, nh), dtype=torch.int32, device=q.device) \
+        if return_visits else None
+    kernel.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                  *(s.data_ptr() for s in scales or ()),
+                  page_table.data_ptr(), out.data_ptr(),
+                  None if visits is None else visits.data_ptr(),
+                  c, nh, dh, ps, maxp, start, valid, bq,
+                  DTYPE_CODES[q.dtype],
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    return (out, visits) if return_visits else out
+
+
 def paged_prefill(q, k_pages, v_pages, page_table, start, valid, *,
                   return_visits=False):
     """One chunk of ragged prefill attention for ONE sequence.
@@ -57,34 +98,15 @@ def paged_prefill(q, k_pages, v_pages, page_table, start, valid, *,
     with ``return_visits``, the per-(query block, head) trip counts
     [ceil(C / default_block_q(C)), nh] int32.
     """
-    check_attention_args("paged_prefill", q, k_pages, v_pages,
-                         {"page_table": page_table})
-    c, nh, dh = q.shape
-    _, ps, _, _ = k_pages.shape
-    maxp = page_table.shape[0]
-    start, valid = int(start), int(valid)
-    if page_table.dim() != 1:
-        raise ValueError("paged_prefill: page_table must be one row "
-                         f"[pages_per_slot], got {tuple(page_table.shape)}")
-    if not (0 <= valid <= c and start >= 0
-            and start + valid <= maxp * ps):
-        raise ValueError(f"paged_prefill: start={start}, valid={valid} out "
-                         f"of range for a chunk of {c} rows and a slot of "
-                         f"{maxp * ps} positions")
-    smem = 2 * ps * dh * 4
-    if smem > 227 * 1024:
-        raise ValueError(f"paged_prefill: a [{ps}, {dh}] K/V page tile needs "
-                         f"{smem} bytes of shared memory, more than 227 KB")
-    require_cuda("paged_prefill", q)
-    bq = default_block_q(c)
-    out = torch.empty_like(q)
-    nq = -(-c // bq)
-    visits = torch.empty((nq, nh), dtype=torch.int32, device=q.device) \
-        if return_visits else None
-    KERNEL.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                  page_table.data_ptr(), out.data_ptr(),
-                  None if visits is None else visits.data_ptr(),
-                  c, nh, dh, ps, maxp, start, valid, bq,
-                  DTYPE_CODES[q.dtype],
-                  torch.cuda.current_stream(q.device).cuda_stream)
-    return (out, visits) if return_visits else out
+    return _launch("paged_prefill", KERNEL, q, k_pages, v_pages, None,
+                   page_table, start, valid, return_visits)
+
+
+def paged_prefill_int8(q, k_pages, v_pages, k_scale, v_scale, page_table,
+                       start, valid, *, return_visits=False):
+    """:func:`paged_prefill` over int8 pools: ``k_scale``/``v_scale`` are
+    the f32 scale pools [num_pages, page_size, nh], one scale per token
+    slot and head; q and the result are float32 or bfloat16."""
+    return _launch("paged_prefill_int8", KERNEL_INT8, q, k_pages, v_pages,
+                   (k_scale, v_scale), page_table, start, valid,
+                   return_visits)

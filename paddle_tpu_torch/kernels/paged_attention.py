@@ -14,6 +14,15 @@ dispatched by `kernels/registry.py` on the tensor's device: the ``plain``
 PyTorch versions here for CPU tensors (the math of the JAX reference's XLA
 arms), the hand-written CUDA kernels (`kernels/cuda/`) for CUDA tensors.
 
+An int8 pool (``EngineConfig.kv_dtype="int8"``) pairs the int8 pages with
+f32 scale pools ``[num_layers, num_pages, page_size, num_heads]``: one scale
+per token slot and head, written by the same scatters that write the
+values. Decode writes one token per step into a partly filled page, so a
+per-page scale would change the dequantization of the page's earlier
+tokens; one scale per written cell keeps every write self-contained. Both
+ops take the scales as ``k_scale``/``v_scale`` and dequantize right after
+the load, before the f32 scores.
+
 Page 0 is RESERVED as the trash page: writes for inactive slots, prompt
 padding and positions past a slot's capacity are routed there instead of
 being predicated out, so every write is unconditional. Allocators never hand
@@ -24,12 +33,31 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.kernels import registry
+from paddle_tpu_torch.quantization.comms import absmax_int8
 
 # the reserved spill target for masked writes, never allocated to a sequence
 TRASH_PAGE = 0
 
-__all__ = ["TRASH_PAGE", "gather_kv", "paged_attention", "prefill_attention",
-           "token_page_coords", "prompt_page_coords", "chunk_page_coords"]
+# EngineConfig.kv_dtype values -> page storage dtypes; "int8" comes with the
+# f32 scale pools
+KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+
+__all__ = ["TRASH_PAGE", "KV_DTYPES", "gather_kv", "quantize_kv",
+           "dequantize_window", "gather_scales", "paged_attention",
+           "prefill_attention", "token_page_coords", "prompt_page_coords",
+           "chunk_page_coords"]
+
+
+def quantize_kv(x):
+    """Per-head abs-max int8 of a K or V write ``[..., nh, dh]`` -> (int8
+    values ``[..., nh, dh]``, f32 scales ``[..., nh]``), one scale per token
+    slot and head."""
+    return absmax_int8(x, axis=-1)
+
+
+def dequantize_window(win, scales):
+    """int8 window ``[..., nh, dh]`` and its scales ``[..., nh]`` -> f32."""
+    return win.float() * scales[..., None]
 
 
 def gather_kv(pages, page_table):
@@ -44,13 +72,31 @@ def gather_kv(pages, page_table):
     return pages[page_table.long()].reshape(b, maxp * ps, nh, dh)
 
 
-def _plain_paged_attention(q, k_pages, v_pages, page_table, pos):
+def gather_scales(scales, page_table):
+    """[num_pages, page_size, nh] scales -> [B, pages_per_slot * page_size,
+    nh] windows, the scale-side twin of :func:`gather_kv`."""
+    _, ps, nh = scales.shape
+    b, maxp = page_table.shape
+    return scales[page_table.long()].reshape(b, maxp * ps, nh)
+
+
+def _gather_f32(pages, scales, page_table):
+    """One layer's K or V windows in f32, dequantized right after the gather
+    when the pool is int8 (``scales`` given)."""
+    win = gather_kv(pages, page_table).float()
+    if scales is not None:
+        win = win * gather_scales(scales, page_table)[..., None]
+    return win
+
+
+def _plain_paged_attention(q, k_pages, v_pages, page_table, pos,
+                           k_scale=None, v_scale=None):
     """Gather + masked f32 softmax over the slot's whole window: the math of
     the JAX `_xla_paged_attention`. Arguments as :func:`paged_attention`."""
     dh = q.shape[-1]
     scale = 1.0 / (dh ** 0.5)
-    k = gather_kv(k_pages, page_table).float()          # [B, Lmax, nh, dh]
-    v = gather_kv(v_pages, page_table).float()
+    k = _gather_f32(k_pages, k_scale, page_table)       # [B, Lmax, nh, dh]
+    v = _gather_f32(v_pages, v_scale, page_table)
     lmax = k.shape[1]
     sc = torch.einsum("bhd,blhd->bhl", q.float() * scale, k)
     mask = torch.arange(lmax, device=q.device)[None, :] <= pos[:, None]
@@ -59,7 +105,8 @@ def _plain_paged_attention(q, k_pages, v_pages, page_table, pos):
     return torch.einsum("bhl,blhd->bhd", pr, v).to(q.dtype)
 
 
-def _plain_prefill_attention(q, k_pages, v_pages, page_table, start, valid):
+def _plain_prefill_attention(q, k_pages, v_pages, page_table, start, valid,
+                             k_scale=None, v_scale=None):
     """Gather + absolute-position-masked f32 softmax for one chunk: the math
     of the JAX `_xla_prefill_attention`, with rows ``>= valid`` (chunk
     padding) written as 0 like the kernels write them. Arguments as
@@ -67,8 +114,8 @@ def _plain_prefill_attention(q, k_pages, v_pages, page_table, start, valid):
     dh = q.shape[-1]
     c = q.shape[1]
     scale = 1.0 / (dh ** 0.5)
-    kk = gather_kv(k_pages, page_table[None]).float()
-    vv = gather_kv(v_pages, page_table[None]).float()
+    kk = _gather_f32(k_pages, k_scale, page_table[None])
+    vv = _gather_f32(v_pages, v_scale, page_table[None])
     lmax = kk.shape[1]
     rows = torch.arange(c, device=q.device)
     pos = start + rows
@@ -81,7 +128,8 @@ def _plain_prefill_attention(q, k_pages, v_pages, page_table, start, valid):
     return out.to(q.dtype)
 
 
-def paged_attention(q, k_pages, v_pages, page_table, pos):
+def paged_attention(q, k_pages, v_pages, page_table, pos, k_scale=None,
+                    v_scale=None):
     """One decode step of attention over paged K/V for B sequences.
 
     q          : [B, nh, dh] query of the CURRENT token of each sequence
@@ -90,15 +138,22 @@ def paged_attention(q, k_pages, v_pages, page_table, pos):
     page_table : [B, pages_per_slot] int32
     pos        : [B] int32, position of the current token (already written
                  to the cache); attends over positions 0..pos inclusive
+    k_scale/v_scale : [num_pages, page_size, nh] f32 for int8 pools, else
+                 None
     returns    : [B, nh, dh] in q.dtype (f32 scores, -1e30 mask, f32 softmax)
     """
     if registry.dispatch("paged_attention", q) == "cuda":
-        from paddle_tpu_torch.kernels.cuda.paged_attention import paged_decode
-        return paged_decode(q, k_pages, v_pages, page_table, pos)
-    return _plain_paged_attention(q, k_pages, v_pages, page_table, pos)
+        from paddle_tpu_torch.kernels.cuda import paged_attention as cdec
+        if k_scale is not None:
+            return cdec.paged_decode_int8(q, k_pages, v_pages, k_scale,
+                                          v_scale, page_table, pos)
+        return cdec.paged_decode(q, k_pages, v_pages, page_table, pos)
+    return _plain_paged_attention(q, k_pages, v_pages, page_table, pos,
+                                  k_scale, v_scale)
 
 
-def prefill_attention(q, k_pages, v_pages, page_table, start, valid):
+def prefill_attention(q, k_pages, v_pages, page_table, start, valid,
+                      k_scale=None, v_scale=None):
     """One CHUNK of ragged prefill attention for ONE sequence, over the pages
     the chunk's K/V were just written to.
 
@@ -107,15 +162,20 @@ def prefill_attention(q, k_pages, v_pages, page_table, start, valid):
     page_table : [pages_per_slot] int32, this sequence's page row
     start      : int, absolute position of the chunk's first token
     valid      : int, true token count in this chunk
+    k_scale/v_scale : [num_pages, page_size, nh] f32 for int8 pools, else
+                 None
     returns    : [1, C, nh, dh] in q.dtype; rows >= valid are 0
     """
     if registry.dispatch("prefill_attention", q) == "cuda":
-        from paddle_tpu_torch.kernels.cuda.prefill_attention import (
-            paged_prefill)
-        return paged_prefill(q[0], k_pages, v_pages, page_table, start,
-                             valid)[None]
+        from paddle_tpu_torch.kernels.cuda import prefill_attention as cpre
+        if k_scale is not None:
+            return cpre.paged_prefill_int8(q[0], k_pages, v_pages, k_scale,
+                                           v_scale, page_table, start,
+                                           valid)[None]
+        return cpre.paged_prefill(q[0], k_pages, v_pages, page_table, start,
+                                  valid)[None]
     return _plain_prefill_attention(q, k_pages, v_pages, page_table, start,
-                                    valid)
+                                    valid, k_scale, v_scale)
 
 
 def token_page_coords(page_table, pos, active, page_size):

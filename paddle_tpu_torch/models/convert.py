@@ -1,10 +1,15 @@
 """Weight and training-state carry-over from numpy arrays (for example a JAX
 state_dict, or a JAX train step's state, read out with ``np.asarray``) to
-the port's tensors. The layouts are the same, so this is a copy."""
+the port's tensors. The layouts are the same, so this is a copy. A
+weight-only int8 leaf (anything with ``.q``, ``.scale`` and
+``.dtype_name``, such as the JAX package's ``QuantizedLeaf``) becomes the
+port's `QuantizedLeaf` with the same int8 values and scales, bit for bit."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from paddle_tpu_torch.quantization.serving import QuantizedLeaf
 
 __all__ = ["params_from_numpy", "train_state_from_numpy"]
 
@@ -16,13 +21,23 @@ def _to_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_numpy(state: dict[str, np.ndarray], device,
-                      dtype: torch.dtype | None = None) -> dict[str, torch.Tensor]:
+def _leaf(v, device, dtype):
+    if all(hasattr(v, a) for a in ("q", "scale", "dtype_name")):
+        return QuantizedLeaf(_to_tensor(np.asarray(v.q)).to(device),
+                             _to_tensor(np.asarray(v.scale)).to(device),
+                             str(v.dtype_name))
+    return _to_tensor(v).to(device=device, dtype=dtype)
+
+
+def params_from_numpy(state: dict, device,
+                      dtype: torch.dtype | None = None) -> dict:
     """``{name: array}`` -> ``{name: tensor}`` on ``device``, in ``dtype``
-    when given, else in each array's own dtype. Feed the result to
-    ``GPTForCausalLM.load_state_dict`` or straight to the step functions."""
-    return {k: _to_tensor(v).to(device=device, dtype=dtype)
-            for k, v in state.items()}
+    when given, else in each array's own dtype. A quantized leaf keeps its
+    int8 values and f32 scales as they are (``dtype`` does not apply) and
+    comes out as a `QuantizedLeaf`. Feed the result to
+    ``GPTForCausalLM.load_state_dict`` (float leaves only) or straight to
+    the step functions."""
+    return {k: _leaf(v, device, dtype) for k, v in state.items()}
 
 
 def _per_layer(stacked):

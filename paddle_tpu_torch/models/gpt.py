@@ -12,6 +12,12 @@ functions take.
 The pools are updated IN PLACE: where the JAX step functions return new
 pools (arrays are immutable there), these write into the tensors they are
 given and return the same tensors.
+
+Quantized serving: with int8 pools the step functions take the f32 scale
+pools too (``k_scale``/``v_scale``), quantize each K/V write per token slot
+and head, and write the scales beside the values. A params leaf may be a
+`quantization/serving.py::QuantizedLeaf` (weight-only int8); it is
+dequantized where it is used (`_deq`).
 """
 from __future__ import annotations
 
@@ -139,8 +145,14 @@ def gpt2_small(generator: torch.Generator | None = None, **kwargs):
 # prefill_chunk_step run THESE functions, so their numerics agree by
 # construction.
 
+def _deq(v):
+    """A weight-only int8 leaf (`QuantizedLeaf`) dequantized at use; a
+    tensor as it is."""
+    return v.dequant() if hasattr(v, "dequant") else v
+
+
 def _pget(p, layer, suffix):
-    return p[f"gpt.h.{layer}.{suffix}"]
+    return _deq(p[f"gpt.h.{layer}.{suffix}"])
 
 
 def _ln_ref(x, w, b):
@@ -180,7 +192,35 @@ def _block_stack(p, x, nl, nh, dh, attend):
 
 def _final_logits(p, x):
     x = _ln_ref(x, p["gpt.ln_f.weight"], p["gpt.ln_f.bias"])
-    return (x @ p["gpt.wte.weight"].T).float()
+    return (x @ _deq(p["gpt.wte.weight"]).T).float()
+
+
+def _write_kv(pools, scales, i, page, off, k, v):
+    """Scatter one layer's K/V rows ``[n, nh, dh]`` to ``(page, off)``. With
+    scale pools the rows are quantized per token slot and head and the
+    scales land at the same coordinates as the values."""
+    kc, vc = pools
+    if scales is not None:
+        k, sk = pa.quantize_kv(k)
+        v, sv = pa.quantize_kv(v)
+        scales[0][i, page, off] = sk
+        scales[1][i, page, off] = sv
+    kc[i, page, off] = k.to(kc.dtype)
+    vc[i, page, off] = v.to(vc.dtype)
+
+
+def _layer_scales(scales, i):
+    """``{"k_scale", "v_scale"}`` of layer i for the attention ops, or {}."""
+    if scales is None:
+        return {}
+    return {"k_scale": scales[0][i], "v_scale": scales[1][i]}
+
+
+def _check_scales(k_scale, v_scale):
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale (int8 pools) or "
+                         "neither")
+    return None if k_scale is None else (k_scale, v_scale)
 
 
 @torch.no_grad()
@@ -193,14 +233,17 @@ def decode_step(params, ids, cache, slot_mask, *, cfg):
                   k_pages/v_pages : [nl, num_pages, page_size, nh, dh]
                   page_table      : [B, pages_per_slot] int32, contiguous
                   lengths         : [B] int32 tokens already cached
+                  k_scale/v_scale : OPTIONAL [nl, num_pages, page_size, nh]
+                                    f32, present iff the pools are int8
     slot_mask : [B] bool, active slots; inactive slots write to the trash
                 page and keep their lengths
-    returns   : (logits [B, V] f32, cache with the pools written in place
-                and lengths advanced)
+    returns   : (logits [B, V] f32, cache with the pools (and scales)
+                written in place and lengths advanced)
     """
     nl, nh = cfg.num_layers, cfg.num_heads
     dh = cfg.hidden_size // nh
     kc, vc = cache["k_pages"], cache["v_pages"]
+    scales = _check_scales(cache.get("k_scale"), cache.get("v_scale"))
     page_table, lengths = cache["page_table"], cache["lengths"]
     ps = kc.shape[2]
     wpe = params["gpt.wpe.weight"]
@@ -211,10 +254,9 @@ def decode_step(params, ids, cache, slot_mask, *, cfg):
     page, off = pa.token_page_coords(page_table, pos, slot_mask, ps)
 
     def attend(i, q, k, v):
-        kc[i, page, off] = k.to(kc.dtype)
-        vc[i, page, off] = v.to(vc.dtype)
+        _write_kv((kc, vc), scales, i, page, off, k, v)
         return pa.paged_attention(q.contiguous(), kc[i], vc[i], page_table,
-                                  pos)
+                                  pos, **_layer_scales(scales, i))
 
     x = _block_stack(params, x, nl, nh, dh, attend)
     logits = _final_logits(params, x)
@@ -223,40 +265,46 @@ def decode_step(params, ids, cache, slot_mask, *, cfg):
 
 
 @torch.no_grad()
-def prefill_step(params, ids, length, page_table, k_pages, v_pages, *, cfg):
+def prefill_step(params, ids, length, page_table, k_pages, v_pages, *, cfg,
+                 k_scale=None, v_scale=None):
     """Bucketed single-sequence prefill into the paged cache.
 
     ids is PADDED to its bucket length S; ``length`` (int) is the true
     prompt length. Writes positions < length into the slot's pages (padding
     lands on the trash page), attends every query over the pages just
-    written (prefill attention with start=0, valid=length; the pools carry
-    the weights' dtype, so this reads back exactly the K/V just computed),
-    and returns the last REAL token's logits.
+    written (prefill attention with start=0, valid=length), and returns the
+    last REAL token's logits. Float pools carry the weights' dtype, so this
+    reads back exactly the K/V just computed; int8 pools (``k_scale`` /
+    ``v_scale`` given) read back their quantize-dequantize round trip, as
+    every later step does, so one-shot and chunked prefill condition on the
+    same cache.
 
-    returns : (logits [V] f32, k_pages, v_pages), pools written in place
+    returns : (logits [V] f32, k_pages, v_pages[, k_scale, v_scale]), pools
+              written in place
     """
     nl, nh = cfg.num_layers, cfg.num_heads
     dh = cfg.hidden_size // nh
     ps = k_pages.shape[2]
     s = ids.shape[0]
+    scales = _check_scales(k_scale, v_scale)
     x = (params["gpt.wte.weight"][ids.long()]
          + params["gpt.wpe.weight"][:s])[None]             # [1, S, H]
     page, off = pa.prompt_page_coords(page_table, length, s, ps)
 
     def attend(i, q, k, v):
-        k_pages[i, page, off] = k[0].to(k_pages.dtype)
-        v_pages[i, page, off] = v[0].to(v_pages.dtype)
+        _write_kv((k_pages, v_pages), scales, i, page, off, k[0], v[0])
         return pa.prefill_attention(q.contiguous(), k_pages[i], v_pages[i],
-                                    page_table, 0, length).to(x.dtype)
+                                    page_table, 0, length,
+                                    **_layer_scales(scales, i)).to(x.dtype)
 
     x = _block_stack(params, x, nl, nh, dh, attend)
     last = x[0, min(max(int(length) - 1, 0), s - 1)]
-    return _final_logits(params, last), k_pages, v_pages
+    return (_final_logits(params, last), k_pages, v_pages, *(scales or ()))
 
 
 @torch.no_grad()
 def prefill_chunk_step(params, ids, start, valid, page_table, k_pages,
-                       v_pages, *, cfg):
+                       v_pages, *, cfg, k_scale=None, v_scale=None):
     """One CHUNK of a decode-priority chunked prefill into the paged cache.
 
     ``ids`` is ONE chunk padded to the chunk length C; ``start`` (int) is
@@ -264,15 +312,17 @@ def prefill_chunk_step(params, ids, start, valid, page_table, k_pages,
     count in this chunk. Writes the chunk's K/V into the slot's pages
     (padding and overflow land on the trash page), then attends the chunk's
     queries over ALL cached positions, previous chunks and the current one,
-    masked by absolute position.
+    masked by absolute position. With ``k_scale``/``v_scale`` the pools are
+    int8, as in :func:`prefill_step`.
 
     returns : (logits [V] f32 of the chunk's LAST valid token, k_pages,
-               v_pages), pools written in place
+               v_pages[, k_scale, v_scale]), pools written in place
     """
     nl, nh = cfg.num_layers, cfg.num_heads
     dh = cfg.hidden_size // nh
     ps = k_pages.shape[2]
     c = ids.shape[0]
+    scales = _check_scales(k_scale, v_scale)
     wpe = params["gpt.wpe.weight"]
     pos = start + torch.arange(c, device=ids.device)
     x = (params["gpt.wte.weight"][ids.long()]
@@ -280,14 +330,14 @@ def prefill_chunk_step(params, ids, start, valid, page_table, k_pages,
     page, off = pa.chunk_page_coords(page_table, start, valid, c, ps)
 
     def attend(i, q, k, v):
-        k_pages[i, page, off] = k[0].to(k_pages.dtype)
-        v_pages[i, page, off] = v[0].to(v_pages.dtype)
+        _write_kv((k_pages, v_pages), scales, i, page, off, k[0], v[0])
         return pa.prefill_attention(q.contiguous(), k_pages[i], v_pages[i],
-                                    page_table, start, valid).to(x.dtype)
+                                    page_table, start, valid,
+                                    **_layer_scales(scales, i)).to(x.dtype)
 
     x = _block_stack(params, x, nl, nh, dh, attend)
     last = x[0, min(max(int(valid) - 1, 0), c - 1)]
-    return _final_logits(params, last), k_pages, v_pages
+    return (_final_logits(params, last), k_pages, v_pages, *(scales or ()))
 
 
 # --------------------------------------------------------------------------
@@ -385,7 +435,8 @@ def _dense_causal_attend(q, k, v):
 def scan_blocks(blocks, x, cfg, *, training=False):
     """All nl transformer blocks over x [B, S, H], from the stacked block
     leaves; attention is causal flash attention (``cfg.use_flash``) or the
-    dense softmax."""
+    dense softmax. A stacked `QuantizedLeaf` unbinds into per-layer leaves,
+    each dequantized where its layer uses it."""
     if training:
         check_trainable(cfg)
     nh = cfg.num_heads

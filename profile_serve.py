@@ -2,15 +2,17 @@
 """Where the device time of the port's serve run goes, on one NVIDIA card.
 Run from the repository root:
 
-    python3 profile_serve.py
+    python3 profile_serve.py            # the native bf16 engine
+    python3 profile_serve.py --int8     # int8 KV pages and int8 weights
 
 It serves the same bf16 GPT-2 small run as `chip_smoke.py`'s serve phase
-(8 requests of 7-900 prompt tokens, 32 new tokens each) under
-`torch.profiler`, in two windows: the first step (admission: 8 one-shot
-prefills and the first decode step) and the decode steps after it. For
-each window it prints one JSON line: the host wall time, the summed device
-time of all kernels, their share of the wall, and the kernels with the
-most device time.
+(8 requests of 7-900 prompt tokens, 32 new tokens each; with ``--int8``
+its serve_int8 phase) under `torch.profiler`, in two windows: the first
+step (admission: 8 one-shot prefills and the first decode step) and the
+decode steps after it. For each window it prints one JSON line: the host
+wall time, the summed device time of all kernels, their share of the
+wall, the number of device kernel launches, and the kernels with the most
+device time.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ def window(name, run, top=8):
     kern.sort(key=_device_us, reverse=True)
     cs.emit({"window": name, "steps": steps, "wall_ms": wall_us / 1e3,
              "device_busy_ms": busy / 1e3, "device_busy_share": busy / wall_us,
-             "kernels": len(kern),
+             "kernels": len(kern), "launches": sum(e.count for e in kern),
              "top": [{"name": e.key[:80], "calls": e.count,
                       "device_ms": _device_us(e) / 1e3,
                       "share_of_busy": _device_us(e) / busy}
@@ -59,7 +61,11 @@ def main():
     print(cs.nvidia_smi(), flush=True)
     model = gpt_mod.gpt2_small(
         generator=torch.Generator().manual_seed(cs.SEED)).to(torch.bfloat16)
-    eng, prompts = cs.serve_engine(model, dev)
+    quant = {"kv_dtype": "int8", "weight_dtype": "int8"} \
+        if "--int8" in sys.argv[1:] else {}
+    eng, prompts = cs.serve_engine(model, dev, **quant)
+    cs.emit({"engine": {"kv_dtype": eng.ecfg.kv_dtype,
+                        "weight_dtype": eng.ecfg.weight_dtype}})
     reqs = [eng.submit(p, max_new_tokens=32) for p in prompts]
     state = {"more": True}
 

@@ -8,6 +8,9 @@ machine has none), so run it there without the JAX-loading conftest:
 
 Tolerances: 2e-5 in float32 (online softmax against a full softmax, f32
 throughout); 2e-2 in bfloat16, where both outputs are rounded to bfloat16.
+The int8 paged kernels take the same tolerances for q in f32 and bf16:
+both sides dequantize the same int8 values and scales in f32. The card
+engine equals the CPU engine token for token, native and int8.
 The flash kernels: in float32 2e-5 (forward) and 1e-4 (gradients) times
 the largest reference value when that exceeds 1; in bfloat16 one bfloat16
 step of the largest reference value, never less than the float32 bound.
@@ -92,16 +95,106 @@ def test_prefill_kernel_matches_plain(card, dtype, tol, start, valid, c):
     assert visits[:, 0].tolist() == want
 
 
-def test_card_engine_matches_cpu_engine(card):
-    from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+def _int8_pools(rng, num_pages, ps, nh, dh, dev):
+    """int8 pools and their f32 scales, quantized from normal K/V."""
+    out = []
+    for _ in range(2):
+        x = torch.from_numpy(rng.standard_normal((num_pages, ps, nh, dh),
+                                                 dtype=np.float32)).to(dev)
+        out += list(pa.quantize_kv(x))
+    return out[0], out[2], out[1], out[3]
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("dh", [64, 32, 128])
+def test_int8_decode_kernel_matches_plain(card, dtype, tol, dh):
+    rng = np.random.default_rng(100 + dh)
+    b, nh, ps, maxp = 8, 4, 16, 8
+    kp, vp, ks, vs = _int8_pools(rng, 1 + b * maxp, ps, nh, dh, card)
+    table = (1 + rng.permutation(b * maxp)).reshape(b, maxp)
+    table[4] = 0                            # trash row at capacity
+    pos = np.array([0, 15, 16, 127, maxp * ps, 64, 3, 99], np.int32)
+    q = torch.from_numpy(rng.standard_normal((b, nh, dh), dtype=np.float32)
+                         ).to(card, dtype)
+    pt = torch.from_numpy(table.astype(np.int32)).to(card)
+    pos_t = torch.from_numpy(pos).to(card)
+    out, visits = cdec.paged_decode_int8(q, kp, vp, ks, vs, pt, pos_t,
+                                         return_visits=True)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    ref = pa._plain_paged_attention(q, kp, vp, pt, pos_t, ks, vs)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    want = cdec.pages_needed(pos_t, ps, maxp).to(torch.int32)
+    assert torch.equal(visits, want[:, None].expand_as(visits))
+    # the dispatcher takes the int8 kernel for int8 CUDA pools
+    launches = cdec.KERNEL_INT8.launches
+    assert torch.equal(pa.paged_attention(q, kp, vp, pt, pos_t, ks, vs), out)
+    assert cdec.KERNEL_INT8.launches == launches + 1
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("dh", [64, 32, 128])
+@pytest.mark.parametrize("start,valid,c", [
+    (0, 7, 16), (0, 100, 128), (40, 20, 32), (0, 150, 512)])
+def test_int8_prefill_kernel_matches_plain(card, dtype, tol, dh, start,
+                                           valid, c):
+    rng = np.random.default_rng(start + valid + c + dh)
+    nh, ps, maxp = 4, 16, 12
+    kp, vp, ks, vs = _int8_pools(rng, 1 + maxp, ps, nh, dh, card)
+    row = torch.from_numpy((1 + rng.permutation(maxp)).astype(np.int32)
+                           ).to(card)
+    q = torch.from_numpy(rng.standard_normal((c, nh, dh), dtype=np.float32)
+                         ).to(card, dtype)
+    out, visits = cpre.paged_prefill_int8(q, kp, vp, ks, vs, row, start,
+                                          valid, return_visits=True)
+    torch.cuda.synchronize()
+    ref = pa._plain_prefill_attention(q[None], kp, vp, row, start, valid,
+                                      ks, vs)[0]
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (out[valid:] == 0).all()
+    bq = cpre.default_block_q(c)
+    want = [cpre.block_visits(start, valid, i * bq, bq, ps)
+            for i in range(visits.shape[0])]
+    assert visits[:, 0].tolist() == want
+    launches = cpre.KERNEL_INT8.launches
+    assert torch.equal(pa.prefill_attention(q[None], kp, vp, row, start,
+                                            valid, ks, vs)[0], out)
+    assert cpre.KERNEL_INT8.launches == launches + 1
+
+
+def test_int8_wrappers_refuse_float_pools_on_the_card(card):
+    q = torch.zeros(2, 2, 8, device=card)
+    kp = torch.zeros(5, 4, 2, 8, device=card)
+    ks = torch.ones(5, 4, 2, device=card)
+    pt = torch.zeros(2, 2, dtype=torch.int32, device=card)
+    pos = torch.zeros(2, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="takes int8 pools"):
+        cdec.paged_decode_int8(q, kp, kp.clone(), ks, ks.clone(), pt, pos)
+    with pytest.raises(ValueError, match="need their k_scale"):
+        cdec.paged_decode(q, kp.to(torch.int8), kp.to(torch.int8), pt, pos)
+    with pytest.raises(ValueError, match="k_scale must be"):
+        cpre.paged_prefill_int8(q, kp.to(torch.int8), kp.to(torch.int8),
+                                ks[:, :2], ks.clone(), pt[0], 0, 2)
+
+
+def _small_model():
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
     cfg = GPTConfig(vocab_size=97, hidden_size=64, num_layers=2,
                     num_heads=2, intermediate_size=128,
                     max_position_embeddings=128)
-    model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(3))
+    return GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(3))
+
+
+@pytest.mark.parametrize("quant", [{}, {"kv_dtype": "int8"},
+                                   {"kv_dtype": "int8",
+                                    "weight_dtype": "int8"}])
+def test_card_engine_matches_cpu_engine(card, quant):
+    from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    model = _small_model()
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, 97, n).astype(np.int32) for n in (3, 19, 40)]
-    ecfg = EngineConfig(page_size=16, max_slots=2, prefill_chunk_tokens=16)
+    ecfg = EngineConfig(page_size=16, max_slots=2, prefill_chunk_tokens=16,
+                        **quant)
     outs = []
     for dev in ("cpu", "cuda"):
         eng = DecodeEngine(model, ecfg, device=dev)

@@ -106,10 +106,54 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         k.launch(*([None] * 7 + [1] * 6 + [None]))
     assert k.launches == before
-    assert {x.source for x in _build.kernels()} >= {
-        "paged_decode", "paged_prefill", "flash_fwd", "flash_dq", "flash_dkv"}
-    assert sorted(s.stem for s in _build.CSRC.glob("*.cu")) == [
-        "flash_dkv", "flash_dq", "flash_fwd", "paged_decode", "paged_prefill"]
+    sources = ["flash_dkv", "flash_dq", "flash_fwd", "paged_decode",
+               "paged_decode_int8", "paged_prefill", "paged_prefill_int8"]
+    assert {x.source for x in _build.kernels()} >= set(sources)
+    assert sorted(s.stem for s in _build.CSRC.glob("*.cu")) == sources
+
+
+def _int8_args():
+    q = torch.zeros(2, 2, 8)
+    kp = torch.zeros(5, 4, 2, 8, dtype=torch.int8)
+    ks = torch.ones(5, 4, 2)
+    return q, kp, kp.clone(), ks, ks.clone()
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu_tensors", "CUDA tensors"), ("no_scales", "need their k_scale"),
+    ("float_pools", "takes int8 pools"), ("scale_shape", "k_scale must be"),
+    ("scale_dtype", "v_scale must be"), ("noncontig_scale", "contiguous"),
+    ("bf16_q", "CUDA tensors"), ("float16_q", "not supported")])
+def test_int8_wrappers_refuse_bad_input(case, match):
+    """The int8 decode and prefill wrappers: int8 pools with float32 scale
+    pools of the pools' [num_pages, page_size, nh], q in f32 or bf16, on the
+    card; anything else raises before a launch."""
+    q, kp, vp, ks, vs = _int8_args()
+    if case == "float_pools":
+        kp, vp = kp.float(), vp.float()
+    elif case == "scale_shape":
+        ks = ks[:, :3]
+    elif case == "scale_dtype":
+        vs = vs.double()
+    elif case == "noncontig_scale":
+        ks = torch.ones(5, 4, 4)[..., ::2]
+    elif case == "bf16_q":
+        q = q.to(torch.bfloat16)
+    elif case == "float16_q":
+        q = q.half()
+    pt, pos = torch.zeros(2, 2, dtype=torch.int32), \
+        torch.zeros(2, dtype=torch.int32)
+    row = torch.arange(1, 5, dtype=torch.int32)
+    if case == "no_scales":
+        calls = [lambda: cdec.paged_decode(q, kp, vp, pt, pos),
+                 lambda: cpre.paged_prefill(q, kp, vp, row, 0, 2)]
+    else:
+        calls = [lambda: cdec.paged_decode_int8(q, kp, vp, ks, vs, pt, pos),
+                 lambda: cpre.paged_prefill_int8(q, kp, vp, ks, vs, row, 0,
+                                                 2)]
+    for call in calls:
+        with pytest.raises(ValueError, match=match):
+            call()
 
 
 @pytest.mark.parametrize("case,match", [
