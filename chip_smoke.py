@@ -22,7 +22,8 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    `torch.nn.functional.scaled_dot_product_attention` over the gathered
    window with the same mask (a yardstick the port never calls), each the
    median of 25 launches timed with CUDA events after a 128 MiB write that
-   evicts the 50 MB L2; and ``bound_ms``, the larger of the bytes the call
+   evicts the 50 MB L2 and a ~1 ms spin that keeps the host's launch out of
+   the interval (`Timer`); and ``bound_ms``, the larger of the bytes the call
    must move over 3.35 TB/s and its operations over the dtype's peak (67
    TFLOP/s float32, 989 TFLOP/s bfloat16). The three flash-attention
    kernels (forward, dq, dk/dv) are held the same way at the training
@@ -61,13 +62,36 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    steps, then 8 timed steps on one fixed batch; tokens/s, step ms p50,
    MFU against the H100's 989 TFLOP/s, peak memory and the losses, which
    must be finite and fall.
-8. ``kernels``: per kernel, its source, the TPU kernel it replaces, its
+8. ``incubate_parity``: the `incubate.nn` fused layers in float32 on the
+   card against the port's CPU layers on the same weights:
+   `FusedMultiTransformer` at GPT-2 small's width (768, 12 heads, FFN
+   3072) and 2 layers over [2, 256, 768], with an additive mask (the plain
+   softmax arm on both) and without (``flash_fwd`` on the card, the plain
+   flash on the CPU), outputs within 1e-4 of the largest value;
+   `FusedLayerNorm` forward within 2e-5 and its x / weight / bias
+   gradients within 1e-4 (relative to the largest value, when above 1);
+   `fused_rotary_position_embedding` within 1e-6 of the largest value
+   (see INCUBATE_TOL).
+9. ``incubate``: the entry points as a user calls them, bfloat16 at full
+   width: `FusedMultiTransformer(768, 12, 3072, num_layers=12).eval()`
+   over [8, 1024, 768] with no mask, `FusedLayerNorm(768)` forward and
+   ``.backward()`` on [8, 1024, 768], `fused_rotary_position_embedding`
+   on q, k [8, 12, 1024, 64] with NeoX tables; times, peak memory and
+   exact launch counts (``flash_fwd`` 12 per forward, each layernorm
+   kernel and ``rotary`` once per call). The fused layernorm and rotary
+   kernels get ``kernel`` lines at these shapes (rows [8192, 768]), in
+   float32 and bfloat16, against their plain versions (tolerances as
+   INCUBATE_TOL and the flash kernels'), beside
+   `torch.nn.functional.layer_norm` and
+   `torch.ops.aten.native_layer_norm_backward` (rope has no library call).
+10. ``kernels``: per kernel, its source, the TPU kernel it replaces, its
    launches in the run of the path that uses it (serve for the float paged
-   kernels, serve_int8 for the int8 ones, train for the flash kernels) and
-   its numbers at that run's shapes.
-9. The last line: ``{"ok": true, "device": {...}}``.
+   kernels, serve_int8 for the int8 ones, train for the flash kernels,
+   incubate for the layernorm and rotary kernels) and its numbers at that
+   run's shapes.
+11. The last line: ``{"ok": true, "device": {...}}``.
 
-The six card runs (4 to 7) are the paths of the main path: every
+The eight card runs (4 to 9) are the paths of the main path: every
 kernel's launch count is set to 0 just before each and read just after.
 Each path states the kernels it must launch and how many times (the
 engine's steps imply one paged-decode launch per layer per decode step and
@@ -91,13 +115,20 @@ import time
 import numpy as np
 import torch
 
+from paddle_tpu_torch.incubate.nn import (FusedLayerNorm,
+                                          FusedMultiTransformer,
+                                          fused_rotary_position_embedding)
 from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
 from paddle_tpu_torch.kernels import _build, registry
 from paddle_tpu_torch.kernels import flash_attention as tfa
+from paddle_tpu_torch.kernels import fused_layernorm as tfl
 from paddle_tpu_torch.kernels import paged_attention as pa
+from paddle_tpu_torch.kernels import rotary as trot
 from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+from paddle_tpu_torch.kernels.cuda import fused_layernorm as cln
 from paddle_tpu_torch.kernels.cuda import paged_attention as cdec
 from paddle_tpu_torch.kernels.cuda import prefill_attention as cpre
+from paddle_tpu_torch.kernels.cuda import rotary as crot
 from paddle_tpu_torch.models import gpt as gpt_mod
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.quantization.serving import (QUANT_LOGIT_BOUND,
@@ -117,6 +148,9 @@ REPLACES = {
     "flash_fwd": "paddle_tpu/kernels/pallas/flash_attention.py:31",
     "flash_dq": "paddle_tpu/kernels/pallas/flash_attention.py:123",
     "flash_dkv": "paddle_tpu/kernels/pallas/flash_attention.py:161",
+    "fused_layernorm_fwd": "paddle_tpu/kernels/pallas/fused_layernorm.py:21",
+    "fused_layernorm_bwd": "paddle_tpu/kernels/pallas/fused_layernorm.py:33",
+    "rotary": "paddle_tpu/kernels/pallas/rotary.py:20",
 }
 PS, MAXP, NUM_PAGES = 16, 64, 513              # page size, pages per slot, pool
 NH, DH = 12, 64                                # GPT-2 small's heads
@@ -133,8 +167,10 @@ LOGIT_BOUND, MARGIN = 5e-4, 1e-3
 INT8_LOGIT_BOUND = 2e-3
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 INT8_KERNELS = ("paged_decode_int8", "paged_prefill_int8")
-# (name, B, H, Sq, Sk, D, causal) of the flash kernel checks
+# (name, B, H, Sq, Sk, D, causal) of the flash kernel checks; "train" and
+# "incubate" are the shapes the train and incubate runs give the kernels
 FLASH_CASES = (("train", 8, 12, 1024, 1024, 64, True),
+               ("incubate", 8, 12, 1024, 1024, 64, False),
                ("ragged", 1, 12, 200, 200, 64, True),
                ("cross", 1, 12, 64, 300, 64, True),
                ("noncausal", 2, 12, 256, 256, 64, False))
@@ -144,6 +180,16 @@ FLASH_CASES = (("train", 8, 12, 1024, 1024, 64, True),
 # the elements whose gradient is near zero by +-lr on either side. Losses
 # of about 10.8 agree within 1e-3.
 TRAIN_LOSS_TOL = 1e-3
+# card vs CPU (and kernel vs plain) for the incubate path, each relative to
+# the largest reference value when that exceeds 1: f32 sums in other
+# orders. Layernorm forward 2e-5 (and the card's rsqrtf); layernorm
+# gradients 1e-4 (the dgamma/dbeta partials add 16- or 256-row blocks);
+# the stack 1e-4 (matrix products and layernorms in a row); rope 1e-6 (one
+# f32 rounding of each product and sum on both sides).
+INCUBATE_TOL = {"ln_fwd": 2e-5, "ln_bwd": 1e-4, "stack": 1e-4,
+                "rope": 1e-6}
+LN_KERNELS = ("fused_layernorm_fwd", "fused_layernorm_bwd")
+D_MODEL, FFN = 768, 3072                       # GPT-2 small's widths
 
 
 def emit(obj):
@@ -155,7 +201,14 @@ def dtype_name(dt):
 
 
 class Timer:
-    """Median device time of single launches, each after an L2 eviction."""
+    """Median device time of single launches, each after an L2 eviction.
+    After the eviction the card spins for HOLD_CYCLES (about 1 ms) before
+    the start event, so the host has queued the timed call by the time the
+    card reaches it: the interval holds the call's device work and not the
+    Python that prepares its launch, which for the row-wise kernels (tens
+    of microseconds) would otherwise show as much as their own time."""
+
+    HOLD_CYCLES = 2_000_000
 
     def __init__(self, dev):
         self.flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
@@ -165,6 +218,7 @@ class Timer:
         times = []
         for i in range(warmup + reps):
             self.flush.zero_()
+            torch.cuda._sleep(self.HOLD_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -732,6 +786,293 @@ def train_run(dev, smi, warmup=2, timed=8):
     return launches
 
 
+def rel_tol(ref, tol):
+    """``tol`` times the largest reference value when that exceeds 1."""
+    return tol * max(1.0, ref.float().abs().max().item())
+
+
+def max_err(got, ref):
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def check_layernorm(dev, timer, dtype, n=8 * 1024, d=D_MODEL):
+    """The two fused layernorm kernels against their plain versions at the
+    incubate path's rows, timed beside PyTorch's layernorm forward and
+    backward; one ``kernel`` line per kernel."""
+    rng = np.random.default_rng(SEED + 5)
+
+    def rand(*shape, dt=dtype):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev, dt)
+    x, dy = rand(n, d), rand(n, d)
+    gamma, beta = rand(d, dt=torch.float32), rand(d, dt=torch.float32)
+    eps, rpb = 1e-5, cln.ROWS_PER_BLOCK
+    y, mu, rstd = cln.fused_layernorm_fwd(x, gamma, beta, eps)
+    dx, dgp, dbp = cln.fused_layernorm_bwd(x, gamma, mu, rstd, dy)
+    torch.cuda.synchronize()
+    ry, rmu, rrs = tfl._plain_ln_fwd(x, gamma, beta, eps)
+    rdx, rdg, rdb = tfl._plain_ln_bwd(x, gamma, mu, rstd, dy, rpb)
+    checks = {
+        "fused_layernorm_fwd": [
+            (y, ry, flash_tol(dtype, ry, INCUBATE_TOL["ln_fwd"])),
+            (mu, rmu, rel_tol(rmu, INCUBATE_TOL["ln_fwd"])),
+            (rstd, rrs, rel_tol(rrs, INCUBATE_TOL["ln_fwd"]))],
+        "fused_layernorm_bwd": [
+            (dx, rdx, flash_tol(dtype, rdx, INCUBATE_TOL["ln_bwd"])),
+            (dgp, rdg, rel_tol(rdg, INCUBATE_TOL["ln_bwd"])),
+            (dbp, rdb, rel_tol(rdb, INCUBATE_TOL["ln_bwd"]))]}
+
+    # yardsticks: PyTorch's own layernorm, gamma/beta in x's dtype
+    gl, bl = gamma.to(dtype), beta.to(dtype)
+    _, lmu, lrs = torch.ops.aten.native_layer_norm(x, [d], gl, bl, eps)
+    mask = [True, True, True]
+    library = {
+        "fused_layernorm_fwd": lambda: torch.nn.functional.layer_norm(
+            x, (d,), gl, bl, eps),
+        "fused_layernorm_bwd": lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [d], lmu, lrs, gl, bl, mask)}
+    runs = {
+        "fused_layernorm_fwd": (
+            lambda: cln.fused_layernorm_fwd(x, gamma, beta, eps),
+            lambda: tfl._plain_ln_fwd(x, gamma, beta, eps)),
+        "fused_layernorm_bwd": (
+            lambda: cln.fused_layernorm_bwd(x, gamma, mu, rstd, dy),
+            lambda: tfl._plain_ln_bwd(x, gamma, mu, rstd, dy, rpb))}
+    # (bytes: inputs read once, outputs written once; operations). The
+    # backward's outputs are dx and dgamma, dbeta [d]: the kernel's [nb, d]
+    # partials are its own choice, not work the function must do.
+    xbytes = x.numel() * x.element_size()
+    cost = {
+        "fused_layernorm_fwd": (2 * xbytes + 2 * d * 4 + 8 * n, 7 * n * d),
+        "fused_layernorm_bwd": (3 * xbytes + d * 4 + 8 * n + 2 * d * 4,
+                                13 * n * d)}
+    lines = {}
+    for kern, outs in checks.items():
+        errs = [(max_err(g, r), t) for g, r, t in outs]
+        ok = all(e <= t for e, t in errs)
+        nbytes, ops = cost[kern]
+        b_ms, b_by = bound(nbytes, ops, torch.float32)   # f32 arithmetic
+        line = {
+            "phase": "kernel", "kernel": kern, "dtype": dtype_name(dtype),
+            "gamma_dtype": "float32", "shape": {"n": n, "d": d},
+            "rows_per_block": rpb if kern == "fused_layernorm_bwd" else 1,
+            "max_abs_err": max(e for e, _ in errs),
+            "tol": [t for _, t in errs], "within_tol": ok,
+            "kernel_ms": timer.ms(runs[kern][0]),
+            "plain_ms": timer.ms(runs[kern][1]),
+            "library_ms": timer.ms(library[kern]),
+            "library": "F.layer_norm" if kern == "fused_layernorm_fwd"
+                       else "aten.native_layer_norm_backward",
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops}
+        emit(line)
+        if not ok:
+            raise SystemExit(f"{kern} {dtype}: errors {errs}")
+        lines[kern] = line
+    return lines
+
+
+def rope_tables(s, d, dev, base=10000.0):
+    """GPT-NeoX cos/sin tables [S, D/2] in float32."""
+    inv = 1.0 / base ** (torch.arange(0, d, 2, dtype=torch.float32) / d)
+    ang = torch.arange(s, dtype=torch.float32)[:, None] * inv[None, :]
+    return ang.cos().to(dev), ang.sin().to(dev)
+
+
+def check_rope(dev, timer, dtype, b=8, s=1024):
+    """The rotary kernel against its plain version at the incubate path's
+    q, k [8, 12, 1024, 64] with float32 NeoX tables."""
+    rng = np.random.default_rng(SEED + 6)
+    q, k = (torch.from_numpy(rng.standard_normal(
+        (b, NH, s, DH), dtype=np.float32)).to(dev, dtype) for _ in "qk")
+    cos, sin = rope_tables(s, DH, dev)
+    qo, ko = crot.rotary(q, k, cos, sin)
+    torch.cuda.synchronize()
+    rq, rk = trot._plain_rope(q, k, cos, sin)
+    errs = []
+    for got, ref in ((qo, rq), (ko, rk)):
+        big = ref.float().abs().max().item()
+        tol = (INCUBATE_TOL["rope"] * big if dtype == torch.float32
+               else 2.0 ** -7 * big)
+        errs.append((max_err(got, ref), tol))
+    ok = all(e <= t for e, t in errs)
+    nbytes = 4 * q.numel() * q.element_size() + 2 * cos.numel() * 4
+    ops = 6 * q.numel()                  # 3 per element, for q and for k
+    b_ms, b_by = bound(nbytes, ops, torch.float32)
+    line = {
+        "phase": "kernel", "kernel": "rotary", "dtype": dtype_name(dtype),
+        "table_dtype": "float32",
+        "shape": {"B": b, "H": NH, "S": s, "D": DH},
+        "max_abs_err": max(e for e, _ in errs), "tol": [t for _, t in errs],
+        "within_tol": ok,
+        "kernel_ms": timer.ms(lambda: crot.rotary(q, k, cos, sin)),
+        "plain_ms": timer.ms(lambda: trot._plain_rope(q, k, cos, sin)),
+        "library_ms": None, "library": None,
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops}
+    emit(line)
+    if not ok:
+        raise SystemExit(f"rotary {dtype}: errors {errs}")
+    return line
+
+
+def incubate_parity(dev):
+    """float32 `incubate.nn` layers on the card against the same layers on
+    the CPU, on the same weights and inputs."""
+    rng = np.random.default_rng(SEED + 7)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    results, launches = {}, {}
+    gen = torch.Generator().manual_seed(SEED)
+    cpu = FusedMultiTransformer(D_MODEL, NH, FFN, num_layers=2,
+                                device="cpu", generator=gen).eval()
+    card = FusedMultiTransformer(D_MODEL, NH, FFN, num_layers=2,
+                                 device=dev).eval()
+    card.load_state_dict(cpu.state_dict())
+    x, mask = rand(2, 256, D_MODEL), rand(2, 1, 256, 256)
+    for name, m in (("stack_masked", mask), ("stack_no_mask", None)):
+        reset_launches()                 # the stack's run on the card
+        with torch.no_grad():
+            got = card(x.to(dev), attn_mask=None if m is None
+                       else m.to(dev)).cpu()
+        launches[name] = read_launches(
+            f"incubate_parity {name}",
+            {} if m is not None else {"flash_fwd": 2})
+        with torch.no_grad():
+            ref = cpu(x, attn_mask=m)
+        results[name] = (max_err(got, ref),
+                         rel_tol(ref, INCUBATE_TOL["stack"]))
+
+    state = {"weight": rand(D_MODEL), "bias": rand(D_MODEL)}
+    x, w = rand(2, 256, D_MODEL) * 2 + 0.5, rand(2, 256, D_MODEL)
+    grads = {}
+    for where in ("cpu", dev):
+        ln = FusedLayerNorm(D_MODEL, device=where)
+        ln.load_state_dict(state)
+        xx = x.to(where).detach().requires_grad_(True)
+        if where == dev:
+            reset_launches()             # the layernorm's run on the card
+        y = ln(xx)
+        (y * w.to(where)).sum().backward()
+        if where == dev:
+            launches["layernorm"] = read_launches(
+                "incubate_parity layernorm", dict.fromkeys(LN_KERNELS, 1))
+        grads[str(where)] = [t.detach().cpu() for t in
+                             (y, xx.grad, ln.weight.grad, ln.bias.grad)]
+    for i, name in enumerate(("ln_y", "ln_dx", "ln_dweight", "ln_dbias")):
+        ref = grads["cpu"][i]
+        results[name] = (max_err(grads[str(dev)][i], ref), rel_tol(
+            ref, INCUBATE_TOL["ln_fwd" if i == 0 else "ln_bwd"]))
+
+    q, k = rand(2, NH, 256, DH), rand(2, NH, 256, DH)
+    cos, sin = rope_tables(256, DH, "cpu")
+    reset_launches()                     # the rope's run on the card
+    got = fused_rotary_position_embedding(q.to(dev), k.to(dev), cos.to(dev),
+                                          sin.to(dev))
+    launches["rope"] = read_launches("incubate_parity rope", {"rotary": 1})
+    ref = fused_rotary_position_embedding(q, k, cos, sin)
+    for name, g, r in (("rope_q", got[0], ref[0]), ("rope_k", got[1],
+                                                    ref[1])):
+        results[name] = (max_err(g.cpu(), r), INCUBATE_TOL["rope"] * max(
+            1.0, r.abs().max().item()))
+    ok = all(e <= t for e, t in results.values())
+    emit({"phase": "incubate_parity", "dtype": "float32",
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "stack": {"embed_dim": D_MODEL, "num_heads": NH, "ffn": FFN,
+                    "num_layers": 2, "input": [2, 256, D_MODEL]},
+          "max_abs_diff": {k: e for k, (e, _) in results.items()},
+          "bound": {k: t for k, (_, t) in results.items()},
+          "launches": launches, "ok": ok})
+    if not ok:
+        raise SystemExit(f"incubate_parity: card and CPU disagree: {results}")
+
+
+def incubate_run(dev, smi, reps=3, b=8, s=1024, nl=12):
+    """The incubate entry points at full width in bfloat16: one warm-up call
+    of each, then ``reps`` timed calls of each under one launch count."""
+    rng = np.random.default_rng(SEED + 8)
+
+    def rand(*shape, dt=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev, dt)
+    stack = FusedMultiTransformer(
+        D_MODEL, NH, FFN, num_layers=nl, device=dev,
+        generator=torch.Generator().manual_seed(SEED)).to(
+            torch.bfloat16).eval()
+    ln = FusedLayerNorm(D_MODEL, device=dev)
+    x, dy = rand(b, s, D_MODEL), rand(b, s, D_MODEL)
+    q, k = rand(b, NH, s, DH), rand(b, NH, s, DH)
+    cos, sin = rope_tables(s, DH, dev)
+    xg = x.detach().requires_grad_(True)
+
+    def run_stack():
+        with torch.no_grad():
+            return stack(x)
+
+    def run_ln():
+        y = ln(xg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y.backward(dy)
+        torch.cuda.synchronize()
+        return y, (time.perf_counter() - t0) * 1e3
+
+    def run_rope():
+        return fused_rotary_position_embedding(q, k, cos, sin)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    for fn in (run_stack, run_ln, run_rope):      # warm-up, first touches
+        fn()
+    torch.cuda.synchronize()
+    xg.grad = None
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()                     # the incubate path's timed run
+    stack_ms, ln_ms, ln_bwd_ms, rope_ms = [], [], [], []
+    for _ in range(reps):
+        out, ms = timed(run_stack)
+        stack_ms.append(ms)
+        (y, bwd_ms), ms = timed(run_ln)
+        ln_ms.append(ms - bwd_ms)
+        ln_bwd_ms.append(bwd_ms)
+        (qo, ko), ms = timed(run_rope)
+        rope_ms.append(ms)
+    launches = read_launches("incubate", {
+        "flash_fwd": nl * reps, "fused_layernorm_fwd": reps,
+        "fused_layernorm_bwd": reps, "rotary": reps})
+    peak = torch.cuda.max_memory_allocated(dev)
+    # what came out: finite, of the expected shapes, the layernorm and the
+    # rope as their plain versions compute them on the card
+    with torch.no_grad():
+        ry, _, _ = tfl._plain_ln_fwd(x.reshape(-1, D_MODEL), ln.weight,
+                                     ln.bias, ln.epsilon)
+        rq, _ = trot._plain_rope(q, k, cos, sin)
+        y = y.detach()
+    ok = (tuple(out.shape) == (b, s, D_MODEL) and bool(out.isfinite().all())
+          and tuple(xg.grad.shape) == (b, s, D_MODEL)
+          and bool(xg.grad.isfinite().all())
+          and max_err(y.reshape(-1, D_MODEL), ry) <= flash_tol(
+              torch.bfloat16, ry, INCUBATE_TOL["ln_fwd"])
+          and max_err(qo, rq) <= 2.0 ** -7 * rq.float().abs().max().item())
+    emit({"phase": "incubate", "dtype": "bfloat16", "card": smi,
+          "stack": {"embed_dim": D_MODEL, "num_heads": NH, "ffn": FFN,
+                    "num_layers": nl, "input": [b, s, D_MODEL],
+                    "mask": None},
+          "reps": reps, "stack_forward_ms": stack_ms,
+          "stack_forward_ms_p50": statistics.median(stack_ms),
+          "layernorm_forward_ms": ln_ms, "layernorm_backward_ms": ln_bwd_ms,
+          "rope_ms": rope_ms, "rope_shape": [b, NH, s, DH],
+          "peak_memory_bytes": peak, "launches": launches, "outputs_ok": ok})
+    if not ok:
+        raise SystemExit("incubate: outputs not finite, misshapen or off "
+                         "their plain versions")
+    return launches
+
+
 def nvidia_smi():
     """Card 0's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -777,6 +1118,9 @@ def main():
         for case in FLASH_CASES:
             for kern, line in check_flash(dev, timer, dtype, case).items():
                 cases[(kern, dtype, case[0])] = line
+        for kern, line in check_layernorm(dev, timer, dtype).items():
+            cases[(kern, dtype)] = line
+        cases[("rotary", dtype)] = check_rope(dev, timer, dtype)
     del timer
     torch.cuda.empty_cache()
 
@@ -793,15 +1137,21 @@ def main():
     train_parity(dev)
     trained = train_run(dev, smi)
     launches.update((k, trained[k]) for k in FLASH_KERNELS)
+    torch.cuda.empty_cache()
+    incubate_parity(dev)
+    incubated = incubate_run(dev, smi)
+    launches.update((k, incubated[k]) for k in (*LN_KERNELS, "rotary"))
 
     # the shapes of the paths' runs: bfloat16, decode at B=8, prefill up to
-    # C=1024, flash at the train shape
+    # C=1024, flash at the train shape, layernorm and rope at the incubate
+    # run's
     bf16 = torch.bfloat16
     head = {k: cases[(k, bf16)] for k in ("paged_decode",
                                           "paged_decode_int8")}
     head.update((k, cases[(k, bf16, 1024)]) for k in ("paged_prefill",
                                                       "paged_prefill_int8"))
     head.update((k, cases[(k, bf16, "train")]) for k in FLASH_KERNELS)
+    head.update((k, cases[(k, bf16)]) for k in (*LN_KERNELS, "rotary"))
     summary = []
     for k in _build.kernels():
         h = head[k.source]

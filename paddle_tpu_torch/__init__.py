@@ -6,5 +6,8 @@ becomes a kernel written by hand for Hopper (`kernels/csrc/`), beside a
 plain PyTorch version that runs on the CPU. Ported so far: GPT-2 serving
 (`inference/engine.py::DecodeEngine` over `models/gpt.py`'s paged decode
 and prefill steps), native or quantized (int8 KV pages, weight-only int8:
-`quantization/`), and GPT-2 training (`train/scan_step.py`).
+`quantization/`), GPT-2 training (`train/scan_step.py`), and the
+`incubate.nn` fused layers (`incubate/nn/`: the fused layernorm and rotary
+kernels, over the Paddle nn layers of `nn/`). With them every Pallas
+kernel of the JAX package has its Hopper counterpart: ten kernels.
 """

@@ -65,11 +65,12 @@ def check_attention_args(op, q, k_pages, v_pages, int_args, scales=None):
             raise ValueError(f"{op}: {name} must be contiguous")
 
 
-def require_cuda(op, q):
+def require_cuda(op, q, via="kernels/paged_attention.py"):
     """Raise ValueError unless ``q`` lies on a CUDA device: the kernels have
     no CPU mode. The device decision is `kernels/registry.py`'s, which sends
-    CPU tensors to the plain versions before they reach a wrapper."""
+    CPU tensors to the plain versions (through the op module ``via``)
+    before they reach a wrapper."""
     if not q.is_cuda:
         raise ValueError(f"{op}: the kernel takes CUDA tensors, got "
                          f"{q.device}; CPU tensors take the plain version "
-                         "through kernels/paged_attention.py")
+                         f"through {via}")

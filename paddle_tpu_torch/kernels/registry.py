@@ -1,7 +1,7 @@
 """Kernel registry of the port: named op -> its impls -> the impl one call
 takes (counterpart of `paddle_tpu/kernels/registry.py`, reduced to the ops
-of the ported slices: serving's two paged-attention ops and training's
-flash attention).
+of the ported slices: serving's two paged-attention ops, training's flash
+attention, and the fused layernorm and rotary embedding of `incubate.nn`).
 
 The JAX registry chooses among impls by a forced flag, a viability probe
 and a measured winner. Here the choice is the tensor's device and nothing
@@ -21,6 +21,8 @@ OPS = {
     "paged_attention": ("plain", "cuda"),
     "prefill_attention": ("plain", "cuda"),
     "flash_attention": ("plain", "cuda"),
+    "fused_layernorm": ("plain", "cuda"),
+    "fused_rope": ("plain", "cuda"),
 }
 
 _COUNTS: dict[str, int] = {}

@@ -3,7 +3,9 @@ state_dict, or a JAX train step's state, read out with ``np.asarray``) to
 the port's tensors. The layouts are the same, so this is a copy. A
 weight-only int8 leaf (anything with ``.q``, ``.scale`` and
 ``.dtype_name``, such as the JAX package's ``QuantizedLeaf``) becomes the
-port's `QuantizedLeaf` with the same int8 values and scales, bit for bit."""
+port's `QuantizedLeaf` with the same int8 values and scales, bit for bit.
+A JAX ``Layer.state_dict()`` loads into the port's layer of the same class
+by key (`layer_state_from_numpy`)."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,7 +13,8 @@ import torch
 
 from paddle_tpu_torch.quantization.serving import QuantizedLeaf
 
-__all__ = ["params_from_numpy", "train_state_from_numpy"]
+__all__ = ["params_from_numpy", "train_state_from_numpy",
+           "layer_state_from_numpy"]
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -70,3 +73,20 @@ def train_state_from_numpy(params, opt_state, device,
             per_state.setdefault(n, {})[sname] = _to_tensor(a).to(
                 device=device, dtype=torch.float32)
     return out_params, per_state
+
+
+def layer_state_from_numpy(module: torch.nn.Module, state: dict):
+    """Load ``{key: array}`` (a JAX ``Layer.state_dict()`` read out with
+    ``np.asarray``) into ``module`` by key, strictly: each tensor keeps its
+    array's dtype and lands on the device of the parameter it replaces. A
+    missing or extra key raises KeyError naming both key lists. Returns
+    ``module``."""
+    own = module.state_dict(keep_vars=True)
+    missing = sorted(set(own) - set(state))
+    extra = sorted(set(state) - set(own))
+    if missing or extra:
+        raise KeyError(f"layer_state_from_numpy: keys differ; missing "
+                       f"{missing}, unexpected {extra}")
+    for name, t in own.items():
+        t.data = _to_tensor(np.asarray(state[name])).to(t.device)
+    return module

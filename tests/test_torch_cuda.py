@@ -16,6 +16,13 @@ the largest reference value when that exceeds 1; in bfloat16 one bfloat16
 step of the largest reference value, never less than the float32 bound.
 The fused cross-entropy on the card against the CPU: losses within 1e-4,
 gradients within one bf16 step (2^-8) of their largest value.
+The fused layernorm kernels: y within 2e-5 and dx within 1e-4 in
+float32 (one bfloat16 step in bfloat16), statistics and dgamma/dbeta
+partials within 2e-5 / 1e-4 relative; the rotary kernel within 1e-6 of
+the largest value in float32 (one bfloat16 step in bfloat16). The
+`incubate.nn` layers on the card against the CPU: the stack within 1e-4,
+FusedLayerNorm within 2e-5 (y) and 1e-4 (gradients), rope 1e-6, each
+relative to the largest value when above 1.
 """
 import numpy as np
 import pytest
@@ -304,3 +311,175 @@ def test_fused_ce_on_the_card_matches_the_cpu(card):
     assert (got[0] - ref[0]).abs().max().item() <= 1e-4
     for a, b in zip(got[1:], ref[1:]):
         assert (a - b).abs().max().item() <= 2.0 ** -8 * b.abs().max().item()
+
+
+# fused layernorm: d of every width the kernels choose (64: one warp;
+# 1000: not a multiple of the bf16 16-byte chunk; 1001: odd, the scalar
+# path; 4096: several chunks a thread), n of one row, a ragged last
+# backward block (300 = 18 x 16 + 12) and the train shape's 8192 rows
+LN_DS = [64, 768, 1000, 1001, 4096]
+LN_NS = [1, 300, 8192]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", LN_DS)
+@pytest.mark.parametrize("n", LN_NS)
+def test_fused_layernorm_kernels_match_plain(card, dtype, d, n):
+    """Forward: y within 2e-5 (f32) or one bf16 step of the largest value,
+    mean and rstd within 2e-5 relative (f32 sums in another order; rstd by
+    the card's rsqrtf). Backward, from the same statistics: dx within 1e-4
+    (f32) or one bf16 step, the dgamma/dbeta partials of the same 16-row
+    blocks within 1e-4 relative."""
+    from paddle_tpu_torch.kernels import fused_layernorm as fln
+    from paddle_tpu_torch.kernels.cuda import fused_layernorm as cln
+    rng = np.random.default_rng(d + n)
+
+    def t(*shape, dt=dtype):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(card, dt)
+    x, dy = t(n, d) * 2 + 0.5, t(n, d)
+    gamma, beta = t(d, dt=torch.float32), t(d, dt=torch.float32)
+    y, mu, rstd = cln.fused_layernorm_fwd(x, gamma, beta, 1e-5)
+    torch.cuda.synchronize()
+    ry, rmu, rrs = fln._plain_ln_fwd(x, gamma, beta, 1e-5)
+    assert y.dtype == dtype and mu.shape == rstd.shape == (n, 1)
+    assert (y.float() - ry.float()).abs().max().item() <= _flash_tol(
+        dtype, ry, 2e-5)
+    for got, ref in ((mu, rmu), (rstd, rrs)):
+        assert (got - ref).abs().max().item() <= 2e-5 * max(
+            1.0, ref.abs().max().item())
+    dx, dg, db = cln.fused_layernorm_bwd(x, gamma, rmu, rrs, dy)
+    torch.cuda.synchronize()
+    rdx, rdg, rdb = fln._plain_ln_bwd(x, gamma, rmu, rrs, dy,
+                                      block_rows=cln.ROWS_PER_BLOCK)
+    assert dx.dtype == dtype and dg.shape == rdg.shape == (-(-n // 16), d)
+    assert (dx.float() - rdx.float()).abs().max().item() <= _flash_tol(
+        dtype, rdx, 1e-4)
+    for got, ref in ((dg, rdg), (db, rdb)):
+        assert (got - ref).abs().max().item() <= 1e-4 * max(
+            1.0, ref.abs().max().item())
+
+
+def test_fused_layernorm_kernels_take_bf16_gamma(card):
+    from paddle_tpu_torch.kernels import fused_layernorm as fln
+    from paddle_tpu_torch.kernels.cuda import fused_layernorm as cln
+    g = torch.Generator(device="cpu").manual_seed(3)
+    x = torch.randn(37, 768, generator=g).to(card, torch.bfloat16)
+    gamma, beta = (torch.randn(768, generator=g).to(card, torch.bfloat16)
+                   for _ in "gb")
+    y, mu, rstd = cln.fused_layernorm_fwd(x, gamma, beta, 1e-5)
+    ry, _, _ = fln._plain_ln_fwd(x, gamma, beta, 1e-5)
+    assert (y.float() - ry.float()).abs().max().item() <= _flash_tol(
+        torch.bfloat16, ry, 2e-5)
+    dx, dg, _ = cln.fused_layernorm_bwd(x, gamma, mu, rstd, x)
+    rdx, rdg, _ = fln._plain_ln_bwd(x, gamma, mu, rstd, x,
+                                    block_rows=cln.ROWS_PER_BLOCK)
+    assert (dx.float() - rdx.float()).abs().max().item() <= _flash_tol(
+        torch.bfloat16, rdx, 1e-4)
+    assert (dg - rdg).abs().max().item() <= 1e-4 * rdg.abs().max().item()
+
+
+def _rope_tables(s, d, dev, base=10000.0):
+    """NeoX cos/sin tables [S, D/2] in f32."""
+    inv = 1.0 / base ** (torch.arange(0, d, 2, dtype=torch.float32) / d)
+    ang = torch.arange(s, dtype=torch.float32)[:, None] * inv[None, :]
+    return ang.cos().to(dev), ang.sin().to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 6])
+@pytest.mark.parametrize("s", [7, 300, 1024])
+def test_rotary_kernel_matches_plain(card, dtype, d, s):
+    """Both sides round each product and the sum in f32 and store in q's
+    dtype: within one f32 ulp of the largest value (1e-6 relative), or one
+    bf16 step. D=6 takes the scalar path (D/2 not a multiple of 4)."""
+    from paddle_tpu_torch.kernels import rotary as rot
+    from paddle_tpu_torch.kernels.cuda import rotary as crot
+    rng = np.random.default_rng(s + d)
+    q, k = (torch.from_numpy(rng.standard_normal((2, 3, s, d),
+                                                 dtype=np.float32)
+                             ).to(card, dtype) for _ in "qk")
+    cos, sin = _rope_tables(s, d, card)
+    qo, ko = crot.rotary(q, k, cos, sin)
+    torch.cuda.synchronize()
+    rq, rk = rot._plain_rope(q, k, cos, sin)
+    for got, ref in ((qo, rq), (ko, rk)):
+        assert got.dtype == dtype
+        err = (got.float() - ref.float()).abs().max().item()
+        big = ref.float().abs().max().item()
+        assert err <= (1e-6 * big if dtype == torch.float32
+                       else 2.0 ** -7 * big), err
+    # bf16 tables take the same path
+    qb, _ = crot.rotary(q, k, cos.to(dtype), sin.to(dtype))
+    rb, _ = rot._plain_rope(q, k, cos.to(dtype), sin.to(dtype))
+    assert (qb.float() - rb.float()).abs().max().item() <= 2.0 ** -7 * \
+        rb.float().abs().max().item()
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_card_fused_multi_transformer_matches_cpu(card, masked):
+    """f32 stack on the card against the same weights on the CPU: with a
+    mask both take the plain softmax arm; without, the card runs flash_fwd
+    once per layer and the CPU the plain flash. Within 1e-4 of the largest
+    value (matrix products and layernorms summed in other orders)."""
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    gen = torch.Generator().manual_seed(0)
+    cpu = FusedMultiTransformer(64, 4, 128, num_layers=2, device="cpu",
+                                generator=gen).eval()
+    dev = FusedMultiTransformer(64, 4, 128, num_layers=2,
+                                device=card).eval()
+    dev.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 40, 64, generator=g)
+    mask = torch.randn(2, 1, 40, 40, generator=g) if masked else None
+    before = cfa.FWD.launches
+    with torch.no_grad():
+        got = dev(x.to(card), attn_mask=None if mask is None
+                  else mask.to(card)).cpu()
+        ref = cpu(x, attn_mask=mask)
+    assert cfa.FWD.launches - before == (0 if masked else 2)
+    assert (got - ref).abs().max().item() <= 1e-4 * max(
+        1.0, ref.abs().max().item())
+
+
+def test_card_fused_layer_norm_and_rope_match_cpu(card):
+    """FusedLayerNorm forward (2e-5) and its x / weight / bias gradients
+    (1e-4) through the two kernels, and the rope (1e-6), each relative to
+    the largest value when above 1; each call dispatches once."""
+    from paddle_tpu_torch.incubate.nn import (FusedLayerNorm,
+                                              fused_rotary_position_embedding)
+    from paddle_tpu_torch.kernels import registry
+    g = torch.Generator().manual_seed(2)
+    x, w = torch.randn(3, 50, 96, generator=g), torch.randn(3, 50, 96,
+                                                            generator=g)
+    state = {"weight": torch.randn(96, generator=g),
+             "bias": torch.randn(96, generator=g)}
+    outs = {}
+    registry.reset_counts()
+    for where in ("cpu", card):
+        ln = FusedLayerNorm(96, device=where)
+        ln.load_state_dict(state)
+        xx = x.to(where).detach().requires_grad_(True)
+        y = ln(xx)
+        (y * w.to(where)).sum().backward()
+        outs[str(where)] = [t.detach().cpu() for t in
+                            (y, xx.grad, ln.weight.grad, ln.bias.grad)]
+    for i, (got, ref) in enumerate(zip(outs[str(card)], outs["cpu"])):
+        tol = 2e-5 if i == 0 else 1e-4
+        assert (got - ref).abs().max().item() <= tol * max(
+            1.0, ref.abs().max().item())
+    q, k = torch.randn(2, 4, 33, 64, generator=g), torch.randn(
+        2, 4, 33, 64, generator=g)
+    cos, sin = _rope_tables(33, 64, "cpu")
+    ref = fused_rotary_position_embedding(q, k, cos, sin)
+    got = fused_rotary_position_embedding(q.to(card), k.to(card),
+                                          cos.to(card), sin.to(card))
+    for a, b in zip(got, ref):
+        assert (a.cpu() - b).abs().max().item() <= 1e-6 * max(
+            1.0, b.abs().max().item())
+    assert registry.counts() == {
+        "kernel.dispatch.fused_layernorm.plain": 1,
+        "kernel.dispatch.fused_layernorm.cuda": 1,
+        "kernel.dispatch.fused_rope.plain": 1,
+        "kernel.dispatch.fused_rope.cuda": 1}

@@ -13,8 +13,10 @@ import torch
 
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+from paddle_tpu_torch.kernels.cuda import fused_layernorm as cln
 from paddle_tpu_torch.kernels.cuda import paged_attention as cdec
 from paddle_tpu_torch.kernels.cuda import prefill_attention as cpre
+from paddle_tpu_torch.kernels.cuda import rotary as crot
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -106,8 +108,9 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         k.launch(*([None] * 7 + [1] * 6 + [None]))
     assert k.launches == before
-    sources = ["flash_dkv", "flash_dq", "flash_fwd", "paged_decode",
-               "paged_decode_int8", "paged_prefill", "paged_prefill_int8"]
+    sources = ["flash_dkv", "flash_dq", "flash_fwd", "fused_layernorm_bwd",
+               "fused_layernorm_fwd", "paged_decode", "paged_decode_int8",
+               "paged_prefill", "paged_prefill_int8", "rotary"]
     assert {x.source for x in _build.kernels()} >= set(sources)
     assert sorted(s.stem for s in _build.CSRC.glob("*.cu")) == sources
 
@@ -185,3 +188,68 @@ def test_flash_wrappers_refuse_bad_input(case, match):
         cfa.flash_dq(q, k, v, do, lse, delta, 0.25, causal)
     with pytest.raises(ValueError, match=match):
         cfa.flash_dkv(q, k, v, do, lse, delta, 0.25, causal)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu_tensors", "CUDA tensors"), ("float16", "not supported"),
+    ("d_too_wide", "1 <= d <= 8192"), ("gamma_dtype", "float32 or x's"),
+    ("beta_shape", "beta must be"), ("noncontig_x", "x must be contiguous"),
+    ("mixed_devices", "one device"), ("rstd_dtype", "rstd must be"),
+    ("dy_shape", "dy must be"), ("mu_shape", "mu must be")])
+def test_layernorm_wrappers_refuse_bad_input(case, match):
+    """The fused layernorm wrappers: rows [n, d] in f32 or bf16 with
+    1 <= d <= 8192, gamma/beta [d] in f32 or x's dtype, f32 statistics
+    [n, 1], all contiguous and on the card; anything else raises before a
+    launch."""
+    x, dy = torch.zeros(6, 16), torch.zeros(6, 16)
+    g, b = torch.ones(16), torch.zeros(16)
+    mu, rstd = torch.zeros(6, 1), torch.ones(6, 1)
+    if case == "float16":
+        x, dy = x.half(), dy.half()
+    elif case == "d_too_wide":
+        x = dy = torch.zeros(2, 8200)
+    elif case == "gamma_dtype":
+        x, dy = x.bfloat16(), dy.bfloat16()
+        g = b = g.double()
+    elif case == "beta_shape":
+        b = b[:8]
+    elif case == "noncontig_x":
+        x = torch.zeros(6, 32)[:, ::2]
+    elif case == "mixed_devices":
+        g = torch.ones(16, device="meta")
+        b = torch.zeros(16, device="meta")
+    elif case == "rstd_dtype":
+        rstd = rstd.double()
+    elif case == "dy_shape":
+        dy = dy[:3]
+    elif case == "mu_shape":
+        mu = mu.view(6)
+    calls = []
+    if case not in ("rstd_dtype", "dy_shape", "mu_shape"):
+        calls.append(lambda: cln.fused_layernorm_fwd(x, g, b, 1e-5))
+    if case != "beta_shape":
+        calls.append(lambda: cln.fused_layernorm_bwd(x, g, mu, rstd, dy))
+    for call in calls:
+        with pytest.raises(ValueError, match=match):
+            call()
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu_tensors", "CUDA tensors"), ("float16", "not supported"),
+    ("k_shape", "share one shape"), ("cos_shape", "cos must be"),
+    ("noncontig_q", "q must be contiguous"), ("table_dtype", "cos and sin")])
+def test_rotary_wrapper_refuses_bad_input(case, match):
+    q, k = torch.zeros(1, 2, 8, 16), torch.zeros(1, 2, 8, 16)
+    cos, sin = torch.ones(8, 8), torch.zeros(8, 8)
+    if case == "float16":
+        q, k = q.half(), k.half()
+    elif case == "k_shape":
+        k = k[:, :1]
+    elif case == "cos_shape":
+        cos = cos[:, :4]
+    elif case == "noncontig_q":
+        q = torch.zeros(1, 2, 16, 8).transpose(2, 3)
+    elif case == "table_dtype":
+        sin = sin.bfloat16()
+    with pytest.raises(ValueError, match=match):
+        crot.rotary(q, k, cos, sin)

@@ -208,4 +208,4 @@ def test_cpu_tensors_dispatch_to_plain_and_count():
     assert registry.counts() == {"kernel.dispatch.paged_attention.plain": 1,
                                  "kernel.dispatch.prefill_attention.plain": 1}
     with pytest.raises(KeyError):
-        registry.dispatch("fused_layernorm", q)     # not ported yet
+        registry.dispatch("fused_sampling", q)      # not ported yet
