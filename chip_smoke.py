@@ -25,7 +25,12 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    evicts the 50 MB L2 and a ~1 ms spin that keeps the host's launch out of
    the interval (`Timer`); and ``bound_ms``, the larger of the bytes the call
    must move over 3.35 TB/s and its operations over the dtype's peak (67
-   TFLOP/s float32, 989 TFLOP/s bfloat16). The three flash-attention
+   TFLOP/s float32, 989 TFLOP/s bfloat16). The prefill lines (PREFILL_CASES)
+   also name the loop the call took (``arm``: ``mma_bf16``, the tensor
+   cores, for bfloat16; ``cuda_core`` for float32), its launch ``grid``
+   (its ``block_q`` is in ``shape``), and ``vs_library``, the kernel's
+   time over SDPA's.
+   The three flash-attention
    kernels (forward, dq, dk/dv) are held the same way at the training
    shape (B=8, H=12, S=1024, D=64, causal), a ragged causal S=200, a
    cross-length causal Sq=64 / Sk=300 and a non-causal S=256; their
@@ -165,6 +170,13 @@ LOGIT_BOUND, MARGIN = 5e-4, 1e-3
 # step apart, the logits 5.67e-04 apart; the bound leaves 3.5x room and
 # is 250x under QUANT_LOGIT_BOUND.
 INT8_LOGIT_BOUND = 2e-3
+# (C, start, valid) of the prefill kernel checks: a short padded bucket,
+# a half-live 512 bucket, the one-shot C=1024 the serve path's longest
+# prompts take (the ``kernels`` line's shape), a short chunk deep in the
+# slot, and the last 256-token chunk of a 1024-token prompt (the chunked
+# path at full context)
+PREFILL_CASES = ((16, 0, 7), (512, 0, 300), (1024, 0, 1024),
+                 (256, 496, 100), (256, 768, 256))
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 INT8_KERNELS = ("paged_decode_int8", "paged_prefill_int8")
 # (name, B, H, Sq, Sk, D, causal) of the flash kernel checks; "train" and
@@ -351,7 +363,7 @@ def check_prefill(dev, timer, dtype, c, start, valid, quant=False):
     ref = pa._plain_prefill_attention(q[None], kp, vp, row, start, valid,
                                       *sc)[0]
     err = (out.float() - ref.float()).abs().max().item()
-    bq = cpre.default_block_q(c)
+    bq = cpre.default_block_q(c, dtype, DH)
     want = [min(cpre.block_visits(start, valid, i * bq, bq, PS), MAXP)
             for i in range(visits.shape[0])]
     visits_ok = bool((visits == torch.tensor(want, dtype=torch.int32,
@@ -377,6 +389,7 @@ def check_prefill(dev, timer, dtype, c, start, valid, quant=False):
         "pool": "int8" if quant else dtype_name(dtype),
         "shape": {"C": c, "start": start, "valid": valid, "nh": NH, "dh": DH,
                   "page_size": PS, "pages_per_slot": MAXP, "block_q": bq},
+        "arm": cpre.arm(dtype, DH), "grid": list(cpre.grid(c, NH, dtype, DH)),
         "max_abs_err": err, "tol": TOL[dtype], "visits_ok": visits_ok,
         "padded_rows_zero": padded_zero,
         "visits": sorted(set(visits[:, 0].tolist())),
@@ -387,6 +400,7 @@ def check_prefill(dev, timer, dtype, c, start, valid, quant=False):
         "library_ms": timer.ms(lambda: sdpa(qs, kw, vw, attn_mask=mask)),
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
     }
+    line["vs_library"] = line["kernel_ms"] / line["library_ms"]
     emit(line)
     if not (err <= TOL[dtype] and visits_ok and padded_zero):
         raise SystemExit(f"{name} {dtype} C={c}: err {err}, visits "
@@ -1111,8 +1125,7 @@ def main():
         for quant, suffix in ((False, ""), (True, "_int8")):
             cases[("paged_decode" + suffix, dtype)] = check_decode(
                 dev, timer, dtype, quant)
-            for c, start, valid in ((16, 0, 7), (512, 0, 300),
-                                    (1024, 0, 1024), (256, 496, 100)):
+            for c, start, valid in PREFILL_CASES:
                 cases[("paged_prefill" + suffix, dtype, c)] = check_prefill(
                     dev, timer, dtype, c, start, valid, quant)
         for case in FLASH_CASES:

@@ -1,10 +1,14 @@
-// The ragged paged-attention PREFILL loop for Hopper (sm_90a), shared by
-// the float kernel (paged_prefill.cu) and the int8 kernel
-// (paged_prefill_int8.cu). They differ only in the pool element type P and
-// so in how a key or value is read when a page is staged in shared memory
-// (`pool_value` in attention_common.cuh): a float pool converts, an int8
-// pool widens and scales by its token slot's f32 scale. The staged tiles
-// are f32 either way.
+// The ragged paged-attention PREFILL loop on the CUDA cores, shared by the
+// float kernel (paged_prefill.cu) and the int8 kernel
+// (paged_prefill_int8.cu) for every call the tensor-core loop
+// (paged_prefill_mma.cuh) does not take: q in float32, over float32 or int8
+// pools (the tensor cores would take f32 only as TF32, about three decimal
+// digits), and q in bfloat16 with a head dim that is not a multiple of 16
+// or is above 128. The two kernels differ only in the pool element type P
+// and so in how a key or value is read when a page is staged in shared
+// memory (`pool_value` in attention_common.cuh): a float pool converts, an
+// int8 pool widens and scales by its token slot's f32 scale. The staged
+// tiles are f32 either way.
 //
 // One chunk of C queries of ONE sequence, the chunk's first token at
 // absolute position `start`, attends over that sequence's K/V pages (the
@@ -16,7 +20,7 @@
 // The pages the chunk's live rows can see are read once (2 * pages *
 // page_size * dh * itemsize bytes, plus 2 * 4 scale bytes per key for int8
 // pools, over 3.35 TB/s); the causal score and value products cost 4 * dh
-// operations per visible (query, key) pair.
+// operations per visible (query, key) pair (67 TFLOP/s in f32).
 //
 // What the design does about it: grid (query block, head). A block loads
 // each visited page's [page_size, dh] K and V slice for its head into
@@ -26,9 +30,9 @@
 // few rows; per row the keys past its causal limit are cut off before any
 // product is formed. The page loop runs block_visits pages: 0 for a block
 // of padding rows, ceil((start + last live row + 1) / page_size) otherwise,
-// never the slot's capacity. Known gap: the products run on the CUDA cores
-// in f32, not on the tensor cores (wgmma), which is where the
-// operation-bound cases leave most of their time.
+// never the slot's capacity. Known gap: each score is reduced across the
+// warp one key at a time, a chain of five shuffles per key and row, and
+// page loads do not overlap the products.
 #pragma once
 
 #include <cmath>
@@ -166,12 +170,16 @@ int launch_paged_prefill(const void* q, const void* k_pages,
   return (int)cudaGetLastError();
 }
 
-// Checks the C entry points' scalar arguments.
+constexpr int kCoreBlockQ = kPrefillWarps * kRowsPerWarp;
+
+// Checks the C entry points' scalar arguments; `max_block_q` is the query
+// tile of the loop the call takes (kCoreBlockQ, or kMmaBlockQ).
 inline bool prefill_args_ok(int c, int nh, int dh, int ps, int maxp,
-                            int start, int valid, int block_q) {
+                            int start, int valid, int block_q,
+                            int max_block_q) {
   return c > 0 && nh > 0 && dh > 0 && dh <= 256 && ps > 0 && maxp > 0 &&
          start >= 0 && valid >= 0 && valid <= c && block_q > 0 &&
-         block_q <= kPrefillWarps * kRowsPerWarp;
+         block_q <= max_block_q;
 }
 
 }  // namespace paddle_tpu_torch

@@ -2,8 +2,13 @@
 counterparts of `paddle_tpu/kernels/pallas/prefill_attention.py::
 _prefill_kernel`: `kernels/csrc/paged_prefill.cu` for float pools and
 `kernels/csrc/paged_prefill_int8.cu` for int8 pools with f32 scales (the
-Pallas kernel's ``quant=True`` arm). Both run the loop of
-`csrc/paged_prefill.cuh`.
+Pallas kernel's ``quant=True`` arm). Each kernel holds two loops and picks
+one by a fixed rule before the launch (:func:`arm`): q in bfloat16 with a
+head dim that is a multiple of 16 up to 128 takes the tensor-core loop of
+`csrc/paged_prefill_mma.cuh` (``"mma_bf16"``), everything else the
+CUDA-core loop of `csrc/paged_prefill.cuh` (``"cuda_core"``). Each loop has
+its own query tile (:func:`default_block_q`), so the visits rows follow
+the arm.
 
 Bound on the H100: the visible pages' K/V bytes over 3.35 TB/s, or at long
 chunks the causal products over the peak rate of the dtype (see the
@@ -21,8 +26,9 @@ from paddle_tpu_torch.kernels._build import CudaKernel
 from paddle_tpu_torch.kernels.cuda import (DTYPE_CODES, check_attention_args,
                                            require_cuda)
 
-__all__ = ["KERNEL", "KERNEL_INT8", "MAX_BLOCK_Q", "block_visits",
-           "default_block_q", "paged_prefill", "paged_prefill_int8"]
+__all__ = ["KERNEL", "KERNEL_INT8", "MMA_BLOCK_Q", "MMA_MAX_PAGES",
+           "CORE_BLOCK_Q", "arm", "block_visits", "default_block_q", "grid",
+           "paged_prefill", "paged_prefill_int8"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("paged_prefill", "paged_prefill",
@@ -30,7 +36,21 @@ KERNEL = CudaKernel("paged_prefill", "paged_prefill",
 KERNEL_INT8 = CudaKernel("paged_prefill_int8", "paged_prefill_int8",
                          [_P] * 8 + [_I] * 9 + [_P])
 
-MAX_BLOCK_Q = 32    # 8 warps x 4 rows per block (paged_prefill.cuh)
+MMA_BLOCK_Q = 64     # 4 row groups of 16 (paged_prefill_mma.cuh)
+MMA_MAX_PAGES = 16384   # the page-table row the tensor-core loop holds
+CORE_BLOCK_Q = 32    # 8 warps x 4 rows (paged_prefill.cuh)
+
+
+def arm(dtype, dh: int) -> str:
+    """The loop a call takes, the rule of the C entry points
+    (`mma_takes`): ``"mma_bf16"`` (tensor cores) for q in bfloat16 with
+    ``dh`` a multiple of 16 up to 128, else ``"cuda_core"``. float32 stays
+    on the CUDA cores because the tensor cores would take it only as
+    TF32."""
+    dh = int(dh)
+    if dtype == torch.bfloat16 and 0 < dh <= 128 and dh % 16 == 0:
+        return "mma_bf16"
+    return "cuda_core"
 
 
 def block_visits(start, valid, row0, block_q, page_size):
@@ -43,12 +63,25 @@ def block_visits(start, valid, row0, block_q, page_size):
     return (start + row0 + nrows - 1 + page_size) // page_size
 
 
-def default_block_q(c: int) -> int:
-    """Query rows per block. The TPU kernel takes up to 256 rows per grid
-    cell because its grid runs in order on one core; on the H100 small
-    blocks give enough blocks to fill 132 SMs (C=1024 and 12 heads give 384
-    blocks of 32 rows)."""
-    return min(int(c), MAX_BLOCK_Q)
+def default_block_q(c: int, dtype, dh: int) -> int:
+    """Query rows per block, the tile of the loop :func:`arm` picks. The
+    TPU kernel takes up to 256 rows per grid cell because its grid runs in
+    order on one core; on the H100 the tile is what one block's warps hold
+    and the grid has to fill 132 SMs. The tensor-core loop gives each of
+    4 row groups the 16 rows of one mma tile, each taken by two warps that
+    split every key tile in halves (C=1024 and 12 heads: 192 blocks of 64
+    rows); the CUDA-core loop gives each of 8 warps 4 rows, one at a time
+    (384 blocks of 32)."""
+    tile = MMA_BLOCK_Q if arm(dtype, dh) == "mma_bf16" else CORE_BLOCK_Q
+    return min(int(c), tile)
+
+
+def grid(c: int, nh: int, dtype, dh: int) -> tuple[int, int]:
+    """The launch grid: (heads, query tiles) on the tensor-core loop, whose
+    blockIdx.y 0 takes the last (heaviest) tile; (query blocks, heads) on
+    the CUDA-core loop."""
+    nq = -(-int(c) // default_block_q(c, dtype, dh))
+    return (nh, nq) if arm(dtype, dh) == "mma_bf16" else (nq, nh)
 
 
 def _launch(op, kernel, q, k_pages, v_pages, scales, page_table, start,
@@ -67,12 +100,21 @@ def _launch(op, kernel, q, k_pages, v_pages, scales, page_table, start,
         raise ValueError(f"{op}: start={start}, valid={valid} out of range "
                          f"for a chunk of {c} rows and a slot of "
                          f"{maxp * ps} positions")
-    smem = 2 * ps * dh * 4
-    if smem > 227 * 1024:
-        raise ValueError(f"{op}: a [{ps}, {dh}] K/V page tile needs {smem} "
-                         "bytes of shared memory, more than 227 KB")
+    if arm(q.dtype, dh) == "mma_bf16":
+        if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+            raise ValueError(f"{op}: the tensor-core loop copies 16 bytes at "
+                             "a time; q and the pools must start on 16-byte "
+                             "boundaries")
+        if maxp > MMA_MAX_PAGES:
+            raise ValueError(f"{op}: the tensor-core loop keeps the slot's "
+                             f"page-table row in shared memory, at most "
+                             f"{MMA_MAX_PAGES} pages; got {maxp}")
+    elif 2 * ps * dh * 4 > 227 * 1024:
+        raise ValueError(f"{op}: a [{ps}, {dh}] K/V page tile needs "
+                         f"{2 * ps * dh * 4} bytes of shared memory, more "
+                         "than 227 KB")
     require_cuda(op, q)
-    bq = default_block_q(c)
+    bq = default_block_q(c, q.dtype, dh)
     out = torch.empty_like(q)
     nq = -(-c // bq)
     visits = torch.empty((nq, nh), dtype=torch.int32, device=q.device) \
@@ -96,7 +138,7 @@ def paged_prefill(q, k_pages, v_pages, page_table, start, valid, *,
     ints (absolute position of q[0], true token count); tensors on one CUDA
     device. Returns [C, nh, dh] in q.dtype with rows >= valid set to 0 and,
     with ``return_visits``, the per-(query block, head) trip counts
-    [ceil(C / default_block_q(C)), nh] int32.
+    [ceil(C / default_block_q(C, q.dtype, dh)), nh] int32.
     """
     return _launch("paged_prefill", KERNEL, q, k_pages, v_pages, None,
                    page_table, start, valid, return_visits)

@@ -8,9 +8,17 @@ machine has none), so run it there without the JAX-loading conftest:
 
 Tolerances: 2e-5 in float32 (online softmax against a full softmax, f32
 throughout); 2e-2 in bfloat16, where both outputs are rounded to bfloat16.
-The int8 paged kernels take the same tolerances for q in f32 and bf16:
-both sides dequantize the same int8 values and scales in f32. The card
-engine equals the CPU engine token for token, native and int8.
+The int8 paged kernels take the same tolerances for q in f32 and bf16. The
+prefill kernels run q in bfloat16 on the tensor cores (head dims that are
+multiples of 16 up to 128), and 2e-2 still holds there: the scores and the
+softmax stay f32, and the one rounding the plain version does not make is
+P's, to bf16 before the P V product (2^-8 of each weight, so at most 2^-8
+of the largest |v| in an output). Over int8 pools there is no other: the
+int8 values widen to bf16 exactly, and the K and V scales multiply the f32
+scores and P after the products instead of the values before them.
+`tests/test_torch_quant.py` emulates that rounding on the CPU against the
+same tolerance. Float32 stays on the CUDA cores. The card engine equals
+the CPU engine token for token, native and int8.
 The flash kernels: in float32 2e-5 (forward) and 1e-4 (gradients) times
 the largest reference value when that exceeds 1; in bfloat16 one bfloat16
 step of the largest reference value, never less than the float32 bound.
@@ -96,7 +104,7 @@ def test_prefill_kernel_matches_plain(card, dtype, tol, start, valid, c):
     ref = pa._plain_prefill_attention(q[None], kp, vp, row, start, valid)[0]
     assert (out.float() - ref.float()).abs().max().item() <= tol
     assert (out[valid:] == 0).all()
-    bq = cpre.default_block_q(c)
+    bq = cpre.default_block_q(c, dtype, dh)
     want = [cpre.block_visits(start, valid, i * bq, bq, ps)
             for i in range(visits.shape[0])]
     assert visits[:, 0].tolist() == want
@@ -159,7 +167,7 @@ def test_int8_prefill_kernel_matches_plain(card, dtype, tol, dh, start,
                                       ks, vs)[0]
     assert (out.float() - ref.float()).abs().max().item() <= tol
     assert (out[valid:] == 0).all()
-    bq = cpre.default_block_q(c)
+    bq = cpre.default_block_q(c, dtype, dh)
     want = [cpre.block_visits(start, valid, i * bq, bq, ps)
             for i in range(visits.shape[0])]
     assert visits[:, 0].tolist() == want
@@ -167,6 +175,93 @@ def test_int8_prefill_kernel_matches_plain(card, dtype, tol, dh, start,
     assert torch.equal(pa.prefill_attention(q[None], kp, vp, row, start,
                                             valid, ks, vs)[0], out)
     assert cpre.KERNEL_INT8.launches == launches + 1
+
+
+def _prefill_pools(rng, quant, num_pages, ps, nh, dh, dev, dtype):
+    """(k_pages, v_pages, scales): float pools of q's dtype and no scales,
+    or int8 pools and their (k_scale, v_scale)."""
+    if quant:
+        kp, vp, ks, vs = _int8_pools(rng, num_pages, ps, nh, dh, dev)
+        return kp, vp, (ks, vs)
+    return (*_pools(rng, num_pages, ps, nh, dh, dev, dtype), ())
+
+
+def _prefill(quant):
+    return cpre.paged_prefill_int8 if quant else cpre.paged_prefill
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("ps", [8, 16, 64])
+def test_prefill_kernels_cover_page_sizes_and_head_dims(card, quant, dtype,
+                                                        tol, dh, ps):
+    # pages of 8 and 16 keys (several to a 64-key tile) and of 64 (one):
+    # the gather takes each key row from its own page
+    rng = np.random.default_rng(1000 * ps + dh + quant)
+    nh = 2
+    maxp = -(-1100 // ps)                 # a slot of at least 1100 positions
+    cap = maxp * ps
+    kp, vp, sc = _prefill_pools(rng, quant, 1 + maxp, ps, nh, dh, card,
+                                dtype)
+    row = torch.from_numpy((1 + rng.permutation(maxp)).astype(np.int32)
+                           ).to(card)
+    for start, valid, c in (
+            (0, 1024, 1024),              # every row live
+            (5, 100, 128),                # starts mid-page
+            (0, 60, 256),                 # query tiles of padding rows
+            (cap - 100, 100, 128)):       # last live row at the slot's end
+        q = torch.from_numpy(rng.standard_normal(
+            (c, nh, dh), dtype=np.float32)).to(card, dtype)
+        out, visits = _prefill(quant)(q, kp, vp, *sc, row, start, valid,
+                                      return_visits=True)
+        torch.cuda.synchronize()
+        ref = pa._plain_prefill_attention(q[None], kp, vp, row, start,
+                                          valid, *sc)[0]
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= tol, (start, valid, c, err)
+        assert (out[valid:] == 0).all(), (start, valid, c)
+        bq = cpre.default_block_q(c, dtype, dh)
+        want = [min(cpre.block_visits(start, valid, i * bq, bq, ps), maxp)
+                for i in range(visits.shape[0])]
+        assert visits.shape[0] == -(-c // bq)
+        assert visits[:, 0].tolist() == want, (start, valid, c)
+        assert (visits == visits[:, :1]).all()
+        if valid == 60:
+            assert want[-1] == 0          # a tile of padding visits nothing
+        if start + valid == cap:
+            assert max(want) == maxp      # the clamp: never past the slot
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_bf16_prefill_op_launches_the_tensor_core_kernel_once(
+        card, quant, monkeypatch):
+    rng = np.random.default_rng(7)
+    nh, dh, ps, maxp, c = 12, 64, 16, 64, 1024
+    kp, vp, sc = _prefill_pools(rng, quant, 1 + maxp, ps, nh, dh, card,
+                                torch.bfloat16)
+    row = torch.from_numpy((1 + rng.permutation(maxp)).astype(np.int32)
+                           ).to(card)
+    q = torch.from_numpy(rng.standard_normal((c, nh, dh), dtype=np.float32)
+                         ).to(card, torch.bfloat16)
+    assert cpre.arm(q.dtype, dh) == "mma_bf16"
+    kern, other = ((cpre.KERNEL_INT8, cpre.KERNEL) if quant
+                   else (cpre.KERNEL, cpre.KERNEL_INT8))
+    plain = pa._plain_prefill_attention
+
+    def no_fallback(*a, **k):
+        raise AssertionError("a bf16 CUDA call reached the plain version")
+
+    monkeypatch.setattr(pa, "_plain_prefill_attention", no_fallback)
+    before, before_other = kern.launches, other.launches
+    got = pa.prefill_attention(q[None], kp, vp, row, 0, c, *sc)[0]
+    assert kern.launches == before + 1
+    assert other.launches == before_other
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert torch.equal(got, _prefill(quant)(q, kp, vp, *sc, row, 0, c))
+    ref = plain(q[None], kp, vp, row, 0, c, *sc)[0]
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
 
 
 def test_int8_wrappers_refuse_float_pools_on_the_card(card):

@@ -116,6 +116,9 @@ PREFILL_CASES = [
     (8, 10, 16, 4, 16),     # several query blocks
     (0, 5, 16, 4, 16),      # padded query blocks visit 0 pages
     (0, 24, 24, 8, 6),      # the whole slot, every row live
+    # the tensor-core loop's 64-row tiles (default_block_q for bf16, dh 64)
+    (0, 128, 128, 64, 32),  # two tiles, every row live
+    (8, 150, 200, 64, 40),  # four tiles: one partly live, one all padding
 ]
 
 
@@ -140,6 +143,41 @@ def test_plain_prefill_matches_xla_and_pallas(start, valid, c, block_q,
     for i in range(want_visits.shape[0]):
         assert (want_visits[i] == cpre.block_visits(
             start, valid, i * block_q, block_q, 4)).all()
+
+
+@pytest.mark.parametrize("dtype,dh,c,want_arm,want_bq,want_grid", [
+    (torch.bfloat16, 64, 1024, "mma_bf16", 64, (12, 16)),  # the serve path
+    (torch.bfloat16, 128, 16, "mma_bf16", 16, (12, 1)),
+    (torch.bfloat16, 16, 200, "mma_bf16", 64, (12, 4)),
+    (torch.float32, 64, 1024, "cuda_core", 32, (32, 12)),  # f32: no TF32
+    (torch.bfloat16, 72, 1024, "cuda_core", 32, (32, 12)),  # not 16 | dh
+    (torch.bfloat16, 256, 100, "cuda_core", 32, (4, 12)),   # above 128
+])
+def test_prefill_arm_rule_and_query_tiles(dtype, dh, c, want_arm, want_bq,
+                                          want_grid):
+    assert cpre.arm(dtype, dh) == want_arm
+    assert cpre.default_block_q(c, dtype, dh) == want_bq
+    assert cpre.grid(c, 12, dtype, dh) == want_grid
+
+
+def test_tensor_core_prefill_refuses_what_it_cannot_take():
+    # checked before the device: the loop's 16-byte copies and the slot's
+    # page-table row it keeps in shared memory
+    nh, dh, ps = 2, 64, 16
+    q = torch.zeros(4, nh, dh, dtype=torch.bfloat16)
+    kp = torch.zeros(3, ps, nh, dh, dtype=torch.bfloat16)
+    kq = kp.to(torch.int8)
+    sc = torch.ones(3, ps, nh)
+    row = torch.zeros(cpre.MMA_MAX_PAGES + 1, dtype=torch.int32)
+    calls = (lambda q, row: cpre.paged_prefill(q, kp, kp.clone(), row, 0, 4),
+             lambda q, row: cpre.paged_prefill_int8(q, kq, kq.clone(), sc,
+                                                    sc.clone(), row, 0, 4))
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)
+    for call in calls:
+        with pytest.raises(ValueError, match="page-table row"):
+            call(q, row)
+        with pytest.raises(ValueError, match="16-byte boundaries"):
+            call(flat[1:].view(4, nh, dh), row[:2])
 
 
 def test_gather_kv_matches_jax():

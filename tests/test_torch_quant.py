@@ -8,7 +8,14 @@ size 4):
 - the plain int8 decode and prefill attention: within 1e-5 of the JAX XLA
   arms and of the interpret-mode Pallas kernels with ``k_scale`` /
   ``v_scale`` (f32 softmax on both sides; only the summation order
-  differs);
+  differs), and the CUDA prefill kernels' trip counts (`block_visits`,
+  up to the tensor-core loop's 64-row tiles) equal to the Pallas kernel's
+  exported visits;
+- the tensor-core prefill loop's rounding, emulated in plain torch (int8
+  widened to bf16, scales after the products, ``p * vs`` rounded to bf16,
+  64-key tiles; GPT-2 small's head dim 64, 4 heads, page size 16, a chunk
+  of 256): within the card tests' bfloat16 tolerance, 2e-2, of the plain
+  prefill attention;
 - `quantize_gpt_params` in both layouts: int8 values and scales equal,
   other leaves passed through, fp8 refused; `scan_logits` over the
   quantized stacked params within 1e-4 of JAX's and margin-gated close to
@@ -43,6 +50,7 @@ from paddle_tpu.quantization import serving as jserving
 from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.kernels import registry
+from paddle_tpu_torch.kernels.cuda import prefill_attention as cpre
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models.convert import params_from_numpy
 from paddle_tpu_torch.quantization import comms
@@ -172,6 +180,9 @@ PREFILL_CASES = [
     (4, 8, 8, 8, 6),        # mid-page start
     (8, 10, 16, 4, 16),     # several query blocks
     (0, 5, 16, 4, 16),      # padded query blocks
+    # the tensor-core loop's 64-row tiles (default_block_q for bf16, dh 64)
+    (0, 128, 128, 64, 32),  # two tiles, every row live
+    (8, 150, 200, 64, 40),  # four tiles: one partly live, one all padding
 ]
 
 
@@ -189,12 +200,83 @@ def test_plain_int8_prefill_matches_xla_and_pallas(start, valid, c, block_q,
     want_xla = np.asarray(jpa._xla_prefill_attention(
         jq, jkq, jvq, jrow, jnp.int32(start), jnp.int32(valid),
         k_scale=jks, v_scale=jvs))
-    want_pl = jpre.prefill_attention(
+    want_pl, visits = jpre.prefill_attention(
         jq[0], jkq, jvq, jrow, jnp.int32(start), jnp.int32(valid),
-        interpret=True, block_q=block_q, k_scale=jks, v_scale=jvs)
+        interpret=True, block_q=block_q, k_scale=jks, v_scale=jvs,
+        return_visits=True)
     assert _maxabs(got[0, :valid], want_xla[0, :valid]) <= ATT_TOL
     assert _maxabs(got[0], want_pl) <= ATT_TOL
     assert (got[0, valid:] == 0).all()
+    want_visits = np.asarray(visits)
+    assert want_visits.shape[0] == -(-c // block_q)
+    for i in range(want_visits.shape[0]):
+        assert (want_visits[i] == cpre.block_visits(
+            start, valid, i * block_q, block_q, PS)).all()
+
+
+def _mma_prefill_emulation(q, kp, vp, row, start, valid, k_scale=None,
+                           v_scale=None, tile=64):
+    """The rounding of the tensor-core prefill loop
+    (`kernels/csrc/paged_prefill_mma.cuh`) in plain torch: q [C, nh, dh]
+    in bf16, the pools' values as bf16 (int8 widens exactly), S = q . k in
+    f32 times ``k_scale / sqrt(dh)`` after the product, an online softmax
+    over 64-key tiles in f32, ``p * v_scale`` rounded to bf16 before the
+    P V product (f32 sums), the output rounded to bf16 and rows >= valid
+    zero."""
+    c, nh, dh = q.shape
+    kk = pa.gather_kv(kp, row[None])[0].to(torch.bfloat16).float()
+    vv = pa.gather_kv(vp, row[None])[0].to(torch.bfloat16).float()
+    lmax = kk.shape[0]
+    ones = torch.ones(lmax, nh)
+    kss = ones if k_scale is None else pa.gather_scales(k_scale, row[None])[0]
+    vss = ones if v_scale is None else pa.gather_scales(v_scale, row[None])[0]
+    scale = torch.tensor(1.0 / dh ** 0.5, dtype=torch.float32)
+    qf = q.float()
+    pos = start + torch.arange(c)
+    m = torch.full((nh, c), -1e30)
+    l = torch.zeros(nh, c)
+    o = torch.zeros(nh, c, dh)
+    for k0 in range(0, start + valid, tile):
+        keys = torch.arange(k0, min(k0 + tile, lmax))
+        s = torch.einsum("qhd,khd->hqk", qf, kk[keys])
+        s = s * (kss[keys].T * scale)[:, None, :]
+        s = s.masked_fill(keys[None, None, :] > pos[None, :, None], -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        pv = (p * vss[keys].T[:, None, :]).to(torch.bfloat16).float()
+        o = o * alpha[..., None] + torch.einsum("hqk,khd->hqd", pv,
+                                                vv[keys])
+        m = m_new
+    out = (o / l.clamp_min(1e-30)[..., None]).permute(1, 0, 2)
+    out[valid:] = 0
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("pool,start", [("int8", 0), ("int8", 200),
+                                        ("bf16", 0)])
+def test_tensor_core_prefill_rounding_within_bf16_tolerance(pool, start):
+    # one GPT-2 small head width, a 256-row chunk (four 64-row tiles),
+    # starting at 0 or mid-page after 200 tokens of context
+    rng = np.random.RandomState(11 + start)
+    nh, dh, ps, maxp, c = 4, 64, 16, 32, 256
+    row = torch.from_numpy((1 + rng.permutation(maxp)).astype(np.int32))
+    q = torch.from_numpy(rng.randn(c, nh, dh).astype(np.float32)
+                         ).to(torch.bfloat16)
+    if pool == "int8":
+        kq, vq, ks, vs = map(torch.from_numpy,
+                             _int8_pools(rng, 1 + maxp, nh, dh, ps))
+        sc = (ks, vs)
+    else:
+        kq, vq = (torch.from_numpy(rng.randn(1 + maxp, ps, nh, dh).astype(
+            np.float32)).to(torch.bfloat16) for _ in "kv")
+        sc = ()
+    got = _mma_prefill_emulation(q, kq, vq, row, start, c, *sc)
+    ref = pa._plain_prefill_attention(q[None], kq, vq, row, start, c,
+                                      *sc)[0]
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2, err
 
 
 # ------------------------------------------------------------ weight int8
