@@ -25,11 +25,14 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    evicts the 50 MB L2 and a ~1 ms spin that keeps the host's launch out of
    the interval (`Timer`); and ``bound_ms``, the larger of the bytes the call
    must move over 3.35 TB/s and its operations over the dtype's peak (67
-   TFLOP/s float32, 989 TFLOP/s bfloat16). The prefill lines (PREFILL_CASES)
-   also name the loop the call took (``arm``: ``mma_bf16``, the tensor
-   cores, for bfloat16; ``cuda_core`` for float32), its launch ``grid``
-   (its ``block_q`` is in ``shape``), and ``vs_library``, the kernel's
-   time over SDPA's.
+   TFLOP/s float32, 989 TFLOP/s bfloat16), and ``vs_library``, the
+   kernel's time over the library call's. The prefill lines (PREFILL_CASES)
+   and the ``flash_fwd`` lines also name the loop the call took (``arm``:
+   ``mma_bf16``, the tensor cores, for bfloat16; ``cuda_core`` for
+   float32) and its launch ``grid`` (the prefill's ``block_q`` is in
+   ``shape``); the ``paged_decode_int8`` lines name theirs (``split``) with
+   its ``splits`` and ``grid``, at the serve run's B=8 positions and at
+   B=1, pos=1023 (``case`` ``b1_long``, DECODE_CASES).
    The three flash-attention
    kernels (forward, dq, dk/dv) are held the same way at the training
    shape (B=8, H=12, S=1024, D=64, causal), a ragged causal S=200, a
@@ -52,6 +55,10 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    ``serve_int8_parity`` does the same with ``kv_dtype="int8"``, counts
    the int8 K/V values the card and the CPU wrote one step apart, and
    holds the prefill logits within 2e-3 (see INT8_LOGIT_BOUND).
+   ``serve_bf16_parity`` does the same for the bfloat16 model (the
+   tensor-core prefill end to end): logits within `bf16_logit_bound` (4
+   bfloat16 steps of the largest logit), tokens equal wherever the CPU's
+   top-2 margin exceeds it.
 5. ``serve``: the bfloat16 engine on the card serves 8 requests of 7-900
    prompt tokens, 32 new tokens each, through one-shot bucketed prefill.
    ``serve_int8`` serves the same requests with ``kv_dtype="int8"`` and
@@ -61,7 +68,11 @@ it through `ScanTrainStep`, and prints one JSON object per line:
 6. ``train_parity``: float32 `ScanTrainStep`s on the card and on the CPU
    take 3 steps of GPT-2 small's width at 2 layers (S=256, B=4 as 2
    microbatches, AdamW lr 1e-3, clip 1.0); every step's loss must agree
-   within 1e-3 (see TRAIN_LOSS_TOL).
+   within 1e-3 (see TRAIN_LOSS_TOL). ``train_bf16_parity`` does the same
+   in bfloat16 with float32 masters (the tensor-core ``flash_fwd`` end to
+   end), each loss within 2e-3 of the CPU's (see TRAIN_BF16_LOSS_TOL).
+   ``bf16_parity_controls.py`` plants faults in the tensor-core loops and
+   shows which of them these two checks catch.
 7. ``train``: GPT-2 small (12 layers) in bfloat16 with float32 masters,
    B=16 as 2 microbatches of 8, S=1024, AdamW lr 1e-4, clip 1.0: 2 warm-up
    steps, then 8 timed steps on one fixed batch; tokens/s, step ms p50,
@@ -96,7 +107,7 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    run's shapes.
 11. The last line: ``{"ok": true, "device": {...}}``.
 
-The eight card runs (4 to 9) are the paths of the main path: every
+The ten card runs (4 to 9) are the paths of the main path: every
 kernel's launch count is set to 0 just before each and read just after.
 Each path states the kernels it must launch and how many times (the
 engine's steps imply one paged-decode launch per layer per decode step and
@@ -112,6 +123,7 @@ result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -161,6 +173,11 @@ PS, MAXP, NUM_PAGES = 16, 64, 513              # page size, pages per slot, pool
 NH, DH = 12, 64                                # GPT-2 small's heads
 VOCAB = 50257                                  # GPT-2's tokenizer
 LOGIT_BOUND, MARGIN = 5e-4, 1e-3
+# decode kernel cases: the serve run's B=8 positions (a fresh slot, page
+# edges, a slot at capacity on the trash row), and one long row alone,
+# where one block per (b, h) would be 12 blocks on 132 SMs
+DECODE_CASES = {"serve": (0, 15, 16, 1023, MAXP * PS, 100, 511, 700),
+                "b1_long": (1023,)}
 # card vs CPU prefill logits over int8 pools: the two devices' float32
 # products differ in summation order (the float logits agree within
 # 3.1e-06), and every K/V value within that difference of a rounding
@@ -170,6 +187,30 @@ LOGIT_BOUND, MARGIN = 5e-4, 1e-3
 # step apart, the logits 5.67e-04 apart; the bound leaves 3.5x room and
 # is 250x under QUANT_LOGIT_BOUND.
 INT8_LOGIT_BOUND = 2e-3
+
+
+def bf16_step(x):
+    """One bfloat16 step (unit in the last place) at |x|: 8 significant
+    bits, so 2^(floor(log2 |x|) - 7)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+# card vs CPU logits of a bfloat16 GPT-2 small: both round every op to
+# bf16 in other summation orders, and the logits come out rounded to bf16
+# (2^-6 apart from 2 to 4, where the largest lies at random init).
+# Measured on an H100 (4 prompts of 5-600 tokens): the first-token logits
+# 2 such steps apart, and greedy tokens parting only where the CPU's top-2
+# margin was 0 or 1 step. The bound is twice the gap; it also gates the
+# tokens: two logits each the measured 2 steps off, in opposite
+# directions, move their margin by at most 4 steps.
+BF16_LOGIT_STEPS = 4
+
+
+def bf16_logit_bound(lg_ref):
+    """BF16_LOGIT_STEPS bf16 steps of the largest reference logit."""
+    return BF16_LOGIT_STEPS * bf16_step(lg_ref.float().abs().max().item())
+
+
 # (C, start, valid) of the prefill kernel checks: a short padded bucket,
 # a half-live 512 bucket, the one-shot C=1024 the serve path's longest
 # prompts take (the ``kernels`` line's shape), a short chunk deep in the
@@ -192,6 +233,12 @@ FLASH_CASES = (("train", 8, 12, 1024, 1024, 64, True),
 # the elements whose gradient is near zero by +-lr on either side. Losses
 # of about 10.8 agree within 1e-3.
 TRAIN_LOSS_TOL = 1e-3
+# the same in bfloat16 with float32 masters: the loss is a float32 mean
+# over 1024 tokens of cross-entropies over bf16 logits, each up to one
+# bf16 step (2^-6 below 4) off in either direction, so about 2^-6 / sqrt(1024)
+# = 4.9e-4 in the mean; measured on an H100 over 3 steps of a 2-layer
+# model: 1.9e-4, 5.1e-4, 7.7e-4. The tolerance is 2.6x the largest.
+TRAIN_BF16_LOSS_TOL = 2e-3
 # card vs CPU (and kernel vs plain) for the incubate path, each relative to
 # the largest reference value when that exceeds 1: f32 sums in other
 # orders. Layernorm forward 2e-5 (and the card's rsqrtf); layernorm
@@ -276,12 +323,13 @@ def library_window(pages, scales, table, dtype):
     return win.to(dtype).transpose(1, 2).contiguous()
 
 
-def check_decode(dev, timer, dtype, quant=False):
+def check_decode(dev, timer, dtype, quant=False, case="serve"):
     rng = np.random.default_rng(SEED)
-    b = 8
-    pos = np.array([0, 15, 16, 1023, MAXP * PS, 100, 511, 700], np.int32)
+    pos = np.array(DECODE_CASES[case], np.int32)
+    b = len(pos)
     table = (1 + rng.permutation(NUM_PAGES - 1)[:b * MAXP]).reshape(b, MAXP)
-    table[4] = 0                     # inactive slot: all trash, at capacity
+    if case == "serve":
+        table[4] = 0                 # inactive slot: all trash, at capacity
     kp, vp, scales = random_pools(rng, dev, dtype, quant)
     q = torch.from_numpy(rng.standard_normal((b, NH, DH), dtype=np.float32)
                          ).to(dev, dtype)
@@ -323,7 +371,7 @@ def check_decode(dev, timer, dtype, quant=False):
     b_ms, b_by = bound(nbytes, ops, dtype)
     line = {
         "phase": "kernel", "kernel": name, "dtype": dtype_name(dtype),
-        "pool": "int8" if quant else dtype_name(dtype),
+        "pool": "int8" if quant else dtype_name(dtype), "case": case,
         "shape": {"B": b, "nh": NH, "dh": DH, "page_size": PS,
                   "pages_per_slot": MAXP, "num_pages": NUM_PAGES,
                   "pos": pos.tolist()},
@@ -335,9 +383,15 @@ def check_decode(dev, timer, dtype, quant=False):
         "library_ms": timer.ms(lambda: sdpa(qs, kw, vw, attn_mask=mask)),
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
     }
+    if quant:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        line.update(arm=cdec.arm(DH),
+                    splits=cdec.splits(b, NH, MAXP, PS, sms),
+                    grid=list(cdec.grid(b, NH, MAXP, PS, sms, DH)))
+    line["vs_library"] = line["kernel_ms"] / line["library_ms"]
     emit(line)
     if not (err <= TOL[dtype] and visits_ok):
-        raise SystemExit(f"{name} {dtype}: err {err} or visits wrong")
+        raise SystemExit(f"{name} {dtype} {case}: err {err} or visits wrong")
     return line
 
 
@@ -500,6 +554,10 @@ def check_flash(dev, timer, dtype, case):
             "library": "sdpa forward" if kern == "flash_fwd"
                        else "sdpa forward + backward",
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops}
+        line["vs_library"] = line["kernel_ms"] / line["library_ms"]
+        if kern == "flash_fwd":
+            line.update(arm=cfa.arm(dtype, d),
+                        grid=list(cfa.grid(b * h, sq, dtype, d)))
         emit(line)
         if not ok:
             raise SystemExit(f"{kern} {dtype} {name}: err {err} over "
@@ -574,11 +632,17 @@ def prefill_logits(params, prompt, dev, cfg, quant=False):
 
 
 def serve_parity(model, dev, kv_dtype="native"):
-    """float32 engines on the card and on the CPU, chunked prefill at 256,
-    the same 4 requests; the phase ``serve_parity`` or, with an int8 pool,
-    ``serve_int8_parity``."""
+    """Engines on the card and on the CPU in the model's dtype, chunked
+    prefill at 256, the same 4 requests; the phase ``serve_parity`` (float32)
+    or, with an int8 pool, ``serve_int8_parity``, or for a bfloat16 model
+    ``serve_bf16_parity``, which holds the bf16 tensor-core prefill end to
+    end: its logits within `bf16_logit_bound` and its tokens equal wherever
+    the CPU's top-2 margin exceeds that bound (a smaller margin can flip
+    under bf16 noise; see BF16_LOGIT_STEPS)."""
     quant = kv_dtype == "int8"
-    phase = "serve_int8_parity" if quant else "serve_parity"
+    bf16 = model.gpt.wte.weight.dtype == torch.bfloat16
+    phase = ("serve_bf16_parity" if bf16 else
+             "serve_int8_parity" if quant else "serve_parity")
     rng = np.random.default_rng(SEED + 1)
     lens = (5, 17, 300, 600)
     cfg = model.cfg
@@ -602,7 +666,9 @@ def serve_parity(model, dev, kv_dtype="native"):
             for params, where in ((cpu_params, "cpu"), (card_params, dev))]
     lg_cpu = torch.stack([lg for lg, _ in runs[0]])
     lg_card = torch.stack([lg for lg, _ in runs[1]])
-    bound = INT8_LOGIT_BOUND if quant else LOGIT_BOUND
+    bound = (bf16_logit_bound(lg_cpu) if bf16 else
+             INT8_LOGIT_BOUND if quant else LOGIT_BOUND)
+    margin_gate = bound if bf16 else MARGIN
     diff, logits_ok = margin_gated_parity(lg_cpu, lg_card, bound)
     line = {}
     if quant:
@@ -625,14 +691,14 @@ def serve_parity(model, dev, kv_dtype="native"):
                                   quant)[0].topk(2).values
             margin = float(top2[0] - top2[1])
             rec["first_divergence"] = {"position": t, "cpu_margin": margin}
-            tokens_ok &= margin <= MARGIN
+            tokens_ok &= margin <= margin_gate
         reqs.append(rec)
-    emit({"phase": phase, "model": "gpt2-small", "dtype": "float32",
-          "kv_dtype": kv_dtype,
+    emit({"phase": phase, "model": "gpt2-small",
+          "dtype": "bfloat16" if bf16 else "float32", "kv_dtype": kv_dtype,
           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "prefill_chunk_tokens": 256, "max_new_tokens": 16,
           "prefill_logit_max_abs_diff": diff, "logit_bound": bound,
-          "margin_gate": MARGIN, "logits_ok": logits_ok,
+          "margin_gate": margin_gate, "logits_ok": logits_ok,
           "tokens_ok": tokens_ok, "requests": reqs, **line,
           "one_shot_prefills": ran["prefills"],
           "prefill_chunks": ran["prefill_chunks"],
@@ -727,40 +793,49 @@ def train_batch(rng, b, s, vocab):
     return ids[:, :-1].astype(np.int32), ids[:, 1:].astype(np.int32)
 
 
-def train_parity(dev):
-    """float32 train steps of a 2-layer GPT-2-small-width model on the card
-    and on the CPU, from the same weights and batch."""
+def train_parity(dev, dtype=torch.float32):
+    """Train steps of a 2-layer GPT-2-small-width model on the card and on
+    the CPU, from the same weights and batch: ``train_parity`` in float32
+    (losses within TRAIN_LOSS_TOL), ``train_bf16_parity`` in bfloat16 with
+    float32 masters, which holds the bf16 tensor-core flash forward end to
+    end: each step's losses within TRAIN_BF16_LOSS_TOL."""
+    bf16 = dtype == torch.bfloat16
+    phase = "train_bf16_parity" if bf16 else "train_parity"
     cfg = dict(num_layers=2, hidden_dropout=0.0, attention_dropout=0.0)
     x, y = train_batch(np.random.default_rng(SEED + 3), 4, 256, VOCAB)
     losses, launches = {}, None
     for where in (dev, "cpu"):
         model = gpt_mod.gpt2_small(
-            generator=torch.Generator().manual_seed(SEED), **cfg)
+            generator=torch.Generator().manual_seed(SEED), **cfg).to(dtype)
         step = ScanTrainStep(model, AdamW(learning_rate=1e-3, clip_norm=1.0),
                              microbatches=2, device=where)
         t0 = time.perf_counter()
         if where == dev:
-            reset_launches()               # the train path's run, float32
+            reset_launches()               # the train path's run
             registry.reset_counts()
         losses[str(where)] = [step.step(x, y) for _ in range(3)]
         if where == dev:
             n = 2 * 2 * 3                  # layers x microbatches x steps
-            launches = read_launches("train_parity",
-                                     dict.fromkeys(FLASH_KERNELS, n))
+            launches = read_launches(phase, dict.fromkeys(FLASH_KERNELS, n))
             dispatch = registry.counts()
             card_s = time.perf_counter() - t0
     card, cpu = losses[str(dev)], losses["cpu"]
-    diff = max(abs(a - c) for a, c in zip(card, cpu))
-    ok = diff <= TRAIN_LOSS_TOL and dispatch == {
+    diffs = [abs(a - c) for a, c in zip(card, cpu)]
+    tol = TRAIN_BF16_LOSS_TOL if bf16 else TRAIN_LOSS_TOL
+    ok = max(diffs) <= tol and dispatch == {
         "kernel.dispatch.flash_attention.cuda": 12}
-    emit({"phase": "train_parity", "model": "gpt2-small width, 2 layers",
-          "dtype": "float32", "batch": 4, "microbatches": 2, "seq": 256,
+    emit({"phase": phase, "model": "gpt2-small width, 2 layers",
+          "dtype": dtype_name(dtype),
+          "master_weights": "float32" if bf16 else None,
+          "flash_fwd_arm": cfa.arm(dtype, DH),
+          "batch": 4, "microbatches": 2, "seq": 256,
           "steps": 3, "card_losses": card, "cpu_losses": cpu,
-          "loss_max_abs_diff": diff, "tol": TRAIN_LOSS_TOL,
+          "loss_max_abs_diff": max(diffs), "loss_abs_diff": diffs,
+          "tol": tol,
           "launches": launches, "dispatch": dispatch,
           "card_seconds": card_s, "ok": ok})
     if not ok:
-        raise SystemExit("train_parity: card and CPU train steps disagree")
+        raise SystemExit(f"{phase}: card and CPU train steps disagree")
 
 
 def train_run(dev, smi, warmup=2, timed=8):
@@ -1125,6 +1200,8 @@ def main():
         for quant, suffix in ((False, ""), (True, "_int8")):
             cases[("paged_decode" + suffix, dtype)] = check_decode(
                 dev, timer, dtype, quant)
+            if quant:
+                check_decode(dev, timer, dtype, quant, "b1_long")
             for c, start, valid in PREFILL_CASES:
                 cases[("paged_prefill" + suffix, dtype, c)] = check_prefill(
                     dev, timer, dtype, c, start, valid, quant)
@@ -1141,6 +1218,7 @@ def main():
     serve_parity(model, dev)
     serve_parity(model, dev, kv_dtype="int8")
     model = model.to(torch.bfloat16)
+    serve_parity(model, dev)
     launches = serve_run(model, dev, smi)["launches"]
     quantized = serve_run(model, dev, smi, "serve_int8", kv_dtype="int8",
                           weight_dtype="int8")["launches"]
@@ -1148,6 +1226,7 @@ def main():
     del model
     torch.cuda.empty_cache()
     train_parity(dev)
+    train_parity(dev, torch.bfloat16)
     trained = train_run(dev, smi)
     launches.update((k, trained[k]) for k in FLASH_KERNELS)
     torch.cuda.empty_cache()

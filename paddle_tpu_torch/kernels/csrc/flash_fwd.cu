@@ -14,20 +14,26 @@
 // once: at S = 1024, D = 64 that is ~16 operations per byte in bf16,
 // so the bound is the causal operation count over the dtype's peak rate.
 //
-// What the design does about it: grid (query block of 64 rows, b*h), the
-// longest causal blocks launched first. A block keeps its 64 scaled query
-// rows in shared memory and walks the key tiles up to its last visible
-// one, skipping the tiles past the causal diagonal; each K/V tile is
-// staged in shared memory once and read there by every row. The score and
-// value products are register-tiled (4 rows x 4 keys, or 4 rows x 4 head
-// dims, per thread), and each row keeps its running max, sum and
-// accumulator in f32 registers. Known gap: the products run on the CUDA
-// cores in f32, not on the tensor cores (wgmma), which is where this
-// operation-bound kernel loses most of its time (ROADMAP B).
+// Two loops, picked by a fixed rule before the launch (`mma_takes`, the
+// wrapper's `arm`): q, k, v in bfloat16 with a head dim that is a multiple
+// of 16 up to 128 run on the tensor cores (flash_fwd_mma.cuh, whose header
+// gives that loop's design); float32 and the other head dims run the
+// CUDA-core loop below, unchanged.
+//
+// The CUDA-core loop: grid (query block of 64 rows, b*h), the longest
+// causal blocks launched first. A block keeps its 64 scaled query rows in
+// shared memory and walks the key tiles up to its last visible one,
+// skipping the tiles past the causal diagonal; each K/V tile is staged in
+// shared memory once and read there by every row. The score and value
+// products are register-tiled (4 rows x 4 keys, or 4 rows x 4 head dims,
+// per thread), and each row keeps its running max, sum and accumulator in
+// f32 registers. Float32 stays on the CUDA cores because the tensor cores
+// would take it only as TF32.
 
 #include <cmath>
 
 #include "flash_common.cuh"
+#include "flash_fwd_mma.cuh"
 
 namespace paddle_tpu_torch {
 namespace {
@@ -164,8 +170,9 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 // C entry point, bound with ctypes by paddle_tpu_torch/kernels/cuda/
 // flash_attention.py. q and out [bh, sq, d], k and v [bh, sk, d], all of
 // one dtype (0 float32, 1 bfloat16) and contiguous; lse [bh, sq] float32.
-// Launches on `stream` without synchronising; returns the launch's
-// cudaGetLastError().
+// bfloat16 with mma_takes(dtype, d) takes the tensor-core loop, which needs
+// q, k, v and out on 16-byte boundaries. Launches on `stream` without
+// synchronising; returns the launch's cudaGetLastError().
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, int bh, int sq, int sk, int d,
                          int causal, float scale, int dtype, void* stream) {
@@ -175,6 +182,11 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mma_takes(dtype, d)) {
+    if (!aligned16(q, k, v, out)) return (int)cudaErrorInvalidValue;
+    return launch_flash_fwd_mma(q, k, v, out, l, bh, sq, sk, d, causal,
+                                scale, s);
+  }
   if (dtype == kFloat32)
     return dispatch<float>(q, k, v, out, l, bh, sq, sk, d, causal, scale, s);
   if (dtype == kBFloat16)

@@ -8,6 +8,12 @@ the dtype (see each source's header for the design against it). The
 wrappers take CUDA tensors only and always launch their kernel;
 `kernels/flash_attention.py` sends CPU tensors to the plain versions.
 Layout [B*H, S, D], contiguous, float32 or bfloat16.
+
+The forward kernel holds two loops and picks one by a fixed rule before
+the launch (:func:`arm`): bfloat16 with a head dim that is a multiple of 16
+up to 128 takes the tensor-core loop of `csrc/flash_fwd_mma.cuh`
+(``"mma_bf16"``), everything else the CUDA-core loop of `csrc/flash_fwd.cu`
+(``"cuda_core"``). The backward pair runs on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -19,13 +25,37 @@ from paddle_tpu_torch.kernels._build import CudaKernel
 from paddle_tpu_torch.kernels.cuda import (DTYPE_CODES, MAX_HEAD_DIM,
                                            require_cuda)
 
-__all__ = ["FWD", "DQ", "DKV", "flash_fwd", "flash_dq", "flash_dkv"]
+__all__ = ["FWD", "DQ", "DKV", "MMA_BLOCK_Q", "CORE_BLOCK_Q", "arm", "grid",
+           "flash_fwd", "flash_dq", "flash_dkv"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FWD = CudaKernel("flash_fwd", "flash_fwd", [_P] * 5 + [_I] * 5 + [_F, _I, _P])
 DQ = CudaKernel("flash_dq", "flash_dq", [_P] * 7 + [_I] * 5 + [_F, _I, _P])
 DKV = CudaKernel("flash_dkv", "flash_dkv",
                  [_P] * 8 + [_I] * 5 + [_F, _I, _P])
+
+MMA_BLOCK_Q = 128    # query rows a block (flash_fwd_mma.cuh, Tile)
+CORE_BLOCK_Q = 64    # the CUDA-core loop's query block (flash_common.cuh)
+
+
+def arm(dtype, d: int) -> str:
+    """The loop a forward call takes, the rule of the C entry point
+    (`mma_takes`): ``"mma_bf16"`` (tensor cores) for bfloat16 with ``d`` a
+    multiple of 16 up to 128, else ``"cuda_core"``. float32 stays on the
+    CUDA cores because the tensor cores would take it only as TF32."""
+    d = int(d)
+    if dtype == torch.bfloat16 and 0 < d <= 128 and d % 16 == 0:
+        return "mma_bf16"
+    return "cuda_core"
+
+
+def grid(bh: int, sq: int, dtype, d: int) -> tuple[int, int]:
+    """The forward's launch grid: (b*h, query tiles) on the tensor-core
+    loop, whose blockIdx.y 0 takes the last (heaviest causal) tile of every
+    (b, h); (query blocks, b*h) on the CUDA-core loop."""
+    if arm(dtype, d) == "mma_bf16":
+        return int(bh), -(-int(sq) // MMA_BLOCK_Q)
+    return -(-int(sq) // CORE_BLOCK_Q), int(bh)
 
 
 def _check(op, q, k, v, causal, extra=()):
@@ -79,6 +109,11 @@ def _stream(t):
 def flash_fwd(q, k, v, sm_scale, causal):
     """(out [BH, Sq, D] in q.dtype, lse [BH, Sq] f32)."""
     bh, sq, sk, d = _check("flash_fwd", q, k, v, causal)
+    if arm(q.dtype, d) == "mma_bf16" and any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_fwd: the tensor-core loop copies 16 bytes at "
+                         "a time; q, k and v must start on 16-byte "
+                         "boundaries")
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     FWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -21,7 +21,10 @@ same tolerance. Float32 stays on the CUDA cores. The card engine equals
 the CPU engine token for token, native and int8.
 The flash kernels: in float32 2e-5 (forward) and 1e-4 (gradients) times
 the largest reference value when that exceeds 1; in bfloat16 one bfloat16
-step of the largest reference value, never less than the float32 bound.
+step of the largest reference value, never less than the float32 bound
+(the bf16 forward runs on the tensor cores and rounds P to bf16 for P V,
+at most 2^-9 of each weight; its lse, from the f32 p, keeps 2e-5). The
+split int8 decode holds the same bounds as the per-(b, h) loop.
 The fused cross-entropy on the card against the CPU: losses within 1e-4,
 gradients within one bf16 step (2^-8) of their largest value.
 The fused layernorm kernels: y within 2e-5 and dx within 1e-4 in
@@ -264,6 +267,115 @@ def test_bf16_prefill_op_launches_the_tensor_core_kernel_once(
     assert (got.float() - ref.float()).abs().max().item() <= 2e-2
 
 
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b", [1, 8, 32, 64])
+def test_int8_decode_split_loop_matches_plain(card, dtype, tol, b):
+    """The split loop at GPT-2 small's heads (12 of 64, pages of 16, 64
+    pages a slot; 8 splits a row at B=1 and 8, fewer at B=32 and 64):
+    positions 0,
+    mid-page, a slot's last key and capacity (a trash-only row), each call
+    one launch, the visits equal to
+    pages_needed, and a second call equal to the first (the tickets are
+    left at zero)."""
+    rng = np.random.default_rng(200 + b)
+    nh, dh, ps, maxp = 12, 64, 16, 64
+    kp, vp, ks, vs = _int8_pools(rng, 1 + b * maxp, ps, nh, dh, card)
+    table = (1 + rng.permutation(b * maxp)).reshape(b, maxp)
+    pos = rng.integers(0, maxp * ps, b).astype(np.int32)
+    pos[0] = maxp * ps - 1 if b == 1 else 0
+    if b > 1:
+        pos[1], table[-1], pos[-1] = 40, 0, maxp * ps   # mid-page; trash
+    q = torch.from_numpy(rng.standard_normal((b, nh, dh), dtype=np.float32)
+                         ).to(card, dtype)
+    pt = torch.from_numpy(table.astype(np.int32)).to(card)
+    pos_t = torch.from_numpy(pos).to(card)
+    assert cdec.arm(dh) == "split"
+    n = cdec.splits(b, nh, maxp, ps, torch.cuda.get_device_properties(
+        card).multi_processor_count)
+    assert cdec.grid(b, nh, maxp, ps, 132, dh)[0] == b * nh
+    before = cdec.KERNEL_INT8.launches
+    out, visits = cdec.paged_decode_int8(q, kp, vp, ks, vs, pt, pos_t,
+                                         return_visits=True)
+    assert cdec.KERNEL_INT8.launches == before + 1
+    torch.cuda.synchronize()
+    ref = pa._plain_paged_attention(q, kp, vp, pt, pos_t, ks, vs)
+    assert out.dtype == dtype
+    assert (out.float() - ref.float()).abs().max().item() <= tol, n
+    want = cdec.pages_needed(pos_t, ps, maxp).to(torch.int32)
+    assert torch.equal(visits, want[:, None].expand_as(visits))
+    again = cdec.paged_decode_int8(q, kp, vp, ks, vs, pt, pos_t)
+    assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("dh", [16, 48, 128, 160, 256, 40])
+def test_int8_decode_arms_cover_head_dims(card, dh):
+    """Head dims of every lane layout of the split loop (4, 16 and 32
+    lanes a V row, two char4 a lane above 128), and dh=40, which keeps the
+    per-(b, h) loop; two splits of 32 pages of 4, the second empty for the
+    rows at 0 and 13."""
+    rng = np.random.default_rng(300 + dh)
+    b, nh, ps, maxp = 3, 2, 4, 40
+    kp, vp, ks, vs = _int8_pools(rng, 1 + b * maxp, ps, nh, dh, card)
+    table = (1 + rng.permutation(b * maxp)).reshape(b, maxp)
+    pos = np.array([0, 13, maxp * ps - 1], np.int32)
+    q = torch.from_numpy(rng.standard_normal((b, nh, dh), dtype=np.float32)
+                         ).to(card)
+    pt = torch.from_numpy(table.astype(np.int32)).to(card)
+    pos_t = torch.from_numpy(pos).to(card)
+    assert cdec.arm(dh) == ("per_head" if dh == 40 else "split")
+    out, visits = cdec.paged_decode_int8(q, kp, vp, ks, vs, pt, pos_t,
+                                         return_visits=True)
+    torch.cuda.synchronize()
+    ref = pa._plain_paged_attention(q, kp, vp, pt, pos_t, ks, vs)
+    assert (out - ref).abs().max().item() <= 2e-5
+    want = cdec.pages_needed(pos_t, ps, maxp).to(torch.int32)
+    assert torch.equal(visits, want[:, None].expand_as(visits))
+
+
+def test_int8_decode_split_counts_share_tickets_on_a_stream(card):
+    """Calls with other split counts on one (b, h) count (8 splits of a
+    64-page slot, 4 of a 32-page one) share the tickets of their stream:
+    back to back with no synchronisation, each equals the plain version and
+    its repeat; on a second stream, running beside the first, the calls
+    take tickets of their own and are right too."""
+    rng = np.random.default_rng(400)
+    b, nh, dh, ps = 8, 12, 64, 16
+    kp, vp, ks, vs = _int8_pools(rng, 1 + b * 64, ps, nh, dh, card)
+    sm = torch.cuda.get_device_properties(card).multi_processor_count
+    calls = []
+    for maxp in (64, 32):
+        table = (1 + rng.permutation(b * 64)[:b * maxp]).reshape(b, maxp)
+        pos = rng.integers(0, maxp * ps, b).astype(np.int32)
+        calls.append((torch.from_numpy(rng.standard_normal(
+            (b, nh, dh), dtype=np.float32)).to(card, torch.bfloat16),
+            torch.from_numpy(table.astype(np.int32)).to(card),
+            torch.from_numpy(pos).to(card)))
+    assert [cdec.splits(b, nh, pt.shape[1], ps, sm)
+            for _, pt, _ in calls] == [8, 4]
+    refs = [pa._plain_paged_attention(q, kp, vp, pt, pos, ks, vs)
+            for q, pt, pos in calls]
+
+    def run_all():
+        return [cdec.paged_decode_int8(q, kp, vp, ks, vs, pt, pos)
+                for q, pt, pos in calls * 2]
+
+    outs = run_all()
+    side = torch.cuda.Stream(card)
+    with torch.cuda.stream(side):
+        side_outs = run_all()
+    main_outs = run_all()
+    torch.cuda.synchronize()
+    tickets = {s: cdec._tickets(card, b * nh, s.cuda_stream)
+               for s in (torch.cuda.current_stream(card), side)}
+    assert len({t.data_ptr() for t in tickets.values()}) == 2
+    for got in (outs, side_outs, main_outs):
+        for i, out in enumerate(got):
+            assert (out.float() - refs[i % 2].float()).abs().max().item() \
+                <= 2e-2
+            assert torch.equal(out, outs[i % 2])
+    assert all(int(t.abs().sum()) == 0 for t in tickets.values())
+
+
 def test_int8_wrappers_refuse_float_pools_on_the_card(card):
     q = torch.zeros(2, 2, 8, device=card)
     kp = torch.zeros(5, 4, 2, 8, device=card)
@@ -364,6 +476,53 @@ def test_flash_kernels_match_plain(card, dtype, case):
     # each output element is written by one block: runs repeat bit for bit
     assert torch.equal(cfa.flash_dkv(q, k, v, do, rlse, delta, scale,
                                      causal)[0], dk)
+
+
+# (bh, sq, sk, causal): square causal, ragged (a tail shorter than a query
+# tile and a key tile), cross-length bottom-right, non-causal Sq > Sk
+MMA_FLASH_SHAPES = [(4, 256, 256, True), (3, 200, 200, True),
+                    (2, 64, 300, True), (2, 130, 70, False),
+                    (2, 100, 333, False)]
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 72])
+def test_flash_fwd_tensor_core_arm_matches_plain(card, d):
+    """bf16 with d a multiple of 16 up to 128 takes the tensor-core loop
+    (one launch a call), d=72 the CUDA-core loop; out within one bf16 step
+    of the largest reference value, lse within 2e-5 relative (f32 on both
+    sides, p kept in f32 for the row sum)."""
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    assert cfa.arm(torch.bfloat16, d) == ("cuda_core" if d == 72
+                                          else "mma_bf16")
+    assert cfa.arm(torch.float32, d) == "cuda_core"
+    for i, (bh, sq, sk, causal) in enumerate(MMA_FLASH_SHAPES):
+        q, k, v, _ = _flash_inputs((bh, sq, sk, d, causal), card,
+                                   torch.bfloat16, seed=d + i)
+        scale = 1.0 / np.sqrt(d)
+        before = cfa.FWD.launches
+        out, lse = cfa.flash_fwd(q, k, v, scale, causal)
+        assert cfa.FWD.launches == before + 1
+        torch.cuda.synchronize()
+        rout, rlse = tfa._plain_flash_fwd(q, k, v, scale, causal)
+        assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+        err = (out.float() - rout.float()).abs().max().item()
+        assert err <= _flash_tol(torch.bfloat16, rout, 2e-5), (i, err)
+        assert (lse - rlse).abs().max().item() <= 2e-5 * max(
+            1.0, rlse.abs().max().item()), i
+
+
+def test_flash_fwd_tensor_core_arm_refuses_misaligned_q(card):
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    buf = torch.zeros(2 * 64 * 64 + 4, dtype=torch.bfloat16, device=card)
+    q = buf[4:].view(2, 64, 64)            # 8 bytes past the allocation
+    k = torch.zeros(2, 64, 64, dtype=torch.bfloat16, device=card)
+    assert q.data_ptr() % 16 == 8
+    before = cfa.FWD.launches
+    with pytest.raises(ValueError, match="16-byte boundaries"):
+        cfa.flash_fwd(q, k, k, 0.125, True)
+    assert cfa.FWD.launches == before
+    assert cfa.grid(96, 1024, torch.bfloat16, 64) == (96, 8)
 
 
 def test_flash_op_takes_the_kernels_forward_and_backward(card):

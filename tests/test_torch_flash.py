@@ -149,3 +149,64 @@ def test_plain_gradcheck_float64(causal, sq, sk):
     assert torch.autograd.gradcheck(
         lambda a, b, c: tfa.flash_attention(a, b, c, causal=causal),
         (q, k, v), eps=1e-6, atol=1e-6)
+
+
+def _mma_flash_emulation(q, k, v, scale, causal, tile=64):
+    """The arithmetic of the tensor-core forward loop
+    (`kernels/csrc/flash_fwd_mma.cuh`) in plain torch: bf16 q, k, v; S = q
+    k^T in f32 over 64-key tiles, the scale applied after the product; an
+    online softmax in f32 on the raw scores; the row sum l from the f32 p;
+    p rounded to bf16 before P V (f32 sums); out rounded to bf16 and
+    lse = m * scale + log(l)."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    rows = torch.arange(sq)[:, None]
+    m = torch.full((bh, sq), -np.inf)
+    l = torch.zeros(bh, sq)
+    o = torch.zeros(bh, sq, d)
+    for k0 in range(0, sk, tile):
+        keys = torch.arange(k0, min(k0 + tile, sk))
+        s = torch.einsum("bqd,bkd->bqk", qf, kf[:, keys])
+        if causal:
+            s = s.masked_fill(keys[None, :] > rows + (sk - sq), -np.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp((s - m_new[..., None]) * scale)
+        alpha = torch.exp((m - m_new) * scale)
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + torch.einsum(
+            "bqk,bkd->bqd", p.to(torch.bfloat16).float(), vf[:, keys])
+        m = m_new
+    lc = l.clamp_min(1e-30)
+    return (o / lc[..., None]).to(torch.bfloat16), m * scale + torch.log(lc)
+
+
+# (bh, sq, sk, d, causal, pallas block): causal S=256, cross Sq=64 / Sk=300
+# (ragged, bottom-right), non-causal S=192 with GPT-2's head dim
+MMA_CASES = [(2, 256, 256, 64, True, 64), (2, 64, 300, 32, True, 64),
+             (2, 192, 192, 64, False, 64)]
+
+
+@pytest.mark.parametrize("case", MMA_CASES)
+def test_tensor_core_forward_rounding_matches_pallas(case):
+    # within one bf16 step of the largest value (2^-7 of it), the bound the
+    # card's kernel lines hold; lse within 1e-4 (f32 from bf16 inputs)
+    (jq, jk, jv, _), (q, k, v, _) = _arrays(case, "bfloat16", seed=5)
+    scale = float(1.0 / np.sqrt(case[3]))
+    jout, jlse = _fwd(jq, jk, jv, scale, case[4], case[5], case[5], True)
+    out, lse = _mma_flash_emulation(q, k, v, scale, case[4])
+    ref = _np(jout)
+    big = np.abs(ref).max()
+    err = np.abs(_np(out) - ref).max()
+    assert err <= max(2e-5 * max(1.0, big), 2.0 ** -7 * big), (err, big)
+    assert np.abs(lse.numpy() - np.asarray(jlse)).max() <= 1e-4
+
+
+def test_forward_arm_rule():
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    assert [cfa.arm(torch.bfloat16, d) for d in (16, 64, 128, 72, 256)] == [
+        "mma_bf16", "mma_bf16", "mma_bf16", "cuda_core", "cuda_core"]
+    assert cfa.arm(torch.float32, 64) == "cuda_core"
+    # the train shape: 96 (b, h) x 8 query tiles of 128 on the tensor cores
+    assert cfa.grid(96, 1024, torch.bfloat16, 64) == (96, 8)
+    assert cfa.grid(96, 1024, torch.float32, 64) == (16, 96)

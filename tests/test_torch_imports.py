@@ -253,3 +253,24 @@ def test_rotary_wrapper_refuses_bad_input(case, match):
         sin = sin.bfloat16()
     with pytest.raises(ValueError, match=match):
         crot.rotary(q, k, cos, sin)
+
+
+@pytest.mark.parametrize("fault", ["mask_leak", "pv_pair_swap",
+                                   "pv_round_toward_zero", "lse_log2"])
+def test_bf16_parity_controls_plant_into_the_sources(fault, tmp_path):
+    """Each planted fault of `bf16_parity_controls.py` changes the kernel
+    sources as they are now (each text it replaces occurs once), so the
+    controls of the bf16 end-to-end checks keep running on the card."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import bf16_parity_controls as ctl
+    finally:
+        sys.path.remove(str(REPO))
+    edits = ctl.FAULTS[fault][1]
+    for rel, _, _ in edits:
+        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / rel).write_text((REPO / rel).read_text())
+    ctl.plant(tmp_path, edits)
+    for rel, text, planted in edits:
+        src = (tmp_path / rel).read_text()
+        assert planted in src and src != (REPO / rel).read_text()

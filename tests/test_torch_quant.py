@@ -50,6 +50,7 @@ from paddle_tpu.quantization import serving as jserving
 from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.kernels import registry
+from paddle_tpu_torch.kernels.cuda import paged_attention as cpre_dec
 from paddle_tpu_torch.kernels.cuda import prefill_attention as cpre
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models.convert import params_from_numpy
@@ -277,6 +278,120 @@ def test_tensor_core_prefill_rounding_within_bf16_tolerance(pool, start):
                                       *sc)[0]
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= 2e-2, err
+
+
+def _split_ranges(n_splits, pages_per_slot, npages):
+    """Page range [first, end) each split of a row walks in the split
+    decode loop: ceil(pages_per_slot / n_splits) pages each, cut at the
+    row's ``npages``; empty for a split wholly past it."""
+    per = -(-pages_per_slot // n_splits)
+    return [(min(s * per, npages), min((s + 1) * per, npages))
+            for s in range(n_splits)]
+
+
+def _split_decode_emulation(q, kq, vq, pt, pos, ks, vs, n_splits):
+    """The arithmetic of the split int8 decode loop
+    (`kernels/csrc/paged_decode_split.cuh`) in plain torch: each split of a
+    row takes its page range (`_split_ranges`), cut at the row's
+    length-aware stop, forms s = (q . k_int8) * k_scale / sqrt(dh) with the
+    scale after the product, and keeps (m, l, acc) with p * v_scale against
+    the int8 values; a split past the row's last page is empty (m = -inf,
+    l = 0) and weighs 0 in the merge. All f32."""
+    b, nh, dh = q.shape
+    ps, maxp = kq.shape[1], pt.shape[1]
+    scale = torch.tensor(1.0 / dh ** 0.5, dtype=torch.float32)
+    kflat, vflat = kq.reshape(-1, nh, dh), vq.reshape(-1, nh, dh)
+    ksf, vsf = ks.reshape(-1, nh), vs.reshape(-1, nh)
+    out = torch.zeros(b, nh, dh)
+    for bi in range(b):
+        p_ = int(pos[bi])
+        npages = cpre_dec.pages_needed(p_, ps, maxp)
+        nkeys = min(p_ + 1, maxp * ps)
+        parts = []
+        for first, end in _split_ranges(n_splits, maxp, npages):
+            kb, ke = first * ps, min(end * ps, nkeys)
+            if ke <= kb:
+                parts.append((torch.full((nh,), -np.inf), torch.zeros(nh),
+                              None))
+                continue
+            keys = torch.arange(kb, ke)
+            slots = pt[bi, keys // ps].long() * ps + keys % ps
+            s = torch.einsum("hd,lhd->hl", q[bi].float(),
+                             kflat[slots].float())
+            s = s * (ksf[slots].T * scale)
+            m = s.amax(-1)
+            pr = torch.exp(s - m[:, None])
+            acc = torch.einsum("hl,lhd->hd", pr * vsf[slots].T,
+                               vflat[slots].float())
+            parts.append((m, pr.sum(-1), acc))
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        tot_l, tot = torch.zeros(nh), torch.zeros(nh, dh)
+        for m, l_, acc in parts:
+            if acc is None:
+                continue
+            w = torch.exp(m - mx)
+            tot_l += w * l_
+            tot += w[:, None] * acc
+        out[bi] = tot / tot_l.clamp_min(1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+# (b, maxp, pos, n_splits, against Pallas): pos 0 (every split but the
+# first empty); 3 splits over 5 pages (not dividing: 2 + 2 + 1); more
+# splits than pages (5 over 3: two empty for every row); a row at
+# capacity on the trash page (the Pallas kernel lacks the clamp, C2: held
+# against the XLA arm and the plain version only)
+SPLIT_CASES = {
+    "pos_zero": (2, 4, [0, 0], 4, True),
+    "uneven": (3, 5, [0, 9, 19], 3, True),
+    "more_splits_than_pages": (2, 3, [5, 11], 5, True),
+    "capacity_trash_row": (2, 3, [5, 12], 2, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_int8_decode_emulation_matches_pallas_and_plain(name):
+    b, maxp, pos, n_splits, pallas = SPLIT_CASES[name]
+    args = list(_decode_case(5, b=b, maxp=maxp, pos=pos))
+    if name == "capacity_trash_row":
+        args[3][1] = 0                   # inactive slot: all trash
+    q, kq, vq, pt, pos_, ks, vs = map(torch.from_numpy, args)
+    got = _split_decode_emulation(q, kq, vq, pt, pos_, ks, vs, n_splits)
+    plain = pa._plain_paged_attention(q, kq, vq, pt, pos_, ks, vs)
+    assert _maxabs(got, plain) <= 2e-5
+    ja = list(map(jnp.asarray, args))
+    want = jpa._xla_paged_attention(*ja[:5], k_scale=ja[5], v_scale=ja[6])
+    assert _maxabs(got, want) <= 2e-5
+    if pallas:
+        want_pl = jdec.paged_attention(*ja[:5], k_scale=ja[5],
+                                       v_scale=ja[6], interpret=True)
+        assert _maxabs(got, want_pl) <= 2e-5
+
+
+def test_split_rule_depends_on_shapes_only():
+    # GPT-2 small's 12 heads, 64 pages of 16 a slot, 132 SMs: splits of 8
+    # pages (128 keys) up to B=12, then fewer as the rows fill the card;
+    # ranges cover the slot once and stop at the row's pages
+    assert cpre_dec.splits(8, 12, 64, 16, 132) == 8
+    assert cpre_dec.splits(1, 12, 64, 16, 132) == 8
+    assert cpre_dec.splits(32, 12, 64, 16, 132) == 3
+    assert cpre_dec.splits(88, 12, 64, 16, 132) == 1
+    assert cpre_dec.splits(1, 12, 64, 64, 132) == 32     # 2 pages of 64
+    assert cpre_dec.splits(1, 1, 3, 8, 132) == 1       # 24 keys: one group
+    assert cpre_dec.splits(1, 1, 40, 4, 132) == 2
+    assert cpre_dec.grid(8, 12, 64, 16, 132, 64) == (96, 8)
+    assert cpre_dec.grid(8, 12, 64, 16, 132, 40) == (8, 12)
+    assert [cpre_dec.arm(d) for d in (16, 64, 256, 40, 272)] == [
+        "split", "split", "split", "per_head", "per_head"]
+    for b, nh, maxp, ps in ((8, 12, 64, 16), (1, 12, 64, 16), (3, 2, 5, 4),
+                            (1, 1, 1, 16), (2, 3, 1000, 1)):
+        n = cpre_dec.splits(b, nh, maxp, ps, 132)
+        ranges = _split_ranges(n, maxp, maxp)
+        assert 1 <= n <= min(maxp, cpre_dec.MAX_SPLITS)
+        assert ranges[0][0] == 0 and ranges[-1][1] == maxp
+        assert all(a < e for a, e in ranges)        # none empty by shape
+        assert all(ranges[i][1] == ranges[i + 1][0] for i in range(n - 1))
+    assert _split_ranges(3, 64, 1) == [(0, 1), (1, 1), (1, 1)]
 
 
 # ------------------------------------------------------------ weight int8
