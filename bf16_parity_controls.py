@@ -57,6 +57,20 @@ FAULTS = {
           "__nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);",
           "__nv_bfloat162 v = __halves2bfloat162(__float2bfloat16_rz(lo), "
           "__float2bfloat16_rz(hi));")]),
+    "dkv_mask_leak": (
+        "the tensor-core dK/dV loop lets each causal row see one key past "
+        "its limit",
+        [(CSRC + "flash_dkv_mma.cuh",
+          "if (masked && (qry >= sq || (causal && key > qry + off))) p = 0.f;",
+          "if (masked && (qry >= sq || (causal && key > qry + off + 1))) "
+          "p = 0.f;")]),
+    "decode_split_drop": (
+        "the float split decode's merge drops the partial of the last "
+        "split that holds keys, where that is not the first split",
+        [(CSRC + "paged_decode_split.cuh",
+          "const float w = sm_w[s] == -INFINITY ? 0.f : expf(sm_w[s] - gm);",
+          "const float w = sm_w[s] == -INFINITY || (!kScaled && s > 0 && "
+          "s == (npages - 1) / pps) ? 0.f : expf(sm_w[s] - gm);")]),
     "lse_log2": (
         "flash_fwd's tensor-core lse takes log2 of the row sum for its "
         "natural log (the backward pair reads it)",

@@ -27,12 +27,13 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    must move over 3.35 TB/s and its operations over the dtype's peak (67
    TFLOP/s float32, 989 TFLOP/s bfloat16), and ``vs_library``, the
    kernel's time over the library call's. The prefill lines (PREFILL_CASES)
-   and the ``flash_fwd`` lines also name the loop the call took (``arm``:
-   ``mma_bf16``, the tensor cores, for bfloat16; ``cuda_core`` for
-   float32) and its launch ``grid`` (the prefill's ``block_q`` is in
-   ``shape``); the ``paged_decode_int8`` lines name theirs (``split``) with
-   its ``splits`` and ``grid``, at the serve run's B=8 positions and at
-   B=1, pos=1023 (``case`` ``b1_long``, DECODE_CASES).
+   and the ``flash_fwd`` and ``flash_dkv`` lines also name the loop the
+   call took (``arm``: ``mma_bf16``, the tensor cores, for bfloat16;
+   ``cuda_core`` for float32) and its launch ``grid`` (the prefill's
+   ``block_q`` is in ``shape``); the ``paged_decode`` and
+   ``paged_decode_int8`` lines name theirs (``split``) with its ``splits``
+   and ``grid``, at the serve run's B=8 positions and at B=1, pos=1023
+   (``case`` ``b1_long``, DECODE_CASES).
    The three flash-attention
    kernels (forward, dq, dk/dv) are held the same way at the training
    shape (B=8, H=12, S=1024, D=64, causal), a ragged causal S=200, a
@@ -383,11 +384,9 @@ def check_decode(dev, timer, dtype, quant=False, case="serve"):
         "library_ms": timer.ms(lambda: sdpa(qs, kw, vw, attn_mask=mask)),
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
     }
-    if quant:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        line.update(arm=cdec.arm(DH),
-                    splits=cdec.splits(b, NH, MAXP, PS, sms),
-                    grid=list(cdec.grid(b, NH, MAXP, PS, sms, DH)))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    line.update(arm=cdec.arm(DH), splits=cdec.splits(b, NH, MAXP, PS, sms),
+                grid=list(cdec.grid(b, NH, MAXP, PS, sms, DH)))
     line["vs_library"] = line["kernel_ms"] / line["library_ms"]
     emit(line)
     if not (err <= TOL[dtype] and visits_ok):
@@ -558,6 +557,9 @@ def check_flash(dev, timer, dtype, case):
         if kern == "flash_fwd":
             line.update(arm=cfa.arm(dtype, d),
                         grid=list(cfa.grid(b * h, sq, dtype, d)))
+        elif kern == "flash_dkv":
+            line.update(arm=cfa.dkv_arm(dtype, d),
+                        grid=list(cfa.dkv_grid(b * h, sk, dtype, d)))
         emit(line)
         if not ok:
             raise SystemExit(f"{kern} {dtype} {name}: err {err} over "
@@ -1200,8 +1202,7 @@ def main():
         for quant, suffix in ((False, ""), (True, "_int8")):
             cases[("paged_decode" + suffix, dtype)] = check_decode(
                 dev, timer, dtype, quant)
-            if quant:
-                check_decode(dev, timer, dtype, quant, "b1_long")
+            check_decode(dev, timer, dtype, quant, "b1_long")
             for c, start, valid in PREFILL_CASES:
                 cases[("paged_prefill" + suffix, dtype, c)] = check_prefill(
                     dev, timer, dtype, c, start, valid, quant)

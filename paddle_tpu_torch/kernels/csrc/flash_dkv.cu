@@ -14,16 +14,23 @@
 // 8 * D operations per visible (query, key) pair, against reading q, k, v,
 // dO, lse and delta and writing dk and dv once.
 //
-// What the design does about it: grid (key block, b*h). A block keeps its
-// K and V rows in shared memory and walks the query tiles of 64 rows from
-// the first one that can see its keys, `max(0, k0 - (Sk - Sq)) / 64`, as
-// the Pallas kernel starts (:170-173); the earliest key blocks see the most
+// Two loops, picked by a fixed rule before the launch (`mma_takes`, the
+// wrapper's `dkv_arm`): q, k, v and dO in bfloat16 with a head dim that is
+// a multiple of 16 up to 128 run on the tensor cores (flash_dkv_mma.cuh,
+// whose header gives that loop's design); float32 and the other head dims
+// run the CUDA-core loop below, unchanged. Float32 stays on the CUDA cores
+// because the tensor cores would take it only as TF32.
+//
+// The CUDA-core loop: grid (key block, b*h). A block keeps its K and V
+// rows in shared memory and walks the query tiles of 64 rows from the
+// first one that can see its keys, `max(0, k0 - (Sk - Sq)) / 64`, as the
+// Pallas kernel starts (:170-173); the earliest key blocks see the most
 // query rows and are launched first. Each q/dO tile is staged once; the
 // transposed scores and dP come from one register-tiled pass, and dk, dv
-// accumulate in f32 registers. Known gap: CUDA cores in f32, not the tensor
-// cores (ROADMAP B).
+// accumulate in f32 registers.
 
 #include "flash_common.cuh"
+#include "flash_dkv_mma.cuh"
 
 namespace paddle_tpu_torch {
 namespace {
@@ -162,8 +169,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
 // C entry point, bound with ctypes by paddle_tpu_torch/kernels/cuda/
 // flash_attention.py. q and dout [bh, sq, d], k, v, dk and dv [bh, sk, d],
 // all of one dtype (0 float32, 1 bfloat16) and contiguous; lse and delta
-// [bh, sq] float32. Launches on `stream` without synchronising; returns
-// the launch's cudaGetLastError().
+// [bh, sq] float32. bfloat16 with mma_takes(dtype, d) takes the
+// tensor-core loop, which needs q, k, v and dout on 16-byte boundaries.
+// Launches on `stream` without synchronising; returns the launch's
+// cudaGetLastError().
 extern "C" int flash_dkv(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dk, void* dv, int bh, int sq, int sk, int d,
@@ -175,6 +184,11 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mma_takes(dtype, d)) {
+    if (!aligned16(q, k, v, dout)) return (int)cudaErrorInvalidValue;
+    return launch_flash_dkv_mma(q, k, v, dout, l, dl, dk, dv, bh, sq, sk, d,
+                                causal, scale, s);
+  }
   if (dtype == kFloat32)
     return dispatch<float>(q, k, v, dout, l, dl, dk, dv, bh, sq, sk, d,
                            causal, scale, s);

@@ -45,7 +45,8 @@
 //   from it as before.
 // - Rows at or past Sq are computed from zeros and never written.
 // Left for later: wgmma with TMA boxes and producer warps (the products
-// still issue as mma.sync), and the backward pair on the tensor cores.
+// still issue as mma.sync), and dQ on the tensor cores (dK and dV run
+// there, flash_dkv_mma.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

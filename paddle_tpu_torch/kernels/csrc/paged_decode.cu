@@ -1,23 +1,38 @@
 // Ragged paged-attention DECODE kernel for Hopper (sm_90a), float pools.
 //
 // Replaces: paddle_tpu/kernels/pallas/paged_attention.py::_decode_kernel
-// (entry `paged_attention`), its float arm. The loop, its bound and its
-// design are in paged_decode.cuh, shared with the int8 kernel
-// (paged_decode_int8.cu).
+// (entry `paged_attention`), its float arm: one query token per sequence
+// against its K/V pages of q's dtype, an f32 online softmax over keys
+// 0..pos with the length-aware page stop.
+//
+// Bound on the H100: memory, the live pages' K and V bytes over 3.35 TB/s.
+//
+// Two loops, picked by a fixed rule before the launch (`split_takes`, the
+// wrapper's `arm`), the same as the int8 kernel's (paged_decode_int8.cu):
+// a head dim that is a multiple of 16 up to 256 takes the loop split
+// across blocks of paged_decode_split.cuh ("split"), whose header gives
+// its design: 16-byte key loads, a lane per key for the scores and 4 dims
+// a lane for P V, the splits merged in the same launch. Other head dims
+// keep the one-block-per-(b, h) loop of paged_decode.cuh ("per_head").
 
 #include "paged_decode.cuh"
+#include "paged_decode_split.cuh"
 
 // C entry point, bound with ctypes by paddle_tpu_torch/kernels/cuda/
 // paged_attention.py. Every tensor is contiguous: q and out [batch, nh, dh],
-// pools [num_pages, ps, nh, dh] of q's dtype, page_table [batch, maxp]
-// int32, positions [batch] int32, visits [batch, nh] int32 or null.
-// Launches on `stream` without synchronising; returns the launch's
-// cudaGetLastError().
+// pools [num_pages, ps, nh, dh] of q's dtype (`dtype`), page_table
+// [batch, maxp] int32, positions [batch] int32, visits [batch, nh] int32
+// or null. The split loop also takes `splits`, the partials
+// [batch * nh * splits * (dh + 2)] f32 and the tickets [batch * nh] u32
+// (zero before the first launch; every launch leaves them zero), both may
+// be null when splits is 1, and pools on 16-byte boundaries. Launches on
+// `stream` without synchronising; returns the launch's cudaGetLastError().
 extern "C" int paged_decode(const void* q, const void* k_pages,
                             const void* v_pages, const void* page_table,
                             const void* positions, void* out, void* visits,
-                            int batch, int nh, int dh, int ps, int maxp,
-                            int dtype, void* stream) {
+                            void* partials, void* tickets, int batch, int nh,
+                            int dh, int ps, int maxp, int splits, int dtype,
+                            void* stream) {
   using namespace paddle_tpu_torch;
   if (!decode_args_ok(batch, nh, dh, ps, maxp))
     return (int)cudaErrorInvalidValue;
@@ -25,6 +40,23 @@ extern "C" int paged_decode(const void* q, const void* k_pages,
   const int* pos = static_cast<const int*>(positions);
   int* vis = static_cast<int*>(visits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (decode_split::split_takes(dh)) {
+    if (((reinterpret_cast<size_t>(k_pages) |
+          reinterpret_cast<size_t>(v_pages)) & 15) != 0)
+      return (int)cudaErrorInvalidValue;
+    float* part = static_cast<float*>(partials);
+    unsigned* tick = static_cast<unsigned*>(tickets);
+    if (dtype == kFloat32)
+      return launch_paged_decode_split<float, float>(
+          q, k_pages, v_pages, nullptr, nullptr, pt, pos, out, vis, part,
+          tick, batch, nh, dh, ps, maxp, splits, s);
+    if (dtype == kBFloat16)
+      return launch_paged_decode_split<__nv_bfloat16, __nv_bfloat16>(
+          q, k_pages, v_pages, nullptr, nullptr, pt, pos, out, vis, part,
+          tick, batch, nh, dh, ps, maxp, splits, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (splits != 1) return (int)cudaErrorInvalidValue;
   if (dtype == kFloat32)
     return launch_paged_decode<float, float>(q, k_pages, v_pages, nullptr,
                                              nullptr, pt, pos, out, vis,

@@ -18,10 +18,11 @@
 // sequence's true length, never the slot's capacity. A warp reads one key's
 // dh contiguous values with its 32 lanes (coalesced), and the four warps of
 // the block walk interleaved pages with their own online softmax, merged
-// once at the end, so four page streams are in flight per (b, h). Known
-// gap: one block per (b, h) is 96 blocks for GPT-2 small at B=8, which does
-// not fill 132 SMs; splitting the page range across blocks (flash
-// decoding) is the next step.
+// once at the end, so four page streams are in flight per (b, h). One
+// block per (b, h) is 96 blocks for GPT-2 small at B=8, which does not
+// fill 132 SMs: both kernels take the loop split across blocks
+// (paged_decode_split.cuh) for head dims that are a multiple of 16 up to
+// 256, and this loop for the others.
 //
 // The pages_per_slot clamp is a guard the Pallas kernel does not have: a
 // slot whose position sits at or past its capacity (an occupied slot that

@@ -54,11 +54,11 @@ extern "C" int paged_decode_int8(const void* q, const void* k_pages,
     float* part = static_cast<float*>(partials);
     unsigned* tick = static_cast<unsigned*>(tickets);
     if (dtype == kFloat32)
-      return launch_paged_decode_split<float>(
+      return launch_paged_decode_split<float, signed char>(
           q, k_pages, v_pages, k_scale, v_scale, pt, pos, out, vis, part,
           tick, batch, nh, dh, ps, maxp, splits, s);
     if (dtype == kBFloat16)
-      return launch_paged_decode_split<__nv_bfloat16>(
+      return launch_paged_decode_split<__nv_bfloat16, signed char>(
           q, k_pages, v_pages, k_scale, v_scale, pt, pos, out, vis, part,
           tick, batch, nh, dh, ps, maxp, splits, s);
     return (int)cudaErrorInvalidValue;

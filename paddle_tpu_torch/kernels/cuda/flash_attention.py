@@ -9,11 +9,12 @@ wrappers take CUDA tensors only and always launch their kernel;
 `kernels/flash_attention.py` sends CPU tensors to the plain versions.
 Layout [B*H, S, D], contiguous, float32 or bfloat16.
 
-The forward kernel holds two loops and picks one by a fixed rule before
-the launch (:func:`arm`): bfloat16 with a head dim that is a multiple of 16
-up to 128 takes the tensor-core loop of `csrc/flash_fwd_mma.cuh`
-(``"mma_bf16"``), everything else the CUDA-core loop of `csrc/flash_fwd.cu`
-(``"cuda_core"``). The backward pair runs on the CUDA cores.
+The forward and dK/dV kernels each hold two loops and pick one by the same
+fixed rule before the launch (:func:`arm`, :func:`dkv_arm`): bfloat16 with
+a head dim that is a multiple of 16 up to 128 takes the tensor-core loop
+(``"mma_bf16"``: `csrc/flash_fwd_mma.cuh`, `csrc/flash_dkv_mma.cuh`),
+everything else the CUDA-core loop of `csrc/flash_fwd.cu` /
+`csrc/flash_dkv.cu` (``"cuda_core"``). `flash_dq` runs on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -25,8 +26,9 @@ from paddle_tpu_torch.kernels._build import CudaKernel
 from paddle_tpu_torch.kernels.cuda import (DTYPE_CODES, MAX_HEAD_DIM,
                                            require_cuda)
 
-__all__ = ["FWD", "DQ", "DKV", "MMA_BLOCK_Q", "CORE_BLOCK_Q", "arm", "grid",
-           "flash_fwd", "flash_dq", "flash_dkv"]
+__all__ = ["FWD", "DQ", "DKV", "MMA_BLOCK_Q", "CORE_BLOCK_Q", "MMA_BLOCK_K",
+           "arm", "grid", "dkv_arm", "dkv_grid", "flash_fwd", "flash_dq",
+           "flash_dkv"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FWD = CudaKernel("flash_fwd", "flash_fwd", [_P] * 5 + [_I] * 5 + [_F, _I, _P])
@@ -36,6 +38,7 @@ DKV = CudaKernel("flash_dkv", "flash_dkv",
 
 MMA_BLOCK_Q = 128    # query rows a block (flash_fwd_mma.cuh, Tile)
 CORE_BLOCK_Q = 64    # the CUDA-core loop's query block (flash_common.cuh)
+MMA_BLOCK_K = 64     # key rows a dK/dV block (flash_dkv_mma.cuh, kBlockK)
 
 
 def arm(dtype, d: int) -> str:
@@ -56,6 +59,34 @@ def grid(bh: int, sq: int, dtype, d: int) -> tuple[int, int]:
     if arm(dtype, d) == "mma_bf16":
         return int(bh), -(-int(sq) // MMA_BLOCK_Q)
     return -(-int(sq) // CORE_BLOCK_Q), int(bh)
+
+
+def dkv_arm(dtype, d: int) -> str:
+    """The loop a dK/dV call takes: the forward's rule (:func:`arm`, the C
+    entry point's `mma_takes`), ``"mma_bf16"`` for bfloat16 with ``d`` a
+    multiple of 16 up to 128, else ``"cuda_core"``."""
+    return arm(dtype, d)
+
+
+def dkv_grid(bh: int, sk: int, dtype, d: int) -> tuple[int, int]:
+    """The dK/dV launch grid: (b*h, key tiles of 64) on the tensor-core
+    loop, whose blockIdx.y 0 is key tile 0 (the one that sees the most
+    causal query rows) of every (b, h); (key blocks, b*h) on the CUDA-core
+    loop, 64 keys a block up to D=128 and 32 above (`KeyTile`)."""
+    if dkv_arm(dtype, d) == "mma_bf16":
+        return int(bh), -(-int(sk) // MMA_BLOCK_K)
+    return -(-int(sk) // (64 if int(d) <= 128 else 32)), int(bh)
+
+
+def _require_aligned(op, tensors):
+    """The tensor-core loops copy 16 bytes at a time: raise ValueError
+    unless every tensor of ``tensors`` (name, tensor) starts on a 16-byte
+    boundary."""
+    names = [n for n, t in tensors if t.data_ptr() % 16]
+    if names:
+        raise ValueError(f"{op}: the tensor-core loop copies 16 bytes at a "
+                         f"time; {', '.join(names)} must start on 16-byte "
+                         "boundaries")
 
 
 def _check(op, q, k, v, causal, extra=()):
@@ -109,11 +140,8 @@ def _stream(t):
 def flash_fwd(q, k, v, sm_scale, causal):
     """(out [BH, Sq, D] in q.dtype, lse [BH, Sq] f32)."""
     bh, sq, sk, d = _check("flash_fwd", q, k, v, causal)
-    if arm(q.dtype, d) == "mma_bf16" and any(
-            t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_fwd: the tensor-core loop copies 16 bytes at "
-                         "a time; q, k and v must start on 16-byte "
-                         "boundaries")
+    if arm(q.dtype, d) == "mma_bf16":
+        _require_aligned("flash_fwd", (("q", q), ("k", k), ("v", v)))
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     FWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -138,6 +166,9 @@ def flash_dkv(q, k, v, do, lse, delta, sm_scale, causal):
     """(dK, dV) [BH, Sk, D] in k's dtype."""
     bh, sq, sk, d = _check("flash_dkv", q, k, v, causal,
                            (("do", do), ("lse", lse), ("delta", delta)))
+    if dkv_arm(q.dtype, d) == "mma_bf16":
+        _require_aligned("flash_dkv", (("q", q), ("k", k), ("v", v),
+                                       ("do", do)))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     DKV.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

@@ -2,13 +2,12 @@
 counterparts of `paddle_tpu/kernels/pallas/paged_attention.py::
 _decode_kernel`: `kernels/csrc/paged_decode.cu` for float pools and
 `kernels/csrc/paged_decode_int8.cu` for int8 pools with f32 scales (the
-Pallas kernel's ``quant=True`` arm). The float kernel runs the loop of
-`csrc/paged_decode.cuh`, one block per (b, h). The int8 kernel picks its
-loop by a fixed rule before the launch (:func:`arm`): a head dim that is a
-multiple of 16 up to 256 takes `csrc/paged_decode_split.cuh` (``"split"``:
-each row's pages split across :func:`splits` blocks, merged in the same
-launch by the last block to finish), other head dims the per-(b, h) loop
-(``"per_head"``).
+Pallas kernel's ``quant=True`` arm). Both kernels pick their loop by one
+fixed rule before the launch (:func:`arm`): a head dim that is a multiple
+of 16 up to 256 takes `csrc/paged_decode_split.cuh` (``"split"``: each
+row's pages split across :func:`splits` blocks, merged in the same launch
+by the last block to finish), other head dims the per-(b, h) loop of
+`csrc/paged_decode.cuh` (``"per_head"``).
 
 Bound on the H100: the live pages' K/V bytes over 3.35 TB/s (see the
 sources' headers for the design against it). The wrappers take CUDA
@@ -32,7 +31,7 @@ __all__ = ["KERNEL", "KERNEL_INT8", "MAX_SPLITS", "SPLIT_BLOCKS_PER_SM",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("paged_decode", "paged_decode",
-                    [_P] * 7 + [_I] * 6 + [_P])
+                    [_P] * 9 + [_I] * 7 + [_P])
 KERNEL_INT8 = CudaKernel("paged_decode_int8", "paged_decode_int8",
                          [_P] * 11 + [_I] * 7 + [_P])
 
@@ -44,9 +43,9 @@ SPLIT_BLOCKS_PER_SM = 8    # with many rows, fewer splits: about this many
 
 
 def arm(dh: int) -> str:
-    """The loop an int8 decode call takes, the rule of the C entry point
-    (`split_takes`): ``"split"`` for a head dim that is a multiple of 16 up
-    to 256 (16-byte key loads), else ``"per_head"``."""
+    """The loop a decode call takes, float or int8 pools alike, the rule of
+    the C entry points (`split_takes`): ``"split"`` for a head dim that is
+    a multiple of 16 up to 256 (16-byte key loads), else ``"per_head"``."""
     dh = int(dh)
     return "split" if 0 < dh <= 256 and dh % 16 == 0 else "per_head"
 
@@ -71,7 +70,7 @@ def splits(b: int, nh: int, pages_per_slot: int, page_size: int,
 
 def grid(b: int, nh: int, pages_per_slot: int, page_size: int,
          sm_count: int, dh: int) -> tuple[int, int]:
-    """The int8 kernel's launch grid: (b*nh, splits) on the split loop,
+    """Either kernel's launch grid: (b*nh, splits) on the split loop,
     (b, nh) on the per-(b, h) loop."""
     if arm(dh) == "split":
         return int(b) * int(nh), splits(b, nh, pages_per_slot, page_size,
@@ -91,7 +90,8 @@ def _tickets(device, rows, stream):
     kept, since every launch leaves them zero again (so a decode call is
     one launch, with no memset). A launch's blocks count on its tickets
     until its last block merges, so launches that share them must run one
-    after another: each stream has its own."""
+    after another: each stream has its own. The float and int8 kernels
+    share them, since a launch of either leaves them zero."""
     return torch.zeros(rows, dtype=torch.int32, device=device)
 
 
@@ -107,7 +107,7 @@ def pages_needed(pos, page_size, pages_per_slot):
 
 
 def _split_args(op, q, k_pages, v_pages, maxp):
-    """(partials, tickets, splits) of an int8 call: one split and no
+    """(partials, tickets, splits) of a decode call: one split and no
     buffers on the per-(b, h) loop; on the split loop the partials
     (torch.empty, never read before they are written) and the cached
     tickets when there is more than one split."""
@@ -140,16 +140,13 @@ def _launch(op, kernel, q, k_pages, v_pages, scales, page_table, pos,
     out = torch.empty_like(q)
     visits = torch.empty((b, nh), dtype=torch.int32, device=q.device) \
         if return_visits else None
-    bufs, n = (), ()            # the int8 kernel's split-loop arguments
-    if scales is not None:
-        *bufs, n = _split_args(op, q, k_pages, v_pages, maxp)
-        n = (n,)
+    part, tickets, n = _split_args(op, q, k_pages, v_pages, maxp)
     kernel.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                   *(s.data_ptr() for s in scales or ()),
                   page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
                   *(None if t is None else t.data_ptr()
-                    for t in (visits, *bufs)),
-                  b, nh, dh, ps, maxp, *n,
+                    for t in (visits, part, tickets)),
+                  b, nh, dh, ps, maxp, n,
                   DTYPE_CODES[q.dtype],
                   torch.cuda.current_stream(q.device).cuda_stream)
     return (out, visits) if return_visits else out

@@ -23,8 +23,11 @@ The flash kernels: in float32 2e-5 (forward) and 1e-4 (gradients) times
 the largest reference value when that exceeds 1; in bfloat16 one bfloat16
 step of the largest reference value, never less than the float32 bound
 (the bf16 forward runs on the tensor cores and rounds P to bf16 for P V,
-at most 2^-9 of each weight; its lse, from the f32 p, keeps 2e-5). The
-split int8 decode holds the same bounds as the per-(b, h) loop.
+at most 2^-9 of each weight; its lse, from the f32 p, keeps 2e-5; the
+bf16 dK/dV loop runs there too and rounds P and dS to bf16 only as the
+operands of its dV and dK products, a bound `tests/test_torch_flash.py`
+emulates on the CPU). The split decode loop, over float and int8 pools,
+holds the same bounds as the per-(b, h) loop.
 The fused cross-entropy on the card against the CPU: losses within 1e-4,
 gradients within one bf16 step (2^-8) of their largest value.
 The fused layernorm kernels: y within 2e-5 and dx within 1e-4 in
@@ -87,6 +90,53 @@ def test_decode_kernel_matches_plain(card, dtype, tol, dh):
     launches = cdec.KERNEL.launches
     assert torch.equal(pa.paged_attention(q, kp, vp, pt, pos_t), out)
     assert cdec.KERNEL.launches == launches + 1
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b", [1, 8, 32, 64])
+@pytest.mark.parametrize("dh", [64, 128, 256, 40])
+def test_float_decode_split_loop_matches_plain(card, dtype, tol, b, dh):
+    """The float kernel at GPT-2 small's heads and pages (12 heads, pages
+    of 16, 64 pages a slot; 8 splits a row at B=1 and 8, fewer at B=32 and
+    64), head dims of the split loop and dh=40 on the per-(b, h) loop:
+    positions 0, mid-page, a slot's last key and capacity (a trash-only
+    row), each call one launch, the visits equal to pages_needed, and a
+    second call equal to the first (the tickets are left at zero)."""
+    rng = np.random.default_rng(500 + b + dh)
+    nh, ps, maxp = 12, 16, 64
+    kp, vp = _pools(rng, 1 + b * maxp, ps, nh, dh, card, dtype)
+    table = (1 + rng.permutation(b * maxp)).reshape(b, maxp)
+    pos = rng.integers(0, maxp * ps, b).astype(np.int32)
+    pos[0] = maxp * ps - 1 if b == 1 else 0
+    if b > 1:
+        pos[1], table[-1], pos[-1] = 40, 0, maxp * ps   # mid-page; trash
+    q = torch.from_numpy(rng.standard_normal((b, nh, dh), dtype=np.float32)
+                         ).to(card, dtype)
+    pt = torch.from_numpy(table.astype(np.int32)).to(card)
+    pos_t = torch.from_numpy(pos).to(card)
+    assert cdec.arm(dh) == ("per_head" if dh == 40 else "split")
+    before = cdec.KERNEL.launches
+    out, visits = cdec.paged_decode(q, kp, vp, pt, pos_t, return_visits=True)
+    assert cdec.KERNEL.launches == before + 1
+    torch.cuda.synchronize()
+    ref = pa._plain_paged_attention(q, kp, vp, pt, pos_t)
+    assert out.dtype == dtype
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    want = cdec.pages_needed(pos_t, ps, maxp).to(torch.int32)
+    assert torch.equal(visits, want[:, None].expand_as(visits))
+    assert torch.equal(cdec.paged_decode(q, kp, vp, pt, pos_t), out)
+
+
+def test_float_decode_split_loop_refuses_misaligned_pools(card):
+    kp = torch.zeros(5 * 4 * 2 * 16 + 2, device=card)[2:].view(5, 4, 2, 16)
+    q = torch.zeros(2, 2, 16, device=card)
+    pt = torch.zeros(2, 2, dtype=torch.int32, device=card)
+    pos = torch.zeros(2, dtype=torch.int32, device=card)
+    assert kp.data_ptr() % 16 == 8 and cdec.arm(16) == "split"
+    before = cdec.KERNEL.launches
+    with pytest.raises(ValueError, match="16-byte boundaries"):
+        cdec.paged_decode(q, kp, kp, pt, pos)
+    assert cdec.KERNEL.launches == before
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
@@ -376,6 +426,40 @@ def test_int8_decode_split_counts_share_tickets_on_a_stream(card):
     assert all(int(t.abs().sum()) == 0 for t in tickets.values())
 
 
+def test_float_and_int8_decode_share_tickets_on_a_stream(card):
+    """Float (bf16 and f32) and int8 calls at one (b, h) count, alternating
+    back to back on one stream with no synchronisation, share its tickets:
+    each equals its plain version and its repeat, and the tickets are zero
+    after them."""
+    rng = np.random.default_rng(450)
+    b, nh, dh, ps, maxp = 8, 12, 64, 16, 64
+    table = (1 + rng.permutation(b * maxp)).reshape(b, maxp)
+    pos = rng.integers(0, maxp * ps, b).astype(np.int32)
+    pt = torch.from_numpy(table.astype(np.int32)).to(card)
+    pos_t = torch.from_numpy(pos).to(card)
+    kq, vq, ks, vs = _int8_pools(rng, 1 + b * maxp, ps, nh, dh, card)
+    calls = []
+    for dtype in (torch.bfloat16, torch.float32):
+        kp, vp = _pools(rng, 1 + b * maxp, ps, nh, dh, card, dtype)
+        q = torch.from_numpy(rng.standard_normal(
+            (b, nh, dh), dtype=np.float32)).to(card, dtype)
+        calls += [((q, kp, vp, pt, pos_t), cdec.paged_decode),
+                  ((q, kq, vq, ks, vs, pt, pos_t), cdec.paged_decode_int8)]
+    sm = torch.cuda.get_device_properties(card).multi_processor_count
+    assert cdec.splits(b, nh, maxp, ps, sm) > 1
+    refs = [pa._plain_paged_attention(*args[:3], pt, pos_t, *args[3:-2])
+            for args, _ in calls]
+    outs = [fn(*args) for _ in range(3) for args, fn in calls]
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        j = i % len(calls)
+        tol = 2e-5 if out.dtype == torch.float32 else 2e-2
+        assert (out.float() - refs[j].float()).abs().max().item() <= tol, i
+        assert torch.equal(out, outs[j])
+    stream = torch.cuda.current_stream(card).cuda_stream
+    assert int(cdec._tickets(card, b * nh, stream).abs().sum()) == 0
+
+
 def test_int8_wrappers_refuse_float_pools_on_the_card(card):
     q = torch.zeros(2, 2, 8, device=card)
     kp = torch.zeros(5, 4, 2, 8, device=card)
@@ -523,6 +607,52 @@ def test_flash_fwd_tensor_core_arm_refuses_misaligned_q(card):
         cfa.flash_fwd(q, k, k, 0.125, True)
     assert cfa.FWD.launches == before
     assert cfa.grid(96, 1024, torch.bfloat16, 64) == (96, 8)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 72])
+def test_flash_dkv_tensor_core_arm_matches_plain(card, d):
+    """bf16 with d a multiple of 16 up to 128 takes the tensor-core dK/dV
+    loop (one launch a call), d=72 the CUDA-core loop; dk and dv within one
+    bf16 step of the largest reference value over the causal, ragged,
+    cross-length and non-causal shapes, and a second call equal bit for
+    bit (no atomics)."""
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    assert cfa.dkv_arm(torch.bfloat16, d) == ("cuda_core" if d == 72
+                                              else "mma_bf16")
+    assert cfa.dkv_arm(torch.float32, d) == "cuda_core"
+    for i, (bh, sq, sk, causal) in enumerate(MMA_FLASH_SHAPES):
+        q, k, v, do = _flash_inputs((bh, sq, sk, d, causal), card,
+                                    torch.bfloat16, seed=100 + d + i)
+        scale = 1.0 / np.sqrt(d)
+        rout, rlse = tfa._plain_flash_fwd(q, k, v, scale, causal)
+        delta = (do.float() * rout.float()).sum(-1)
+        before = cfa.DKV.launches
+        dk, dv = cfa.flash_dkv(q, k, v, do, rlse, delta, scale, causal)
+        assert cfa.DKV.launches == before + 1
+        torch.cuda.synchronize()
+        rdk, rdv = tfa._plain_flash_dkv(q, k, v, do, rlse, delta, scale,
+                                        causal)
+        for got, ref in ((dk, rdk), (dv, rdv)):
+            assert got.dtype == torch.bfloat16
+            err = (got.float() - ref.float()).abs().max().item()
+            assert err <= _flash_tol(torch.bfloat16, ref, 1e-4), (i, err)
+        again = cfa.flash_dkv(q, k, v, do, rlse, delta, scale, causal)
+        assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+
+
+def test_flash_dkv_tensor_core_arm_refuses_misaligned_do(card):
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    buf = torch.zeros(2 * 64 * 64 + 4, dtype=torch.bfloat16, device=card)
+    do = buf[4:].view(2, 64, 64)           # 8 bytes past the allocation
+    q = torch.zeros(2, 64, 64, dtype=torch.bfloat16, device=card)
+    lse = torch.zeros(2, 64, device=card)
+    assert do.data_ptr() % 16 == 8
+    before = cfa.DKV.launches
+    with pytest.raises(ValueError, match="do must start on 16-byte"):
+        cfa.flash_dkv(q, q, q, do, lse, lse, 0.125, True)
+    assert cfa.DKV.launches == before
+    assert cfa.dkv_grid(96, 1024, torch.bfloat16, 64) == (96, 16)
 
 
 def test_flash_op_takes_the_kernels_forward_and_backward(card):

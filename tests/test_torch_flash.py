@@ -202,6 +202,63 @@ def test_tensor_core_forward_rounding_matches_pallas(case):
     assert np.abs(lse.numpy() - np.asarray(jlse)).max() <= 1e-4
 
 
+def _mma_dkv_emulation(q, k, v, do, lse, delta, scale, causal):
+    """The arithmetic of the tensor-core dK/dV loop
+    (`kernels/csrc/flash_dkv_mma.cuh`) in plain torch: bf16 q, k, v, dO;
+    S^T = K Q^T and dP^T = V dO^T in f32, the scale applied after the
+    product inside the exponent, P = exp(s * scale - lse), 0 past the
+    causal diagonal; dS = P (dP - delta) from the f32 P; P and dS rounded
+    to bf16 only as the operands of dV = P^T dO and dK = dS^T Q (f32 sums);
+    dK scaled once at the end; dk and dv rounded to bf16."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    sq, sk = q.shape[1], k.shape[1]
+    s = torch.einsum("bkd,bqd->bkq", kf, qf)
+    p = torch.exp(s * scale - lse[:, None, :])
+    if causal:
+        keys, rows = torch.arange(sk)[:, None], torch.arange(sq)[None, :]
+        p = p.masked_fill(keys > rows + (sk - sq), 0.0)
+    dp = torch.einsum("bkd,bqd->bkq", vf, dof)
+    ds = p * (dp - delta[:, None, :])
+    bf = lambda t: t.to(torch.bfloat16).float()   # noqa: E731
+    dv = torch.einsum("bkq,bqd->bkd", bf(p), dof)
+    dk = torch.einsum("bkq,bqd->bkd", bf(ds), qf) * scale
+    return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", MMA_CASES)
+def test_tensor_core_dkv_rounding_matches_pallas(case):
+    # dk and dv within one bf16 step of the largest value (2^-7 of it), the
+    # bound the card's kernel lines hold, against the interpret-mode Pallas
+    # backward on the same saved out and lse
+    (jq, jk, jv, jdo), (q, k, v, do) = _arrays(case, "bfloat16", seed=6)
+    scale, causal, blk = float(1.0 / np.sqrt(case[3])), case[4], case[5]
+    jout, jlse = _fwd(jq, jk, jv, scale, causal, blk, blk, True)
+    _, jdk, jdv = _bwd(jq, jk, jv, jout, jlse, jdo, scale, causal, blk, blk,
+                       True)
+    out = torch.from_numpy(_np(jout)).to(torch.bfloat16)
+    lse = torch.from_numpy(np.array(jlse))
+    delta = (do.float() * out.float()).sum(-1)
+    dk, dv = _mma_dkv_emulation(q, k, v, do, lse, delta, scale, causal)
+    for got, want in ((dk, jdk), (dv, jdv)):
+        ref = _np(want)
+        big = np.abs(ref).max()
+        err = np.abs(_np(got) - ref).max()
+        assert err <= max(1e-4 * max(1.0, big), 2.0 ** -7 * big), (err, big)
+
+
+def test_dkv_arm_rule_and_grid():
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    assert [cfa.dkv_arm(torch.bfloat16, d) for d in (16, 64, 128, 72, 256)] \
+        == ["mma_bf16", "mma_bf16", "mma_bf16", "cuda_core", "cuda_core"]
+    assert cfa.dkv_arm(torch.float32, 64) == "cuda_core"
+    # the train shape: 96 (b, h) x 16 key tiles of 64 on the tensor cores;
+    # the CUDA-core loop's 64-key blocks (32 above D=128) come first
+    assert cfa.dkv_grid(96, 1024, torch.bfloat16, 64) == (96, 16)
+    assert cfa.dkv_grid(12, 300, torch.bfloat16, 64) == (12, 5)
+    assert cfa.dkv_grid(96, 1024, torch.float32, 64) == (16, 96)
+    assert cfa.dkv_grid(2, 65, torch.bfloat16, 256) == (3, 2)
+
+
 def test_forward_arm_rule():
     from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
     assert [cfa.arm(torch.bfloat16, d) for d in (16, 64, 128, 72, 256)] == [

@@ -256,7 +256,8 @@ def test_rotary_wrapper_refuses_bad_input(case, match):
 
 
 @pytest.mark.parametrize("fault", ["mask_leak", "pv_pair_swap",
-                                   "pv_round_toward_zero", "lse_log2"])
+                                   "pv_round_toward_zero", "lse_log2",
+                                   "dkv_mask_leak", "decode_split_drop"])
 def test_bf16_parity_controls_plant_into_the_sources(fault, tmp_path):
     """Each planted fault of `bf16_parity_controls.py` changes the kernel
     sources as they are now (each text it replaces occurs once), so the

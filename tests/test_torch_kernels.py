@@ -85,6 +85,22 @@ def test_pages_needed_clamps_at_capacity():
     assert cdec.pages_needed(0, 16, 64) == 1
 
 
+def test_float_decode_takes_the_split_loop_at_gpt2_small_shapes():
+    # GPT-2 small serving: 12 heads of 64, pages of 16, 64 pages a slot, an
+    # H100's 132 SMs. The float kernel takes the int8 kernel's rule and
+    # grid: 8 splits of 128 keys at B=1 and B=8, fewer as the rows fill the
+    # card; dh=40 keeps the per-(b, h) loop.
+    assert cdec.arm(64) == "split"
+    assert cdec.grid(8, 12, 64, 16, 132, 64) == (96, 8)
+    assert cdec.grid(1, 12, 64, 16, 132, 64) == (12, 8)
+    assert cdec.grid(32, 12, 64, 16, 132, 64) == (384, 3)
+    assert cdec.grid(8, 12, 64, 16, 132, 40) == (8, 12)
+    # the C entry points take the split loop's buffers in one order: the
+    # float kernel's arguments are the int8 kernel's less the two scales
+    assert cdec.KERNEL.argtypes == (cdec.KERNEL_INT8.argtypes[:3]
+                                    + cdec.KERNEL_INT8.argtypes[5:])
+
+
 def test_plain_decode_trash_row_at_capacity_matches_xla():
     q, kp, vp, pt, _ = _decode_case(2, b=2, nh=2, dh=8, ps=4, maxp=3,
                                     pos=[0, 0])

@@ -289,19 +289,25 @@ def _split_ranges(n_splits, pages_per_slot, npages):
             for s in range(n_splits)]
 
 
-def _split_decode_emulation(q, kq, vq, pt, pos, ks, vs, n_splits):
-    """The arithmetic of the split int8 decode loop
+def _split_decode_emulation(q, kp, vp, pt, pos, n_splits, ks=None,
+                            vs=None):
+    """The arithmetic of the split decode loop
     (`kernels/csrc/paged_decode_split.cuh`) in plain torch: each split of a
     row takes its page range (`_split_ranges`), cut at the row's
-    length-aware stop, forms s = (q . k_int8) * k_scale / sqrt(dh) with the
-    scale after the product, and keeps (m, l, acc) with p * v_scale against
-    the int8 values; a split past the row's last page is empty (m = -inf,
-    l = 0) and weighs 0 in the merge. All f32."""
+    length-aware stop, forms s = (q . k) / sqrt(dh), times the key's
+    k_scale for int8 pools (the scale after the product), and keeps
+    (m, l, acc) with p (times v_scale for int8 pools) against the pool's
+    values; a split past the row's last page is empty (m = -inf, l = 0) and
+    weighs 0 in the merge. All f32; the output in q's dtype. Float pools
+    (``ks`` None) carry no scales."""
     b, nh, dh = q.shape
-    ps, maxp = kq.shape[1], pt.shape[1]
+    ps, maxp = kp.shape[1], pt.shape[1]
     scale = torch.tensor(1.0 / dh ** 0.5, dtype=torch.float32)
-    kflat, vflat = kq.reshape(-1, nh, dh), vq.reshape(-1, nh, dh)
-    ksf, vsf = ks.reshape(-1, nh), vs.reshape(-1, nh)
+    kflat, vflat = kp.reshape(-1, nh, dh), vp.reshape(-1, nh, dh)
+    if ks is None:
+        ksf = vsf = torch.ones(kflat.shape[0], nh)
+    else:
+        ksf, vsf = ks.reshape(-1, nh), vs.reshape(-1, nh)
     out = torch.zeros(b, nh, dh)
     for bi in range(b):
         p_ = int(pos[bi])
@@ -356,7 +362,7 @@ def test_split_int8_decode_emulation_matches_pallas_and_plain(name):
     if name == "capacity_trash_row":
         args[3][1] = 0                   # inactive slot: all trash
     q, kq, vq, pt, pos_, ks, vs = map(torch.from_numpy, args)
-    got = _split_decode_emulation(q, kq, vq, pt, pos_, ks, vs, n_splits)
+    got = _split_decode_emulation(q, kq, vq, pt, pos_, n_splits, ks, vs)
     plain = pa._plain_paged_attention(q, kq, vq, pt, pos_, ks, vs)
     assert _maxabs(got, plain) <= 2e-5
     ja = list(map(jnp.asarray, args))
@@ -366,6 +372,47 @@ def test_split_int8_decode_emulation_matches_pallas_and_plain(name):
         want_pl = jdec.paged_attention(*ja[:5], k_scale=ja[5],
                                        v_scale=ja[6], interpret=True)
         assert _maxabs(got, want_pl) <= 2e-5
+
+
+def _float_split_case(seed, b, maxp, pos, dtype):
+    """q and float pools of ``dtype`` (drawn in f32 and rounded), the page
+    table and positions, as numpy f32 / int32: the same values for both
+    packages."""
+    rng = np.random.RandomState(seed)
+    num_pages = 1 + b * maxp
+    arrays = [rng.randn(*shape).astype(np.float32) for shape in
+              ((b, NH, DH), (num_pages, PS, NH, DH), (num_pages, PS, NH, DH))]
+    if dtype == torch.bfloat16:
+        arrays = [torch.from_numpy(a).to(dtype).float().numpy()
+                  for a in arrays]
+    pt = (1 + rng.permutation(num_pages - 1)[:b * maxp]).reshape(b, maxp)
+    return [*arrays, pt.astype(np.int32), np.asarray(pos, np.int32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_float_decode_emulation_matches_pallas_and_plain(name, dtype):
+    """The split loop over float pools (no scales): the emulation in q's
+    dtype against the plain version on the same tensors and against the
+    JAX arms on the same values in f32; 2e-5 in f32, and in bf16 the card
+    tests' 2e-2 (the outputs rounded to bf16 on one side)."""
+    b, maxp, pos, n_splits, pallas = SPLIT_CASES[name]
+    args = _float_split_case(6, b, maxp, pos, dtype)
+    if name == "capacity_trash_row":
+        args[3][1] = 0                   # inactive slot: all trash
+    q, kp, vp = (torch.from_numpy(a).to(dtype) for a in args[:3])
+    pt, pos_ = map(torch.from_numpy, args[3:])
+    got = _split_decode_emulation(q, kp, vp, pt, pos_, n_splits)
+    assert got.dtype == dtype
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    plain = pa._plain_paged_attention(q, kp, vp, pt, pos_)
+    assert _maxabs(_np(got), _np(plain)) <= tol
+    ja = list(map(jnp.asarray, args))
+    assert _maxabs(_np(got), jpa._xla_paged_attention(*ja)) <= tol
+    if pallas:
+        want_pl = jdec.paged_attention(*ja, interpret=True)
+        assert _maxabs(_np(got), want_pl) <= tol
 
 
 def test_split_rule_depends_on_shapes_only():
