@@ -64,6 +64,12 @@ FAULTS = {
           "if (masked && (qry >= sq || (causal && key > qry + off))) p = 0.f;",
           "if (masked && (qry >= sq || (causal && key > qry + off + 1))) "
           "p = 0.f;")]),
+    "dq_mask_leak": (
+        "the tensor-core dQ loop lets each causal row see one key past its "
+        "limit",
+        [(CSRC + "flash_dq_mma.cuh",
+          "return causal ? min(row0 + r + off, sk - 1) : sk - 1;",
+          "return causal ? min(row0 + r + off + 1, sk - 1) : sk - 1;")]),
     "decode_split_drop": (
         "the float split decode's merge drops the partial of the last "
         "split that holds keys, where that is not the first split",
@@ -149,7 +155,10 @@ def run_fault(name: str) -> dict:
         else:
             out[phase] = {"fault": name, "phase": phase, "ran": True,
                           "ok": obj["ok"], "gap": obj["loss_max_abs_diff"],
-                          "gaps": obj["loss_abs_diff"], "bound": obj["tol"]}
+                          "gaps": obj["loss_abs_diff"], "bound": obj["tol"],
+                          "grad_gap": obj["grad_rel_l2_max"],
+                          "grad_leaf": obj["grad_rel_l2_leaf"],
+                          "grad_bound": obj["grad_tol"]}
         out[phase]["what"] = what
     return out
 

@@ -54,7 +54,7 @@
 //   dK; the f32 P feeds dS. dK is scaled once at the end.
 // - Determinism. Every dk and dv row is written by exactly one block and
 //   thread, with no atomics: a run repeats bit for bit. dQ stays its own
-//   kernel (flash_dq.cu) for the same reason.
+//   kernel (flash_dq.cu, flash_dq_mma.cuh) for the same reason.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -13,15 +13,22 @@
 // 6 * D operations per visible (query, key) pair, against reading q, k, v,
 // dO, lse and delta and writing dq once.
 //
-// What the design does about it: grid (query block of 64 rows, b*h), the
-// longest causal blocks first, as in flash_fwd.cu. A block keeps its scaled
-// q rows and their dO rows in shared memory, walks the key tiles up to its
-// last visible one (the tiles past the causal diagonal are skipped), stages
+// Two loops, picked by a fixed rule before the launch (`mma_takes`, the
+// wrapper's `dq_arm`): q, k, v and dO in bfloat16 with a head dim that is
+// a multiple of 16 up to 128 run on the tensor cores (flash_dq_mma.cuh,
+// whose header gives that loop's design); float32 and the other head dims
+// run the CUDA-core loop below, unchanged. Float32 stays on the CUDA cores
+// because the tensor cores would take it only as TF32.
+//
+// The CUDA-core loop: grid (query block of 64 rows, b*h), the longest
+// causal blocks first, as in flash_fwd.cu. A block keeps its scaled q rows
+// and their dO rows in shared memory, walks the key tiles up to its last
+// visible one (the tiles past the causal diagonal are skipped), stages
 // each K/V tile once, forms the scores and dP in one register-tiled pass
-// over the head dim, and accumulates its dq rows in f32 registers. Known
-// gap: CUDA cores in f32, not the tensor cores (ROADMAP B).
+// over the head dim, and accumulates its dq rows in f32 registers.
 
 #include "flash_common.cuh"
+#include "flash_dq_mma.cuh"
 
 namespace paddle_tpu_torch {
 namespace {
@@ -146,8 +153,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
 // C entry point, bound with ctypes by paddle_tpu_torch/kernels/cuda/
 // flash_attention.py. q, dout and dq [bh, sq, d], k and v [bh, sk, d], all
 // of one dtype (0 float32, 1 bfloat16) and contiguous; lse and delta
-// [bh, sq] float32. Launches on `stream` without synchronising; returns
-// the launch's cudaGetLastError().
+// [bh, sq] float32. bfloat16 with mma_takes(dtype, d) takes the
+// tensor-core loop, which needs q, k, v and dout on 16-byte boundaries.
+// Launches on `stream` without synchronising; returns the launch's
+// cudaGetLastError().
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dq, int bh, int sq, int sk, int d, int causal,
@@ -159,6 +168,11 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mma_takes(dtype, d)) {
+    if (!aligned16(q, k, v, dout)) return (int)cudaErrorInvalidValue;
+    return launch_flash_dq_mma(q, k, v, dout, l, dl, dq, bh, sq, sk, d,
+                               causal, scale, s);
+  }
   if (dtype == kFloat32)
     return dispatch<float>(q, k, v, dout, l, dl, dq, bh, sq, sk, d, causal,
                            scale, s);

@@ -45,8 +45,7 @@
 //   from it as before.
 // - Rows at or past Sq are computed from zeros and never written.
 // Left for later: wgmma with TMA boxes and producer warps (the products
-// still issue as mma.sync), and dQ on the tensor cores (dK and dV run
-// there, flash_dkv_mma.cuh).
+// still issue as mma.sync).
 #pragma once
 
 #include <cuda_bf16.h>

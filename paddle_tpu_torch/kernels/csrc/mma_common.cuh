@@ -1,6 +1,7 @@
 // Primitives of the tensor-core attention loops on Hopper (sm_90a), shared
 // by the paged prefill loop (paged_prefill_mma.cuh), the flash forward
-// loop (flash_fwd_mma.cuh) and the flash dK/dV loop (flash_dkv_mma.cuh):
+// loop (flash_fwd_mma.cuh) and the flash dQ and dK/dV loops
+// (flash_dq_mma.cuh, flash_dkv_mma.cuh):
 // shared-memory addresses, cp.async copies and their groups, ldmatrix
 // (plain and transposed), the bf16 mma.sync m16n8k16 product with f32
 // accumulators, bf16 packing, the special-function exp2, and the rule and
@@ -19,7 +20,8 @@ namespace paddle_tpu_torch {
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The rule that picks the tensor-core loops (paged_prefill_mma.cuh,
-// flash_fwd_mma.cuh, flash_dkv_mma.cuh): q in bfloat16 and a head dim the
+// flash_fwd_mma.cuh, flash_dq_mma.cuh, flash_dkv_mma.cuh): q in bfloat16
+// and a head dim the
 // 16-deep products tile exactly, up to 128 (the register budget of the
 // f32 accumulators).
 inline bool mma_takes(int dtype, int dh) {

@@ -9,12 +9,13 @@ wrappers take CUDA tensors only and always launch their kernel;
 `kernels/flash_attention.py` sends CPU tensors to the plain versions.
 Layout [B*H, S, D], contiguous, float32 or bfloat16.
 
-The forward and dK/dV kernels each hold two loops and pick one by the same
-fixed rule before the launch (:func:`arm`, :func:`dkv_arm`): bfloat16 with
-a head dim that is a multiple of 16 up to 128 takes the tensor-core loop
-(``"mma_bf16"``: `csrc/flash_fwd_mma.cuh`, `csrc/flash_dkv_mma.cuh`),
-everything else the CUDA-core loop of `csrc/flash_fwd.cu` /
-`csrc/flash_dkv.cu` (``"cuda_core"``). `flash_dq` runs on the CUDA cores.
+Each of the three kernels holds two loops and picks one by the same fixed
+rule before the launch (:func:`arm`, :func:`dq_arm`, :func:`dkv_arm`):
+bfloat16 with a head dim that is a multiple of 16 up to 128 takes the
+tensor-core loop (``"mma_bf16"``: `csrc/flash_fwd_mma.cuh`,
+`csrc/flash_dq_mma.cuh`, `csrc/flash_dkv_mma.cuh`), everything else the
+CUDA-core loop of `csrc/flash_fwd.cu` / `csrc/flash_dq.cu` /
+`csrc/flash_dkv.cu` (``"cuda_core"``).
 """
 from __future__ import annotations
 
@@ -26,9 +27,9 @@ from paddle_tpu_torch.kernels._build import CudaKernel
 from paddle_tpu_torch.kernels.cuda import (DTYPE_CODES, MAX_HEAD_DIM,
                                            require_cuda)
 
-__all__ = ["FWD", "DQ", "DKV", "MMA_BLOCK_Q", "CORE_BLOCK_Q", "MMA_BLOCK_K",
-           "arm", "grid", "dkv_arm", "dkv_grid", "flash_fwd", "flash_dq",
-           "flash_dkv"]
+__all__ = ["FWD", "DQ", "DKV", "MMA_BLOCK_Q", "CORE_BLOCK_Q", "MMA_DQ_BLOCK_Q",
+           "MMA_BLOCK_K", "arm", "grid", "dq_arm", "dq_grid", "dkv_arm",
+           "dkv_grid", "flash_fwd", "flash_dq", "flash_dkv"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FWD = CudaKernel("flash_fwd", "flash_fwd", [_P] * 5 + [_I] * 5 + [_F, _I, _P])
@@ -36,9 +37,10 @@ DQ = CudaKernel("flash_dq", "flash_dq", [_P] * 7 + [_I] * 5 + [_F, _I, _P])
 DKV = CudaKernel("flash_dkv", "flash_dkv",
                  [_P] * 8 + [_I] * 5 + [_F, _I, _P])
 
-MMA_BLOCK_Q = 128    # query rows a block (flash_fwd_mma.cuh, Tile)
-CORE_BLOCK_Q = 64    # the CUDA-core loop's query block (flash_common.cuh)
-MMA_BLOCK_K = 64     # key rows a dK/dV block (flash_dkv_mma.cuh, kBlockK)
+MMA_BLOCK_Q = 128     # query rows a block (flash_fwd_mma.cuh, Tile)
+CORE_BLOCK_Q = 64     # the CUDA-core loop's query block (flash_common.cuh)
+MMA_DQ_BLOCK_Q = 128  # a dQ block's rows up to D=64, half above (dq Tile)
+MMA_BLOCK_K = 64      # key rows a dK/dV block (flash_dkv_mma.cuh, kBlockK)
 
 
 def arm(dtype, d: int) -> str:
@@ -58,6 +60,24 @@ def grid(bh: int, sq: int, dtype, d: int) -> tuple[int, int]:
     (b, h); (query blocks, b*h) on the CUDA-core loop."""
     if arm(dtype, d) == "mma_bf16":
         return int(bh), -(-int(sq) // MMA_BLOCK_Q)
+    return -(-int(sq) // CORE_BLOCK_Q), int(bh)
+
+
+def dq_arm(dtype, d: int) -> str:
+    """The loop a dQ call takes: the forward's rule (:func:`arm`, the C
+    entry point's `mma_takes`), ``"mma_bf16"`` for bfloat16 with ``d`` a
+    multiple of 16 up to 128, else ``"cuda_core"``."""
+    return arm(dtype, d)
+
+
+def dq_grid(bh: int, sq: int, dtype, d: int) -> tuple[int, int]:
+    """The dQ launch grid: (b*h, query tiles of 128 rows up to D=64, 64
+    above) on the tensor-core loop, whose blockIdx.y 0 takes the last
+    (heaviest causal) tile of every (b, h); (query blocks of 64, b*h) on
+    the CUDA-core loop."""
+    if dq_arm(dtype, d) == "mma_bf16":
+        rows = MMA_DQ_BLOCK_Q if int(d) <= 64 else MMA_DQ_BLOCK_Q // 2
+        return int(bh), -(-int(sq) // rows)
     return -(-int(sq) // CORE_BLOCK_Q), int(bh)
 
 
@@ -155,6 +175,9 @@ def flash_dq(q, k, v, do, lse, delta, sm_scale, causal):
     (both [BH, Sq] f32)."""
     bh, sq, sk, d = _check("flash_dq", q, k, v, causal,
                            (("do", do), ("lse", lse), ("delta", delta)))
+    if dq_arm(q.dtype, d) == "mma_bf16":
+        _require_aligned("flash_dq", (("q", q), ("k", k), ("v", v),
+                                      ("do", do)))
     dq = torch.empty_like(q)
     DQ.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, sq, sk, d,

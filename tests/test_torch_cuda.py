@@ -24,9 +24,9 @@ the largest reference value when that exceeds 1; in bfloat16 one bfloat16
 step of the largest reference value, never less than the float32 bound
 (the bf16 forward runs on the tensor cores and rounds P to bf16 for P V,
 at most 2^-9 of each weight; its lse, from the f32 p, keeps 2e-5; the
-bf16 dK/dV loop runs there too and rounds P and dS to bf16 only as the
-operands of its dV and dK products, a bound `tests/test_torch_flash.py`
-emulates on the CPU). The split decode loop, over float and int8 pools,
+bf16 dK/dV and dQ loops run there too and round P and dS to bf16 only as
+the operands of their dV, dK and dQ products, a bound
+`tests/test_torch_flash.py` emulates on the CPU). The split decode loop, over float and int8 pools,
 holds the same bounds as the per-(b, h) loop.
 The fused cross-entropy on the card against the CPU: losses within 1e-4,
 gradients within one bf16 step (2^-8) of their largest value.
@@ -653,6 +653,50 @@ def test_flash_dkv_tensor_core_arm_refuses_misaligned_do(card):
         cfa.flash_dkv(q, q, q, do, lse, lse, 0.125, True)
     assert cfa.DKV.launches == before
     assert cfa.dkv_grid(96, 1024, torch.bfloat16, 64) == (96, 16)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 72])
+def test_flash_dq_tensor_core_arm_matches_plain(card, d):
+    """bf16 with d a multiple of 16 up to 128 takes the tensor-core dQ loop
+    (one launch a call), d=72 and float32 the CUDA-core loop; dq within
+    one bf16 step of the largest reference value over the causal, ragged,
+    cross-length and non-causal shapes, and a second call equal bit for
+    bit (no atomics)."""
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    assert cfa.dq_arm(torch.bfloat16, d) == ("cuda_core" if d == 72
+                                             else "mma_bf16")
+    assert cfa.dq_arm(torch.float32, d) == "cuda_core"
+    for i, (bh, sq, sk, causal) in enumerate(MMA_FLASH_SHAPES):
+        q, k, v, do = _flash_inputs((bh, sq, sk, d, causal), card,
+                                    torch.bfloat16, seed=200 + d + i)
+        scale = 1.0 / np.sqrt(d)
+        rout, rlse = tfa._plain_flash_fwd(q, k, v, scale, causal)
+        delta = (do.float() * rout.float()).sum(-1)
+        before = cfa.DQ.launches
+        dq = cfa.flash_dq(q, k, v, do, rlse, delta, scale, causal)
+        assert cfa.DQ.launches == before + 1
+        torch.cuda.synchronize()
+        ref = tfa._plain_flash_dq(q, k, v, do, rlse, delta, scale, causal)
+        assert dq.dtype == torch.bfloat16
+        err = (dq.float() - ref.float()).abs().max().item()
+        assert err <= _flash_tol(torch.bfloat16, ref, 1e-4), (i, err)
+        assert torch.equal(cfa.flash_dq(q, k, v, do, rlse, delta, scale,
+                                        causal), dq)
+
+
+def test_flash_dq_tensor_core_arm_refuses_misaligned_do(card):
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    buf = torch.zeros(2 * 64 * 64 + 4, dtype=torch.bfloat16, device=card)
+    do = buf[4:].view(2, 64, 64)           # 8 bytes past the allocation
+    q = torch.zeros(2, 64, 64, dtype=torch.bfloat16, device=card)
+    lse = torch.zeros(2, 64, device=card)
+    assert do.data_ptr() % 16 == 8
+    before = cfa.DQ.launches
+    with pytest.raises(ValueError, match="do must start on 16-byte"):
+        cfa.flash_dq(q, q, q, do, lse, lse, 0.125, True)
+    assert cfa.DQ.launches == before
+    assert cfa.dq_grid(96, 1024, torch.bfloat16, 64) == (96, 8)
 
 
 def test_flash_op_takes_the_kernels_forward_and_backward(card):

@@ -246,6 +246,61 @@ def test_tensor_core_dkv_rounding_matches_pallas(case):
         assert err <= max(1e-4 * max(1.0, big), 2.0 ** -7 * big), (err, big)
 
 
+def _mma_dq_emulation(q, k, v, do, lse, delta, scale, causal):
+    """The arithmetic of the tensor-core dQ loop
+    (`kernels/csrc/flash_dq_mma.cuh`) in plain torch: bf16 q, k, v, dO;
+    S = Q K^T and dP = dO V^T in f32, the scale applied after the product
+    inside the exponent, P = exp(s * scale - lse), 0 past the causal
+    diagonal; dS = P (dP - delta) from the f32 P, rounded to bf16 only as
+    the operand of dQ = dS K (f32 sums); dQ scaled once at the end and
+    rounded to bf16."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    sq, sk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", qf, kf)
+    p = torch.exp(s * scale - lse[:, :, None])
+    if causal:
+        rows, keys = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+        p = p.masked_fill(keys > rows + (sk - sq), 0.0)
+    dp = torch.einsum("bqd,bkd->bqk", dof, vf)
+    ds = (p * (dp - delta[:, :, None])).to(torch.bfloat16).float()
+    return (torch.einsum("bqk,bkd->bqd", ds, kf) * scale).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", MMA_CASES)
+def test_tensor_core_dq_rounding_matches_pallas(case):
+    # dq within one bf16 step of the largest value (2^-7 of it), the bound
+    # the card's kernel lines hold, against the interpret-mode Pallas
+    # backward on the same saved out and lse
+    (jq, jk, jv, jdo), (q, k, v, do) = _arrays(case, "bfloat16", seed=7)
+    scale, causal, blk = float(1.0 / np.sqrt(case[3])), case[4], case[5]
+    jout, jlse = _fwd(jq, jk, jv, scale, causal, blk, blk, True)
+    jdq, _, _ = _bwd(jq, jk, jv, jout, jlse, jdo, scale, causal, blk, blk,
+                     True)
+    out = torch.from_numpy(_np(jout)).to(torch.bfloat16)
+    lse = torch.from_numpy(np.array(jlse))
+    delta = (do.float() * out.float()).sum(-1)
+    dq = _mma_dq_emulation(q, k, v, do, lse, delta, scale, causal)
+    ref = _np(jdq)
+    big = np.abs(ref).max()
+    err = np.abs(_np(dq) - ref).max()
+    assert err <= max(1e-4 * max(1.0, big), 2.0 ** -7 * big), (err, big)
+
+
+def test_dq_arm_rule_and_grid():
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    assert [cfa.dq_arm(torch.bfloat16, d) for d in (16, 64, 128, 72, 256)] \
+        == ["mma_bf16", "mma_bf16", "mma_bf16", "cuda_core", "cuda_core"]
+    assert cfa.dq_arm(torch.float32, 64) == "cuda_core"
+    # the train shape: 96 (b, h) x 8 query tiles of 128 on the tensor cores
+    # (64 rows above D=64), the last tile first; the CUDA-core loop's
+    # 64-row blocks come first
+    assert cfa.dq_grid(96, 1024, torch.bfloat16, 64) == (96, 8)
+    assert cfa.dq_grid(12, 200, torch.bfloat16, 64) == (12, 2)
+    assert cfa.dq_grid(12, 200, torch.bfloat16, 128) == (12, 4)
+    assert cfa.dq_grid(96, 1024, torch.float32, 64) == (16, 96)
+    assert cfa.dq_grid(2, 65, torch.bfloat16, 256) == (2, 2)
+
+
 def test_dkv_arm_rule_and_grid():
     from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
     assert [cfa.dkv_arm(torch.bfloat16, d) for d in (16, 64, 128, 72, 256)] \

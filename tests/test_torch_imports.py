@@ -257,7 +257,8 @@ def test_rotary_wrapper_refuses_bad_input(case, match):
 
 @pytest.mark.parametrize("fault", ["mask_leak", "pv_pair_swap",
                                    "pv_round_toward_zero", "lse_log2",
-                                   "dkv_mask_leak", "decode_split_drop"])
+                                   "dkv_mask_leak", "dq_mask_leak",
+                                   "decode_split_drop"])
 def test_bf16_parity_controls_plant_into_the_sources(fault, tmp_path):
     """Each planted fault of `bf16_parity_controls.py` changes the kernel
     sources as they are now (each text it replaces occurs once), so the
@@ -275,3 +276,21 @@ def test_bf16_parity_controls_plant_into_the_sources(fault, tmp_path):
     for rel, text, planted in edits:
         src = (tmp_path / rel).read_text()
         assert planted in src and src != (REPO / rel).read_text()
+
+
+@pytest.mark.parametrize("stem", ["flash_dkv", "flash_dq"])
+def test_profile_dkv_variants_apply_to_the_sources(stem):
+    """Each block-shape variant `profile_dkv.py` builds changes its loop's
+    source as it is now (each text it replaces occurs once), so the sweep
+    keeps running on the card."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import profile_dkv as prof
+    finally:
+        sys.path.remove(str(REPO))
+    loop, variants = prof.LOOPS[stem]
+    text = (REPO / "paddle_tpu_torch/kernels/csrc" / loop).read_text()
+    assert (REPO / "paddle_tpu_torch/kernels/csrc" / f"{stem}.cu").exists()
+    for variant, edits in variants.items():
+        for old, _ in edits:
+            assert text.count(old) == 1, (variant, old)
