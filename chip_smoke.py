@@ -135,6 +135,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from paddle_tpu_torch.incubate.nn import (FusedLayerNorm,
                                           FusedMultiTransformer,
@@ -144,7 +145,9 @@ from paddle_tpu_torch.kernels import _build, registry
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import fused_layernorm as tfl
 from paddle_tpu_torch.kernels import paged_attention as pa
+from paddle_tpu_torch.kernels import prng
 from paddle_tpu_torch.kernels import rotary as trot
+from paddle_tpu_torch.kernels import sampling as smp
 from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
 from paddle_tpu_torch.kernels.cuda import fused_layernorm as cln
 from paddle_tpu_torch.kernels.cuda import paged_attention as cdec
@@ -263,6 +266,26 @@ TRAIN_BF16_GRAD_TOL = 2e-2
 INCUBATE_TOL = {"ln_fwd": 2e-5, "ln_bwd": 1e-4, "stack": 1e-4,
                 "rope": 1e-6}
 LN_KERNELS = ("fused_layernorm_fwd", "fused_layernorm_bwd")
+# the sampler on the card against the CPU: one torch code on both, so bits,
+# uniforms and keys must be equal; each of the Gumbel noise's two logs
+# (CUDA's logf, the CPU's log) lies within one place of the true value, so
+# the two devices' g = -log(-log u) may part by 2 places of the inner log
+# (at most 2 places at 1 after the outer log) plus 2 of the outer: 4 units
+# in the last place at max(|g|, 1). A perturbed logit moves with g plus one
+# rounding of the sum, so tokens must agree wherever the CPU's top-2
+# margin of the perturbed logits exceeds twice that.
+GUMBEL_CARD_ULPS = 4
+# (temperature, top_k) of the sampler phase's 8 slots: greedy rows, top-k
+# from 1 to 1000, temperatures from 0.7 to 2
+SAMPLER_PARAMS = ((1.0, 0), (0.8, 40), (1.0, 50), (0.7, 0), (1.3, 5),
+                  (1.0, 0), (0.9, 1), (2.0, 1000))
+# the sampled serve runs' requests, (temperature, top_k, seed): chat-style
+# sampling with 2 greedy requests among them (their tokens must equal the
+# greedy serve run's)
+SAMPLED_PARAMS = ((0.8, 40, 1), (1.0, 0, 0), (0.7, 0, 2), (1.2, 50, 3),
+                  (1.0, 20, 4), (1.0, 0, 0), (0.9, 5, 5), (1.5, 100, 6))
+SPEC_K = 4
+SPEC_PATTERN = 32                 # the speculative runs' prompts repeat this
 D_MODEL, FFN = 768, 3072                       # GPT-2 small's widths
 
 
@@ -585,8 +608,12 @@ def check_flash(dev, timer, dtype, case):
     return lines
 
 
-def serve(engine, prompts, n):
-    reqs = [engine.submit(p, max_new_tokens=n) for p in prompts]
+def serve(engine, prompts, n, params=None):
+    """Serve ``prompts`` to the end, ``n`` new tokens each; ``params``: one
+    (temperature, top_k, seed) per prompt, or None (greedy)."""
+    params = params or [(1.0, 0, 0)] * len(prompts)
+    reqs = [engine.submit(p, max_new_tokens=n, temperature=t, top_k=k,
+                          seed=s) for p, (t, k, s) in zip(prompts, params)]
     engine.run_until_idle(max_steps=10_000)
     return [r.result(timeout=0) for r in reqs]
 
@@ -615,13 +642,17 @@ def engine_launches(engine, before, phase):
     """The serve path's launches against the counts the engine's steps
     since ``before`` imply: one decode launch per layer per decode step,
     one prefill launch per layer per one-shot prefill or chunk, of the int8
-    kernels on an int8 pool."""
+    kernels on an int8 pool. A verify step (speculative decode) launches
+    none: its attention is a gather and a dense softmax, as in the JAX
+    package."""
     ran = {k: engine.counters[k] - before[k] for k in before}
     nl = engine.cfg.num_layers
     suffix = "_int8" if engine._quant_kv else ""
-    expected = {"paged_decode" + suffix: nl * ran["steps"],
+    expected = {"paged_decode" + suffix: nl * (ran["steps"]
+                                               - ran["spec_steps"]),
                 "paged_prefill" + suffix: nl * (ran["prefills"]
                                                 + ran["prefill_chunks"])}
+    expected = {k: n for k, n in expected.items() if n}
     return read_launches(phase, expected), expected, ran
 
 
@@ -728,34 +759,255 @@ def serve_parity(model, dev, kv_dtype="native"):
         raise SystemExit(f"{phase}: card and CPU engines disagree")
 
 
+def ulp_at(x):
+    """One float32 unit in the last place at max(|x|, 1), per row of x."""
+    big = x.abs().amax(dim=-1).clamp_min(1.0)
+    return 2.0 ** (torch.floor(torch.log2(big)) - 23)
+
+
+def sampler_phase(dev, smi, steps=5):
+    """The card's fused sampler against the same torch code on the CPU: B=8
+    slots of GPT-2's 50257 logits drawn from the seed, SAMPLER_PARAMS, one
+    key chain a slot (seeds 0-7) through ``steps`` chained draws. Bits,
+    uniforms and keys exact; Gumbel noise within GUMBEL_CARD_ULPS; tokens
+    equal for greedy rows and wherever the CPU's perturbed top-2 margin
+    exceeds the gate. Also the card's time per call (host clock, ending in a
+    synchronize: the call is some hundreds of small launches)."""
+    rng = np.random.default_rng(SEED + 5)
+    b, v = len(SAMPLER_PARAMS), VOCAB
+    temps = torch.tensor([t for t, _ in SAMPLER_PARAMS])
+    topks = torch.tensor([k for _, k in SAMPLER_PARAMS])
+    greedy = (temps == 1.0) & (topks == 0)
+    keys = {"cpu": torch.stack([prng.prng_key(s) for s in range(b)])}
+    keys[dev] = keys["cpu"].to(dev)
+    recs, ok = [], True
+    for _ in range(steps):
+        lg = torch.from_numpy(rng.standard_normal((b, v), dtype=np.float32)
+                              * 2)
+        out = {}
+        for where in ("cpu", dev):
+            sub = prng.split(keys[where])[:, 1]
+            out[where] = [t.cpu() for t in (
+                prng.random_bits(sub, (v,)),
+                prng.uniform(sub, (v,), np.finfo(np.float32).tiny, 1.0),
+                prng.gumbel(sub, (v,)),
+                smp.perturbed_logits(lg.to(where), sub, temps.to(where),
+                                     topks.to(where)))]
+            tok, keys[where] = smp.fused_sample(
+                lg.to(where), keys[where], temps.to(where), topks.to(where))
+            out[where].append(tok.cpu())
+        (bits_c, u_c, g_c, p_c, t_c), (bits_g, u_g, g_g, p_g, t_g) = \
+            out["cpu"], out[dev]
+        ulp = ulp_at(g_c)
+        top2 = p_c.topk(2, dim=-1).values
+        # the rounding of the sum is one place at the top values (not at
+        # the masked -1e30 entries)
+        gate = 2 * (GUMBEL_CARD_ULPS * ulp + ulp_at(top2))
+        sure = ((top2[:, 0] - top2[:, 1]) > gate) | greedy
+        rec = {"bits_equal": torch.equal(bits_g, bits_c),
+               "uniforms_equal": torch.equal(u_g.view(torch.int32),
+                                             u_c.view(torch.int32)),
+               "keys_equal": torch.equal(keys[dev].cpu(), keys["cpu"]),
+               "gumbel_max_ulps": float(((g_g - g_c).abs().amax(-1)
+                                         / ulp).max()),
+               "tokens_equal": int((t_g == t_c).sum()),
+               "tokens_gated": int(sure.sum()),
+               "gated_tokens_differ": int((sure & (t_g != t_c)).sum())}
+        ok &= (rec["bits_equal"] and rec["uniforms_equal"]
+               and rec["keys_equal"] and rec["gated_tokens_differ"] == 0
+               and rec["gumbel_max_ulps"] <= GUMBEL_CARD_ULPS)
+        recs.append(rec)
+    lg = torch.from_numpy(rng.standard_normal((b, v), dtype=np.float32)
+                          ).to(dev)
+    ms = []
+    for i in range(23):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        smp.fused_sample(lg, keys[dev], temps.to(dev), topks.to(dev))
+        torch.cuda.synchronize()
+        if i >= 3:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    emit({"phase": "sampler", "card": smi, "slots": b, "vocab": v,
+          "params": [list(p) for p in SAMPLER_PARAMS], "steps": recs,
+          "gumbel_ulp_bound": GUMBEL_CARD_ULPS,
+          "sample_ms_p50": statistics.median(ms), "ok": ok})
+    if not ok:
+        raise SystemExit("sampler: the card's sampler disagrees with the "
+                         "CPU's")
+
+
+def divergence_margin(params, cfg, context, t, param):
+    """The CPU's top-2 margin at a request's generated token ``t``, after
+    ``context`` (its prompt and generated tokens 0..t-1): of the logits for
+    a greedy request, of the perturbed logits its key chain gives at that
+    token (the seed key split once per earlier token) for a sampled one."""
+    temp, top_k, seed = param
+    lg = prefill_logits(params, context, "cpu", cfg)[0][None]
+    if temp == 1.0 and top_k == 0:
+        top2 = lg.topk(2).values[0]
+    else:
+        key = prng.prng_key(seed)
+        for _ in range(t):
+            key = prng.split(key)[0]
+        pert = smp.perturbed_logits(lg, prng.split(key)[1][None],
+                                    torch.tensor([temp]),
+                                    torch.tensor([top_k]))
+        top2 = pert.topk(2).values[0]
+    return float(top2[0] - top2[1])
+
+
+def compare_tokens(got, want, prompts, params, cfg, cpu_params):
+    """Per request: tokens equal, else the first divergence with the CPU's
+    margin there (`divergence_margin`)."""
+    recs = []
+    for p, a, b, param in zip(prompts, got, want, params):
+        rec = {"prompt_len": len(p), "params": list(param),
+               "tokens_equal": bool(np.array_equal(a, b))}
+        if not rec["tokens_equal"]:
+            t = int(np.flatnonzero(a != b)[0]) - len(p)
+            rec["first_divergence"] = {
+                "position": t, "cpu_margin": divergence_margin(
+                    cpu_params, cfg, b[:len(p) + t], t, param)}
+        recs.append(rec)
+    return recs
+
+
+def serve_sampled_parity(model, dev):
+    """float32 engines with ``sampling=True`` on the card and on the CPU,
+    chunked prefill at 256, 3 requests of mixed (temperature, top_k, seed)
+    (one greedy), 16 new tokens: the tokens must be EQUAL (the sampler is
+    exact on both; a difference prints the CPU's perturbed top-2 margin
+    there and fails)."""
+    phase, cfg = "serve_sampled_parity", model.cfg
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(0, min(VOCAB, cfg.vocab_size), n)
+               .astype(np.int32) for n in (5, 300, 600)]
+    params = [SAMPLED_PARAMS[0], SAMPLED_PARAMS[1], SAMPLED_PARAMS[3]]
+    ecfg = EngineConfig(prefill_chunk_tokens=256, sampling=True)
+    eng = DecodeEngine(model, ecfg, device=dev)
+    counters0 = dict(eng.counters)
+    reset_launches()                       # the sampled chunked path's run
+    card = serve(eng, prompts, 16, params)
+    launches, expected, ran = engine_launches(eng, counters0, phase)
+    cpu = serve(DecodeEngine(model, ecfg, device="cpu"), prompts, 16, params)
+    cpu_params = {k: v.detach() for k, v in model.state_dict().items()}
+    reqs = compare_tokens(card, cpu, prompts, params, cfg, cpu_params)
+    ok = all(r["tokens_equal"] for r in reqs)
+    emit({"phase": phase, "model": "gpt2-small", "dtype": "float32",
+          "prefill_chunk_tokens": 256, "max_new_tokens": 16,
+          "requests": reqs, "tokens_ok": ok,
+          "prefill_chunks": ran["prefill_chunks"],
+          "one_shot_prefills": ran["prefills"], "decode_steps": ran["steps"],
+          "d2h_transfers": ran["d2h_transfers"],
+          "launches": launches, "expected_launches": expected})
+    if not ok:
+        raise SystemExit(f"{phase}: card and CPU sampled tokens differ")
+
+
+def serve_spec_parity(model, dev):
+    """float32, ``speculate_k=SPEC_K``, greedy and sampled requests on
+    prompts repeating a SPEC_PATTERN-token pattern: the card's speculative
+    engine must give the tokens of the card's plain engine and of the
+    CPU's speculative engine (a difference prints the CPU's margin there
+    and fails)."""
+    phase, cfg = "serve_spec_parity", model.cfg
+    rng = np.random.default_rng(SEED + 4)
+    prompts = spec_prompts(rng, (64, 300, 600), cfg.vocab_size)
+    params = [SAMPLED_PARAMS[1], SAMPLED_PARAMS[0], SAMPLED_PARAMS[4]]
+    plain = EngineConfig(prefill_chunk_tokens=256, sampling=True)
+    spec = EngineConfig(prefill_chunk_tokens=256, sampling=True,
+                        speculate_k=SPEC_K)
+    eng = DecodeEngine(model, spec, device=dev)
+    counters0 = dict(eng.counters)
+    reset_launches()                       # the speculative path's run
+    card = serve(eng, prompts, 16, params)
+    launches, expected, ran = engine_launches(eng, counters0, phase)
+    card_plain = serve(DecodeEngine(model, plain, device=dev), prompts, 16,
+                       params)
+    cpu = serve(DecodeEngine(model, spec, device="cpu"), prompts, 16, params)
+    cpu_params = {k: v.detach() for k, v in model.state_dict().items()}
+    vs_plain = compare_tokens(card, card_plain, prompts, params, cfg,
+                              cpu_params)
+    vs_cpu = compare_tokens(card, cpu, prompts, params, cfg, cpu_params)
+    ok = all(r["tokens_equal"] for r in vs_plain + vs_cpu)
+    emit({"phase": phase, "model": "gpt2-small", "dtype": "float32",
+          "speculate_k": SPEC_K, "prefill_chunk_tokens": 256,
+          "max_new_tokens": 16, "vs_card_plain": vs_plain, "vs_cpu": vs_cpu,
+          "tokens_ok": ok, "verify_steps": ran["spec_steps"],
+          "drafted": ran["spec_drafted"], "accepted": ran["spec_accepted"],
+          "d2h_transfers": ran["d2h_transfers"],
+          "launches": launches, "expected_launches": expected})
+    if not ok:
+        raise SystemExit(f"{phase}: speculative tokens differ")
+
+
 SERVE_LENS = (7, 64, 129, 250, 380, 511, 700, 900)
 
 
-def serve_engine(model, dev, **quant):
-    """A serve run's engine (``quant``: its kv_dtype / weight_dtype), kernels
-    built and warm, and its 8 prompts."""
+def spec_prompts(rng, lens, vocab):
+    """Prompts of ``lens`` tokens repeating one SPEC_PATTERN-token pattern,
+    which the n-gram drafter finds (repetitive text: code edits,
+    retrieval)."""
+    pattern = rng.integers(0, min(VOCAB, vocab), SPEC_PATTERN)
+    return [np.resize(pattern, n).astype(np.int32) for n in lens]
+
+
+def serve_engine(model, dev, tiled=False, **ecfg):
+    """A serve run's engine (``ecfg``: its kv_dtype / weight_dtype, sampling,
+    speculate_k), kernels built and warm, and its 8 prompts (repeating one
+    pattern when ``tiled``)."""
     rng = np.random.default_rng(SEED + 2)
-    prompts = [rng.integers(0, min(VOCAB, model.cfg.vocab_size), n)
-               .astype(np.int32) for n in SERVE_LENS]
+    if tiled:
+        prompts = spec_prompts(rng, SERVE_LENS, model.cfg.vocab_size)
+    else:
+        prompts = [rng.integers(0, min(VOCAB, model.cfg.vocab_size), n)
+                   .astype(np.int32) for n in SERVE_LENS]
     eng = DecodeEngine(model, EngineConfig(page_size=PS, max_slots=8,
-                                           **quant), device=dev)
+                                           **ecfg), device=dev)
     eng.warmup()
     serve(eng, prompts[:1], 2)             # first cuBLAS/allocator touches
     torch.cuda.synchronize()
     return eng, prompts
 
 
-def serve_run(model, dev, smi, phase="serve", **quant):
+def launches_per_step(eng, prompts, params, steps=3):
+    """Kernel launches on the card per decode (or verify) step, all kernels
+    (the port's and PyTorch's), from `torch.profiler` over ``steps`` steps
+    after a fresh admission of ``prompts``; the run is drained after."""
+    reqs = [eng.submit(p, max_new_tokens=16, temperature=t, top_k=k, seed=s)
+            for p, (t, k, s) in zip(prompts, params)]
+    eng.step()                             # admission and the first step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    eng.run_until_idle(max_steps=10_000)
+    if not all(r.done for r in reqs):
+        raise SystemExit("launches_per_step: requests left unfinished")
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / steps
+
+
+def serve_run(model, dev, smi, phase="serve", params=None, greedy_ref=None,
+              **ecfg):
     """The bf16 engine on the card serves the 8 prompts, 32 new tokens
-    each, one-shot bucketed prefill. Returns the line (``launches`` in it).
-    """
+    each, one-shot bucketed prefill; ``params`` gives each request its
+    (temperature, top_k, seed) on a sampling engine, and where
+    ``greedy_ref`` (the greedy run's outputs) is given, the greedy requests
+    among them must equal it. Returns the line (``launches`` in it) and the
+    outputs."""
     lens, cfg = SERVE_LENS, model.cfg
-    eng, prompts = serve_engine(model, dev, **quant)
+    spec = ecfg.get("speculate_k") is not None
+    eng, prompts = serve_engine(model, dev, tiled=spec, **ecfg)
+    params = params or [(1.0, 0, 0)] * len(prompts)
 
     counters0 = dict(eng.counters)
     reset_launches()                       # the bucketed path's run
     torch.cuda.reset_peak_memory_stats(dev)
-    reqs = [eng.submit(p, max_new_tokens=32) for p in prompts]
+    reqs = [eng.submit(p, max_new_tokens=32, temperature=t, top_k=k, seed=s)
+            for p, (t, k, s) in zip(prompts, params)]
     step_ms, step_tokens = [], []
     t_run = time.perf_counter()
     more = True
@@ -767,7 +1019,7 @@ def serve_run(model, dev, smi, phase="serve", **quant):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         step_tokens.append(sum(len(r.generated) for r in reqs) - before)
     wall = time.perf_counter() - t_run
-    launches, expected, _ = engine_launches(eng, counters0, phase)
+    launches, expected, ran = engine_launches(eng, counters0, phase)
 
     outs = [r.result(timeout=0) for r in reqs]
     ok = all(o.shape == (n + 32,) and ((o >= 0) & (o < cfg.vocab_size)).all()
@@ -789,7 +1041,30 @@ def serve_run(model, dev, smi, phase="serve", **quant):
             "kv_bytes_per_token": eng.kv_bytes_per_token,
             "launches": launches, "expected_launches": expected,
             "outputs_ok": ok}
-    if quant:
+    if eng.ecfg.sampling:
+        line["request_params"] = [list(p) for p in params]
+    if greedy_ref is not None:
+        greedy = [i for i, (t, k, _) in enumerate(params)
+                  if t == 1.0 and k == 0]
+        line["greedy_equal_serve"] = [bool(np.array_equal(outs[i],
+                                                          greedy_ref[i]))
+                                      for i in greedy]
+        ok = ok and all(line["greedy_equal_serve"])
+    if spec:
+        # each slot in a verify step emits 1 + its accepted drafts; the
+        # first token of each request comes from its prefill
+        emitted = sum(step_tokens) - len(prompts)
+        line.update(speculate_k=eng.ecfg.speculate_k,
+                    verify_steps=ran["spec_steps"],
+                    drafted=ran["spec_drafted"],
+                    accepted=ran["spec_accepted"],
+                    accept_rate=ran["spec_accepted"]
+                    / max(1, ran["spec_drafted"]),
+                    tokens_per_slot_step=emitted
+                    / max(1, emitted - ran["spec_accepted"]))
+    line["kernel_launches_per_step"] = launches_per_step(eng, prompts,
+                                                         params)
+    if eng._quant_kv or eng.ecfg.weight_dtype != "native":
         # each prompt's first-token logits against the native bf16 ones
         native = {k: v.detach().to(dev) for k, v in model.state_dict().items()}
         lg_q = torch.stack([prefill_logits(eng._params, p, dev, cfg,
@@ -803,8 +1078,9 @@ def serve_run(model, dev, smi, phase="serve", **quant):
         ok = ok and parity_ok
     emit(line)
     if not ok:
-        raise SystemExit(f"{phase}: malformed outputs or logits out of bound")
-    return line
+        raise SystemExit(f"{phase}: malformed outputs, logits out of bound "
+                         "or greedy tokens unlike serve's")
+    return line, outs
 
 
 def train_batch(rng, b, s, vocab):
@@ -1251,14 +1527,21 @@ def main():
     del timer
     torch.cuda.empty_cache()
 
+    sampler_phase(dev, smi)
     model = gpt_mod.gpt2_small(generator=torch.Generator().manual_seed(SEED))
     serve_parity(model, dev)
     serve_parity(model, dev, kv_dtype="int8")
+    serve_sampled_parity(model, dev)
+    serve_spec_parity(model, dev)
     model = model.to(torch.bfloat16)
     serve_parity(model, dev)
-    launches = serve_run(model, dev, smi)["launches"]
+    line, greedy_outs = serve_run(model, dev, smi)
+    launches = line["launches"]
+    serve_run(model, dev, smi, "serve_sampled", params=SAMPLED_PARAMS,
+              greedy_ref=greedy_outs, sampling=True)
+    serve_run(model, dev, smi, "serve_spec", speculate_k=SPEC_K)
     quantized = serve_run(model, dev, smi, "serve_int8", kv_dtype="int8",
-                          weight_dtype="int8")["launches"]
+                          weight_dtype="int8")[0]["launches"]
     launches.update((k, quantized[k]) for k in INT8_KERNELS)
     del model
     torch.cuda.empty_cache()

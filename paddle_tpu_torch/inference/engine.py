@@ -21,15 +21,32 @@ reduced to the serving slice of the port).
 - **Quantized serving** (``EngineConfig.kv_dtype="int8"``,
   ``weight_dtype="int8"``): int8 KV pages with per-token-slot f32 scale
   pools, and weight-only int8 matmul leaves dequantized at use.
+- **Fused sampling** (``EngineConfig.sampling``): per-request temperature,
+  top-k and seed (``submit(..., temperature=, top_k=, seed=)``). Each
+  slot's threefry key chain lives on the device in one ``[B+1, 2]`` buffer
+  (the JAX layout: row B is its slotless prefills' scratch row), the
+  per-slot parameters ride the step's one packed upload, and the sampler
+  runs on the logits where they lie (`kernels/sampling.py`): sampled
+  decode reads back tokens only, and a
+  request's tokens equal the JAX package's `fast_generate` with the same
+  (temperature, top_k, seed). Greedy requests on such an engine take the
+  argmax and never move their chain.
+- **Speculative decode** (``EngineConfig.speculate_k``): an n-gram
+  drafter over each slot's own tokens (`_DraftIndex`) proposes up to k
+  tokens, ONE verify step (`models/gpt.py::verify_step`) scores all k+1
+  positions and accepts the longest matching prefix plus one corrected
+  token, greedy or sampled, token for token what plain decode gives. The
+  host rolls lengths back by not advancing them; one readback per verify
+  step carries the emitted tokens and their count.
 
 Harvest is synchronous: each step reads its sampled tokens back before the
 next step is dispatched (the JAX engine keeps ``inflight`` steps in flight).
 The tokens a request receives are the same either way.
 
-Not in this slice (see ROADMAP.md): prefix cache, speculative decode, KV
-tiers, handoff/migration, dedup, deadlines, cancel and degradation, the
-fused sampler, metrics/tracing, a float KV pool of another dtype than the
-weights (A9).
+Not in this slice (see ROADMAP.md): prefix cache (A2a); KV tiers,
+handoff/migration, dedup (of key chains too), deadlines, cancel and
+degradation (A5); metrics/tracing; a float KV pool of another dtype than
+the weights (A9).
 
 Thread model: `submit()` is safe from any thread; `step()` /
 `run_until_idle()` must all run on ONE thread, the loop's owner.
@@ -45,15 +62,24 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.inference.errors import from_wire
+from paddle_tpu_torch.kernels import prng
+from paddle_tpu_torch.kernels import sampling as smp
 from paddle_tpu_torch.kernels.paged_attention import KV_DTYPES, TRASH_PAGE
 from paddle_tpu_torch.models import gpt as gpt_mod
 from paddle_tpu_torch.quantization.serving import quantize_gpt_params
 
 __all__ = ["EngineConfig", "PageAllocator", "GenerateRequest", "DecodeEngine"]
 
-# packed slot-state upload layout: [B, _STATE_COLS + pages_per_slot] int32
+# packed slot-state upload layout: [B, _STATE_COLS + pages_per_slot] int32;
+# the verify step's is [B, _SPEC_COLS + K + pages_per_slot] (a draft-length
+# column and K drafted tokens), and a sampling engine appends two columns
+# (temperature bits, top_k) to either: still one upload per step
 _COL_TOKEN, _COL_LENGTH, _COL_FLAGS, _STATE_COLS = 0, 1, 2, 3
+_COL_DRAFT, _SPEC_COLS = 3, 4
 _FLAG_ACTIVE, _FLAG_FRESH = 1, 2
+# a sampling engine's prefill uploads end in [slot, key0, key1, temperature
+# bits, top_k]
+_SAMPLE_TAIL = 5
 
 
 @dataclass
@@ -78,6 +104,14 @@ class EngineConfig:
     weight_dtype : "native" or "int8": the GPT matmul leaves become int8
                    with per-output-channel scales at construction
                    (`quantization/serving.py`), dequantized at use
+    sampling     : the fused sampler: submit() takes temperature, top_k
+                   and seed, each slot's key chain lives on the device; off,
+                   the engine is greedy and refuses sampled parameters
+    speculate_k  : when set (>= 1), each step drafts up to k tokens per slot
+                   (n-gram lookup over the slot's own tokens) and verifies
+                   all k+1 positions in one step, emitting 1..k+1 tokens,
+                   the tokens plain decode gives; per request opt-out with
+                   ``submit(..., speculate=False)``
     """
     page_size: int = 16
     max_slots: int = 8
@@ -88,6 +122,8 @@ class EngineConfig:
     prefill_chunk_tokens: int | None = None
     kv_dtype: str = "native"
     weight_dtype: str = "native"
+    sampling: bool = False
+    speculate_k: int | None = None
 
 
 class PageAllocator:
@@ -143,9 +179,17 @@ class GenerateRequest:
     """One queued or running generation. `result()` blocks until the
     sequence retires and returns prompt + generated ids."""
 
-    def __init__(self, prompt: np.ndarray, max_new_tokens: int):
+    def __init__(self, prompt: np.ndarray, max_new_tokens: int,
+                 speculate: bool = True, temperature: float = 1.0,
+                 top_k: int = 0, seed: int = 0):
         self.prompt = prompt
         self.max_new_tokens = int(max_new_tokens)
+        self.speculate = bool(speculate)  # n-gram drafting participation
+        # the fused sampler's parameters; the defaults are the greedy arm
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.seed = int(seed)
+        self._seed_key: np.ndarray | None = None   # PRNGKey(seed) words
         self.generated: list[int] = []
         self.submit_t = time.perf_counter()
         self.first_token_t: float | None = None   # TTFT = this - submit_t
@@ -169,6 +213,45 @@ class GenerateRequest:
             [self.prompt, np.asarray(self.generated, self.prompt.dtype)])
 
 
+_NGRAM_NS = (3, 2, 1)          # longest-match-first draft lookup order
+
+
+class _DraftIndex:
+    """Per-slot n-gram index of the self-drafting proposer: ``{n-gram ->
+    most recent start position that has a following token}``, kept up in
+    O(1) per generated token, so a draft costs O(k) host work, never a
+    rescan of the context. An n-gram is registered once its follower
+    exists, so a lookup always has a token to propose."""
+
+    __slots__ = ("hist", "maps")
+
+    def __init__(self, prompt):
+        self.hist: list[int] = []
+        self.maps = {n: {} for n in _NGRAM_NS}
+        for t in prompt:
+            self.append(int(t))
+
+    def append(self, tok: int):
+        h = self.hist
+        p = len(h)
+        h.append(int(tok))
+        for n in _NGRAM_NS:
+            if p >= n:                 # grams ending at p-1 gained a follower
+                self.maps[n][tuple(h[p - n:p])] = p - n
+
+    def draft(self, k: int) -> list[int]:
+        """Up to k tokens that followed the most recent earlier occurrence
+        of the longest suffix (3, 2, then 1 tokens) seen before."""
+        h = self.hist
+        for n in _NGRAM_NS:
+            if len(h) <= n:
+                continue
+            j = self.maps[n].get(tuple(h[-n:]))
+            if j is not None:
+                return h[j + n:j + n + k]
+        return []
+
+
 def _resolve_device(device) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
@@ -181,8 +264,9 @@ def _resolve_device(device) -> torch.device:
 
 
 class DecodeEngine:
-    """Continuous-batching greedy decode over a paged KV cache for one GPT
-    model.
+    """Continuous-batching decode (greedy, or sampled with
+    ``EngineConfig(sampling=True)``, optionally speculative) over a paged KV
+    cache for one GPT model.
 
     >>> eng = DecodeEngine(model)                    # on the card
     >>> reqs = [eng.submit(ids, max_new_tokens=32) for ids in prompts]
@@ -254,14 +338,34 @@ class DecodeEngine:
         self._slot_req: list[GenerateRequest | None] = [None] * B
         self._slot_pages: list[list[int]] = [[] for _ in range(B)]
         self._tok_dev = torch.zeros(B, dtype=torch.int32, device=self.device)
+        # fused sampling: per-slot (temperature, top_k) host mirrors ride the
+        # packed upload; the key chains stay on the device, threaded through
+        # every step like _tok_dev. Row B is the JAX engine's scratch row
+        # for prefills without a slot (export, streaming: A5); no port path
+        # writes it yet
+        self._sampling = bool(ecfg.sampling)
+        self._temps = np.ones(B, np.float32)
+        self._topks = np.zeros(B, np.int32)
+        self._keys_dev = torch.zeros((B + 1, 2), dtype=torch.int64,
+                                     device=self.device) \
+            if self._sampling else None
+        if ecfg.speculate_k is not None and int(ecfg.speculate_k) < 1:
+            raise ValueError(
+                f"speculate_k must be >= 1, got {ecfg.speculate_k}")
+        self._spec = ecfg.speculate_k is not None
+        self._spec_k = int(ecfg.speculate_k) if self._spec else 0
+        self._slot_draft: list[_DraftIndex | None] = [None] * B
         # chunked-prefill progress: slot -> {"req", "done"}; these slots are
         # occupied (request and pages held) but NOT decode-active
         self._prefilling: dict[int, dict] = {}
 
         self._queue: deque[GenerateRequest] = deque()
         self._qlock = threading.Lock()
-        self.counters = {"steps": 0, "h2d_transfers": 0, "prefills": 0,
-                         "prefill_chunks": 0}
+        # d2h_transfers: token readbacks, one per decode or verify step and
+        # per finished prefill; logits are never read back
+        self.counters = {"steps": 0, "h2d_transfers": 0, "d2h_transfers": 0,
+                         "prefills": 0, "prefill_chunks": 0, "spec_steps": 0,
+                         "spec_drafted": 0, "spec_accepted": 0}
 
     def _resolve_kv_dtype(self, kvd) -> bool:
         """Check ``kv_dtype``; True for an int8 pool. A float dtype other
@@ -311,41 +415,90 @@ class DecodeEngine:
         self.counters["h2d_transfers"] += 1
         return torch.from_numpy(packed).to(self.device)
 
-    def _run_prefill(self, ids: np.ndarray, row: np.ndarray) -> int:
+    def _sample_tail(self, slot: int, req: GenerateRequest) -> np.ndarray:
+        """The ints that end a sampling engine's prefill upload (one-shot,
+        or the final chunk's): [slot, key0, key1, temperature bits, top_k].
+        The PRNGKey(seed) words are made once per request, on the host."""
+        if req._seed_key is None:
+            req._seed_key = prng.seed_words(req.seed)
+        tail = np.empty(_SAMPLE_TAIL, np.int32)
+        tail[0] = slot
+        tail[1:3] = req._seed_key.view(np.int32)
+        tail[3] = np.float32(req.temperature).view(np.int32)
+        tail[4] = req.top_k
+        return tail
+
+    def _first_token(self, logits, tail):
+        """The prompt's first token from its last logits ``[V]``, on the
+        device: the argmax, or on a sampling engine the request's first
+        draw from its seed key, the advanced key written into the slot's
+        row of the key buffer (``tail``: the uploaded `_sample_tail`)."""
+        if tail is None:
+            return logits.argmax(dim=-1)
+        key = (tail[1:3].long() & prng.M32)[None]
+        tok, new_key = smp.fused_sample(
+            logits[None], key, tail[3:4].view(torch.float32), tail[4:5])
+        self._keys_dev.index_copy_(0, tail[0:1].long(), new_key)
+        return tok[0]
+
+    def _run_prefill(self, ids: np.ndarray, row: np.ndarray, slot: int,
+                     req: GenerateRequest) -> int:
         """One-shot bucketed prefill of ``ids`` into ``row``'s pages; returns
-        the greedy first token."""
+        the first token (read back)."""
         s0, maxp = ids.size, self.pages_per_slot
         bucket = self.bucket_for(s0)
-        packed = np.zeros(bucket + maxp, np.int32)   # ids | page row
+        x = _SAMPLE_TAIL if self._sampling else 0
+        packed = np.zeros(bucket + maxp + x, np.int32)  # ids | row | tail
         packed[:s0] = ids
-        packed[bucket:] = row
+        packed[bucket:bucket + maxp] = row
+        if self._sampling:
+            packed[bucket + maxp:] = self._sample_tail(slot, req)
         dev = self._upload(packed)
         logits = gpt_mod.prefill_step(
-            self._params, dev[:bucket], s0, dev[bucket:], self._kc, self._vc,
-            cfg=self.cfg, **self._scales())[0]
+            self._params, dev[:bucket], s0, dev[bucket:bucket + maxp],
+            self._kc, self._vc, cfg=self.cfg, **self._scales())[0]
         self.counters["prefills"] += 1
-        return int(logits.argmax(dim=-1))
+        tok = self._first_token(logits, dev[bucket + maxp:] if x else None)
+        self.counters["d2h_transfers"] += 1
+        return int(tok)
 
-    def _run_chunk(self, ids: np.ndarray, done: int, row: np.ndarray):
+    def _run_chunk(self, ids: np.ndarray, done: int, row: np.ndarray,
+                   slot: int, req: GenerateRequest):
         """Run ONE prefill chunk (``ids[done:done+c]`` against page ``row``)
-        and return its greedy token on the device (meaningful only for the
-        final chunk; no readback here)."""
+        and return its first token on the device when it is the FINAL chunk
+        (no readback here), else None: only the final chunk samples, so the
+        chain advances once per emitted token."""
         c, maxp = int(self.ecfg.prefill_chunk_tokens), self.pages_per_slot
         chunk = ids[done:done + c]
-        packed = np.zeros(c + maxp, np.int32)        # chunk ids | page row
+        final = done + c >= ids.size
+        x = _SAMPLE_TAIL if self._sampling and final else 0
+        packed = np.zeros(c + maxp + x, np.int32)    # chunk | row | tail
         packed[:chunk.size] = chunk
-        packed[c:] = row
+        packed[c:c + maxp] = row
+        if x:
+            packed[c + maxp:] = self._sample_tail(slot, req)
         dev = self._upload(packed)
         logits = gpt_mod.prefill_chunk_step(
-            self._params, dev[:c], done, int(chunk.size), dev[c:], self._kc,
-            self._vc, cfg=self.cfg, **self._scales())[0]
+            self._params, dev[:c], done, int(chunk.size), dev[c:c + maxp],
+            self._kc, self._vc, cfg=self.cfg, **self._scales())[0]
         self.counters["prefill_chunks"] += 1
-        return logits.argmax(dim=-1)
+        if not final:
+            return None
+        return self._first_token(logits, dev[c + maxp:] if x else None)
 
     # ---------------------------------------------------------- requests
 
-    def submit(self, prompt_ids, max_new_tokens=32) -> GenerateRequest:
-        """Queue one prompt (1-D or [1, S] int array). Thread-safe."""
+    def submit(self, prompt_ids, max_new_tokens=32, speculate=True,
+               temperature=1.0, top_k=0, seed=0) -> GenerateRequest:
+        """Queue one prompt (1-D or [1, S] int array). Thread-safe.
+
+        ``speculate=False`` keeps this request out of n-gram drafting on a
+        speculating engine. ``temperature`` / ``top_k`` / ``seed`` need
+        ``EngineConfig(sampling=True)``: the semantics and key chain of the
+        JAX package's `fast_generate` (temperature before the top-k mask,
+        one split of ``PRNGKey(seed)`` per sampled token). Sampled
+        parameters on an engine without ``sampling`` raise ValueError:
+        there is no host-sampled path."""
         ids = np.ascontiguousarray(np.asarray(prompt_ids)).reshape(-1)
         if ids.size == 0:
             raise ValueError("empty prompt")
@@ -365,10 +518,27 @@ class DecodeEngine:
             raise ValueError(
                 f"prompt {ids.size} + max_new_tokens {n} exceeds engine "
                 f"max_seq_len={self.max_seq_len}")
-        req = GenerateRequest(ids, n)
+        self._check_sample_params(temperature, top_k)
+        req = GenerateRequest(ids, n, speculate=speculate,
+                              temperature=temperature, top_k=top_k,
+                              seed=seed)
         with self._qlock:
             self._queue.append(req)
         return req
+
+    def _check_sample_params(self, temperature, top_k):
+        """Refuse sampling parameters the engine cannot honour: a silent
+        greedy fallback would return tokens of the wrong distribution."""
+        t, k = float(temperature), int(top_k)
+        if not t > 0:
+            raise ValueError(f"temperature must be > 0, got {temperature}")
+        if k < 0:
+            raise ValueError(f"top_k must be >= 0, got {top_k}")
+        if (t != 1.0 or k != 0) and not self._sampling:
+            raise ValueError(
+                "sampled generation (temperature/top_k) needs "
+                "EngineConfig(sampling=True): the fused sampler runs in the "
+                "step on the device, not in a per-step host round trip")
 
     def _free_slots(self):
         # occupancy, not the dispatch mask
@@ -412,6 +582,9 @@ class DecodeEngine:
         self._page_table[slot] = row
         self._slot_req[slot] = req
         self._slot_pages[slot] = pages
+        if self._sampling:
+            self._temps[slot] = req.temperature
+            self._topks[slot] = req.top_k
         if self._use_chunked(req.prompt.size):
             # decode-priority chunked prefill: the slot holds its pages but
             # stays decode-inactive; step() runs ONE chunk per step after
@@ -419,7 +592,8 @@ class DecodeEngine:
             self._lengths[slot] = 0
             self._prefilling[slot] = {"req": req, "done": 0}
             return
-        self._seed_first_token(slot, req, self._run_prefill(req.prompt, row))
+        self._seed_first_token(slot, req,
+                               self._run_prefill(req.prompt, row, slot, req))
 
     def _seed_first_token(self, slot: int, req: GenerateRequest, first: int):
         """Prefill finished: activate the slot for decode and deliver the
@@ -429,6 +603,12 @@ class DecodeEngine:
         self._active[slot] = True
         self._fresh[slot] = True
         self._budget[slot] = req.max_new_tokens - 1
+        if self._spec and req.speculate:
+            # O(prompt) once here, O(1) per token after: the drafter never
+            # rescans the history inside the step loop
+            idx = _DraftIndex(req.prompt)
+            idx.append(first)
+            self._slot_draft[slot] = idx
         req.generated.append(first)
         req.first_token_t = time.perf_counter()
         if req.max_new_tokens == 1 or first == self.ecfg.eos_id:
@@ -443,11 +623,13 @@ class DecodeEngine:
         st = self._prefilling[slot]
         req = st["req"]
         c = int(self.ecfg.prefill_chunk_tokens)
-        tok = self._run_chunk(req.prompt, st["done"], self._page_table[slot])
+        tok = self._run_chunk(req.prompt, st["done"], self._page_table[slot],
+                              slot, req)
         st["done"] = min(st["done"] + c, req.prompt.size)
-        if st["done"] >= req.prompt.size:
+        if tok is not None:                    # the final chunk's token
             del self._prefilling[slot]
-            self._seed_first_token(slot, req, int(tok))   # final chunk only
+            self.counters["d2h_transfers"] += 1
+            self._seed_first_token(slot, req, int(tok))
         return True
 
     def _detach_slot(self, slot: int):
@@ -457,11 +639,14 @@ class DecodeEngine:
         self.allocator.free(self._slot_pages[slot])
         self._slot_pages[slot] = []
         self._slot_req[slot] = None
+        self._slot_draft[slot] = None
         self._active[slot] = False
         self._fresh[slot] = False
         self._budget[slot] = 0
         self._page_table[slot] = TRASH_PAGE
         self._lengths[slot] = 0
+        self._temps[slot] = 1.0        # greedy defaults; the stale key row
+        self._topks[slot] = 0          # is re-seeded at the next prefill
 
     def _retire(self, slot: int, error: str | None = None):
         req = self._slot_req[slot]
@@ -471,31 +656,60 @@ class DecodeEngine:
 
     # -------------------------------------------------------------- step
 
-    def _packed_state(self) -> np.ndarray:
+    def _packed_state(self, drafts=None, draft_lens=None) -> np.ndarray:
+        """The step's one upload: per slot (token, length, flags[, draft
+        length, K drafts], page-table row[, temperature bits, top_k])."""
         B, maxp = self.ecfg.max_slots, self.pages_per_slot
-        packed = np.empty((B, _STATE_COLS + maxp), np.int32)
+        lead = _STATE_COLS if drafts is None else _SPEC_COLS + self._spec_k
+        x = 2 if self._sampling else 0
+        packed = np.empty((B, lead + maxp + x), np.int32)
         packed[:, _COL_TOKEN] = self._tokens
         packed[:, _COL_LENGTH] = self._lengths
         packed[:, _COL_FLAGS] = (self._active.astype(np.int32) * _FLAG_ACTIVE
                                  | self._fresh.astype(np.int32) * _FLAG_FRESH)
-        packed[:, _STATE_COLS:] = self._page_table
+        if drafts is not None:
+            packed[:, _COL_DRAFT] = draft_lens
+            packed[:, _SPEC_COLS:lead] = drafts
+        packed[:, lead:lead + maxp] = self._page_table
+        if self._sampling:
+            packed[:, lead + maxp] = self._temps.view(np.int32)
+            packed[:, lead + maxp + 1] = self._topks
         return packed
 
-    def _dispatch(self):
-        """Run ONE fixed-shape decode step from one fused upload; the
-        sampled tokens stay on the device. Returns the slots to harvest."""
-        state = self._upload(self._packed_state())
+    def _unpack(self, state, lead):
+        """Device views of an uploaded `_packed_state` whose page-table row
+        starts at column ``lead``: (active, tokens with the fresh ones
+        overridden, cache dict, (temperatures, top_ks) or None)."""
+        maxp = self.pages_per_slot
         flags = state[:, _COL_FLAGS]
         active = (flags & _FLAG_ACTIVE) != 0
         fresh = (flags & _FLAG_FRESH) != 0
         toks = torch.where(fresh, state[:, _COL_TOKEN], self._tok_dev)
         cache = dict(k_pages=self._kc, v_pages=self._vc,
-                     page_table=state[:, _STATE_COLS:].contiguous(),
+                     page_table=state[:, lead:lead + maxp].contiguous(),
                      lengths=state[:, _COL_LENGTH], **self._scales())
+        params = None
+        if self._sampling:
+            temps = state[:, lead + maxp].contiguous().view(torch.float32)
+            params = (temps, state[:, lead + maxp + 1])
+        return active, toks, cache, params
+
+    def _dispatch(self):
+        """Run ONE fixed-shape decode step from one fused upload; the
+        sampled tokens (and key chains) stay on the device. Returns the
+        slots to harvest."""
+        B = self.ecfg.max_slots
+        state = self._upload(self._packed_state())
+        active, toks, cache, sample = self._unpack(state, _STATE_COLS)
         logits, _ = gpt_mod.decode_step(self._params, toks, cache, active,
                                         cfg=self.cfg)
-        nxt = logits.argmax(dim=-1).to(torch.int32)
-        self._tok_dev = torch.where(active, nxt, toks)
+        if sample is None:
+            nxt = logits.argmax(dim=-1)
+        else:
+            keys = self._keys_dev[:B]
+            nxt, new_keys = smp.fused_sample(logits, keys, *sample)
+            self._keys_dev[:B] = torch.where(active[:, None], new_keys, keys)
+        self._tok_dev = torch.where(active, nxt.to(torch.int32), toks)
         snapshot = [(int(i), self._slot_req[i])
                     for i in np.flatnonzero(self._active)]
         # host bookkeeping for the step: each active slot advances one
@@ -511,6 +725,7 @@ class DecodeEngine:
         """Read the step's sampled token ids back and deliver them: append to
         each request, retire slots that hit max_new_tokens or EOS."""
         toks_np = self._tok_dev.cpu().numpy()
+        self.counters["d2h_transfers"] += 1
         for slot, req in snapshot:
             if req.done or self._slot_req[slot] is not req:
                 continue
@@ -520,9 +735,84 @@ class DecodeEngine:
                     or tok == self.ecfg.eos_id:
                 self._retire(slot)
 
+    # ------------------------------------------------------ speculative step
+
+    def _dispatch_spec(self):
+        """Run ONE verify step: draft on the host (n-gram), one fused upload,
+        `verify_step` on the device. Returns the device handles of the
+        emitted tokens and their counts (one [B, K+2] tensor) and the
+        slots to harvest; the harvest follows in the same step, since the
+        next drafts need these tokens."""
+        K, B = self._spec_k, self.ecfg.max_slots
+        drafts = np.zeros((B, K), np.int32)
+        draft_lens = np.zeros(B, np.int32)
+        for slot in np.flatnonzero(self._active):
+            idx = self._slot_draft[slot]
+            budget = int(self._budget[slot])   # tokens this step may emit
+            if idx is None or budget <= 1:
+                continue                       # <= 1 left: drafting is waste
+            d = idx.draft(K)
+            n = min(len(d), K, budget - 1)
+            if n > 0:
+                drafts[slot, :n] = d[:n]
+                draft_lens[slot] = n
+        state = self._upload(self._packed_state(drafts, draft_lens))
+        active, tok0, cache, sample = self._unpack(state, _SPEC_COLS + K)
+        tok_seq = torch.cat([tok0[:, None], state[:, _SPEC_COLS:_SPEC_COLS
+                                                  + K]], dim=1)
+        draft_len = state[:, _COL_DRAFT]
+        if sample is None:
+            emitted, n_emit, _ = gpt_mod.verify_step(
+                self._params, tok_seq, draft_len, cache, active, cfg=self.cfg)
+        else:
+            emitted, n_emit, _, new_keys = gpt_mod.verify_step(
+                self._params, tok_seq, draft_len, cache, active, cfg=self.cfg,
+                sample_state=(self._keys_dev[:B], *sample))
+            self._keys_dev[:B] = new_keys
+        snapshot = [(int(i), self._slot_req[i])
+                    for i in np.flatnonzero(self._active)]
+        self._fresh[:] = False
+        self.counters["steps"] += 1
+        self.counters["spec_steps"] += 1
+        self.counters["spec_drafted"] += int(draft_lens.sum())
+        return torch.cat([emitted, n_emit[:, None]], dim=1), snapshot
+
+    def _harvest_spec(self, out_dev, snapshot):
+        """Read the verify step's tokens back (ONE readback: the emitted
+        tokens and their count) and apply them: 1..k+1 tokens a slot,
+        clamped to its budget and cut after EOS. Lengths move forward by
+        exactly what was kept, so rejected drafts sit past every live
+        position until a later step writes them. The host is the authority
+        on each slot's next token from here (``_fresh``), so the verify
+        step leaves ``_tok_dev`` alone."""
+        out = out_dev.cpu().numpy()
+        self.counters["d2h_transfers"] += 1
+        for slot, req in snapshot:
+            if req.done or self._slot_req[slot] is not req:
+                continue
+            n = min(int(out[slot, -1]), int(self._budget[slot]))
+            toks = [int(t) for t in out[slot, :n]]
+            if self.ecfg.eos_id is not None and self.ecfg.eos_id in toks:
+                toks = toks[:toks.index(self.ecfg.eos_id) + 1]
+            n = len(toks)
+            req.generated.extend(toks)
+            idx = self._slot_draft[slot]
+            if idx is not None:
+                for t in toks:
+                    idx.append(t)
+            self.counters["spec_accepted"] += n - 1
+            self._lengths[slot] += n
+            self._budget[slot] -= n
+            self._tokens[slot] = toks[-1]
+            self._fresh[slot] = True
+            if self._budget[slot] <= 0 or toks[-1] == self.ecfg.eos_id \
+                    or len(req.generated) >= req.max_new_tokens:
+                self._retire(slot)
+
     def step(self) -> bool:
-        """Admit waiting requests, run ONE batched decode step plus at most
-        one prefill chunk, harvest the step. Returns False when idle."""
+        """Admit waiting requests, run ONE batched decode step (a verify
+        step on a speculating engine) plus at most one prefill chunk,
+        harvest the step. Returns False when idle."""
         self._admit()
         # capacity tripwire: a token at pos >= slot_capacity would spill to
         # the trash page; retire the sequence with an error instead
@@ -532,11 +822,18 @@ class DecodeEngine:
                 f"sequence hit slot capacity {self.slot_capacity} "
                 f"(pages_per_slot * page_size); token at position "
                 f"{int(self._lengths[slot])} cannot be cached"))
-        snapshot = self._dispatch() if self._active.any() else None
+        spec_out = snapshot = None
+        if self._active.any():
+            if self._spec:
+                spec_out, snapshot = self._dispatch_spec()
+            else:
+                snapshot = self._dispatch()
         # decode-priority: the chunk runs AFTER the decode step, so a long
         # prompt adds at most one chunk per step to the running decodes
         chunked = self._advance_prefill()
-        if snapshot is not None:
+        if spec_out is not None:
+            self._harvest_spec(spec_out, snapshot)
+        elif snapshot is not None:
             self._harvest(snapshot)
         elif not chunked:
             with self._qlock:

@@ -45,7 +45,7 @@ KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 __all__ = ["TRASH_PAGE", "KV_DTYPES", "gather_kv", "quantize_kv",
            "dequantize_window", "gather_scales", "paged_attention",
            "prefill_attention", "token_page_coords", "prompt_page_coords",
-           "chunk_page_coords"]
+           "chunk_page_coords", "verify_page_coords"]
 
 
 def quantize_kv(x):
@@ -219,3 +219,21 @@ def chunk_page_coords(page_table, start, valid, seq_len, page_size):
     page = torch.where((i < valid) & (idx < maxp),
                        page_table[idx.clamp(0, maxp - 1)], TRASH_PAGE)
     return page.long(), (t % page_size).long()
+
+
+def verify_page_coords(page_table, pos, valid, page_size):
+    """(page, offset) for writing a ``[B, W]`` WINDOW of tokens per sequence,
+    the speculative verify step's writes (`models/gpt.py::verify_step`):
+    each slot writes its current token and up to W-1 drafted ones.
+
+    page_table : [B, pages_per_slot] int32; pos : [B, W] absolute
+    positions; valid : [B, W] bool. Padding drafts, inactive slots and
+    positions past the slot's capacity go to TRASH_PAGE (rejected drafts
+    leave data only past the rolled-back length, which later steps write
+    before any query attends it). Returns ([B, W], [B, W]) int64.
+    """
+    maxp = page_table.shape[1]
+    idx = torch.div(pos, page_size, rounding_mode="floor")
+    page = page_table.gather(1, idx.clamp(0, maxp - 1).long())
+    page = torch.where(valid & (idx < maxp), page, TRASH_PAGE)
+    return page.long(), (pos % page_size).long()

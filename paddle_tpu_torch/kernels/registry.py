@@ -1,12 +1,15 @@
 """Kernel registry of the port: named op -> its impls -> the impl one call
 takes (counterpart of `paddle_tpu/kernels/registry.py`, reduced to the ops
-of the ported slices: serving's two paged-attention ops, training's flash
-attention, and the fused layernorm and rotary embedding of `incubate.nn`).
+of the ported slices: serving's two paged-attention ops and fused sampler,
+training's flash attention, and the fused layernorm and rotary embedding
+of `incubate.nn`).
 
 The JAX registry chooses among impls by a forced flag, a viability probe
 and a measured winner. Here the choice is the tensor's device and nothing
 else: a tensor on the CPU takes ``plain`` (the PyTorch version), a CUDA
-tensor takes ``cuda`` (the hand-written kernel) and never falls back.
+tensor takes ``cuda`` (the hand-written kernel) and never falls back. An
+op whose one impl is ``torch`` (the sampler, which the JAX package also
+computes outside any kernel) takes it on either device.
 Every resolution counts ``kernel.dispatch.{op}.{impl}``. PyTorch runs
 eagerly, so this counts calls, where the JAX counter counts program
 builds.
@@ -23,6 +26,7 @@ OPS = {
     "flash_attention": ("plain", "cuda"),
     "fused_layernorm": ("plain", "cuda"),
     "fused_rope": ("plain", "cuda"),
+    "fused_sampling": ("torch",),
 }
 
 _COUNTS: dict[str, int] = {}
@@ -32,13 +36,13 @@ def dispatch(op: str, tensor: torch.Tensor) -> str:
     """The impl ``op`` takes for ``tensor``, counted."""
     if op not in OPS:
         raise KeyError(f"unknown kernel op {op!r}; registered: {sorted(OPS)}")
-    if tensor.device.type == "cpu":
-        impl = "plain"
-    elif tensor.is_cuda:
-        impl = "cuda"
-    else:
+    if tensor.device.type not in ("cpu", "cuda"):
         raise ValueError(f"kernel op {op!r} has no impl for device "
                          f"{tensor.device}; expected cpu or cuda")
+    if OPS[op] == ("torch",):
+        impl = "torch"
+    else:
+        impl = "plain" if tensor.device.type == "cpu" else "cuda"
     name = f"kernel.dispatch.{op}.{impl}"
     _COUNTS[name] = _COUNTS.get(name, 0) + 1
     return impl

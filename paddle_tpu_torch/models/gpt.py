@@ -9,6 +9,12 @@ head, and per-layer keys ``gpt.h.{i}.…``. The step functions take those
 weights as a plain ``{name: tensor}`` dict, the same dict the JAX step
 functions take.
 
+`verify_step`, the speculative verify, scores a window of positions per
+slot with a gather and a dense f32 softmax, as the JAX package does in XLA
+(there is no Pallas kernel behind it, so plain PyTorch ops on both
+devices); its sampled arms and `_make_sampler` draw through the port's
+threefry chain (`kernels/prng.py`, `kernels/sampling.py`).
+
 The pools are updated IN PLACE: where the JAX step functions return new
 pools (arrays are immutable there), these write into the tensors they are
 given and return the same tensors.
@@ -28,12 +34,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from paddle_tpu_torch.kernels import paged_attention as pa
+from paddle_tpu_torch.kernels import prng
+from paddle_tpu_torch.kernels import sampling as smp
 from paddle_tpu_torch.kernels.flash_attention import (NEG_INF,
                                                       flash_attention_fn)
 from paddle_tpu_torch.kernels.fused_ce import fused_linear_cross_entropy
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "gpt2_small", "decode_step",
-           "prefill_step", "prefill_chunk_step", "BLOCK_SUFFIXES",
+           "prefill_step", "prefill_chunk_step", "verify_step",
+           "BLOCK_SUFFIXES",
            "analytic_param_count", "analytic_flops_per_token",
            "stack_gpt_params", "unstack_gpt_params", "check_trainable",
            "scan_blocks", "scan_hidden", "scan_logits", "scan_loss"]
@@ -223,6 +232,31 @@ def _check_scales(k_scale, v_scale):
     return None if k_scale is None else (k_scale, v_scale)
 
 
+def _make_sampler(temperature, top_k):
+    """Greedy, temperature or top-k sampling of ``[..., V]`` f32 logits with
+    a threaded key, for one static (temperature, top_k): temperature divides
+    before the top-k mask, and the key splits once per sampled token. Key
+    ``[2]`` draws every row from one key; keys ``[B, 2]`` with logits ``[B,
+    ..., V]`` draw each slot's rows from its own (`prng.categorical`).
+    Returns ``sample(logits, key) -> (tokens, key)``."""
+    def sample(logits, key):
+        if temperature != 1.0:
+            # a tensor on the logits' device, not a Python scalar: CUDA
+            # turns division by a host scalar into a product with its
+            # reciprocal, one rounding more
+            logits = logits / torch.full((), temperature, dtype=torch.float32,
+                                         device=logits.device)
+        if top_k:
+            kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+            logits = torch.where(logits < kth, smp.NEG_INF, logits)
+        if top_k or temperature != 1.0:
+            split = prng.split(key)
+            return prng.categorical(split[..., 1, :], logits), \
+                split[..., 0, :]
+        return logits.argmax(dim=-1), key
+    return sample
+
+
 @torch.no_grad()
 def decode_step(params, ids, cache, slot_mask, *, cfg):
     """One fixed-shape batched decode step over a PAGED KV cache.
@@ -338,6 +372,105 @@ def prefill_chunk_step(params, ids, start, valid, page_table, k_pages,
     x = _block_stack(params, x, nl, nh, dh, attend)
     last = x[0, min(max(int(valid) - 1, 0), c - 1)]
     return (_final_logits(params, last), k_pages, v_pages, *(scales or ()))
+
+
+@torch.no_grad()
+def verify_step(params, tok_seq, draft_len, cache, slot_mask, *, cfg,
+                sampler=None, keys=None, sample_state=None):
+    """Speculative-decode VERIFY: score K+1 positions per slot in one
+    fixed-shape step over the paged cache, and accept the longest draft
+    prefix that plain decode would have emitted plus ONE corrected token.
+    Rejected drafts need no rollback on the device: the caller keeps the
+    slot's length, and later steps write those positions before any query
+    attends them.
+
+    tok_seq   : [B, K+1] int; column 0 is each slot's current token (as
+                `decode_step`'s ids), columns 1..K its drafts (padding past
+                ``draft_len``)
+    draft_len : [B] int, true drafts per slot (0 is one plain decode step)
+    cache     : as `decode_step` (k_pages/v_pages/page_table/lengths, and
+                k_scale/v_scale over int8 pools, written by `quantize_kv`)
+    slot_mask : [B] bool; inactive slots write to TRASH_PAGE, emit 0 and
+                keep their lengths
+    sampler   : a `_make_sampler` function, with ``keys`` [B, 2]: the chain
+                splits once per position as plain sampled decode splits once
+                per token
+    sample_state : the fused per-slot sampler, ``(keys [B, 2], temperatures
+                [B] f32, top_ks [B] int)`` (`kernels/sampling.py`); greedy
+                slots take the argmax and keep their chain. Not with
+                ``sampler``
+    returns   : (emitted [B, K+1] in tok_seq's dtype, positions < n_emitted
+                being the step's tokens; n_emitted [B] int32 in 0..K+1; the
+                cache with lengths advanced by n_emitted[; new_keys [B, 2],
+                each chain advanced by its n_emitted positions, an inactive
+                slot's unmoved])
+
+    Acceptance is EXACT: position i's logits condition on drafts 1..i and
+    count only when each of them equals the token the model chose there.
+    """
+    if sampler is not None and sample_state is not None:
+        raise ValueError("verify_step takes sampler= OR sample_state=, "
+                         "not both")
+    if (sampler is None) != (keys is None):
+        raise ValueError("sampler= and keys= go together")
+    nl, nh = cfg.num_layers, cfg.num_heads
+    dh = cfg.hidden_size // nh
+    scale = 1.0 / (dh ** 0.5)
+    kc, vc = cache["k_pages"], cache["v_pages"]
+    scales = _check_scales(cache.get("k_scale"), cache.get("v_scale"))
+    page_table, lengths = cache["page_table"], cache["lengths"]
+    ps = kc.shape[2]
+    b, kp1 = tok_seq.shape
+    dev = tok_seq.device
+    offs = torch.arange(kp1, device=dev)
+    pos = lengths[:, None].long() + offs[None, :]              # [B, K+1]
+    valid = slot_mask[:, None] & (offs[None, :] <= draft_len[:, None])
+    wpe = params["gpt.wpe.weight"]
+    x = params["gpt.wte.weight"][tok_seq.long()] + \
+        wpe[pos.clamp(0, wpe.shape[0] - 1)]                    # [B, K+1, H]
+    page, off = pa.verify_page_coords(page_table, pos, valid, ps)
+    lmax = page_table.shape[1] * ps
+    # absolute-position causality: the query at position p sees keys 0..p,
+    # so drafts later in the window mask out like unwritten pages
+    mask = torch.arange(lmax, device=dev)[None, None, :] <= pos[:, :, None]
+
+    def attend(i, q, k, v):
+        _write_kv((kc, vc), scales, i, page, off, k, v)
+        ks, vs = scales if scales is not None else (None, None)
+        kk = pa._gather_f32(kc[i], None if ks is None else ks[i], page_table)
+        vv = pa._gather_f32(vc[i], None if vs is None else vs[i], page_table)
+        sc = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, kk)
+        sc = sc.masked_fill(~mask[:, None], -1e30)
+        pr = torch.softmax(sc, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", pr, vv).to(x.dtype)
+
+    x = _block_stack(params, x, nl, nh, dh, attend)
+    logits = _final_logits(params, x)                          # [B, K+1, V]
+
+    keys_after = None
+    if sample_state is not None:
+        keys, temps, topks = sample_state
+        out, keys_after = smp.sample_chain(logits, keys, temps, topks)
+    elif sampler is not None:
+        toks, after, key = [], [], keys
+        for j in range(kp1):
+            t, key = sampler(logits[:, j:j + 1], key)
+            toks.append(t[:, 0])
+            after.append(key)
+        out, keys_after = torch.stack(toks, 1), torch.stack(after, 1)
+    else:
+        out = logits.argmax(dim=-1)
+    out = out.to(tok_seq.dtype)
+    n_emitted = smp.accept_drafts(tok_seq[:, 1:], out, draft_len, slot_mask)
+    new_cache = dict(cache, lengths=torch.where(
+        slot_mask, lengths + n_emitted, lengths))
+    if keys_after is None:
+        return out, n_emitted, new_cache
+    last = (n_emitted.long() - 1).clamp(min=0)
+    new_keys = keys_after[torch.arange(b, device=dev), last]
+    # an inactive slot emitted nothing: its chain must not move at all
+    new_keys = torch.where((n_emitted > 0)[:, None], new_keys, keys)
+    return out, n_emitted, new_cache, new_keys
 
 
 # --------------------------------------------------------------------------

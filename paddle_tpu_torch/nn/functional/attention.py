@@ -47,13 +47,15 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training=True, name=None):
     """Attention on [B, S, H, D]. Attention dropout in training (``dropout_p
     > 0``) raises NotImplementedError: its mask needs the JAX package's
-    threefry bits (ROADMAP A3)."""
+    global key stream over the threefry chain, not ported yet (ROADMAP
+    A8.1)."""
     if attn_mask is None and dropout_p == 0.0:
         return flash_attention_fn(causal=is_causal, scale=scale)(
             query, key, value)
     if dropout_p > 0.0 and training:
         raise NotImplementedError(
             f"attention dropout with p={dropout_p} in training: masks "
-            "bit-identical to the JAX package's need its threefry random "
-            "bits (ROADMAP A3); call .eval() or set the rate to 0")
+            "bit-identical to the JAX package's need its global key stream "
+            "over the threefry chain (kernels/prng.py), not ported yet "
+            "(ROADMAP A8.1); call .eval() or set the rate to 0")
     return _sdpa_plain(query, key, value, attn_mask, is_causal, scale)

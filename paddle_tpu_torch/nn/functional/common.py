@@ -22,7 +22,8 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     training or ``p == 0`` (times ``1 - p`` in eval under
     ``mode="downscale_in_infer"``), zeros for ``p == 1`` in training. With
     ``0 < p < 1`` in training it raises NotImplementedError: masks equal to
-    the JAX package's need its threefry bits (ROADMAP A3)."""
+    the JAX package's need its global key stream drawn through the threefry
+    chain of `kernels/prng.py`, not ported yet (ROADMAP A8.1)."""
     if mode not in ("upscale_in_train", "downscale_in_infer"):
         raise ValueError(f"dropout: unknown mode {mode!r}; expected "
                          "'upscale_in_train' or 'downscale_in_infer'")
@@ -34,5 +35,6 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         return torch.zeros_like(x)
     raise NotImplementedError(
         f"dropout with p={p} in training: masks bit-identical to the JAX "
-        "package's need its threefry random bits, which the port does not "
-        "have yet (ROADMAP A3); call .eval() or set the rate to 0")
+        "package's need its global key stream over the threefry chain "
+        "(kernels/prng.py), not ported yet (ROADMAP A8.1); call .eval() or "
+        "set the rate to 0")

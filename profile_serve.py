@@ -4,11 +4,15 @@ Run from the repository root:
 
     python3 profile_serve.py            # the native bf16 engine
     python3 profile_serve.py --int8     # int8 KV pages and int8 weights
+    python3 profile_serve.py --sampled  # the fused sampler, mixed requests
+    python3 profile_serve.py --spec     # speculative decode, tiled prompts
 
 It serves the same bf16 GPT-2 small run as `chip_smoke.py`'s serve phase
 (8 requests of 7-900 prompt tokens, 32 new tokens each; with ``--int8``
-its serve_int8 phase) under `torch.profiler`, in two windows: the first
-step (admission: 8 one-shot prefills and the first decode step) and the
+its serve_int8 phase, with ``--sampled`` its serve_sampled phase, with
+``--spec`` its serve_spec phase) under `torch.profiler`, in two windows:
+the first step (admission: 8 one-shot prefills and the first decode step)
+and the
 decode steps after it. For each window it prints one JSON line: the host
 wall time, the summed device time of all kernels, their share of the
 wall, the number of device kernel launches, and the kernels with the most
@@ -61,12 +65,22 @@ def main():
     print(cs.nvidia_smi(), flush=True)
     model = gpt_mod.gpt2_small(
         generator=torch.Generator().manual_seed(cs.SEED)).to(torch.bfloat16)
-    quant = {"kv_dtype": "int8", "weight_dtype": "int8"} \
-        if "--int8" in sys.argv[1:] else {}
-    eng, prompts = cs.serve_engine(model, dev, **quant)
+    args = sys.argv[1:]
+    ecfg, params = {}, [(1.0, 0, 0)] * len(cs.SERVE_LENS)
+    if "--int8" in args:
+        ecfg = {"kv_dtype": "int8", "weight_dtype": "int8"}
+    elif "--sampled" in args:
+        ecfg, params = {"sampling": True}, cs.SAMPLED_PARAMS
+    elif "--spec" in args:
+        ecfg = {"speculate_k": cs.SPEC_K}
+    eng, prompts = cs.serve_engine(model, dev, tiled="--spec" in args,
+                                   **ecfg)
     cs.emit({"engine": {"kv_dtype": eng.ecfg.kv_dtype,
-                        "weight_dtype": eng.ecfg.weight_dtype}})
-    reqs = [eng.submit(p, max_new_tokens=32) for p in prompts]
+                        "weight_dtype": eng.ecfg.weight_dtype,
+                        "sampling": eng.ecfg.sampling,
+                        "speculate_k": eng.ecfg.speculate_k}})
+    reqs = [eng.submit(p, max_new_tokens=32, temperature=t, top_k=k, seed=s)
+            for p, (t, k, s) in zip(prompts, params)]
     state = {"more": True}
 
     def one_step():

@@ -28,6 +28,11 @@ bf16 dK/dV and dQ loops run there too and round P and dS to bf16 only as
 the operands of their dV, dK and dQ products, a bound
 `tests/test_torch_flash.py` emulates on the CPU). The split decode loop, over float and int8 pools,
 holds the same bounds as the per-(b, h) loop.
+The sampler on the card against the CPU (the same torch code): bits,
+uniforms and key chains exact, Gumbel values within 4 ulp of max(|g|, 1),
+tokens equal where the CPU's perturbed top-2 margin clears that; the
+sampled engine, plain and speculative, float and int8 pools, equals the
+CPU engine token for token.
 The fused cross-entropy on the card against the CPU: losses within 1e-4,
 gradients within one bf16 step (2^-8) of their largest value.
 The fused layernorm kernels: y within 2e-5 and dx within 1e-4 in
@@ -911,3 +916,89 @@ def test_card_fused_layer_norm_and_rope_match_cpu(card):
         "kernel.dispatch.fused_layernorm.cuda": 1,
         "kernel.dispatch.fused_rope.plain": 1,
         "kernel.dispatch.fused_rope.cuda": 1}
+
+
+# ------------------------------------------------------ sampled serving
+# The sampler is the same torch code on both devices (no kernel behind it),
+# so these hold the card's arithmetic against the CPU's: bits, uniforms and
+# keys exactly; Gumbel values within GUMBEL_CARD_ULPS units in the last
+# place at max(|g|, 1), since CUDA's logf and the CPU's log may each round
+# one place off in each of the two logs; tokens equal wherever the CPU's
+# top-2 margin of the perturbed logits exceeds twice what that allows them
+# to move. The JAX algorithm itself is held on the CPU
+# (tests/test_torch_sampling.py).
+GUMBEL_CARD_ULPS = 4
+SAMPLER_PARAMS = [(1.0, 0), (0.8, 40), (1.0, 50), (0.7, 0), (1.3, 5),
+                  (1.0, 0), (0.9, 1), (2.0, 1000)]
+
+
+def _ulp_at(x):
+    """One unit in the last place of float32 at max(|x|, 1), per row."""
+    big = x.abs().amax(dim=-1).clamp_min(1.0)
+    return 2.0 ** (torch.floor(torch.log2(big)) - 23)
+
+
+def test_card_sampler_matches_cpu(card):
+    from paddle_tpu_torch.kernels import prng
+    from paddle_tpu_torch.kernels import sampling as smp
+    rng = np.random.default_rng(7)
+    b, v = len(SAMPLER_PARAMS), 50257
+    temps = torch.tensor([t for t, _ in SAMPLER_PARAMS])
+    topks = torch.tensor([k for _, k in SAMPLER_PARAMS])
+    keys = {"cpu": torch.stack([prng.prng_key(s) for s in range(b)])}
+    keys["card"] = keys["cpu"].to(card)
+    for _ in range(5):
+        lg = torch.from_numpy(rng.standard_normal((b, v), dtype=np.float32)
+                              * 2)
+        out = {}
+        for where, dev in (("cpu", "cpu"), ("card", card)):
+            sub = prng.split(keys[where])[:, 1]
+            out[where] = [t.cpu() for t in (
+                prng.random_bits(sub, (v,)),
+                prng.uniform(sub, (v,), np.finfo(np.float32).tiny, 1.0),
+                prng.gumbel(sub, (v,)),
+                smp.perturbed_logits(lg.to(dev), sub, temps.to(dev),
+                                     topks.to(dev)))]
+            tok, keys[where] = smp.fused_sample(lg.to(dev), keys[where],
+                                                temps.to(dev), topks.to(dev))
+            out[where].append(tok.cpu())
+        (bits_c, u_c, g_c, p_c, t_c), (bits_g, u_g, g_g, p_g, t_g) = \
+            out["cpu"], out["card"]
+        assert torch.equal(bits_g, bits_c)
+        assert torch.equal(u_g.view(torch.int32), u_c.view(torch.int32))
+        assert torch.equal(keys["card"].cpu(), keys["cpu"])
+        ulp = _ulp_at(g_c)
+        assert ((g_g - g_c).abs().amax(-1) <= GUMBEL_CARD_ULPS * ulp).all()
+        top2 = p_c.topk(2, dim=-1).values
+        # the perturbed value moves with g, plus one rounding of the sum
+        # at the top values (not at the masked -1e30 entries)
+        gate = 2 * (GUMBEL_CARD_ULPS * ulp + _ulp_at(top2))
+        sure = (top2[:, 0] - top2[:, 1]) > gate
+        greedy = (temps == 1.0) & (topks == 0)
+        assert torch.equal(t_g[greedy], t_c[greedy])
+        assert torch.equal(t_g[sure & ~greedy], t_c[sure & ~greedy])
+
+
+@pytest.mark.parametrize("spec", [None, 3], ids=["plain", "speculative"])
+@pytest.mark.parametrize("quant", [{}, {"kv_dtype": "int8"}],
+                         ids=["float", "int8"])
+def test_card_sampled_engine_matches_cpu_engine(card, quant, spec):
+    from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    model = _small_model()
+    rng = np.random.default_rng(5)
+    pattern = rng.integers(0, 97, 6)
+    prompts = [np.tile(pattern, r).astype(np.int32) for r in (1, 4, 7)]
+    params = [dict(temperature=0.8, top_k=5, seed=1), {},
+              dict(temperature=1.2, seed=4)]
+    ecfg = EngineConfig(page_size=16, max_slots=2, prefill_chunk_tokens=16,
+                        sampling=True, speculate_k=spec, **quant)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        eng = DecodeEngine(model, ecfg, device=dev)
+        reqs = [eng.submit(p, max_new_tokens=10, **kw)
+                for p, kw in zip(prompts, params)]
+        eng.run_until_idle(max_steps=200)
+        outs.append([r.result(timeout=0) for r in reqs])
+        assert eng.allocator.free_pages == eng.allocator.num_pages - 1
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)

@@ -30,6 +30,8 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print("LOADED", len([m for m in sys.modules if m.startswith("paddle_tpu_torch")]))
 print("BAD", bad)
+print("SAMPLING", all(m in sys.modules for m in (
+    "paddle_tpu_torch.kernels.prng", "paddle_tpu_torch.kernels.sampling")))
 """
 
 
@@ -40,6 +42,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
     assert int(r.stdout.split("LOADED ")[1].split()[0]) >= 20
+    # the sampled and speculative serving modules are among those held
+    assert "SAMPLING True" in r.stdout, r.stdout
 
 
 def test_engine_default_device_is_the_card():

@@ -262,4 +262,6 @@ def test_cpu_tensors_dispatch_to_plain_and_count():
     assert registry.counts() == {"kernel.dispatch.paged_attention.plain": 1,
                                  "kernel.dispatch.prefill_attention.plain": 1}
     with pytest.raises(KeyError):
-        registry.dispatch("fused_sampling", q)      # not ported yet
+        registry.dispatch("ring_attention", q)      # not ported yet
+    # the sampler's one impl is plain torch ops on either device
+    assert registry.dispatch("fused_sampling", q) == "torch"
