@@ -104,14 +104,33 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    INCUBATE_TOL and the flash kernels'), beside
    `torch.nn.functional.layer_norm` and
    `torch.ops.aten.native_layer_norm_backward` (rope has no library call).
-10. ``kernels``: per kernel, its source, the TPU kernel it replaces, its
+10. ``serve_prefix_parity`` (and ``serve_prefix_parity_int8`` over int8
+   KV pages): float32 engines with the prefix cache on, card and CPU, a
+   seeding request of a 100-token system prompt, then 4 requests of it
+   plus 5-40-token suffixes: their tails prefill at start=96 over the
+   shared pages. Tokens margin-gated as ``serve_parity``'s, the prefix
+   counters equal on both devices, each tail's logits within
+   ``serve_parity``'s bound (2e-3 over int8 pools). Its tier arm demotes
+   a seeded engine's system pages to a host tier of 3 pages over a disk
+   tier, reruns the requests and holds the re-uploaded pages byte-equal
+   to the pages exported before the spill and the tokens equal to the
+   first run's. ``serve_prefix``: bfloat16, 8 requests sharing a
+   768-token system prompt (48 pages) with suffixes of 9-224 tokens, 32
+   new tokens each, in three arms: ``cold`` (prefix cache off), ``hbm``
+   (seeded store) and ``host_tier`` (the seeded pages demoted to a 64 MiB
+   host tier first): TTFT, steps, tokens/s, prefill tokens, hits, pages
+   reused, re-uploads, spill and re-upload ms a page, exact launches.
+   ``hbm`` and ``host_tier`` tokens must be equal, against ``cold`` they
+   are gated as ``serve_bf16_parity``'s. The earlier serve phases keep
+   the prefix cache off, as before it was ported.
+11. ``kernels``: per kernel, its source, the TPU kernel it replaces, its
    launches in the run of the path that uses it (serve for the float paged
    kernels, serve_int8 for the int8 ones, train for the flash kernels,
    incubate for the layernorm and rotary kernels) and its numbers at that
    run's shapes.
-11. The last line: ``{"ok": true, "device": {...}}``.
+12. The last line: ``{"ok": true, "device": {...}}``.
 
-The ten card runs (4 to 9) are the paths of the main path: every
+The card runs (4 to 10) are the paths of the main path: every
 kernel's launch count is set to 0 just before each and read just after.
 Each path states the kernels it must launch and how many times (the
 engine's steps imply one paged-decode launch per layer per decode step and
@@ -131,6 +150,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -157,6 +177,7 @@ from paddle_tpu_torch.models import gpt as gpt_mod
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.quantization.serving import (QUANT_LOGIT_BOUND,
                                                    margin_gated_parity)
+from paddle_tpu_torch.serving.disagg import prompt_page_hashes
 from paddle_tpu_torch.train import H100_BF16_PEAK, ScanTrainStep
 from paddle_tpu_torch.train.scan_step import _leaf_keys
 
@@ -222,10 +243,11 @@ def bf16_logit_bound(lg_ref):
 # (C, start, valid) of the prefill kernel checks: a short padded bucket,
 # a half-live 512 bucket, the one-shot C=1024 the serve path's longest
 # prompts take (the ``kernels`` line's shape), a short chunk deep in the
-# slot, and the last 256-token chunk of a 1024-token prompt (the chunked
-# path at full context)
+# slot, the last 256-token chunk of a 1024-token prompt (the chunked
+# path at full context), and a prefix hit's tail: 50 tokens after a
+# 768-token cached system prompt, at the tail's bucket of 64
 PREFILL_CASES = ((16, 0, 7), (512, 0, 300), (1024, 0, 1024),
-                 (256, 496, 100), (256, 768, 256))
+                 (256, 496, 100), (256, 768, 256), (64, 768, 50))
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 INT8_KERNELS = ("paged_decode_int8", "paged_prefill_int8")
 # (name, B, H, Sq, Sk, D, causal) of the flash kernel checks; "train" and
@@ -656,16 +678,11 @@ def engine_launches(engine, before, phase):
     return read_launches(phase, expected), expected, ran
 
 
-def prefill_logits(params, prompt, dev, cfg, quant=False):
-    """Greedy logits after ``prompt``: one-shot `prefill_step` into a pool
-    just big enough for it, int8 with scale pools under ``quant``. Returns
-    the logits and the pools ``(k, v[, k_scale, v_scale])``."""
-    n = len(prompt)
+def empty_pools(params, n, dev, cfg, quant=False):
+    """K/V pools just big enough for ``n`` tokens (the trash page and
+    ceil(n / PS) pages, int8 with scale pools under ``quant``) and the
+    slot's page row over them."""
     npages = -(-n // PS)
-    bucket = min(max(16, 1 << (n - 1).bit_length()),
-                 cfg.max_position_embeddings)
-    ids = np.zeros(bucket, np.int32)
-    ids[:n] = prompt
     nh = cfg.num_heads
     shape = (cfg.num_layers, npages + 1, PS, nh, cfg.hidden_size // nh)
     kp = torch.zeros(shape, device=dev, dtype=torch.int8 if quant
@@ -676,6 +693,25 @@ def prefill_logits(params, prompt, dev, cfg, quant=False):
         scales = {"k_scale": torch.zeros(shape[:4], device=dev),
                   "v_scale": torch.zeros(shape[:4], device=dev)}
     row = torch.arange(1, npages + 1, dtype=torch.int32, device=dev)
+    return kp, vp, scales, row
+
+
+def padded(ids, n, cfg):
+    """``ids`` padded with zeros to the engine's bucket for ``n`` tokens (a
+    power of two, at least 16, at most the position table)."""
+    out = np.zeros(min(max(16, 1 << (n - 1).bit_length()),
+                       cfg.max_position_embeddings), np.int32)
+    out[:len(ids)] = ids
+    return out
+
+
+def prefill_logits(params, prompt, dev, cfg, quant=False):
+    """Greedy logits after ``prompt``: one-shot `prefill_step` into a pool
+    just big enough for it, int8 with scale pools under ``quant``. Returns
+    the logits and the pools ``(k, v[, k_scale, v_scale])``."""
+    n = len(prompt)
+    kp, vp, scales, row = empty_pools(params, n, dev, cfg, quant)
+    ids = padded(prompt, n, cfg)
     out = gpt_mod.prefill_step(params, torch.from_numpy(ids).to(dev), n, row,
                                kp, vp, cfg=cfg, **scales)
     return out[0], out[1:]
@@ -698,7 +734,8 @@ def serve_parity(model, dev, kv_dtype="native"):
     cfg = model.cfg
     prompts = [rng.integers(0, min(VOCAB, cfg.vocab_size), n)
                .astype(np.int32) for n in lens]
-    ecfg = EngineConfig(prefill_chunk_tokens=256, kv_dtype=kv_dtype)
+    ecfg = EngineConfig(prefill_chunk_tokens=256, kv_dtype=kv_dtype,
+                        prefix_cache=False)
     eng = DecodeEngine(model, ecfg, device=dev)
     t0 = time.perf_counter()
     counters0 = dict(eng.counters)
@@ -883,7 +920,8 @@ def serve_sampled_parity(model, dev):
     prompts = [rng.integers(0, min(VOCAB, cfg.vocab_size), n)
                .astype(np.int32) for n in (5, 300, 600)]
     params = [SAMPLED_PARAMS[0], SAMPLED_PARAMS[1], SAMPLED_PARAMS[3]]
-    ecfg = EngineConfig(prefill_chunk_tokens=256, sampling=True)
+    ecfg = EngineConfig(prefill_chunk_tokens=256, sampling=True,
+                        prefix_cache=False)
     eng = DecodeEngine(model, ecfg, device=dev)
     counters0 = dict(eng.counters)
     reset_launches()                       # the sampled chunked path's run
@@ -914,9 +952,10 @@ def serve_spec_parity(model, dev):
     rng = np.random.default_rng(SEED + 4)
     prompts = spec_prompts(rng, (64, 300, 600), cfg.vocab_size)
     params = [SAMPLED_PARAMS[1], SAMPLED_PARAMS[0], SAMPLED_PARAMS[4]]
-    plain = EngineConfig(prefill_chunk_tokens=256, sampling=True)
+    plain = EngineConfig(prefill_chunk_tokens=256, sampling=True,
+                         prefix_cache=False)
     spec = EngineConfig(prefill_chunk_tokens=256, sampling=True,
-                        speculate_k=SPEC_K)
+                        speculate_k=SPEC_K, prefix_cache=False)
     eng = DecodeEngine(model, spec, device=dev)
     counters0 = dict(eng.counters)
     reset_launches()                       # the speculative path's run
@@ -955,7 +994,10 @@ def spec_prompts(rng, lens, vocab):
 def serve_engine(model, dev, tiled=False, **ecfg):
     """A serve run's engine (``ecfg``: its kv_dtype / weight_dtype, sampling,
     speculate_k), kernels built and warm, and its 8 prompts (repeating one
-    pattern when ``tiled``)."""
+    pattern when ``tiled``). The prefix cache is off, as before it was
+    ported, so that a request never hits the warm-up's pages (nor, in the
+    tiled runs, another request's) and these runs stay comparable with
+    earlier ones; `serve_prefix` measures it."""
     rng = np.random.default_rng(SEED + 2)
     if tiled:
         prompts = spec_prompts(rng, SERVE_LENS, model.cfg.vocab_size)
@@ -963,7 +1005,8 @@ def serve_engine(model, dev, tiled=False, **ecfg):
         prompts = [rng.integers(0, min(VOCAB, model.cfg.vocab_size), n)
                    .astype(np.int32) for n in SERVE_LENS]
     eng = DecodeEngine(model, EngineConfig(page_size=PS, max_slots=8,
-                                           **ecfg), device=dev)
+                                           prefix_cache=False, **ecfg),
+                       device=dev)
     eng.warmup()
     serve(eng, prompts[:1], 2)             # first cuBLAS/allocator touches
     torch.cuda.synchronize()
@@ -990,21 +1033,14 @@ def launches_per_step(eng, prompts, params, steps=3):
                if e.device_type == torch.autograd.DeviceType.CUDA) / steps
 
 
-def serve_run(model, dev, smi, phase="serve", params=None, greedy_ref=None,
-              **ecfg):
-    """The bf16 engine on the card serves the 8 prompts, 32 new tokens
-    each, one-shot bucketed prefill; ``params`` gives each request its
-    (temperature, top_k, seed) on a sampling engine, and where
-    ``greedy_ref`` (the greedy run's outputs) is given, the greedy requests
-    among them must equal it. Returns the line (``launches`` in it) and the
-    outputs."""
-    lens, cfg = SERVE_LENS, model.cfg
-    spec = ecfg.get("speculate_k") is not None
-    eng, prompts = serve_engine(model, dev, tiled=spec, **ecfg)
-    params = params or [(1.0, 0, 0)] * len(prompts)
-
+def timed_serve(eng, prompts, params, dev, phase):
+    """Serve ``prompts`` (``params``: (temperature, top_k, seed) each), 32
+    new tokens each, one synchronized step at a time, with every kernel's
+    launch count set to 0 just before and checked just after against the
+    engine's steps (`engine_launches`). Returns the timing line (with
+    ``step_tokens``), the outputs and the counters' deltas."""
     counters0 = dict(eng.counters)
-    reset_launches()                       # the bucketed path's run
+    reset_launches()                       # the path's run
     torch.cuda.reset_peak_memory_stats(dev)
     reqs = [eng.submit(p, max_new_tokens=32, temperature=t, top_k=k, seed=s)
             for p, (t, k, s) in zip(prompts, params)]
@@ -1020,17 +1056,13 @@ def serve_run(model, dev, smi, phase="serve", params=None, greedy_ref=None,
         step_tokens.append(sum(len(r.generated) for r in reqs) - before)
     wall = time.perf_counter() - t_run
     launches, expected, ran = engine_launches(eng, counters0, phase)
-
     outs = [r.result(timeout=0) for r in reqs]
-    ok = all(o.shape == (n + 32,) and ((o >= 0) & (o < cfg.vocab_size)).all()
-             for o, n in zip(outs, lens))
-    # step 1 admits and prefills all 8 requests; the later steps only decode
+    ok = all(o.shape == (len(p) + 32,)
+             and ((o >= 0) & (o < eng.cfg.vocab_size)).all()
+             for o, p in zip(outs, prompts))
+    # step 1 admits and prefills all requests; the later steps only decode
     dec_ms, dec_tok = sum(step_ms[1:]), sum(step_tokens[1:])
-    line = {"phase": phase, "model": "gpt2-small", "dtype": "bfloat16",
-            "kv_dtype": eng.ecfg.kv_dtype,
-            "weight_dtype": eng.ecfg.weight_dtype,
-            "card": smi, "requests": len(prompts), "prompt_lens": list(lens),
-            "max_new_tokens": 32, "tokens_served": sum(step_tokens),
+    line = {"tokens_served": sum(step_tokens),
             "wall_s": wall, "decode_steps": len(step_ms) - 1,
             "decode_tokens_per_s": dec_tok / (dec_ms / 1e3),
             "ttft_ms_p50": statistics.median(
@@ -1040,7 +1072,31 @@ def serve_run(model, dev, smi, phase="serve", params=None, greedy_ref=None,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
             "kv_bytes_per_token": eng.kv_bytes_per_token,
             "launches": launches, "expected_launches": expected,
-            "outputs_ok": ok}
+            "outputs_ok": ok, "step_tokens": step_tokens}
+    return line, outs, ran
+
+
+def serve_run(model, dev, smi, phase="serve", params=None, greedy_ref=None,
+              **ecfg):
+    """The bf16 engine on the card serves the 8 prompts, 32 new tokens
+    each, one-shot bucketed prefill; ``params`` gives each request its
+    (temperature, top_k, seed) on a sampling engine, and where
+    ``greedy_ref`` (the greedy run's outputs) is given, the greedy requests
+    among them must equal it. Returns the line (``launches`` in it) and the
+    outputs."""
+    lens, cfg = SERVE_LENS, model.cfg
+    spec = ecfg.get("speculate_k") is not None
+    eng, prompts = serve_engine(model, dev, tiled=spec, **ecfg)
+    params = params or [(1.0, 0, 0)] * len(prompts)
+
+    line, outs, ran = timed_serve(eng, prompts, params, dev, phase)
+    step_tokens = line.pop("step_tokens")
+    ok = line["outputs_ok"]
+    line = {"phase": phase, "model": "gpt2-small", "dtype": "bfloat16",
+            "kv_dtype": eng.ecfg.kv_dtype,
+            "weight_dtype": eng.ecfg.weight_dtype,
+            "card": smi, "requests": len(prompts), "prompt_lens": list(lens),
+            "max_new_tokens": 32, **line}
     if eng.ecfg.sampling:
         line["request_params"] = [list(p) for p in params]
     if greedy_ref is not None:
@@ -1081,6 +1137,302 @@ def serve_run(model, dev, smi, phase="serve", params=None, greedy_ref=None,
         raise SystemExit(f"{phase}: malformed outputs, logits out of bound "
                          "or greedy tokens unlike serve's")
     return line, outs
+
+
+# the prefix phases: a shared system prompt and each request's own suffix
+PREFIX_PARITY_SYSTEM, PREFIX_PARITY_SUFFIXES = 100, (5, 17, 29, 40)
+PREFIX_SYSTEM = 768                              # 48 pages of 16
+PREFIX_SUFFIXES = (9, 31, 64, 100, 129, 160, 200, 224)
+PREFIX_HOST_TIER = 64 << 20                      # host tier of the timed run
+PREFIX_ARMS = ("cold", "hbm", "host_tier")
+
+
+def prefix_prompts(rng, vocab, system_len, suffixes):
+    """A random system prompt and one prompt a suffix: system + suffix."""
+    v = min(VOCAB, vocab)
+    system = rng.integers(0, v, system_len).astype(np.int32)
+    return system, [np.concatenate([system, rng.integers(0, v, n).astype(
+        np.int32)]) for n in suffixes]
+
+
+def demote_all(eng):
+    """Evict every idle cached page through the prefix store's evict hook
+    (their contents demote to the engine's KV tiers) and return them to
+    the free list; returns how many pages went."""
+    idle = eng._evict_prefix_pages(len(eng._prefix_idle))
+    if idle:
+        eng.allocator.reclaim(idle)
+    return len(idle)
+
+
+def system_pages(eng, system):
+    """The pages the prefix store holds for ``system``'s full pages, and
+    their contents (values, and scales on an int8 pool) copied to the
+    host."""
+    pages = eng._prefix_lookup(prompt_page_hashes(system, PS))
+    return pages, [t.cpu() for t in pa.export_pages(
+        eng._kc, eng._vc, pages, *((eng._ks, eng._vs) if eng._quant_kv
+                                   else ()))]
+
+
+def page_blob_bytes(cfg, quant, item):
+    """One page's values (and int8 scales) across the layers, in bytes:
+    the body of its tier blob."""
+    nh = cfg.num_heads
+    dh = cfg.hidden_size // nh
+    return cfg.num_layers * 2 * PS * nh * (dh * item + (4 if quant else 0))
+
+
+PREFIX_COUNTERS = ("prefix_hit", "prefix_miss", "prefix_pages_reused",
+                   "prefix_evictions", "prefix_evictions_demoted",
+                   "prefill_tokens", "kvtier_hits_host", "kvtier_hits_disk",
+                   "kvtier_reuploads_host", "kvtier_reuploads_disk")
+
+
+def tail_logits(params, prompt, cached, dev, cfg, quant=False):
+    """Logits after ``prompt`` the way a prefix hit computes them: its first
+    ``cached`` tokens one-shot into their pages (`prefill_step`), then the
+    rest through ONE `prefill_chunk_step` at start=cached at the tail's
+    bucket, the engine's tail path."""
+    kp, vp, scales, row = empty_pools(params, len(prompt), dev, cfg, quant)
+    gpt_mod.prefill_step(params, torch.from_numpy(padded(
+        prompt[:cached], cached, cfg)).to(dev), cached, row, kp, vp, cfg=cfg,
+        **scales)
+    tail = len(prompt) - cached
+    return gpt_mod.prefill_chunk_step(
+        params, torch.from_numpy(padded(prompt[cached:], tail, cfg)).to(dev),
+        cached, tail, row, kp, vp, cfg=cfg, **scales)[0]
+
+
+def serve_prefix_parity(model, dev, kv_dtype="native"):
+    """float32 engines on the card and on the CPU with the prefix cache on
+    and a host tier of 3 page blobs over a disk tier: a seeding request of
+    a PREFIX_PARITY_SYSTEM-token system prompt, then 4 requests of it plus
+    their own 5-40-token suffixes, 16 new tokens each. The tails prefill at
+    start > 0 over the shared pages. Holds the tokens (margin-gated as in
+    `serve_parity`), every prefix counter equal on both devices, and each
+    tail's logits (`tail_logits`) within serve_parity's bound. Then the
+    tier arm, on a fresh engine a device: the seeding request's pages
+    demoted (3 to host RAM, the rest to disk), then the 4 requests: the
+    system prompt's pages re-uploaded byte-equal to the pages exported
+    before the spill, the tails prefilled from the same position as in the
+    first run, and the tokens equal to the first run's."""
+    quant = kv_dtype == "int8"
+    phase = "serve_prefix_parity" + ("_int8" if quant else "")
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 7)
+    system, prompts = prefix_prompts(rng, cfg.vocab_size,
+                                     PREFIX_PARITY_SYSTEM,
+                                     PREFIX_PARITY_SUFFIXES)
+    blob = page_blob_bytes(cfg, quant, 1 if quant else 4)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tier_") as tmp:
+        for i, where in enumerate((dev, "cpu")):
+            def engine(arm):
+                return DecodeEngine(model, EngineConfig(
+                    kv_dtype=kv_dtype, kv_host_tier_bytes=3 * (blob + 1024),
+                    kv_disk_tier_bytes=1 << 30,
+                    kv_disk_tier_dir=f"{tmp}/{i}-{arm}"), device=where)
+            on_card = i == 0
+            eng = engine("hbm")
+            serve(eng, [system], 2)                  # seeds the store
+            counters0 = dict(eng.counters)
+            if on_card:
+                reset_launches()                     # the prefix path's run
+            first = serve(eng, prompts, 16)
+            if on_card:
+                launches, expected, ran = engine_launches(eng, counters0,
+                                                          phase)
+            counters = {k: eng.counters[k] - counters0[k]
+                        for k in PREFIX_COUNTERS}
+            # the tier arm: a fresh engine seeded alike, its system pages
+            # demoted (3 to host RAM, the rest to disk), then the requests
+            eng = engine("tier")
+            serve(eng, [system], 2)
+            pages, before = system_pages(eng, system)
+            demoted = demote_all(eng)
+            tiers = (eng._tiers.host_pages(), eng._tiers.disk_pages())
+            tier0 = dict(eng.counters)
+            again = serve(eng, prompts, 16)
+            pages_after, after = system_pages(eng, system)
+            runs[i] = {
+                "outs": first, "counters": counters,
+                "tier_counters": {k: eng.counters[k] - tier0[k]
+                                  for k in PREFIX_COUNTERS},
+                "again_equal": all(np.array_equal(a, b)
+                                   for a, b in zip(first, again)),
+                "pages_byte_equal": len(pages_after) == len(pages) > 0
+                and all(torch.equal(a, b) for a, b in zip(before, after)),
+                "demoted": demoted, "tiers": tiers,
+                "free_pages_ok": eng.allocator.free_pages
+                == eng.allocator.num_pages - 1}
+    card, cpu = runs[0], runs[1]
+
+    cached = [min((len(p) - 1) // PS, PREFIX_PARITY_SYSTEM // PS) * PS
+              for p in prompts]
+    cpu_params = {k: v.detach() for k, v in model.state_dict().items()}
+    card_params = {k: v.to(dev) for k, v in cpu_params.items()}
+    lg = [torch.stack([tail_logits(params, p, c, where, cfg, quant)
+                       for p, c in zip(prompts, cached)])
+          for params, where in ((cpu_params, "cpu"), (card_params, dev))]
+    bound = INT8_LOGIT_BOUND if quant else LOGIT_BOUND
+    diff, logits_ok = margin_gated_parity(lg[0], lg[1], bound)
+    reqs, tokens_ok = [], True
+    for p, a, b in zip(prompts, card["outs"], cpu["outs"]):
+        rec = {"prompt_len": len(p), "tokens_equal": bool(np.array_equal(a,
+                                                                         b))}
+        if not rec["tokens_equal"]:
+            t = int(np.flatnonzero(a != b)[0])
+            top2 = prefill_logits(cpu_params, b[:t], "cpu", cfg,
+                                  quant)[0].topk(2).values
+            rec["first_divergence"] = {"position": t,
+                                       "cpu_margin": float(top2[0] - top2[1])}
+            tokens_ok &= rec["first_divergence"]["cpu_margin"] <= MARGIN
+        reqs.append(rec)
+    counters_ok = card["counters"] == cpu["counters"] \
+        and card["tier_counters"] == cpu["tier_counters"]
+    n_sys = PREFIX_PARITY_SYSTEM // PS
+    tier_ok = all(r["again_equal"] and r["pages_byte_equal"]
+                  and r["free_pages_ok"] and r["demoted"] == n_sys
+                  and r["tiers"][0] > 0 and r["tiers"][1] > 0
+                  and r["tier_counters"]["kvtier_reuploads_host"]
+                  + r["tier_counters"]["kvtier_reuploads_disk"] == n_sys
+                  for r in runs.values())
+    hit_ok = card["counters"]["prefix_hit"] >= len(prompts)
+    emit({"phase": phase, "model": "gpt2-small", "dtype": "float32",
+          "kv_dtype": kv_dtype, "system_len": PREFIX_PARITY_SYSTEM,
+          "suffixes": list(PREFIX_PARITY_SUFFIXES), "max_new_tokens": 16,
+          "tail_starts": cached, "tail_logit_max_abs_diff": diff,
+          "logit_bound": bound, "logits_ok": logits_ok,
+          "tokens_ok": tokens_ok, "requests": reqs,
+          "counters_card": card["counters"], "counters_cpu": cpu["counters"],
+          "counters_equal": counters_ok,
+          "tier_arm": {w: {k: r[k] for k in ("demoted", "tiers",
+                                              "tier_counters",
+                                              "again_equal",
+                                              "pages_byte_equal",
+                                              "free_pages_ok")}
+                       for w, r in (("card", card), ("cpu", cpu))},
+          "tier_ok": tier_ok, "one_shot_prefills": ran["prefills"],
+          "prefill_chunks": ran["prefill_chunks"],
+          "decode_steps": ran["steps"], "launches": launches,
+          "expected_launches": expected})
+    if not (logits_ok and tokens_ok and counters_ok and tier_ok and hit_ok):
+        raise SystemExit(f"{phase}: the prefix path disagrees")
+
+
+def prefix_engine(model, dev, arm):
+    """A warm bf16 engine of one `serve_prefix` arm: ``cold`` (prefix cache
+    off), ``hbm`` (on, seeded with the system prompt) or ``host_tier`` (on,
+    seeded, and every cached page demoted to a PREFIX_HOST_TIER host tier).
+    Returns the engine, the system prompt, the 8 prompts and the spill's
+    milliseconds (synchronized) and pages for ``host_tier``."""
+    system, prompts = prefix_prompts(np.random.default_rng(SEED + 6),
+                                     model.cfg.vocab_size, PREFIX_SYSTEM,
+                                     PREFIX_SUFFIXES)
+    ecfg = dict(page_size=PS, max_slots=8, prefix_cache=arm != "cold")
+    if arm == "host_tier":
+        ecfg["kv_host_tier_bytes"] = PREFIX_HOST_TIER
+    eng = DecodeEngine(model, EngineConfig(**ecfg), device=dev)
+    eng.warmup()
+    warm = np.random.default_rng(SEED + 8).integers(0, VOCAB, 64)
+    eng.submit(warm, max_new_tokens=2, cache=False)   # first touches
+    eng.run_until_idle(max_steps=100)
+    spill = None
+    if arm != "cold":
+        serve(eng, [system], 2)                   # seeds the store
+    if arm == "host_tier":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = demote_all(eng)
+        torch.cuda.synchronize()
+        spill = ((time.perf_counter() - t0) * 1e3, n)
+    torch.cuda.synchronize()
+    return eng, system, prompts, spill
+
+
+def serve_prefix(model, dev, smi):
+    """The bf16 engine on the card serves 8 requests that share a
+    PREFIX_SYSTEM-token system prompt, each with its own suffix
+    (PREFIX_SUFFIXES), 32 new tokens each, in three arms (`prefix_engine`):
+    cold, a seeded HBM prefix store, and a host tier that the seeded pages
+    were demoted to. Each arm's line: TTFT, steps, tokens/s, memory,
+    prefill tokens computed, hits, pages reused, re-uploads, the exact
+    kernel launches (a tail is a chunk), and for the tier its spill and
+    re-upload milliseconds a page (synchronized host clock). The hbm and
+    host_tier tokens must be EQUAL (the same bytes); against cold they are
+    gated as `serve_bf16_parity`'s: a difference must come where the cold
+    run's top-2 margin is within `bf16_logit_bound`."""
+    lines, outs = {}, {}
+    params = [(1.0, 0, 0)] * len(PREFIX_SUFFIXES)
+    card_params = {k: v.detach().to(dev) for k, v in
+                   model.state_dict().items()}
+    for arm in PREFIX_ARMS:
+        eng, system, prompts, spill = prefix_engine(model, dev, arm)
+        line, outs[arm], ran = timed_serve(eng, prompts, params, dev,
+                                           "serve_prefix:" + arm)
+        line.pop("step_tokens")
+        line = {"phase": "serve_prefix", "arm": arm, "model": "gpt2-small",
+                "dtype": "bfloat16", "card": smi,
+                "system_len": PREFIX_SYSTEM,
+                "suffixes": list(PREFIX_SUFFIXES), "max_new_tokens": 32,
+                **line, **{k: ran[k] for k in PREFIX_COUNTERS},
+                "one_shot_prefills": ran["prefills"],
+                "prefill_chunks": ran["prefill_chunks"]}
+        if spill is not None:
+            # the re-upload alone: the spilled chain into fresh pages
+            hashes = prompt_page_hashes(system, PS)
+            pages = eng.allocator.alloc(len(hashes))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = eng._tier_reupload(hashes, PREFIX_SYSTEM + 1, [], pages)
+            torch.cuda.synchronize()
+            reup_ms = (time.perf_counter() - t0) * 1e3
+            eng.allocator.free(pages)
+            line.update(spill_pages=spill[1],
+                        spill_ms_per_page=spill[0] / max(1, spill[1]),
+                        reupload_pages=n,
+                        reupload_ms_per_page=reup_ms / max(1, n),
+                        page_bytes=page_blob_bytes(model.cfg, False, 2),
+                        host_tier_pages=eng._tiers.host_pages())
+            line["outputs_ok"] &= n == spill[1] == len(hashes)
+        lines[arm] = line
+        del eng
+        torch.cuda.empty_cache()
+
+    ok = all(ln["outputs_ok"] for ln in lines.values())
+    lines["host_tier"]["tokens_equal_hbm"] = eq = [
+        bool(np.array_equal(a, b))
+        for a, b in zip(outs["host_tier"], outs["hbm"])]
+    ok &= all(eq)
+    recs = []
+    for p, a, b in zip(prompts, outs["hbm"], outs["cold"]):
+        rec = {"prompt_len": len(p), "tokens_equal": bool(np.array_equal(a,
+                                                                         b))}
+        if not rec["tokens_equal"]:
+            t = int(np.flatnonzero(a != b)[0])
+            lg = prefill_logits(card_params, b[:t], dev, model.cfg)[0]
+            top2 = lg.topk(2).values
+            rec["first_divergence"] = {
+                "position": t, "cold_margin": float(top2[0] - top2[1]),
+                "gate": bf16_logit_bound(lg)}
+            ok &= rec["first_divergence"]["cold_margin"] \
+                <= rec["first_divergence"]["gate"]
+        recs.append(rec)
+    lines["hbm"]["vs_cold"] = recs
+    want = {"cold": (8 * PREFIX_SYSTEM + sum(PREFIX_SUFFIXES), 0),
+            "hbm": (sum(PREFIX_SUFFIXES), 8),
+            "host_tier": (sum(PREFIX_SUFFIXES), 7)}
+    for arm, (tokens, hits) in want.items():
+        ln = lines[arm]
+        ln["expected_prefill_tokens"] = tokens
+        ok &= ln["prefill_tokens"] == tokens and ln["prefix_hit"] == hits
+        emit(ln)
+    if not ok:
+        raise SystemExit("serve_prefix: malformed outputs, prefill work "
+                         "unlike the prefix store's, or tokens that differ "
+                         "between arms")
+    return lines
 
 
 def train_batch(rng, b, s, vocab):
@@ -1533,6 +1885,8 @@ def main():
     serve_parity(model, dev, kv_dtype="int8")
     serve_sampled_parity(model, dev)
     serve_spec_parity(model, dev)
+    serve_prefix_parity(model, dev)
+    serve_prefix_parity(model, dev, kv_dtype="int8")
     model = model.to(torch.bfloat16)
     serve_parity(model, dev)
     line, greedy_outs = serve_run(model, dev, smi)
@@ -1542,6 +1896,7 @@ def main():
     serve_run(model, dev, smi, "serve_spec", speculate_k=SPEC_K)
     quantized = serve_run(model, dev, smi, "serve_int8", kv_dtype="int8",
                           weight_dtype="int8")[0]["launches"]
+    serve_prefix(model, dev, smi)
     launches.update((k, quantized[k]) for k in INT8_KERNELS)
     del model
     torch.cuda.empty_cache()

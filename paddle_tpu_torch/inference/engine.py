@@ -31,6 +31,17 @@ reduced to the serving slice of the port).
   request's tokens equal the JAX package's `fast_generate` with the same
   (temperature, top_k, seed). Greedy requests on such an engine take the
   argmax and never move their chain.
+- **Prefix cache** (``EngineConfig.prefix_cache``, on by default): full
+  prompt pages are shared copy-on-write across requests. A submit whose
+  leading pages hash-match an earlier prompt's (the rolling page-chain
+  hashes of `serving/disagg.py`) attaches them by page-table reference and
+  prefills only the uncached tail, through the chunk step at the tail's
+  own bucket; refcount-0 cached pages stay resident and are LRU-evicted
+  under pool pressure. Per request opt-out: ``submit(..., cache=False)``.
+- **KV tiers** (``kv_host_tier_bytes``, ``kv_disk_tier_bytes``): an
+  evicted prefix page demotes to host RAM, then disk
+  (`inference/kv_tiers.py`), and a later chained miss past HBM re-uploads
+  it (one batched scatter a pool) before the tail prefill.
 - **Speculative decode** (``EngineConfig.speculate_k``): an n-gram
   drafter over each slot's own tokens (`_DraftIndex`) proposes up to k
   tokens, ONE verify step (`models/gpt.py::verify_step`) scores all k+1
@@ -43,9 +54,11 @@ Harvest is synchronous: each step reads its sampled tokens back before the
 next step is dispatched (the JAX engine keeps ``inflight`` steps in flight).
 The tokens a request receives are the same either way.
 
-Not in this slice (see ROADMAP.md): prefix cache (A2a); KV tiers,
-handoff/migration, dedup (of key chains too), deadlines, cancel and
-degradation (A5); metrics/tracing; a float KV pool of another dtype than
+Not in this slice (see ROADMAP.md): handoff/migration and streamed
+prefill, the router's prefix directory, dedup (of key chains too),
+deadlines, cancel, fault injection and the degradation ladder (A5);
+CUDA graphs of the steps (A5a); a metrics registry and tracing (counters
+live in ``DecodeEngine.counters``); a float KV pool of another dtype than
 the weights (A9).
 
 Thread model: `submit()` is safe from any thread; `step()` /
@@ -53,22 +66,31 @@ Thread model: `submit()` is safe from any thread; `step()` /
 """
 from __future__ import annotations
 
+import logging
 import threading
 import time
-from collections import deque
+import weakref
+from collections import OrderedDict, deque
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch.inference.errors import from_wire
+from paddle_tpu_torch.inference.kv_tiers import KVTierStore
+from paddle_tpu_torch.inference.kv_tiers import dtype_name as _dtype_name
 from paddle_tpu_torch.kernels import prng
 from paddle_tpu_torch.kernels import sampling as smp
-from paddle_tpu_torch.kernels.paged_attention import KV_DTYPES, TRASH_PAGE
+from paddle_tpu_torch.kernels.paged_attention import (KV_DTYPES, TRASH_PAGE,
+                                                      export_pages,
+                                                      import_pages)
 from paddle_tpu_torch.models import gpt as gpt_mod
 from paddle_tpu_torch.quantization.serving import quantize_gpt_params
+from paddle_tpu_torch.serving.disagg import prompt_page_hashes
 
 __all__ = ["EngineConfig", "PageAllocator", "GenerateRequest", "DecodeEngine"]
+
+_log = logging.getLogger(__name__)
 
 # packed slot-state upload layout: [B, _STATE_COLS + pages_per_slot] int32;
 # the verify step's is [B, _SPEC_COLS + K + pages_per_slot] (a draft-length
@@ -97,6 +119,26 @@ class EngineConfig:
     prefill_chunk_tokens : prompts LONGER than this are prefilled in chunks
                    of this many tokens, one chunk per engine step after the
                    decode step; None keeps the one-shot bucketed prefill
+    prefix_cache : share full prompt-prefix pages copy-on-write across
+                   requests: a submit whose leading pages hash-match an
+                   earlier prompt's attaches them by page-table reference
+                   and prefills ONLY the uncached tail. Refcount-0 cached
+                   pages stay resident and are LRU-evicted under pool
+                   pressure. Per request opt-out: ``submit(..., cache=False)``
+    kv_host_tier_bytes : bound on a host-RAM spill tier under the prefix
+                   store: an evicted prefix page DEMOTES (its values and
+                   int8 scales spill as a checksummed ``PTKT1`` blob under
+                   its page-chain hash) instead of being discarded, and a
+                   later submit that misses HBM but hits the tier
+                   re-uploads the pages and prefills only the rest.
+                   None/0 turns tiering off
+    kv_disk_tier_bytes : bound on the disk tier below the host tier (host
+                   overflow demotes here, disk overflow discards); works
+                   alone too. None/0 turns it off
+    kv_disk_tier_dir : directory of the disk tier's blobs, OWNED by the
+                   store (stale ``.ptkt`` files are removed at
+                   construction); None with a disk bound uses a fresh
+                   temporary directory
     kv_dtype     : page-pool storage: "native" (the weights' dtype) or
                    "int8" (int8 pages plus per-token-slot per-head f32
                    scale pools [nl, P, ps, nh]); "f32" / "bf16" are
@@ -120,6 +162,10 @@ class EngineConfig:
     min_bucket: int = 16
     eos_id: int | None = None
     prefill_chunk_tokens: int | None = None
+    prefix_cache: bool = True
+    kv_host_tier_bytes: int | None = None
+    kv_disk_tier_bytes: int | None = None
+    kv_disk_tier_dir: str | None = None
     kv_dtype: str = "native"
     weight_dtype: str = "native"
     sampling: bool = False
@@ -129,7 +175,15 @@ class EngineConfig:
 class PageAllocator:
     """Host-side REFCOUNTED free list over the page pool. Page 0
     (TRASH_PAGE) is never handed out: it is the spill target for masked
-    writes."""
+    writes.
+
+    The prefix cache shares pages copy-on-write across slots: `share` grows
+    a page's refcount and `free` releases one owner's claim, reclaiming
+    only at refcount 0. A page the engine's prefix store still indexes is
+    RETAINED at refcount 0 (``retain_hook``) instead of rejoining the free
+    list; under pool pressure `alloc` reclaims retained pages through
+    ``evict_hook`` (LRU order, the engine's policy), so eviction never
+    touches a live slot's pages."""
 
     def __init__(self, num_pages: int):
         if num_pages < 2:
@@ -137,21 +191,61 @@ class PageAllocator:
         self.num_pages = num_pages
         self._free = deque(range(1, num_pages))
         self._refcnt = [0] * num_pages
+        self._retained: set[int] = set()
+        self.retain_hook = None   # page -> bool: keep this refcount-0 page?
+        self.evict_hook = None    # n -> list[page]: reclaim retained pages
 
     @property
     def free_pages(self) -> int:
-        return len(self._free)
+        """Pages allocatable now: the free list plus the refcount-0 cached
+        pages eviction can reclaim."""
+        return len(self._free) + len(self._retained)
+
+    def refcount(self, page: int) -> int:
+        return self._refcnt[page]
 
     def alloc(self, n: int) -> list[int] | None:
         """n pages, or None when the pool cannot cover them (the caller
         keeps the request queued: admission waits, it never allocates
-        part of a request)."""
+        part of a request). Evicts retained pages through ``evict_hook``
+        when the free list alone is short."""
+        if n > self.free_pages:
+            return None
+        if n > len(self._free) and self.evict_hook is not None:
+            for p in self.evict_hook(n - len(self._free)):
+                if p not in self._retained or self._refcnt[p] != 0:
+                    raise RuntimeError(
+                        f"evict hook surrendered live page {p}")
+                self._retained.discard(p)
+                self._free.append(p)
         if n > len(self._free):
             return None
         pages = [self._free.popleft() for _ in range(n)]
         for p in pages:
             self._refcnt[p] = 1
         return pages
+
+    def reclaim(self, pages: list[int]):
+        """Return RETAINED pages to the free list: the prefix store
+        dropping its index outside an eviction (a weight refresh)."""
+        for p in pages:
+            if p not in self._retained or self._refcnt[p] != 0:
+                raise ValueError(f"reclaiming non-retained page {p}")
+        for p in pages:
+            self._retained.discard(p)
+            self._free.append(p)
+
+    def share(self, pages: list[int]):
+        """Attach cached pages to ONE more owner (a prefix hit): retained
+        pages come back to life, live shared pages gain a reference."""
+        for p in pages:
+            if not (0 < p < self.num_pages):
+                raise ValueError(f"sharing bogus page {p}")
+            if self._refcnt[p] == 0 and p not in self._retained:
+                raise ValueError(f"sharing unallocated page {p}")
+        for p in pages:
+            self._retained.discard(p)
+            self._refcnt[p] += 1
 
     def free(self, pages: list[int]):
         """Release one owner's claim on each page. Fails LOUDLY, before
@@ -172,7 +266,10 @@ class PageAllocator:
         for p in pages:
             self._refcnt[p] -= 1
             if self._refcnt[p] == 0:
-                self._free.append(p)
+                if self.retain_hook is not None and self.retain_hook(p):
+                    self._retained.add(p)
+                else:
+                    self._free.append(p)
 
 
 class GenerateRequest:
@@ -180,11 +277,13 @@ class GenerateRequest:
     sequence retires and returns prompt + generated ids."""
 
     def __init__(self, prompt: np.ndarray, max_new_tokens: int,
-                 speculate: bool = True, temperature: float = 1.0,
-                 top_k: int = 0, seed: int = 0):
+                 cache: bool = True, speculate: bool = True,
+                 temperature: float = 1.0, top_k: int = 0, seed: int = 0):
         self.prompt = prompt
         self.max_new_tokens = int(max_new_tokens)
+        self.cache = bool(cache)          # prefix-cache participation
         self.speculate = bool(speculate)  # n-gram drafting participation
+        self.page_hashes: list[bytes] = []  # rolling full-page prompt hashes
         # the fused sampler's parameters; the defaults are the greedy arm
         self.temperature = float(temperature)
         self.top_k = int(top_k)
@@ -285,12 +384,7 @@ class DecodeEngine:
         self.device = _resolve_device(device)
         self.cfg = model.cfg
         self.ecfg = ecfg
-        params = {k: v.detach() for k, v in model.state_dict().items()}
-        if ecfg.weight_dtype not in ("native", None):
-            # quantized where the weights lie, then moved: the card and the
-            # CPU engines hold the same int8 values and scales
-            params = quantize_gpt_params(params, ecfg.weight_dtype)
-        self._params = {k: v.to(self.device) for k, v in params.items()}
+        self._params = self._load_params(model)
         self._cdtype = self._params["gpt.wte.weight"].dtype
         self._quant_kv = self._resolve_kv_dtype(ecfg.kv_dtype)
         nh = self.cfg.num_heads
@@ -362,10 +456,69 @@ class DecodeEngine:
         self._queue: deque[GenerateRequest] = deque()
         self._qlock = threading.Lock()
         # d2h_transfers: token readbacks, one per decode or verify step and
-        # per finished prefill; logits are never read back
-        self.counters = {"steps": 0, "h2d_transfers": 0, "d2h_transfers": 0,
-                         "prefills": 0, "prefill_chunks": 0, "spec_steps": 0,
-                         "spec_drafted": 0, "spec_accepted": 0}
+        # per finished prefill; logits are never read back. The prefix and
+        # tier counters carry the JAX package's metric names without its
+        # "engine." prefix
+        self.counters = dict.fromkeys((
+            "steps", "h2d_transfers", "d2h_transfers", "prefills",
+            "prefill_chunks", "prefill_tokens", "spec_steps", "spec_drafted",
+            "spec_accepted", "prefix_hit", "prefix_miss",
+            "prefix_pages_reused", "prefix_evictions",
+            "prefix_evictions_demoted", "prefix_evictions_discarded",
+            "kvtier_hits_host", "kvtier_hits_disk", "kvtier_spills_host",
+            "kvtier_spills_disk", "kvtier_refusals", "kvtier_reuploads_host",
+            "kvtier_reuploads_disk", "kvtier_spill_fail",
+            "kvtier_reupload_fail"), 0)
+
+        # prefix cache: rolling full-page hash -> resident page, the reverse
+        # map, and the LRU of refcount-0 ("idle") cached pages the
+        # allocator retains for the store. Mutated on the driver thread
+        # only (admission, retirement); submit() only computes hashes
+        self._prefix_enabled = bool(ecfg.prefix_cache)
+        self._prefix_pages: dict[bytes, int] = {}
+        self._page_hash: dict[int, bytes] = {}
+        self._prefix_idle: OrderedDict[int, None] = OrderedDict()
+        # the hooks hold the engine weakly: a reference cycle through the
+        # allocator would keep a dropped engine's pools on the card until a
+        # garbage-collector pass
+        retain = weakref.WeakMethod(self._retain_page)
+        evict = weakref.WeakMethod(self._evict_prefix_pages)
+        self.allocator.retain_hook = lambda page: retain()(page)
+        self.allocator.evict_hook = lambda n: evict()(n)
+        # KV tiers under the prefix store: eviction demotes page contents,
+        # a tier hit re-uploads them
+        self._tiers = None
+        if self._prefix_enabled and (ecfg.kv_host_tier_bytes
+                                     or ecfg.kv_disk_tier_bytes):
+            self._tiers = KVTierStore(
+                host_bytes=ecfg.kv_host_tier_bytes,
+                disk_bytes=ecfg.kv_disk_tier_bytes,
+                disk_dir=ecfg.kv_disk_tier_dir,
+                page_shape=(nl, ps, nh, dh),
+                dtype=_dtype_name(self._kc.dtype), scales=self._quant_kv,
+                counters=self.counters)
+
+    def _load_params(self, model) -> dict:
+        """The model's weights on the engine's device, int8 matmul leaves
+        under ``weight_dtype="int8"`` (quantized where the weights lie,
+        then moved: the card and the CPU engines hold the same int8 values
+        and scales)."""
+        params = {k: v.detach() for k, v in model.state_dict().items()}
+        if self.ecfg.weight_dtype not in ("native", None):
+            params = quantize_gpt_params(params, self.ecfg.weight_dtype)
+        return {k: v.to(self.device) for k, v in params.items()}
+
+    def refresh_params(self, model):
+        """Swap in ``model``'s current weights (re-quantized under int8
+        weights) and FLUSH the prefix store, host and disk tiers included:
+        cached or spilled pages hold KV computed under the old weights."""
+        params = self._load_params(model)
+        dt = params["gpt.wte.weight"].dtype
+        if dt != self._cdtype:
+            raise ValueError(f"refresh_params: the engine computes in "
+                             f"{self._cdtype}, the new weights are {dt}")
+        self._params = params
+        self._flush_prefix()
 
     def _resolve_kv_dtype(self, kvd) -> bool:
         """Check ``kv_dtype``; True for an int8 pool. A float dtype other
@@ -390,6 +543,141 @@ class DecodeEngine:
         if not self._quant_kv:
             return {}
         return {"k_scale": self._ks, "v_scale": self._vs}
+
+    # ------------------------------------------------------- prefix cache
+
+    def prefix_hashes(self) -> list[str]:
+        """Hex digests of every page the prefix store indexes."""
+        return [h.hex() for h in list(self._prefix_pages)]
+
+    def tier_hashes(self) -> list[str]:
+        """Hex chain hashes of every spilled page, host tier first."""
+        return [] if self._tiers is None else self._tiers.hashes()
+
+    def _retain_page(self, page: int) -> bool:
+        """Allocator retain hook: a refcount-0 page the store still indexes
+        stays resident, most recently idled last in the LRU. (The JAX
+        engine's degradation arm, which stops retention under pressure
+        level >= 2, comes with the pressure ladder, ROADMAP A5.)"""
+        if page in self._page_hash:
+            self._prefix_idle[page] = None
+            return True
+        return False
+
+    def _evict_prefix_pages(self, n: int) -> list[int]:
+        """Allocator evict hook: surrender up to n LRU idle cached pages,
+        dropping their store entries; live pages are never offered. With
+        tiers their contents spill first (`_spill_pages`): a demotion."""
+        out, hashes = [], []
+        while len(out) < n and self._prefix_idle:
+            page, _ = self._prefix_idle.popitem(last=False)
+            h = self._page_hash.pop(page)
+            if self._prefix_pages.get(h) == page:
+                del self._prefix_pages[h]
+            out.append(page)
+            hashes.append(h)
+        if out:
+            demoted = self._spill_pages(out, hashes)
+            self.counters["prefix_evictions"] += len(out)
+            self.counters["prefix_evictions_demoted"] += demoted
+            self.counters["prefix_evictions_discarded"] += len(out) - demoted
+        return out
+
+    def _spill_pages(self, pages: list[int], hashes: list[bytes]) -> int:
+        """Demote evicted pages into the tier store: ONE batched
+        `export_pages` gather and one copy to the host, then a framed blob
+        per page under its chain hash. Returns the pages demoted: 0 without
+        tiers or when the spill failed, which makes the eviction a plain
+        discard (an eviction never fails)."""
+        if self._tiers is None or not pages:
+            return 0
+        try:
+            blobs = [t.cpu() for t in export_pages(
+                self._kc, self._vc, pages,
+                *((self._ks, self._vs) if self._quant_kv else ()))]
+            for i, h in enumerate(hashes):
+                self._tiers.put(h, *(b[:, i] for b in blobs[:2]),
+                                *(b[:, i] for b in blobs[2:]))
+        except Exception:  # noqa: BLE001 - a failed spill is a discard
+            self.counters["kvtier_spill_fail"] += 1
+            _log.warning("KV tier spill of %d pages failed; they are "
+                         "discarded", len(pages), exc_info=True)
+            return 0
+        return len(pages)
+
+    def _tier_reupload(self, hashes: list[bytes], prompt_len: int,
+                       shared: list[int], pages: list[int]) -> int:
+        """Continue a prefix lookup PAST the HBM store into the tiers and
+        re-upload the hits into this request's leading fresh ``pages``
+        (one `import_pages` scatter a pool). Returns how many leading fresh
+        pages now hold valid KV; the prefill starts after them. 0 on a
+        miss or a failed re-upload: the request then prefills cold."""
+        if self._tiers is None or not hashes or not pages:
+            return 0
+        limit = (int(prompt_len) - 1) // self.ecfg.page_size
+        entries = []
+        for h in hashes[len(shared):limit][:len(pages)]:
+            e = self._tiers.get(h)
+            if e is None:
+                break                 # chained hashes: stop at first miss
+            entries.append(e)
+        if not entries:
+            return 0
+        n = len(entries)
+        try:
+            blobs = [torch.stack([getattr(e, f) for e in entries], dim=1)
+                     for f in (("k", "v", "ks", "vs") if self._quant_kv
+                               else ("k", "v"))]
+            import_pages(self._kc, self._vc, *blobs[:2], pages[:n],
+                         *((self._ks, self._vs) if self._quant_kv else ()),
+                         *blobs[2:])
+        except Exception:  # noqa: BLE001 - a failed re-upload prefills cold
+            self.counters["kvtier_reupload_fail"] += 1
+            _log.warning("KV tier re-upload of %d pages failed; the request "
+                         "prefills cold", n, exc_info=True)
+            return 0
+        for e in entries:
+            self.counters["kvtier_reuploads_" + e.tier] += 1
+        return n
+
+    def _flush_prefix(self):
+        """Drop EVERY store entry and flush the tiers: idle cached pages
+        return to the free list now; pages of live slots lose their index
+        (the retain hook declines them at retirement)."""
+        idle = list(self._prefix_idle)
+        self._prefix_idle.clear()
+        self._prefix_pages.clear()
+        self._page_hash.clear()
+        if idle:
+            self.allocator.reclaim(idle)
+        if self._tiers is not None:
+            self._tiers.flush()
+
+    def _prefix_lookup(self, hashes: list[bytes]) -> list[int]:
+        """Longest cached prefix: pages for the leading run of hash hits."""
+        pages = []
+        for h in hashes:
+            p = self._prefix_pages.get(h)
+            if p is None:
+                break
+            pages.append(p)
+        return pages
+
+    def _attach_prefix(self, pages: list[int]):
+        """A hit: the shared pages gain an owner and leave the idle LRU."""
+        self.allocator.share(pages)
+        for p in pages:
+            self._prefix_idle.pop(p, None)
+
+    def _register_prefix(self, hashes: list[bytes], pages: list[int]):
+        """Index a prefilled prompt's full pages (first writer wins: the
+        shared leading pages of a hit are indexed already, and equal
+        contents by construction)."""
+        for h, p in zip(hashes, pages):
+            if h in self._prefix_pages or p in self._page_hash:
+                continue
+            self._prefix_pages[h] = p
+            self._page_hash[p] = h
 
     # ----------------------------------------------------------- prefill
 
@@ -442,10 +730,20 @@ class DecodeEngine:
         return tok[0]
 
     def _run_prefill(self, ids: np.ndarray, row: np.ndarray, slot: int,
-                     req: GenerateRequest) -> int:
-        """One-shot bucketed prefill of ``ids`` into ``row``'s pages; returns
-        the first token (read back)."""
+                     req: GenerateRequest, start: int = 0) -> int:
+        """Prefill ``ids`` into ``row``'s pages from position ``start`` on
+        and return the first token (read back): one-shot bucketed from 0,
+        or, after a prefix hit (``start`` cached tokens), ONE chunk-step
+        call over the tail at the configured chunk size, else at the
+        tail's own bucket. The tail's queries attend over the shared pages
+        and their own writes, masked by absolute position."""
         s0, maxp = ids.size, self.pages_per_slot
+        if start:
+            c = self.ecfg.prefill_chunk_tokens
+            c = int(c) if c is not None else self.bucket_for(s0 - start)
+            tok = self._run_chunk(ids, start, row, slot, req, c)
+            self.counters["d2h_transfers"] += 1
+            return int(tok)
         bucket = self.bucket_for(s0)
         x = _SAMPLE_TAIL if self._sampling else 0
         packed = np.zeros(bucket + maxp + x, np.int32)  # ids | row | tail
@@ -458,17 +756,20 @@ class DecodeEngine:
             self._params, dev[:bucket], s0, dev[bucket:bucket + maxp],
             self._kc, self._vc, cfg=self.cfg, **self._scales())[0]
         self.counters["prefills"] += 1
+        self.counters["prefill_tokens"] += s0
         tok = self._first_token(logits, dev[bucket + maxp:] if x else None)
         self.counters["d2h_transfers"] += 1
         return int(tok)
 
     def _run_chunk(self, ids: np.ndarray, done: int, row: np.ndarray,
-                   slot: int, req: GenerateRequest):
-        """Run ONE prefill chunk (``ids[done:done+c]`` against page ``row``)
-        and return its first token on the device when it is the FINAL chunk
-        (no readback here), else None: only the final chunk samples, so the
-        chain advances once per emitted token."""
-        c, maxp = int(self.ecfg.prefill_chunk_tokens), self.pages_per_slot
+                   slot: int, req: GenerateRequest, c: int | None = None):
+        """Run ONE prefill chunk (``ids[done:done+c]`` against page ``row``;
+        ``c`` defaults to the configured chunk size) and return its first
+        token on the device when it is the FINAL chunk (no readback here),
+        else None: only the final chunk samples, so the chain advances once
+        per emitted token."""
+        c = int(self.ecfg.prefill_chunk_tokens if c is None else c)
+        maxp = self.pages_per_slot
         chunk = ids[done:done + c]
         final = done + c >= ids.size
         x = _SAMPLE_TAIL if self._sampling and final else 0
@@ -482,18 +783,22 @@ class DecodeEngine:
             self._params, dev[:c], done, int(chunk.size), dev[c:c + maxp],
             self._kc, self._vc, cfg=self.cfg, **self._scales())[0]
         self.counters["prefill_chunks"] += 1
+        self.counters["prefill_tokens"] += int(chunk.size)
         if not final:
             return None
         return self._first_token(logits, dev[c + maxp:] if x else None)
 
     # ---------------------------------------------------------- requests
 
-    def submit(self, prompt_ids, max_new_tokens=32, speculate=True,
-               temperature=1.0, top_k=0, seed=0) -> GenerateRequest:
+    def submit(self, prompt_ids, max_new_tokens=32, cache=True,
+               speculate=True, temperature=1.0, top_k=0,
+               seed=0) -> GenerateRequest:
         """Queue one prompt (1-D or [1, S] int array). Thread-safe.
 
-        ``speculate=False`` keeps this request out of n-gram drafting on a
-        speculating engine. ``temperature`` / ``top_k`` / ``seed`` need
+        ``cache=False`` keeps this prompt out of the prefix cache (it
+        neither reuses nor registers pages). ``speculate=False`` keeps this
+        request out of n-gram drafting on a speculating engine.
+        ``temperature`` / ``top_k`` / ``seed`` need
         ``EngineConfig(sampling=True)``: the semantics and key chain of the
         JAX package's `fast_generate` (temperature before the top-k mask,
         one split of ``PRNGKey(seed)`` per sampled token). Sampled
@@ -519,9 +824,12 @@ class DecodeEngine:
                 f"prompt {ids.size} + max_new_tokens {n} exceeds engine "
                 f"max_seq_len={self.max_seq_len}")
         self._check_sample_params(temperature, top_k)
-        req = GenerateRequest(ids, n, speculate=speculate,
+        req = GenerateRequest(ids, n, cache=cache, speculate=speculate,
                               temperature=temperature, top_k=top_k,
                               seed=seed)
+        if self._prefix_enabled and req.cache:
+            # on the submitter's thread, outside the queue lock
+            req.page_hashes = prompt_page_hashes(ids, self.ecfg.page_size)
         with self._qlock:
             self._queue.append(req)
         return req
@@ -550,8 +858,10 @@ class DecodeEngine:
 
     def _admit(self):
         """Drain the queue into free slots while pages allow: assign a slot,
-        allocate pages, prefill (or start a chunked prefill), seed the
-        first token."""
+        attach the longest cached prefix, allocate fresh pages for the
+        rest, re-upload what the KV tiers hold, prefill the uncached tail
+        (or start a chunked prefill), seed the first token."""
+        ps = self.ecfg.page_size
         while True:
             slots = self._free_slots()
             if not slots:
@@ -560,10 +870,22 @@ class DecodeEngine:
                 if not self._queue:
                     return
                 req = self._queue[0]
-                total = -(-(req.prompt.size + req.max_new_tokens)
-                          // self.ecfg.page_size)
-                pages = self.allocator.alloc(total)
+                total = -(-(req.prompt.size + req.max_new_tokens) // ps)
+                use_cache = self._prefix_enabled and req.cache
+                shared: list[int] = []
+                if use_cache:
+                    # the page of the LAST prompt token is never shared: the
+                    # tail prefill needs >= 1 token to give the first output
+                    shared = self._prefix_lookup(req.page_hashes)[
+                        :(req.prompt.size - 1) // ps]
+                if shared:
+                    # claim before alloc: alloc may evict idle cached
+                    # pages, and claimed ones are live
+                    self._attach_prefix(shared)
+                pages = self.allocator.alloc(total - len(shared))
                 if pages is None:
+                    if shared:
+                        self.allocator.free(shared)    # back to idle
                     if not self._occupied():
                         # nothing will ever retire to free pages: the pool
                         # itself is too small for this request
@@ -573,10 +895,21 @@ class DecodeEngine:
                                     f"{self.allocator.num_pages - 1}")
                         continue
                     return                 # wait for a retirement
+                if use_cache:
+                    self.counters["prefix_hit" if shared
+                                  else "prefix_miss"] += 1
+                    self.counters["prefix_pages_reused"] += len(shared)
                 self._queue.popleft()
-            self._place(req, slots[0], pages)
+            n_up = self._tier_reupload(req.page_hashes, req.prompt.size,
+                                       shared, pages) if use_cache else 0
+            self._place(req, slots[0], shared + pages, len(shared) + n_up)
 
-    def _place(self, req: GenerateRequest, slot: int, pages: list[int]):
+    def _place(self, req: GenerateRequest, slot: int, pages: list[int],
+               n_shared: int):
+        """``pages``: the slot's allocation in token order, ``n_shared``
+        leading pages already holding the prompt's KV (attached or
+        re-uploaded). The prefill covers only the positions after them."""
+        cached = n_shared * self.ecfg.page_size
         row = np.full(self.pages_per_slot, TRASH_PAGE, np.int32)
         row[:len(pages)] = pages
         self._page_table[slot] = row
@@ -585,15 +918,16 @@ class DecodeEngine:
         if self._sampling:
             self._temps[slot] = req.temperature
             self._topks[slot] = req.top_k
-        if self._use_chunked(req.prompt.size):
+        if self._use_chunked(req.prompt.size - cached):
             # decode-priority chunked prefill: the slot holds its pages but
             # stays decode-inactive; step() runs ONE chunk per step after
-            # the decode step until the prompt is cached
+            # the decode step until the prompt is cached. A prefix hit
+            # starts the chunk cursor after the shared pages
             self._lengths[slot] = 0
-            self._prefilling[slot] = {"req": req, "done": 0}
+            self._prefilling[slot] = {"req": req, "done": cached}
             return
-        self._seed_first_token(slot, req,
-                               self._run_prefill(req.prompt, row, slot, req))
+        self._seed_first_token(slot, req, self._run_prefill(
+            req.prompt, row, slot, req, start=cached))
 
     def _seed_first_token(self, slot: int, req: GenerateRequest, first: int):
         """Prefill finished: activate the slot for decode and deliver the
@@ -611,6 +945,10 @@ class DecodeEngine:
             self._slot_draft[slot] = idx
         req.generated.append(first)
         req.first_token_t = time.perf_counter()
+        if self._prefix_enabled and req.cache:
+            # the prompt's full pages are resident and final: index them
+            # (a hit's shared leading pages are indexed already)
+            self._register_prefix(req.page_hashes, self._slot_pages[slot])
         if req.max_new_tokens == 1 or first == self.ecfg.eos_id:
             self._retire(slot)
 

@@ -45,7 +45,8 @@ KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 __all__ = ["TRASH_PAGE", "KV_DTYPES", "gather_kv", "quantize_kv",
            "dequantize_window", "gather_scales", "paged_attention",
            "prefill_attention", "token_page_coords", "prompt_page_coords",
-           "chunk_page_coords", "verify_page_coords"]
+           "chunk_page_coords", "verify_page_coords", "export_pages",
+           "import_pages"]
 
 
 def quantize_kv(x):
@@ -237,3 +238,47 @@ def verify_page_coords(page_table, pos, valid, page_size):
     page = page_table.gather(1, idx.clamp(0, maxp - 1).long())
     page = torch.where(valid & (idx < maxp), page, TRASH_PAGE)
     return page.long(), (pos % page_size).long()
+
+
+def export_pages(k_pages, v_pages, page_list, k_scales=None, v_scales=None):
+    """Gather the listed pages' contents out of the pools in one indexing
+    op per pool: the spill side of the KV tiers (`inference/kv_tiers.py`).
+
+    k_pages/v_pages : [num_layers, num_pages, page_size, nh, dh]
+    page_list       : [n] page indices, in token order
+    k_scales/v_scales : optional [num_layers, num_pages, page_size, nh] f32
+                      (int8 pools); the pages' scales travel with their
+                      values, so a round trip is bit-exact
+    returns         : (k_blob, v_blob) each [num_layers, n, page_size, nh,
+                      dh], new tensors on the pools' device, plus
+                      (k_s_blob, v_s_blob) when scales were given
+    """
+    idx = torch.as_tensor(page_list, dtype=torch.long, device=k_pages.device)
+    out = (k_pages[:, idx], v_pages[:, idx])
+    if k_scales is None:
+        return out
+    return out + (k_scales[:, idx], v_scales[:, idx])
+
+
+def import_pages(k_pages, v_pages, k_blob, v_blob, page_list, k_scales=None,
+                 v_scales=None, k_s_blob=None, v_s_blob=None):
+    """Scatter exported page contents into the pools at ``page_list``, IN
+    PLACE (``index_copy_`` on the page dimension), so the pool tensors keep
+    their identity as the step functions' writes do. Contents, and the
+    scales of int8 pools, land bit-identical.
+
+    k_blob/v_blob : [num_layers, n, page_size, nh, dh] from `export_pages`
+                    (any device; moved to the pools')
+    page_list     : [n] destination page indices
+    returns       : (k_pages, v_pages), plus (k_scales, v_scales) when the
+                    scale pools and blobs were given
+    """
+    dev = k_pages.device
+    idx = torch.as_tensor(page_list, dtype=torch.long, device=dev)
+    k_pages.index_copy_(1, idx, k_blob.to(dev, k_pages.dtype))
+    v_pages.index_copy_(1, idx, v_blob.to(dev, v_pages.dtype))
+    if k_scales is None:
+        return k_pages, v_pages
+    k_scales.index_copy_(1, idx, k_s_blob.to(dev, k_scales.dtype))
+    v_scales.index_copy_(1, idx, v_s_blob.to(dev, v_scales.dtype))
+    return k_pages, v_pages, k_scales, v_scales

@@ -6,6 +6,7 @@ Run from the repository root:
     python3 profile_serve.py --int8     # int8 KV pages and int8 weights
     python3 profile_serve.py --sampled  # the fused sampler, mixed requests
     python3 profile_serve.py --spec     # speculative decode, tiled prompts
+    python3 profile_serve.py --prefix   # prefix hits against cold prefills
 
 It serves the same bf16 GPT-2 small run as `chip_smoke.py`'s serve phase
 (8 requests of 7-900 prompt tokens, 32 new tokens each; with ``--int8``
@@ -16,7 +17,15 @@ and the
 decode steps after it. For each window it prints one JSON line: the host
 wall time, the summed device time of all kernels, their share of the
 wall, the number of device kernel launches, and the kernels with the most
-device time.
+device time. These runs keep the prefix cache off (`cs.serve_engine`).
+
+With ``--prefix`` it serves `chip_smoke.py`'s serve_prefix requests (a
+768-token system prompt shared by 8 prompts) in turns, hbm, cold, hbm,
+cold: the ``hbm`` arm's engine holds the system prompt's pages (each
+admission prefills only its tail), the ``cold`` arm's has the prefix
+cache off. Each run has the same two windows, named
+``hbm#1:admission_step`` and so on; the second round is clear of the
+first profiled window's start-up.
 """
 from __future__ import annotations
 
@@ -66,6 +75,16 @@ def main():
     model = gpt_mod.gpt2_small(
         generator=torch.Generator().manual_seed(cs.SEED)).to(torch.bfloat16)
     args = sys.argv[1:]
+    if "--prefix" in args:
+        for turn, arm in enumerate(("hbm", "cold") * 2):
+            eng, _, prompts, _ = cs.prefix_engine(model, dev, arm)
+            cs.emit({"engine": {"arm": arm,
+                                "prefix_cache": eng.ecfg.prefix_cache}})
+            profile_run(eng, prompts, [(1.0, 0, 0)] * len(prompts),
+                        f"{arm}#{turn // 2 + 1}:")
+            del eng
+            torch.cuda.empty_cache()
+        return 0
     ecfg, params = {}, [(1.0, 0, 0)] * len(cs.SERVE_LENS)
     if "--int8" in args:
         ecfg = {"kv_dtype": "int8", "weight_dtype": "int8"}
@@ -79,6 +98,13 @@ def main():
                         "weight_dtype": eng.ecfg.weight_dtype,
                         "sampling": eng.ecfg.sampling,
                         "speculate_k": eng.ecfg.speculate_k}})
+    profile_run(eng, prompts, params)
+    return 0
+
+
+def profile_run(eng, prompts, params, prefix=""):
+    """Submit ``prompts`` (32 new tokens each) and profile the admission
+    step, then the decode steps to the end."""
     reqs = [eng.submit(p, max_new_tokens=32, temperature=t, top_k=k, seed=s)
             for p, (t, k, s) in zip(prompts, params)]
     state = {"more": True}
@@ -94,11 +120,10 @@ def main():
             n += 1
         return n
 
-    window("admission_step", one_step)
-    window("decode_steps", decode_steps)
+    window(prefix + "admission_step", one_step)
+    window(prefix + "decode_steps", decode_steps)
     if not all(r.done for r in reqs):
         raise SystemExit("profile_serve: requests left unfinished")
-    return 0
 
 
 if __name__ == "__main__":

@@ -509,6 +509,74 @@ def test_card_engine_matches_cpu_engine(card, quant):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("quant", [{}, {"kv_dtype": "int8"}])
+def test_card_prefix_hit_matches_cpu_engine(card, quant, tmp_path):
+    """Prefix hits on the card: a shared system prompt's pages attached by
+    reference and the tails prefilled at start > 0, then the same pages
+    demoted to a host tier and re-uploaded: tokens and prefix counters
+    equal to the CPU engine's on the same trace."""
+    from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    model = _small_model()
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, 97, 48).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(0, 97, n).astype(
+        np.int32)]) for n in (5, 17, 40)]
+    ecfg = EngineConfig(page_size=16, max_slots=4,
+                        kv_host_tier_bytes=1 << 24, **quant)
+    keys = ("prefix_hit", "prefix_miss", "prefix_pages_reused",
+            "prefill_tokens", "kvtier_reuploads_host")
+    outs, counts = [], []
+    for dev in ("cpu", "cuda"):
+        eng = DecodeEngine(model, ecfg, device=dev)
+        got = []
+        for wave in ([system], prompts):
+            reqs = [eng.submit(p, max_new_tokens=8) for p in wave]
+            eng.run_until_idle(max_steps=200)
+            got += [r.result(timeout=0) for r in reqs]
+            idle = eng._evict_prefix_pages(len(eng._prefix_idle))
+            eng.allocator.reclaim(idle)        # demote to the host tier
+        reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        eng.run_until_idle(max_steps=200)
+        got += [r.result(timeout=0) for r in reqs]
+        outs.append(got)
+        counts.append({k: eng.counters[k] for k in keys})
+        assert eng.allocator.free_pages == eng.allocator.num_pages - 1
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+    assert counts[0] == counts[1]
+    assert counts[1]["prefix_hit"] >= 4
+    assert counts[1]["kvtier_reuploads_host"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_export_import_pages_round_trip_on_the_card(card, dtype):
+    """`export_pages` then `import_pages` into other pages of the same
+    pools, on the card: byte for byte, values and int8 scales, and the
+    pools keep their identity (written in place)."""
+    from paddle_tpu_torch.kernels.paged_attention import (export_pages,
+                                                          import_pages)
+    g = torch.Generator(device=card).manual_seed(0)
+    shape = (3, 12, 16, 4, 64)                   # [nl, P, ps, nh, dh]
+    if dtype == torch.int8:
+        kp, vp = (torch.randint(-127, 128, shape, generator=g, device=card,
+                                dtype=torch.int8) for _ in range(2))
+        scales = tuple(torch.rand(shape[:4], generator=g, device=card)
+                       for _ in range(2))
+    else:
+        kp, vp = (torch.randn(shape, generator=g, device=card).to(dtype)
+                  for _ in range(2))
+        scales = ()
+    src, dst = [2, 5, 7], [9, 1, 11]
+    blobs = [b.cpu() for b in export_pages(kp, vp, src, *scales)]
+    ptrs = [t.data_ptr() for t in (kp, vp, *scales)]
+    out = import_pages(kp, vp, *blobs[:2], dst, *scales, *blobs[2:])
+    assert [t.data_ptr() for t in out] == ptrs
+    for pool, blob in zip((kp, vp, *scales), blobs):
+        assert torch.equal(pool[:, dst].cpu(), blob)
+        assert torch.equal(pool[:, src], pool[:, dst])
+
+
 # ------------------------------------------------------------ flash attention
 # (bh, sq, sk, d, causal): ragged S, Sq < Sk bottom-right, head dims of
 # every template width, a tail shorter than a tile

@@ -46,6 +46,27 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "SAMPLING True" in r.stdout, r.stdout
 
 
+_PREFIX_PROBE = r"""
+import sys
+import paddle_tpu_torch.inference.kv_tiers, paddle_tpu_torch.serving.disagg
+import paddle_tpu_torch.inference.engine
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu", "ml_dtypes"))
+print("BAD", bad)
+"""
+
+
+def test_prefix_and_tier_modules_import_no_jax_or_ml_dtypes():
+    """The prefix cache's modules load neither JAX, the JAX package nor
+    ml_dtypes: the card's machine has none of them, so bf16 pages travel
+    as raw int16 bits."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", _PREFIX_PROBE], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+
+
 def test_engine_default_device_is_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
