@@ -65,7 +65,16 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    ``serve_int8`` serves the same requests with ``kv_dtype="int8"`` and
    ``weight_dtype="int8"``, reports the pool's bytes per token, and holds
    each prompt's first-token logits against the native bfloat16 ones
-   within ``QUANT_LOGIT_BOUND`` (0.5), margin-gated.
+   within ``QUANT_LOGIT_BOUND`` (0.5), margin-gated. Every serve line
+   (and each ``serve_prefix`` arm) carries, per decode or verify step of
+   a short profiled window, the kernels the card ran and the host's
+   runtime calls (``HOST_RUNTIME_CALLS``): the engine replays each step
+   as one captured CUDA graph. ``serve_graph`` (float32, then bfloat16,
+   B=8, the engines of GRAPH_ARMS) runs one step from one state through
+   the graph and through the eager body (`DecodeEngine.check_step_graph`):
+   tokens, key chains and pool pages equal, logits within the serve
+   bounds; then `refresh_params` to other weights must give a fresh
+   engine's tokens with no recapture.
 6. ``train_parity``: float32 `ScanTrainStep`s on the card and on the CPU
    take 3 steps of GPT-2 small's width at 2 layers (S=256, B=4 as 2
    microbatches, AdamW lr 1e-3, clip 1.0); the first step's gradients
@@ -1013,10 +1022,29 @@ def serve_engine(model, dev, tiled=False, **ecfg):
     return eng, prompts
 
 
+# the host's runtime calls that put work on the card: kernel launches (the
+# runtime's and the driver's entry points), graph launches and async copies
+HOST_RUNTIME_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                      "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                      "cudaMemcpyAsync")
+
+
+def host_runtime_calls(prof):
+    """``{name: calls}`` of HOST_RUNTIME_CALLS among a profile's CPU
+    events."""
+    calls = {}
+    for e in prof.key_averages():
+        if e.key in HOST_RUNTIME_CALLS and e.count:
+            calls[e.key] = calls.get(e.key, 0) + e.count
+    return calls
+
+
 def launches_per_step(eng, prompts, params, steps=3):
-    """Kernel launches on the card per decode (or verify) step, all kernels
-    (the port's and PyTorch's), from `torch.profiler` over ``steps`` steps
-    after a fresh admission of ``prompts``; the run is drained after."""
+    """Per decode (or verify) step, from `torch.profiler` over ``steps``
+    steps after a fresh admission of ``prompts`` (the run is drained
+    after): the kernels the card ran, all of them (the port's and
+    PyTorch's, graph-launched or not), and the host's runtime calls
+    (`host_runtime_calls`), by name and in all."""
     reqs = [eng.submit(p, max_new_tokens=16, temperature=t, top_k=k, seed=s)
             for p, (t, k, s) in zip(prompts, params)]
     eng.step()                             # admission and the first step
@@ -1029,8 +1057,13 @@ def launches_per_step(eng, prompts, params, steps=3):
     eng.run_until_idle(max_steps=10_000)
     if not all(r.done for r in reqs):
         raise SystemExit("launches_per_step: requests left unfinished")
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / steps
+    calls = host_runtime_calls(prof)
+    return {"kernel_launches_per_step": sum(
+                e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / steps,
+            "host_runtime_calls_per_step": sum(calls.values()) / steps,
+            "host_runtime_calls_by_name": {k: n / steps
+                                           for k, n in calls.items()}}
 
 
 def timed_serve(eng, prompts, params, dev, phase):
@@ -1118,8 +1151,7 @@ def serve_run(model, dev, smi, phase="serve", params=None, greedy_ref=None,
                     / max(1, ran["spec_drafted"]),
                     tokens_per_slot_step=emitted
                     / max(1, emitted - ran["spec_accepted"]))
-    line["kernel_launches_per_step"] = launches_per_step(eng, prompts,
-                                                         params)
+    line.update(launches_per_step(eng, prompts, params))
     if eng._quant_kv or eng.ecfg.weight_dtype != "native":
         # each prompt's first-token logits against the native bf16 ones
         native = {k: v.detach().to(dev) for k, v in model.state_dict().items()}
@@ -1396,6 +1428,7 @@ def serve_prefix(model, dev, smi):
                         page_bytes=page_blob_bytes(model.cfg, False, 2),
                         host_tier_pages=eng._tiers.host_pages())
             line["outputs_ok"] &= n == spill[1] == len(hashes)
+        line.update(launches_per_step(eng, prompts, params))
         lines[arm] = line
         del eng
         torch.cuda.empty_cache()
@@ -1433,6 +1466,124 @@ def serve_prefix(model, dev, smi):
                          "unlike the prefix store's, or tokens that differ "
                          "between arms")
     return lines
+
+
+# the serve_graph phase's engines a dtype: (name, EngineConfig keywords);
+# the float32 run adds an int8-KV engine, the bfloat16 run int8 KV with
+# int8 weights (serve_int8's engine)
+GRAPH_ARMS = {
+    torch.float32: (("greedy", {}), ("sampled", {"sampling": True}),
+                    ("speculative", {"sampling": True,
+                                     "speculate_k": SPEC_K}),
+                    ("int8_kv", {"kv_dtype": "int8"})),
+    torch.bfloat16: (("greedy", {}), ("sampled", {"sampling": True}),
+                     ("speculative", {"speculate_k": SPEC_K}),
+                     ("int8", {"kv_dtype": "int8", "weight_dtype": "int8"}),
+                     ("int8_sampled_speculative", {
+                         "kv_dtype": "int8", "weight_dtype": "int8",
+                         "sampling": True, "speculate_k": SPEC_K})),
+}
+GRAPH_LENS = (5, 16, 33, 64, 100, 129, 200, 250)   # one prompt a slot
+
+
+def serve_graph(model, other, dev):
+    """The captured step programs against their eager bodies, at full
+    width (B=8), for each engine of GRAPH_ARMS[the model's dtype]: 8
+    requests (GRAPH_LENS prompts, SAMPLED_PARAMS on a sampling engine) are
+    admitted and decoded for two steps; then `check_step_graph` runs the
+    next decode (or verify) step from one state through the graph and
+    through the eager body: tokens, key chains and pools (but the trash
+    page, written in an unspecified order) must be EQUAL and
+    the decode logits within the float32 serve bound (int8 KV's, or
+    `bf16_logit_bound`); the gap is printed (0 expected: the same kernels
+    on the same inputs). Then `refresh_params(other)` copies the second
+    model's weights into the engine: the weights keep their addresses,
+    nothing is recaptured, and the replayed steps' tokens for the 8
+    prompts must equal a fresh engine's on ``other``."""
+    dtype = model.gpt.wte.weight.dtype
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 9)
+    prompts = [rng.integers(0, min(VOCAB, cfg.vocab_size), n)
+               .astype(np.int32) for n in GRAPH_LENS]
+    for arm, kw in GRAPH_ARMS[dtype]:
+        ecfg = EngineConfig(page_size=PS, max_slots=8, prefix_cache=False,
+                            **kw)
+        params = SAMPLED_PARAMS if ecfg.sampling \
+            else [(1.0, 0, 0)] * len(prompts)
+        eng = DecodeEngine(model, ecfg, device=dev)
+        t0 = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        reqs = [eng.submit(p, max_new_tokens=8, temperature=t, top_k=k,
+                           seed=sd)
+                for p, (t, k, sd) in zip(prompts, params)]
+        eng.step()
+        eng.step()
+        graph, eager = eng.check_step_graph()
+        tokens_equal = torch.equal(graph["tokens"], eager["tokens"])
+        keys_equal = graph["keys"] is None or torch.equal(graph["keys"],
+                                                          eager["keys"])
+        # every pool, scale pools included, is [nl, pages, ...]; page 0 is
+        # the trash page, where masked writes (a verify step's padding
+        # drafts) collide in an unspecified order, so it is reported, not
+        # held
+        pool_diff = [int((a[:, 1:] != b[:, 1:]).sum())
+                     for a, b in zip(graph["pools"], eager["pools"])]
+        trash_diff = [int((a[:, 0] != b[:, 0]).sum())
+                      for a, b in zip(graph["pools"], eager["pools"])]
+        line = {}
+        ok = tokens_equal and keys_equal and not any(pool_diff)
+        if graph["logits"] is not None:
+            bound = (bf16_logit_bound(eager["logits"])
+                     if dtype == torch.bfloat16 else
+                     INT8_LOGIT_BOUND if eng._quant_kv else LOGIT_BOUND)
+            diff = float((graph["logits"] - eager["logits"]).abs().max())
+            line = {"logit_max_abs_diff": diff, "logit_bound": bound}
+            ok &= diff <= bound
+        eng.run_until_idle(max_steps=1000)
+        ok &= all(r.done for r in reqs)
+
+        def serve_new(engine):
+            return serve(engine, prompts, 8, params)
+
+        ptrs = {k: getattr(v, "q", v).data_ptr()
+                for k, v in eng._params.items()}
+        compiles = eng.counters["compile_count"]
+        before = serve_new(eng)
+        eng.refresh_params(other)
+        after = serve_new(eng)
+        kept = ptrs == {k: getattr(v, "q", v).data_ptr()
+                        for k, v in eng._params.items()}
+        key = ("verify", SPEC_K) if eng._spec else ("decode", eng._impl)
+        replays = getattr(eng._programs[key], "replays", None)
+        fresh_eng = DecodeEngine(other, ecfg, device=dev)
+        fresh = serve_new(fresh_eng)
+        refresh_equal = [bool(np.array_equal(a, b))
+                         for a, b in zip(after, fresh)]
+        moved = sum(not np.array_equal(a, b) for a, b in zip(before, after))
+        recaptured = eng.counters["compile_count"] - compiles
+        ok &= (all(refresh_equal) and kept and moved > 0 and not recaptured
+               and (replays is not None or eng.device.type != "cuda"))
+        emit({"phase": "serve_graph", "arm": arm, "model": "gpt2-small",
+              "dtype": dtype_name(dtype), "kv_dtype": ecfg.kv_dtype,
+              "weight_dtype": ecfg.weight_dtype, "sampling": ecfg.sampling,
+              "speculate_k": ecfg.speculate_k, "slots": ecfg.max_slots,
+              "program": list(key), "capture_s": capture_s,
+              "replays": replays,
+              "tokens_equal": tokens_equal, "keys_equal": keys_equal,
+              "pool_values_differ": pool_diff,
+              "trash_page_values_differ": trash_diff, **line,
+              "refresh_weights_kept_addresses": kept,
+              "refresh_recaptured": recaptured,
+              "refresh_tokens_equal_fresh_engine": refresh_equal,
+              "refresh_requests_changed": moved, "ok": ok})
+        if not ok:
+            raise SystemExit(f"serve_graph {arm}: the captured step and the "
+                             "eager step disagree, or the refreshed graph "
+                             "did not follow the new weights")
+        del eng, fresh_eng
+        torch.cuda.empty_cache()
 
 
 def train_batch(rng, b, s, vocab):
@@ -1887,7 +2038,12 @@ def main():
     serve_spec_parity(model, dev)
     serve_prefix_parity(model, dev)
     serve_prefix_parity(model, dev, kv_dtype="int8")
+    other = gpt_mod.gpt2_small(
+        generator=torch.Generator().manual_seed(SEED + 9))
+    serve_graph(model, other, dev)
     model = model.to(torch.bfloat16)
+    serve_graph(model, other.to(torch.bfloat16), dev)
+    del other
     serve_parity(model, dev)
     line, greedy_outs = serve_run(model, dev, smi)
     launches = line["launches"]

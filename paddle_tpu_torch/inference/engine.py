@@ -49,6 +49,16 @@ reduced to the serving slice of the port).
   token, greedy or sampled, token for token what plain decode gives. The
   host rolls lengths back by not advancing them; one readback per verify
   step carries the emitted tokens and their count.
+- **Step programs** (``DecodeEngine._compiled``, the JAX engine's program
+  cache): one entry per key, ``("decode", impl)`` or ``("verify", K)``,
+  ``("prefill", bucket, impl)``, ``("prefill_chunk", c, impl)``, counted
+  as ``cache_hit`` / ``cache_miss`` / ``compile_count``. On the card the
+  decode and verify entries are CUDA graphs (`inference/graphs.py`),
+  captured at `warmup` or first use and replayed every step; their inputs
+  and outputs are buffers that keep their identity (the packed state, the
+  pools, the weights, the token, key and verify-output buffers), so
+  `refresh_params` copies new weights in place and never recaptures. On
+  the CPU, and for the prefill keys, an entry runs its step eagerly.
 
 Harvest is synchronous: each step reads its sampled tokens back before the
 next step is dispatched (the JAX engine keeps ``inflight`` steps in flight).
@@ -57,15 +67,16 @@ The tokens a request receives are the same either way.
 Not in this slice (see ROADMAP.md): handoff/migration and streamed
 prefill, the router's prefix directory, dedup (of key chains too),
 deadlines, cancel, fault injection and the degradation ladder (A5);
-CUDA graphs of the steps (A5a); a metrics registry and tracing (counters
-live in ``DecodeEngine.counters``); a float KV pool of another dtype than
-the weights (A9).
+CUDA graphs of the prefill and chunk steps (A5a.2); a metrics registry
+and tracing (counters live in ``DecodeEngine.counters``); a float KV pool
+of another dtype than the weights (A9).
 
 Thread model: `submit()` is safe from any thread; `step()` /
 `run_until_idle()` must all run on ONE thread, the loop's owner.
 """
 from __future__ import annotations
 
+import functools
 import logging
 import threading
 import time
@@ -77,6 +88,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.inference.errors import from_wire
+from paddle_tpu_torch.inference.graphs import StepGraph
 from paddle_tpu_torch.inference.kv_tiers import KVTierStore
 from paddle_tpu_torch.inference.kv_tiers import dtype_name as _dtype_name
 from paddle_tpu_torch.kernels import prng
@@ -85,7 +97,8 @@ from paddle_tpu_torch.kernels.paged_attention import (KV_DTYPES, TRASH_PAGE,
                                                       export_pages,
                                                       import_pages)
 from paddle_tpu_torch.models import gpt as gpt_mod
-from paddle_tpu_torch.quantization.serving import quantize_gpt_params
+from paddle_tpu_torch.quantization.serving import (QuantizedLeaf,
+                                                   quantize_gpt_params)
 from paddle_tpu_torch.serving.disagg import prompt_page_hashes
 
 __all__ = ["EngineConfig", "PageAllocator", "GenerateRequest", "DecodeEngine"]
@@ -431,6 +444,7 @@ class DecodeEngine:
         self._budget = np.zeros(B, np.int32)  # tokens left to dispatch
         self._slot_req: list[GenerateRequest | None] = [None] * B
         self._slot_pages: list[list[int]] = [[] for _ in range(B)]
+        # the previous step's tokens, written in place by each decode step
         self._tok_dev = torch.zeros(B, dtype=torch.int32, device=self.device)
         # fused sampling: per-slot (temperature, top_k) host mirrors ride the
         # packed upload; the key chains stay on the device, threaded through
@@ -449,6 +463,25 @@ class DecodeEngine:
         self._spec = ecfg.speculate_k is not None
         self._spec_k = int(ecfg.speculate_k) if self._spec else 0
         self._slot_draft: list[_DraftIndex | None] = [None] * B
+        # the decode or verify step's inputs and outputs, which keep their
+        # identity (a captured graph reads and writes these very tensors):
+        # the packed state's host buffer (pinned on the card) and its
+        # device copy, and the verify step's [B, K+2] tokens and counts
+        lead = _SPEC_COLS + self._spec_k if self._spec else _STATE_COLS
+        cols = lead + maxp + (2 if self._sampling else 0)
+        self._state_host = torch.zeros(
+            (B, cols), dtype=torch.int32,
+            pin_memory=self.device.type == "cuda")
+        self._state_np = self._state_host.numpy()
+        self._state_dev = torch.zeros((B, cols), dtype=torch.int32,
+                                      device=self.device)
+        self._spec_out = torch.zeros((B, self._spec_k + 2),
+                                     dtype=torch.int32, device=self.device) \
+            if self._spec else None
+        # the program cache (`_compiled`): the registry's impl on this
+        # device keys it, as the JAX engine's impl flag does
+        self._impl = "cuda" if self.device.type == "cuda" else "plain"
+        self._programs: dict[tuple, object] = {}
         # chunked-prefill progress: slot -> {"req", "done"}; these slots are
         # occupied (request and pages held) but NOT decode-active
         self._prefilling: dict[int, dict] = {}
@@ -456,11 +489,12 @@ class DecodeEngine:
         self._queue: deque[GenerateRequest] = deque()
         self._qlock = threading.Lock()
         # d2h_transfers: token readbacks, one per decode or verify step and
-        # per finished prefill; logits are never read back. The prefix and
-        # tier counters carry the JAX package's metric names without its
-        # "engine." prefix
+        # per finished prefill; logits are never read back. The program
+        # cache's, prefix and tier counters carry the JAX package's metric
+        # names without its "engine." prefix
         self.counters = dict.fromkeys((
-            "steps", "h2d_transfers", "d2h_transfers", "prefills",
+            "cache_hit", "cache_miss", "compile_count", "steps",
+            "h2d_transfers", "d2h_transfers", "prefills",
             "prefill_chunks", "prefill_tokens", "spec_steps", "spec_drafted",
             "spec_accepted", "prefix_hit", "prefix_miss",
             "prefix_pages_reused", "prefix_evictions",
@@ -502,22 +536,38 @@ class DecodeEngine:
         """The model's weights on the engine's device, int8 matmul leaves
         under ``weight_dtype="int8"`` (quantized where the weights lie,
         then moved: the card and the CPU engines hold the same int8 values
-        and scales)."""
+        and scales). The engine owns its copies: `refresh_params` writes
+        into them, never into the model's tensors."""
         params = {k: v.detach() for k, v in model.state_dict().items()}
         if self.ecfg.weight_dtype not in ("native", None):
             params = quantize_gpt_params(params, self.ecfg.weight_dtype)
-        return {k: v.to(self.device) for k, v in params.items()}
+        return {k: v.to(self.device) if isinstance(v, QuantizedLeaf)
+                else v.to(self.device, copy=True) for k, v in params.items()}
 
     def refresh_params(self, model):
-        """Swap in ``model``'s current weights (re-quantized under int8
-        weights) and FLUSH the prefix store, host and disk tiers included:
-        cached or spilled pages hold KV computed under the old weights."""
+        """Copy ``model``'s current weights (re-quantized under int8
+        weights: the int8 values and their scales) INTO the engine's weight
+        tensors, which keep their identity: the step programs take them as
+        inputs, so this never recaptures, and a replayed graph reads the
+        new values. Then FLUSH the prefix store, host and disk tiers
+        included: cached or spilled pages hold KV computed under the old
+        weights."""
         params = self._load_params(model)
         dt = params["gpt.wte.weight"].dtype
         if dt != self._cdtype:
             raise ValueError(f"refresh_params: the engine computes in "
                              f"{self._cdtype}, the new weights are {dt}")
-        self._params = params
+        shapes = {k: tuple(v.shape) for k, v in self._params.items()}
+        if {k: tuple(v.shape) for k, v in params.items()} != shapes:
+            raise ValueError("refresh_params: the new weights' names or "
+                             "shapes differ from the engine's model")
+        for k, new in params.items():
+            old = self._params[k]
+            if isinstance(old, QuantizedLeaf):
+                old.q.copy_(new.q)
+                old.scale.copy_(new.scale)
+            else:
+                old.copy_(new)
         self._flush_prefix()
 
     def _resolve_kv_dtype(self, kvd) -> bool:
@@ -691,17 +741,122 @@ class DecodeEngine:
         b = max(self.ecfg.min_bucket, 1 << max(0, prompt_len - 1).bit_length())
         return min(b, self.cfg.max_position_embeddings)
 
-    def warmup(self):
-        """Build the CUDA kernels the engine launches (no-op on the CPU), so
-        the first request does not pay the compile. Optional: they also
-        build on first use."""
+    def warmup(self, prompt_lens=(1,), tail_lens=()):
+        """Front-load what the first requests would otherwise pay for, the
+        JAX engine's `warmup`: on the card build the CUDA kernels and
+        capture the decode step's graph (the verify step's on a
+        speculating engine), then make the prefill entries covering
+        ``prompt_lens`` (their buckets, or the chunk entry for prompts
+        longer than ``prefill_chunk_tokens``) and the prefix-cache tail
+        entries of ``tail_lens`` (one a tail bucket, or the chunk entry).
+        The program cache then holds what the JAX engine's compiles for
+        the same arguments. Optional: every entry is also made on first
+        use."""
         if self.device.type == "cuda":
             from paddle_tpu_torch.kernels import _build
             _build.build_all()
+        if self._spec:
+            self._verify_exe()
+        else:
+            self._decode_exe()
+        need_chunk = False
+        for n in prompt_lens:
+            if self._use_chunked(int(n)):
+                need_chunk = True
+            else:
+                self._prefill_exe(self.bucket_for(int(n)))
+        for n in tail_lens:
+            if self.ecfg.prefill_chunk_tokens is not None:
+                need_chunk = True
+            else:
+                self._prefill_chunk_exe(self.bucket_for(int(n)))
+        if need_chunk:
+            self._prefill_chunk_exe()
+
+    # ------------------------------------------------------------ programs
+
+    def _compiled(self, key, build):
+        """The program cache: ``build()`` once per key, counted as
+        ``cache_miss`` and ``compile_count`` (a hit as ``cache_hit``). An
+        entry is called as ``entry(engine, *inputs)``; it holds no
+        reference to the engine, so a dropped engine frees its pools
+        without a garbage-collector pass."""
+        exe = self._programs.get(key)
+        if exe is None:
+            self.counters["cache_miss"] += 1
+            exe = self._programs[key] = build()
+            self.counters["compile_count"] += 1
+        else:
+            self.counters["cache_hit"] += 1
+        return exe
+
+    def _step_program(self, body):
+        """The entry of the decode or verify key: on the card ``body``
+        captured as a CUDA graph (`StepGraph`; a failed capture raises),
+        on the CPU the eager ``body`` itself. The warm-up runs before the
+        capture see a zeroed state: every slot inactive, so they write the
+        trash page only and leave the tokens and key chains as they are."""
+        if self.device.type != "cuda":
+            return body
+        self._state_dev.zero_()
+        return StepGraph(functools.partial(body, self), self.device)
+
+    def _decode_exe(self):
+        return self._compiled(("decode", self._impl),
+                              lambda: self._step_program(
+                                  DecodeEngine._decode_body))
+
+    def _verify_exe(self):
+        return self._compiled(("verify", self._spec_k),
+                              lambda: self._step_program(
+                                  DecodeEngine._verify_body))
+
+    def _prefill_exe(self, bucket: int):
+        return self._compiled(
+            ("prefill", bucket, self._impl),
+            lambda: functools.partial(DecodeEngine._prefill_program,
+                                      bucket=bucket))
+
+    def _prefill_chunk_exe(self, c: int | None = None):
+        """The chunk entry serves decode-priority chunks (``c`` the
+        configured chunk size) and prefix-cache tails (``c`` the tail's
+        bucket), as in the JAX engine."""
+        c = int(self.ecfg.prefill_chunk_tokens if c is None else c)
+        return self._compiled(
+            ("prefill_chunk", c, self._impl),
+            lambda: functools.partial(DecodeEngine._chunk_program, c=c))
+
+    def _prefill_program(self, dev, length, *, bucket):
+        """One-shot prefill from an uploaded ``ids | row[ | tail]`` (eager
+        on both devices; a graph needs the device-scalar prefill entry
+        points of ROADMAP A5a.2). Returns the last real token's logits."""
+        maxp = self.pages_per_slot
+        return gpt_mod.prefill_step(
+            self._params, dev[:bucket], length, dev[bucket:bucket + maxp],
+            self._kc, self._vc, cfg=self.cfg, **self._scales())[0]
+
+    def _chunk_program(self, dev, start, valid, *, c):
+        """One prefill chunk at ``start`` from an uploaded ``chunk | row[ |
+        tail]``, eager as `_prefill_program`."""
+        maxp = self.pages_per_slot
+        return gpt_mod.prefill_chunk_step(
+            self._params, dev[:c], start, valid, dev[c:c + maxp],
+            self._kc, self._vc, cfg=self.cfg, **self._scales())[0]
 
     def _upload(self, packed: np.ndarray) -> torch.Tensor:
         self.counters["h2d_transfers"] += 1
         return torch.from_numpy(packed).to(self.device)
+
+    def _upload_state(self):
+        """The step's one upload: the packed state (`_packed_state`, in
+        the host buffer) into the device buffer the step program reads, on
+        the current stream, ahead of the step. The copy from pinned memory
+        is asynchronous, so the host buffer may be rewritten only after
+        the step's readback (`_harvest` / `_harvest_spec`, every step
+        today); an in-flight window of steps (ROADMAP A5.2) must
+        double-buffer it."""
+        self.counters["h2d_transfers"] += 1
+        self._state_dev.copy_(self._state_host, non_blocking=True)
 
     def _sample_tail(self, slot: int, req: GenerateRequest) -> np.ndarray:
         """The ints that end a sampling engine's prefill upload (one-shot,
@@ -751,10 +906,9 @@ class DecodeEngine:
         packed[bucket:bucket + maxp] = row
         if self._sampling:
             packed[bucket + maxp:] = self._sample_tail(slot, req)
+        exe = self._prefill_exe(bucket)
         dev = self._upload(packed)
-        logits = gpt_mod.prefill_step(
-            self._params, dev[:bucket], s0, dev[bucket:bucket + maxp],
-            self._kc, self._vc, cfg=self.cfg, **self._scales())[0]
+        logits = exe(self, dev, s0)
         self.counters["prefills"] += 1
         self.counters["prefill_tokens"] += s0
         tok = self._first_token(logits, dev[bucket + maxp:] if x else None)
@@ -778,10 +932,9 @@ class DecodeEngine:
         packed[c:c + maxp] = row
         if x:
             packed[c + maxp:] = self._sample_tail(slot, req)
+        exe = self._prefill_chunk_exe(c)
         dev = self._upload(packed)
-        logits = gpt_mod.prefill_chunk_step(
-            self._params, dev[:c], done, int(chunk.size), dev[c:c + maxp],
-            self._kc, self._vc, cfg=self.cfg, **self._scales())[0]
+        logits = exe(self, dev, done, int(chunk.size))
         self.counters["prefill_chunks"] += 1
         self.counters["prefill_tokens"] += int(chunk.size)
         if not final:
@@ -790,20 +943,32 @@ class DecodeEngine:
 
     # ---------------------------------------------------------- requests
 
-    def submit(self, prompt_ids, max_new_tokens=32, cache=True,
-               speculate=True, temperature=1.0, top_k=0,
-               seed=0) -> GenerateRequest:
-        """Queue one prompt (1-D or [1, S] int array). Thread-safe.
+    def submit(self, prompt_ids, max_new_tokens=32, trace=None, cache=True,
+               speculate=True, deadline_s=None, request_key=None,
+               temperature=1.0, top_k=0, seed=0) -> GenerateRequest:
+        """Queue one prompt (1-D or [1, S] int array). Thread-safe. The
+        parameters are the JAX engine's, in its order.
 
-        ``cache=False`` keeps this prompt out of the prefix cache (it
-        neither reuses nor registers pages). ``speculate=False`` keeps this
-        request out of n-gram drafting on a speculating engine.
+        ``trace`` (an upstream request trace), ``deadline_s`` and
+        ``request_key`` (deadlines and idempotent resubmits) are not
+        ported: anything but None raises NotImplementedError, never a
+        silent drop. ``cache=False`` keeps this prompt out of the prefix
+        cache (it neither reuses nor registers pages). ``speculate=False``
+        keeps this request out of n-gram drafting on a speculating engine.
         ``temperature`` / ``top_k`` / ``seed`` need
         ``EngineConfig(sampling=True)``: the semantics and key chain of the
         JAX package's `fast_generate` (temperature before the top-k mask,
         one split of ``PRNGKey(seed)`` per sampled token). Sampled
         parameters on an engine without ``sampling`` raise ValueError:
         there is no host-sampled path."""
+        for name, value, item in (("trace", trace, "A5.4, tracing"),
+                                  ("deadline_s", deadline_s,
+                                   "A5.1, deadlines"),
+                                  ("request_key", request_key,
+                                   "A5.1, dedup")):
+            if value is not None:
+                raise NotImplementedError(
+                    f"submit({name}=...) is not ported (ROADMAP {item})")
         ids = np.ascontiguousarray(np.asarray(prompt_ids)).reshape(-1)
         if ids.size == 0:
             raise ValueError("empty prompt")
@@ -994,13 +1159,13 @@ class DecodeEngine:
 
     # -------------------------------------------------------------- step
 
-    def _packed_state(self, drafts=None, draft_lens=None) -> np.ndarray:
-        """The step's one upload: per slot (token, length, flags[, draft
-        length, K drafts], page-table row[, temperature bits, top_k])."""
-        B, maxp = self.ecfg.max_slots, self.pages_per_slot
+    def _packed_state(self, drafts=None, draft_lens=None):
+        """The step's one upload, written into the host buffer every column
+        of it: per slot (token, length, flags[, draft length, K drafts],
+        page-table row[, temperature bits, top_k])."""
+        maxp = self.pages_per_slot
         lead = _STATE_COLS if drafts is None else _SPEC_COLS + self._spec_k
-        x = 2 if self._sampling else 0
-        packed = np.empty((B, lead + maxp + x), np.int32)
+        packed = self._state_np
         packed[:, _COL_TOKEN] = self._tokens
         packed[:, _COL_LENGTH] = self._lengths
         packed[:, _COL_FLAGS] = (self._active.astype(np.int32) * _FLAG_ACTIVE
@@ -1012,7 +1177,6 @@ class DecodeEngine:
         if self._sampling:
             packed[:, lead + maxp] = self._temps.view(np.int32)
             packed[:, lead + maxp + 1] = self._topks
-        return packed
 
     def _unpack(self, state, lead):
         """Device views of an uploaded `_packed_state` whose page-table row
@@ -1032,13 +1196,13 @@ class DecodeEngine:
             params = (temps, state[:, lead + maxp + 1])
         return active, toks, cache, params
 
-    def _dispatch(self):
-        """Run ONE fixed-shape decode step from one fused upload; the
-        sampled tokens (and key chains) stay on the device. Returns the
-        slots to harvest."""
+    def _decode_body(self):
+        """The decode step program: from the uploaded state to the next
+        tokens, written into ``_tok_dev`` (and the advanced key chains into
+        ``_keys_dev``) in place. Returns the logits [B, V]."""
         B = self.ecfg.max_slots
-        state = self._upload(self._packed_state())
-        active, toks, cache, sample = self._unpack(state, _STATE_COLS)
+        active, toks, cache, sample = self._unpack(self._state_dev,
+                                                   _STATE_COLS)
         logits, _ = gpt_mod.decode_step(self._params, toks, cache, active,
                                         cfg=self.cfg)
         if sample is None:
@@ -1046,8 +1210,19 @@ class DecodeEngine:
         else:
             keys = self._keys_dev[:B]
             nxt, new_keys = smp.fused_sample(logits, keys, *sample)
-            self._keys_dev[:B] = torch.where(active[:, None], new_keys, keys)
-        self._tok_dev = torch.where(active, nxt.to(torch.int32), toks)
+            keys.copy_(torch.where(active[:, None], new_keys, keys))
+        self._tok_dev.copy_(torch.where(active, nxt.to(torch.int32), toks))
+        return logits
+
+    def _dispatch(self):
+        """Run ONE fixed-shape decode step from one fused upload, through
+        the decode entry (a graph replay on the card); the sampled tokens
+        (and key chains) stay on the device. Returns the slots to
+        harvest."""
+        exe = self._decode_exe()
+        self._packed_state()
+        self._upload_state()
+        exe(self)
         snapshot = [(int(i), self._slot_req[i])
                     for i in np.flatnonzero(self._active)]
         # host bookkeeping for the step: each active slot advances one
@@ -1075,12 +1250,10 @@ class DecodeEngine:
 
     # ------------------------------------------------------ speculative step
 
-    def _dispatch_spec(self):
-        """Run ONE verify step: draft on the host (n-gram), one fused upload,
-        `verify_step` on the device. Returns the device handles of the
-        emitted tokens and their counts (one [B, K+2] tensor) and the
-        slots to harvest; the harvest follows in the same step, since the
-        next drafts need these tokens."""
+    def _drafts(self):
+        """The n-gram drafts of the active slots for the next verify step:
+        ``(drafts [B, K], draft_lens [B])`` int32, each slot's at most its
+        budget less one."""
         K, B = self._spec_k, self.ecfg.max_slots
         drafts = np.zeros((B, K), np.int32)
         draft_lens = np.zeros(B, np.int32)
@@ -1094,7 +1267,35 @@ class DecodeEngine:
             if n > 0:
                 drafts[slot, :n] = d[:n]
                 draft_lens[slot] = n
-        state = self._upload(self._packed_state(drafts, draft_lens))
+        return drafts, draft_lens
+
+    def _dispatch_spec(self):
+        """Run ONE verify step: draft on the host (n-gram), one fused upload,
+        the verify entry on the device (a graph replay on the card).
+        Returns the device handles of the emitted tokens and their counts
+        (the [B, K+2] ``_spec_out``) and the slots to harvest; the harvest
+        follows in the same step, since the next drafts need these
+        tokens."""
+        drafts, draft_lens = self._drafts()
+        exe = self._verify_exe()
+        self._packed_state(drafts, draft_lens)
+        self._upload_state()
+        out = exe(self)
+        snapshot = [(int(i), self._slot_req[i])
+                    for i in np.flatnonzero(self._active)]
+        self._fresh[:] = False
+        self.counters["steps"] += 1
+        self.counters["spec_steps"] += 1
+        self.counters["spec_drafted"] += int(draft_lens.sum())
+        return out, snapshot
+
+    def _verify_body(self):
+        """The verify step program: from the uploaded state to the emitted
+        tokens and their counts, written into ``_spec_out`` [B, K+2] (and
+        the advanced key chains into ``_keys_dev``) in place. Returns
+        ``_spec_out``."""
+        K, B = self._spec_k, self.ecfg.max_slots
+        state = self._state_dev
         active, tok0, cache, sample = self._unpack(state, _SPEC_COLS + K)
         tok_seq = torch.cat([tok0[:, None], state[:, _SPEC_COLS:_SPEC_COLS
                                                   + K]], dim=1)
@@ -1103,17 +1304,14 @@ class DecodeEngine:
             emitted, n_emit, _ = gpt_mod.verify_step(
                 self._params, tok_seq, draft_len, cache, active, cfg=self.cfg)
         else:
+            keys = self._keys_dev[:B]
             emitted, n_emit, _, new_keys = gpt_mod.verify_step(
                 self._params, tok_seq, draft_len, cache, active, cfg=self.cfg,
-                sample_state=(self._keys_dev[:B], *sample))
-            self._keys_dev[:B] = new_keys
-        snapshot = [(int(i), self._slot_req[i])
-                    for i in np.flatnonzero(self._active)]
-        self._fresh[:] = False
-        self.counters["steps"] += 1
-        self.counters["spec_steps"] += 1
-        self.counters["spec_drafted"] += int(draft_lens.sum())
-        return torch.cat([emitted, n_emit[:, None]], dim=1), snapshot
+                sample_state=(keys, *sample))
+            keys.copy_(new_keys)
+        self._spec_out[:, :K + 1].copy_(emitted)
+        self._spec_out[:, K + 1].copy_(n_emit)
+        return self._spec_out
 
     def _harvest_spec(self, out_dev, snapshot):
         """Read the verify step's tokens back (ONE readback: the emitted
@@ -1146,6 +1344,47 @@ class DecodeEngine:
             if self._budget[slot] <= 0 or toks[-1] == self.ecfg.eos_id \
                     or len(req.generated) >= req.max_new_tokens:
                 self._retire(slot)
+
+    def check_step_graph(self):
+        """The next decode (or verify) step run twice from one state, to
+        hold the card's captured graph against its eager body: first
+        through the program entry (a graph replay), then, with every
+        buffer the step writes restored, through the body run eagerly.
+        The buffers are restored again after, and no host mirror moves, so
+        the engine serves on as if nothing ran. Returns ``(graph, eager)``,
+        each ``{"tokens", "keys", "logits", "pools"}``: the tokens
+        written (``_tok_dev``, or ``_spec_out`` [B, K+2]), the key chains
+        (or None), the decode logits (None for a verify step) and the
+        pools with their scales, copies on the engine's device."""
+        if not self._active.any():
+            raise ValueError("check_step_graph: no slot is decoding")
+        if self._spec:
+            exe, body = self._verify_exe(), DecodeEngine._verify_body
+            self._packed_state(*self._drafts())
+        else:
+            exe, body = self._decode_exe(), DecodeEngine._decode_body
+            self._packed_state()
+        pools = [t for t in (self._kc, self._vc, self._ks, self._vs)
+                 if t is not None]
+        tokens = self._spec_out if self._spec else self._tok_dev
+        written = pools + [t for t in (tokens, self._keys_dev)
+                           if t is not None]
+        saved = [t.clone() for t in written]
+        runs = []
+        for run in (exe, body):
+            for t, s in zip(written, saved):
+                t.copy_(s)
+            self._upload_state()
+            out = run(self)
+            runs.append({
+                "tokens": tokens.clone(),
+                "keys": None if self._keys_dev is None
+                else self._keys_dev.clone(),
+                "logits": None if self._spec else out.clone(),
+                "pools": [t.clone() for t in pools]})
+        for t, s in zip(written, saved):
+            t.copy_(s)
+        return runs[0], runs[1]
 
     def step(self) -> bool:
         """Admit waiting requests, run ONE batched decode step (a verify

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["OPS", "dispatch", "counts", "reset_counts"]
+__all__ = ["OPS", "dispatch", "counts", "reset_counts", "add_counts"]
 
 OPS = {
     "paged_attention": ("plain", "cuda"),
@@ -55,3 +55,11 @@ def counts() -> dict[str, int]:
 
 def reset_counts():
     _COUNTS.clear()
+
+
+def add_counts(deltas: dict[str, int]):
+    """Add ``{"kernel.dispatch.{op}.{impl}": calls}`` to the counts: a
+    replayed CUDA graph's dispatches, which ran in Python only while it was
+    captured (`inference/graphs.py`)."""
+    for name, n in deltas.items():
+        _COUNTS[name] = _COUNTS.get(name, 0) + n

@@ -16,8 +16,12 @@ the first step (admission: 8 one-shot prefills and the first decode step)
 and the
 decode steps after it. For each window it prints one JSON line: the host
 wall time, the summed device time of all kernels, their share of the
-wall, the number of device kernel launches, and the kernels with the most
-device time. These runs keep the prefix cache off (`cs.serve_engine`).
+wall, the number of device kernel launches (graph-launched kernels
+included), the host's runtime calls that put work on the card
+(`chip_smoke.py::HOST_RUNTIME_CALLS`: kernel and graph launches, async
+copies), and the kernels with the most device time. The decode steps run
+as replays of the engine's captured CUDA graph. These runs keep the
+prefix cache off (`cs.serve_engine`).
 
 With ``--prefix`` it serves `chip_smoke.py`'s serve_prefix requests (a
 768-token system prompt shared by 8 prompts) in turns, hbm, cold, hbm,
@@ -57,9 +61,12 @@ def window(name, run, top=8):
             and _device_us(e) > 0]
     busy = sum(_device_us(e) for e in kern)
     kern.sort(key=_device_us, reverse=True)
+    calls = cs.host_runtime_calls(prof)
     cs.emit({"window": name, "steps": steps, "wall_ms": wall_us / 1e3,
              "device_busy_ms": busy / 1e3, "device_busy_share": busy / wall_us,
              "kernels": len(kern), "launches": sum(e.count for e in kern),
+             "host_runtime_calls": sum(calls.values()),
+             "host_runtime_calls_by_name": calls,
              "top": [{"name": e.key[:80], "calls": e.count,
                       "device_ms": _device_us(e) / 1e3,
                       "share_of_busy": _device_us(e) / busy}

@@ -1070,3 +1070,123 @@ def test_card_sampled_engine_matches_cpu_engine(card, quant, spec):
         assert eng.allocator.free_pages == eng.allocator.num_pages - 1
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------- captured step programs
+
+GRAPH_CASES = {"greedy": {}, "sampled": {"sampling": True},
+               "speculative": {"sampling": True, "speculate_k": 3},
+               "int8": {"kv_dtype": "int8", "weight_dtype": "int8"}}
+
+
+def _graph_prompts():
+    rng = np.random.default_rng(6)
+    pattern = rng.integers(0, 97, 6)
+    prompts = [np.tile(pattern, r).astype(np.int32) for r in (1, 4, 7)]
+    params = [dict(temperature=0.8, top_k=5, seed=1), {},
+              dict(temperature=1.2, seed=4)]
+    return prompts, params
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_card_step_is_a_replayed_graph(card, case):
+    """`warmup` captures the decode (verify) step as a CUDA graph; serving
+    replays it once a step, each replay adding the capture's launches, and
+    the tokens equal the CPU engine's."""
+    from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    from paddle_tpu_torch.inference.graphs import StepGraph
+    from paddle_tpu_torch.kernels import _build
+    model = _small_model()
+    prompts, params = _graph_prompts()
+    ecfg = EngineConfig(page_size=16, max_slots=2, prefill_chunk_tokens=16,
+                        prefix_cache=False, **GRAPH_CASES[case])
+    if not ecfg.sampling:
+        params = [{}] * len(prompts)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        eng = DecodeEngine(model, ecfg, device=dev)
+        eng.warmup((8,), ())
+        if dev == "cuda":
+            key = ("verify", 3) if eng._spec else ("decode", "cuda")
+            graph = eng._programs[key]
+            assert isinstance(graph, StepGraph)
+            for k in _build.kernels():
+                k.launches = 0
+        reqs = [eng.submit(p, max_new_tokens=10, **kw)
+                for p, kw in zip(prompts, params)]
+        eng.run_until_idle(max_steps=200)
+        outs.append([r.result(timeout=0) for r in reqs])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+    steps = eng.counters["steps"]
+    assert graph.replays == steps > 0
+    assert eng.counters["compile_count"] == len(eng._programs)
+    launches = {k.source: k.launches for k in _build.kernels()}
+    suffix = "_int8" if eng._quant_kv else ""
+    decode = 0 if eng._spec else model.cfg.num_layers * steps
+    assert launches["paged_decode" + suffix] == decode
+    assert launches["paged_prefill" + suffix] == model.cfg.num_layers * (
+        eng.counters["prefills"] + eng.counters["prefill_chunks"])
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_card_graph_replay_equals_the_eager_step(card, case):
+    """One step replayed from the graph and the same step run eagerly
+    from the same state: tokens, key chains, logits and every pool page
+    but the trash page equal."""
+    from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    model = _small_model()
+    prompts, params = _graph_prompts()
+    ecfg = EngineConfig(page_size=16, max_slots=4, prefix_cache=False,
+                        **GRAPH_CASES[case])
+    if not ecfg.sampling:
+        params = [{}] * len(prompts)
+    eng = DecodeEngine(model, ecfg, device="cuda")
+    reqs = [eng.submit(p, max_new_tokens=10, **kw)
+            for p, kw in zip(prompts, params)]
+    eng.step()
+    eng.step()
+    graph, eager = eng.check_step_graph()
+    for k in ("tokens", "keys", "logits"):
+        if graph[k] is not None:
+            assert torch.equal(graph[k], eager[k]), k
+    for a, b in zip(graph["pools"], eager["pools"]):
+        # page 0, the trash page, takes colliding masked writes in an
+        # unspecified order
+        assert torch.equal(a[:, 1:], b[:, 1:])
+    eng.run_until_idle(max_steps=200)
+    assert all(r.done for r in reqs)
+
+
+@pytest.mark.parametrize("weight_dtype", ["native", "int8"])
+def test_card_refresh_params_reaches_the_captured_graph(card, weight_dtype):
+    """`refresh_params` copies into the tensors the graph was captured
+    over: the weights keep their addresses, nothing is recaptured, and
+    the tokens after it equal a fresh engine's on the new weights."""
+    from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    model = _small_model()
+    other = GPTForCausalLM(model.cfg,
+                           generator=torch.Generator().manual_seed(9))
+    prompts, _ = _graph_prompts()
+    ecfg = EngineConfig(page_size=16, max_slots=2, prefix_cache=False,
+                        weight_dtype=weight_dtype)
+
+    def serve(eng):
+        reqs = [eng.submit(p, max_new_tokens=10) for p in prompts]
+        eng.run_until_idle(max_steps=200)
+        return [r.result(timeout=0) for r in reqs]
+
+    eng = DecodeEngine(model, ecfg, device="cuda")
+    first = serve(eng)
+    ptrs = {k: getattr(v, "q", v).data_ptr() for k, v in eng._params.items()}
+    compiles = eng.counters["compile_count"]
+    eng.refresh_params(other)
+    assert {k: getattr(v, "q", v).data_ptr()
+            for k, v in eng._params.items()} == ptrs
+    after = serve(eng)
+    assert eng.counters["compile_count"] == compiles
+    fresh = serve(DecodeEngine(other, ecfg, device="cuda"))
+    for a, b in zip(after, fresh):
+        np.testing.assert_array_equal(a, b)
+    assert any(not np.array_equal(a, b) for a, b in zip(first, after))
