@@ -48,7 +48,12 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    int8 pools quantized from normal K/V (same tolerances); their library
    yardstick is SDPA over the window gathered and dequantized (in q's
    dtype) outside the timed region, and their bytes are the int8 values
-   plus 4 scale bytes per key and head.
+   plus 4 scale bytes per key and head. The prefill kernels read
+   ``start`` and ``valid`` from device memory, as the engine's captured
+   graphs pass them (made once, outside the timed calls);
+   ``prefill_scalars`` holds both kernels, float32 and bfloat16, against
+   the plain version for valid 0, 1 and the whole chunk at start 0,
+   mid-page and at the slot's capacity (PREFILL_SCALAR_STARTS).
 4. ``serve_parity``: float32 engines on the card and on the CPU serve the
    same 4 requests (chunked prefill on); the greedy tokens must agree
    wherever the CPU logits' top-2 margin exceeds 1e-3, and the prefill
@@ -68,13 +73,21 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    within ``QUANT_LOGIT_BOUND`` (0.5), margin-gated. Every serve line
    (and each ``serve_prefix`` arm) carries, per decode or verify step of
    a short profiled window, the kernels the card ran and the host's
-   runtime calls (``HOST_RUNTIME_CALLS``): the engine replays each step
-   as one captured CUDA graph. ``serve_graph`` (float32, then bfloat16,
-   B=8, the engines of GRAPH_ARMS) runs one step from one state through
-   the graph and through the eager body (`DecodeEngine.check_step_graph`):
-   tokens, key chains and pool pages equal, logits within the serve
-   bounds; then `refresh_params` to other weights must give a fresh
-   engine's tokens with no recapture.
+   runtime calls (``HOST_RUNTIME_CALLS``), and the same for the step that
+   admits the 8 requests (``admission_*``, with its device ms): the
+   engine replays each step, prefill and chunk as one captured CUDA
+   graph. Each serve engine is warmed for its prompts first (`warm`: the
+   seconds, programs and reserved memory of the captures are in the
+   line), as a server is before its traffic. ``prefill_graph_memory``:
+   the memory those captures reserve with the engine's prefill graphs
+   sharing one pool and with a pool each. ``serve_graph`` (float32, then
+   bfloat16, B=8, the engines of GRAPH_ARMS) runs one step from one state
+   through the graph and through the eager body
+   (`DecodeEngine.check_step_graph`), and likewise a one-shot prefill and
+   a prefix tail's chunk (`check_prefill_graph`): tokens, key chains and
+   pool pages equal, logits within the serve bounds; then
+   `refresh_params` to other weights must give a fresh engine's tokens
+   with no recapture.
 6. ``train_parity``: float32 `ScanTrainStep`s on the card and on the CPU
    take 3 steps of GPT-2 small's width at 2 layers (S=256, B=4 as 2
    microbatches, AdamW lr 1e-3, clip 1.0); the first step's gradients
@@ -470,13 +483,17 @@ def check_prefill(dev, timer, dtype, c, start, valid, quant=False):
     q = torch.from_numpy(rng.standard_normal((c, NH, DH), dtype=np.float32)
                          ).to(dev, dtype)
     sc = scales or ()
+    # start and valid on the card, as the engine's packed upload holds
+    # them; made once, outside the timed calls
+    dev_s, dev_v = torch.tensor([start, valid], dtype=torch.int32,
+                                device=dev)
     if quant:
         name = "paged_prefill_int8"
         run = lambda **kw: cpre.paged_prefill_int8(q, kp, vp, *sc, row,
-                                                   start, valid, **kw)
+                                                   dev_s, dev_v, **kw)
     else:
         name = "paged_prefill"
-        run = lambda **kw: cpre.paged_prefill(q, kp, vp, row, start, valid,
+        run = lambda **kw: cpre.paged_prefill(q, kp, vp, row, dev_s, dev_v,
                                               **kw)
 
     out, visits = run(return_visits=True)
@@ -527,6 +544,52 @@ def check_prefill(dev, timer, dtype, c, start, valid, quant=False):
         raise SystemExit(f"{name} {dtype} C={c}: err {err}, visits "
                          f"{visits_ok}, padded rows zero {padded_zero}")
     return line
+
+
+# the device-scalar sweep (`prefill_scalars`): a chunk of PREFILL_SCALAR_C
+# rows with valid 0, 1 and the whole chunk, at start 0, mid-page in the
+# slot, and at the slot's capacity (every key visible; only the kernel's
+# clamp keeps the visible range in the slot)
+PREFILL_SCALAR_C = 256
+PREFILL_SCALAR_STARTS = (0, 501, MAXP * PS)
+PREFILL_SCALAR_VALIDS = (0, 1, PREFILL_SCALAR_C)
+
+
+def prefill_scalars(dev, dtype, quant=False):
+    """Both prefill kernels with ``start`` and ``valid`` read from device
+    memory across PREFILL_SCALAR_STARTS x PREFILL_SCALAR_VALIDS, each held
+    against the plain version on the same values within TOL (padded rows
+    zero). One line a kernel and dtype, its largest error."""
+    rng = np.random.default_rng(SEED + 13)
+    kp, vp, scales = random_pools(rng, dev, dtype, quant)
+    sc = scales or ()
+    row = torch.from_numpy((1 + rng.permutation(NUM_PAGES - 1)[:MAXP])
+                           .astype(np.int32)).to(dev)
+    c = PREFILL_SCALAR_C
+    q = torch.from_numpy(rng.standard_normal((c, NH, DH), dtype=np.float32)
+                         ).to(dev, dtype)
+    fn = cpre.paged_prefill_int8 if quant else cpre.paged_prefill
+    name = "paged_prefill_int8" if quant else "paged_prefill"
+    errs, ok = {}, True
+    for start in PREFILL_SCALAR_STARTS:
+        for valid in PREFILL_SCALAR_VALIDS:
+            s, v = torch.tensor([start, valid], dtype=torch.int32,
+                                device=dev)
+            out = fn(q, kp, vp, *sc, row, s, v)
+            ref = pa._plain_prefill_attention(q[None], kp, vp, row, s, v,
+                                              *sc)[0]
+            err = (out.float() - ref.float()).abs().max().item()
+            errs[f"{start}/{valid}"] = err
+            ok &= err <= TOL[dtype] and bool((out[valid:] == 0).all())
+    emit({"phase": "prefill_scalars", "kernel": name,
+          "dtype": dtype_name(dtype), "pool": "int8" if quant
+          else dtype_name(dtype), "shape": {"C": c, "nh": NH, "dh": DH,
+                                             "page_size": PS,
+                                             "pages_per_slot": MAXP},
+          "max_abs_err_by_start_valid": errs, "tol": TOL[dtype], "ok": ok})
+    if not ok:
+        raise SystemExit(f"prefill_scalars {name} {dtype}: a device-scalar "
+                         "call disagrees with the plain version")
 
 
 def visible_pairs(sq, sk, causal):
@@ -1000,13 +1063,32 @@ def spec_prompts(rng, lens, vocab):
     return [np.resize(pattern, n).astype(np.int32) for n in lens]
 
 
+def warm(eng, prompt_lens, tail_lens=()):
+    """``eng.warmup(prompt_lens, tail_lens)``, as a server does before its
+    traffic: the kernels built and every step program the run will use
+    captured, so no capture lands in a timed step. Returns the seconds it
+    took (synchronized) and the card memory it reserved."""
+    torch.cuda.synchronize()
+    # each capture empties the allocator's cache; start from an empty one
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    eng.warmup(prompt_lens=prompt_lens, tail_lens=tail_lens)
+    torch.cuda.synchronize()
+    return {"warmup_s": time.perf_counter() - t0,
+            "warmup_programs": len(eng._programs),
+            "warmup_reserved_bytes": torch.cuda.memory_reserved() - reserved}
+
+
 def serve_engine(model, dev, tiled=False, **ecfg):
     """A serve run's engine (``ecfg``: its kv_dtype / weight_dtype, sampling,
     speculate_k), kernels built and warm, and its 8 prompts (repeating one
     pattern when ``tiled``). The prefix cache is off, as before it was
     ported, so that a request never hits the warm-up's pages (nor, in the
     tiled runs, another request's) and these runs stay comparable with
-    earlier ones; `serve_prefix` measures it."""
+    earlier ones; `serve_prefix` measures it. Returns the engine, the
+    prompts and `warm`'s line (the step programs of SERVE_LENS
+    captured)."""
     rng = np.random.default_rng(SEED + 2)
     if tiled:
         prompts = spec_prompts(rng, SERVE_LENS, model.cfg.vocab_size)
@@ -1016,10 +1098,36 @@ def serve_engine(model, dev, tiled=False, **ecfg):
     eng = DecodeEngine(model, EngineConfig(page_size=PS, max_slots=8,
                                            prefix_cache=False, **ecfg),
                        device=dev)
-    eng.warmup()
+    warmed = warm(eng, SERVE_LENS)
     serve(eng, prompts[:1], 2)             # first cuBLAS/allocator touches
     torch.cuda.synchronize()
-    return eng, prompts
+    return eng, prompts, warmed
+
+
+def prefill_graph_memory(model, dev, smi):
+    """The card memory a serve engine's step programs take when it is
+    warmed for SERVE_LENS (the decode graph and the prefill graphs of
+    buckets 16-1024): its prefill graphs sharing one memory pool, the
+    engine's default, and with a pool each (``_prefill_pool = None``).
+    Per arm, `warm`'s reserved bytes and the peak allocated above the
+    engine's own tensors during the captures."""
+    line = {"phase": "prefill_graph_memory", "model": "gpt2-small",
+            "dtype": "bfloat16", "card": smi, "prompt_lens": list(SERVE_LENS)}
+    for arm in ("shared_pool", "pool_per_graph"):
+        eng = DecodeEngine(model, EngineConfig(page_size=PS, max_slots=8,
+                                               prefix_cache=False),
+                           device=dev)
+        if arm == "pool_per_graph":
+            eng._prefill_pool = None
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        line[arm] = dict(warm(eng, SERVE_LENS), capture_peak_bytes=(
+            torch.cuda.max_memory_allocated(dev) - base))
+        del eng
+    torch.cuda.empty_cache()
+    emit(line)
+    return line
 
 
 # the host's runtime calls that put work on the card: kernel launches (the
@@ -1039,28 +1147,45 @@ def host_runtime_calls(prof):
     return calls
 
 
-def launches_per_step(eng, prompts, params, steps=3):
-    """Per decode (or verify) step, from `torch.profiler` over ``steps``
-    steps after a fresh admission of ``prompts`` (the run is drained
-    after): the kernels the card ran, all of them (the port's and
-    PyTorch's, graph-launched or not), and the host's runtime calls
-    (`host_runtime_calls`), by name and in all."""
-    reqs = [eng.submit(p, max_new_tokens=16, temperature=t, top_k=k, seed=s)
-            for p, (t, k, s) in zip(prompts, params)]
-    eng.step()                             # admission and the first step
-    torch.cuda.synchronize()
+def device_us(evt):
+    return getattr(evt, "self_device_time_total", None) \
+        or getattr(evt, "self_cuda_time_total", 0)
+
+
+def profiled(run):
+    """``run()`` under `torch.profiler`, synchronized: (the kernels the
+    card ran, all of them, the port's and PyTorch's, graph-launched or
+    not; their device milliseconds; the host's runtime calls by name,
+    `host_runtime_calls`)."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            eng.step()
+        run()
         torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in kern), sum(map(device_us, kern)) / 1e3,
+            host_runtime_calls(prof))
+
+
+def launches_per_step(eng, prompts, params, steps=3):
+    """From `torch.profiler`, a fresh admission of ``prompts`` (the step
+    that admits them all, prefills them and runs the first decode step):
+    its kernels, device milliseconds and host runtime calls; then per
+    decode (or verify) step over ``steps`` steps: the kernels and the host
+    runtime calls, by name and in all. The run is drained after."""
+    reqs = [eng.submit(p, max_new_tokens=16, temperature=t, top_k=k, seed=s)
+            for p, (t, k, s) in zip(prompts, params)]
+    torch.cuda.synchronize()
+    adm_kernels, adm_ms, adm_calls = profiled(eng.step)
+    kernels, _, calls = profiled(lambda: [eng.step() for _ in range(steps)])
     eng.run_until_idle(max_steps=10_000)
     if not all(r.done for r in reqs):
         raise SystemExit("launches_per_step: requests left unfinished")
-    calls = host_runtime_calls(prof)
-    return {"kernel_launches_per_step": sum(
-                e.count for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA) / steps,
+    return {"admission_kernel_launches": adm_kernels,
+            "admission_device_ms": adm_ms,
+            "admission_host_runtime_calls": sum(adm_calls.values()),
+            "admission_host_runtime_calls_by_name": adm_calls,
+            "kernel_launches_per_step": kernels / steps,
             "host_runtime_calls_per_step": sum(calls.values()) / steps,
             "host_runtime_calls_by_name": {k: n / steps
                                            for k, n in calls.items()}}
@@ -1103,6 +1228,7 @@ def timed_serve(eng, prompts, params, dev, phase):
             "step_ms_p50": statistics.median(step_ms[1:]),
             "first_step_ms": step_ms[0],
             "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+            "reserved_memory_bytes": torch.cuda.memory_reserved(dev),
             "kv_bytes_per_token": eng.kv_bytes_per_token,
             "launches": launches, "expected_launches": expected,
             "outputs_ok": ok, "step_tokens": step_tokens}
@@ -1119,7 +1245,7 @@ def serve_run(model, dev, smi, phase="serve", params=None, greedy_ref=None,
     outputs."""
     lens, cfg = SERVE_LENS, model.cfg
     spec = ecfg.get("speculate_k") is not None
-    eng, prompts = serve_engine(model, dev, tiled=spec, **ecfg)
+    eng, prompts, warmed = serve_engine(model, dev, tiled=spec, **ecfg)
     params = params or [(1.0, 0, 0)] * len(prompts)
 
     line, outs, ran = timed_serve(eng, prompts, params, dev, phase)
@@ -1129,7 +1255,7 @@ def serve_run(model, dev, smi, phase="serve", params=None, greedy_ref=None,
             "kv_dtype": eng.ecfg.kv_dtype,
             "weight_dtype": eng.ecfg.weight_dtype,
             "card": smi, "requests": len(prompts), "prompt_lens": list(lens),
-            "max_new_tokens": 32, **line}
+            "max_new_tokens": 32, **warmed, **line}
     if eng.ecfg.sampling:
         line["request_params"] = [list(p) for p in params]
     if greedy_ref is not None:
@@ -1357,8 +1483,10 @@ def prefix_engine(model, dev, arm):
     """A warm bf16 engine of one `serve_prefix` arm: ``cold`` (prefix cache
     off), ``hbm`` (on, seeded with the system prompt) or ``host_tier`` (on,
     seeded, and every cached page demoted to a PREFIX_HOST_TIER host tier).
-    Returns the engine, the system prompt, the 8 prompts and the spill's
-    milliseconds (synchronized) and pages for ``host_tier``."""
+    Warmed for the prompts' lengths (and, with the cache on, their tails'
+    buckets) before the seeding. Returns the engine, the system prompt, the
+    8 prompts, the spill's milliseconds (synchronized) and pages for
+    ``host_tier``, and `warm`'s line."""
     system, prompts = prefix_prompts(np.random.default_rng(SEED + 6),
                                      model.cfg.vocab_size, PREFIX_SYSTEM,
                                      PREFIX_SUFFIXES)
@@ -1366,9 +1494,10 @@ def prefix_engine(model, dev, arm):
     if arm == "host_tier":
         ecfg["kv_host_tier_bytes"] = PREFIX_HOST_TIER
     eng = DecodeEngine(model, EngineConfig(**ecfg), device=dev)
-    eng.warmup()
-    warm = np.random.default_rng(SEED + 8).integers(0, VOCAB, 64)
-    eng.submit(warm, max_new_tokens=2, cache=False)   # first touches
+    warmed = warm(eng, [PREFIX_SYSTEM, 64] + [len(p) for p in prompts],
+                  PREFIX_SUFFIXES if arm != "cold" else ())
+    touch = np.random.default_rng(SEED + 8).integers(0, VOCAB, 64)
+    eng.submit(touch, max_new_tokens=2, cache=False)   # first touches
     eng.run_until_idle(max_steps=100)
     spill = None
     if arm != "cold":
@@ -1380,7 +1509,7 @@ def prefix_engine(model, dev, arm):
         torch.cuda.synchronize()
         spill = ((time.perf_counter() - t0) * 1e3, n)
     torch.cuda.synchronize()
-    return eng, system, prompts, spill
+    return eng, system, prompts, spill, warmed
 
 
 def serve_prefix(model, dev, smi):
@@ -1400,7 +1529,7 @@ def serve_prefix(model, dev, smi):
     card_params = {k: v.detach().to(dev) for k, v in
                    model.state_dict().items()}
     for arm in PREFIX_ARMS:
-        eng, system, prompts, spill = prefix_engine(model, dev, arm)
+        eng, system, prompts, spill, warmed = prefix_engine(model, dev, arm)
         line, outs[arm], ran = timed_serve(eng, prompts, params, dev,
                                            "serve_prefix:" + arm)
         line.pop("step_tokens")
@@ -1408,7 +1537,7 @@ def serve_prefix(model, dev, smi):
                 "dtype": "bfloat16", "card": smi,
                 "system_len": PREFIX_SYSTEM,
                 "suffixes": list(PREFIX_SUFFIXES), "max_new_tokens": 32,
-                **line, **{k: ran[k] for k in PREFIX_COUNTERS},
+                **warmed, **line, **{k: ran[k] for k in PREFIX_COUNTERS},
                 "one_shot_prefills": ran["prefills"],
                 "prefill_chunks": ran["prefill_chunks"]}
         if spill is not None:
@@ -1484,6 +1613,36 @@ GRAPH_ARMS = {
                          "sampling": True, "speculate_k": SPEC_K})),
 }
 GRAPH_LENS = (5, 16, 33, 64, 100, 129, 200, 250)   # one prompt a slot
+GRAPH_CHUNK_START = 96                             # a 154-token tail
+
+
+def graph_vs_eager(eng, graph, eager):
+    """A `check_step_graph` or `check_prefill_graph` pair held: tokens and
+    key chains equal, every pool page but the trash page equal (page 0,
+    where masked writes such as a verify step's padding drafts collide in
+    an unspecified order, is reported, not held), and the logits within
+    the serve bound of the engine's dtype (the gap is printed; 0 is
+    expected: the same kernels on the same inputs). Returns (line, ok)."""
+    tokens_equal = torch.equal(graph["tokens"], eager["tokens"])
+    keys_equal = graph["keys"] is None or torch.equal(graph["keys"],
+                                                      eager["keys"])
+    # every pool, scale pools included, is [nl, pages, ...]
+    pool_diff = [int((a[:, 1:] != b[:, 1:]).sum())
+                 for a, b in zip(graph["pools"], eager["pools"])]
+    trash_diff = [int((a[:, 0] != b[:, 0]).sum())
+                  for a, b in zip(graph["pools"], eager["pools"])]
+    line = {"tokens_equal": tokens_equal, "keys_equal": keys_equal,
+            "pool_values_differ": pool_diff,
+            "trash_page_values_differ": trash_diff}
+    ok = tokens_equal and keys_equal and not any(pool_diff)
+    if graph["logits"] is not None:
+        bound = (bf16_logit_bound(eager["logits"])
+                 if eng._cdtype == torch.bfloat16 else
+                 INT8_LOGIT_BOUND if eng._quant_kv else LOGIT_BOUND)
+        diff = float((graph["logits"] - eager["logits"]).abs().max())
+        line.update(logit_max_abs_diff=diff, logit_bound=bound)
+        ok &= diff <= bound
+    return line, ok
 
 
 def serve_graph(model, other, dev):
@@ -1492,14 +1651,13 @@ def serve_graph(model, other, dev):
     requests (GRAPH_LENS prompts, SAMPLED_PARAMS on a sampling engine) are
     admitted and decoded for two steps; then `check_step_graph` runs the
     next decode (or verify) step from one state through the graph and
-    through the eager body: tokens, key chains and pools (but the trash
-    page, written in an unspecified order) must be EQUAL and
-    the decode logits within the float32 serve bound (int8 KV's, or
-    `bf16_logit_bound`); the gap is printed (0 expected: the same kernels
-    on the same inputs). Then `refresh_params(other)` copies the second
-    model's weights into the engine: the weights keep their addresses,
-    nothing is recaptured, and the replayed steps' tokens for the 8
-    prompts must equal a fresh engine's on ``other``."""
+    through the eager body, and `check_prefill_graph` a one-shot prefill
+    and a chunk (``prefill`` and ``chunk``, with SAMPLED_PARAMS[0] on a
+    sampling engine), each held by `graph_vs_eager`. Then
+    `refresh_params(other)` copies the second model's weights into the
+    engine: the weights keep their addresses, nothing is recaptured, and
+    the replayed steps' tokens for the 8 prompts must equal a fresh
+    engine's on ``other``."""
     dtype = model.gpt.wte.weight.dtype
     cfg = model.cfg
     rng = np.random.default_rng(SEED + 9)
@@ -1520,27 +1678,20 @@ def serve_graph(model, other, dev):
                 for p, (t, k, sd) in zip(prompts, params)]
         eng.step()
         eng.step()
-        graph, eager = eng.check_step_graph()
-        tokens_equal = torch.equal(graph["tokens"], eager["tokens"])
-        keys_equal = graph["keys"] is None or torch.equal(graph["keys"],
-                                                          eager["keys"])
-        # every pool, scale pools included, is [nl, pages, ...]; page 0 is
-        # the trash page, where masked writes (a verify step's padding
-        # drafts) collide in an unspecified order, so it is reported, not
-        # held
-        pool_diff = [int((a[:, 1:] != b[:, 1:]).sum())
-                     for a, b in zip(graph["pools"], eager["pools"])]
-        trash_diff = [int((a[:, 0] != b[:, 0]).sum())
-                      for a, b in zip(graph["pools"], eager["pools"])]
-        line = {}
-        ok = tokens_equal and keys_equal and not any(pool_diff)
-        if graph["logits"] is not None:
-            bound = (bf16_logit_bound(eager["logits"])
-                     if dtype == torch.bfloat16 else
-                     INT8_LOGIT_BOUND if eng._quant_kv else LOGIT_BOUND)
-            diff = float((graph["logits"] - eager["logits"]).abs().max())
-            line = {"logit_max_abs_diff": diff, "logit_bound": bound}
-            ok &= diff <= bound
+        line, ok = graph_vs_eager(eng, *eng.check_step_graph())
+        # the prefill and chunk programs from one state, while the 8 slots
+        # are live: a one-shot prefill of GRAPH_LENS[-1] tokens (bucket
+        # 256) and its tail from GRAPH_CHUNK_START (the chunk program at
+        # the tail's bucket, as a prefix hit runs it)
+        sample = dict(zip(("temperature", "top_k", "seed"),
+                          SAMPLED_PARAMS[0])) if ecfg.sampling else {}
+        for name, start in (("prefill", 0), ("chunk", GRAPH_CHUNK_START)):
+            line[name], arm_ok = graph_vs_eager(
+                eng, *eng.check_prefill_graph(prompts[-1], start, **sample))
+            key = ("prefill", 256, eng._impl) if not start else \
+                ("prefill_chunk", 256, eng._impl)
+            line[name]["replays"] = eng._programs[key].graph.replays
+            ok &= arm_ok
         eng.run_until_idle(max_steps=1000)
         ok &= all(r.done for r in reqs)
 
@@ -1570,10 +1721,7 @@ def serve_graph(model, other, dev):
               "weight_dtype": ecfg.weight_dtype, "sampling": ecfg.sampling,
               "speculate_k": ecfg.speculate_k, "slots": ecfg.max_slots,
               "program": list(key), "capture_s": capture_s,
-              "replays": replays,
-              "tokens_equal": tokens_equal, "keys_equal": keys_equal,
-              "pool_values_differ": pool_diff,
-              "trash_page_values_differ": trash_diff, **line,
+              "replays": replays, **line,
               "refresh_weights_kept_addresses": kept,
               "refresh_recaptured": recaptured,
               "refresh_tokens_equal_fresh_engine": refresh_equal,
@@ -2021,6 +2169,7 @@ def main():
             for c, start, valid in PREFILL_CASES:
                 cases[("paged_prefill" + suffix, dtype, c)] = check_prefill(
                     dev, timer, dtype, c, start, valid, quant)
+            prefill_scalars(dev, dtype, quant)
         for case in FLASH_CASES:
             for kern, line in check_flash(dev, timer, dtype, case).items():
                 cases[(kern, dtype, case[0])] = line
@@ -2047,6 +2196,7 @@ def main():
     serve_parity(model, dev)
     line, greedy_outs = serve_run(model, dev, smi)
     launches = line["launches"]
+    prefill_graph_memory(model, dev, smi)
     serve_run(model, dev, smi, "serve_sampled", params=SAMPLED_PARAMS,
               greedy_ref=greedy_outs, sampling=True)
     serve_run(model, dev, smi, "serve_spec", speculate_k=SPEC_K)

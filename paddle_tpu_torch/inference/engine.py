@@ -52,13 +52,17 @@ reduced to the serving slice of the port).
 - **Step programs** (``DecodeEngine._compiled``, the JAX engine's program
   cache): one entry per key, ``("decode", impl)`` or ``("verify", K)``,
   ``("prefill", bucket, impl)``, ``("prefill_chunk", c, impl)``, counted
-  as ``cache_hit`` / ``cache_miss`` / ``compile_count``. On the card the
-  decode and verify entries are CUDA graphs (`inference/graphs.py`),
-  captured at `warmup` or first use and replayed every step; their inputs
-  and outputs are buffers that keep their identity (the packed state, the
-  pools, the weights, the token, key and verify-output buffers), so
-  `refresh_params` copies new weights in place and never recaptures. On
-  the CPU, and for the prefill keys, an entry runs its step eagerly.
+  as ``cache_hit`` / ``cache_miss`` / ``compile_count``. On the card every
+  entry is a CUDA graph (`inference/graphs.py`), captured at `warmup` or
+  first use and replayed at every use after; their inputs and
+  outputs are buffers that keep their identity (the packed state, each
+  prefill entry's packed upload and token buffer, the pools, the weights,
+  the token, key and verify-output buffers), so `refresh_params` copies
+  new weights in place and never recaptures. A prefill or chunk upload is
+  the JAX engine's packed layout (``ids | length | row`` and ``ids |
+  start | valid | row``, a sampling engine's with its sample tail) and the
+  program picks the first token itself, so its one readback is that
+  token. On the CPU an entry runs its step eagerly.
 
 Harvest is synchronous: each step reads its sampled tokens back before the
 next step is dispatched (the JAX engine keeps ``inflight`` steps in flight).
@@ -66,10 +70,9 @@ The tokens a request receives are the same either way.
 
 Not in this slice (see ROADMAP.md): handoff/migration and streamed
 prefill, the router's prefix directory, dedup (of key chains too),
-deadlines, cancel, fault injection and the degradation ladder (A5);
-CUDA graphs of the prefill and chunk steps (A5a.2); a metrics registry
-and tracing (counters live in ``DecodeEngine.counters``); a float KV pool
-of another dtype than the weights (A9).
+deadlines, cancel, fault injection and the degradation ladder (A5); a
+metrics registry and tracing (counters live in ``DecodeEngine.counters``);
+a float KV pool of another dtype than the weights (A9).
 
 Thread model: `submit()` is safe from any thread; `step()` /
 `run_until_idle()` must all run on ONE thread, the loop's owner.
@@ -113,7 +116,7 @@ _COL_TOKEN, _COL_LENGTH, _COL_FLAGS, _STATE_COLS = 0, 1, 2, 3
 _COL_DRAFT, _SPEC_COLS = 3, 4
 _FLAG_ACTIVE, _FLAG_FRESH = 1, 2
 # a sampling engine's prefill uploads end in [slot, key0, key1, temperature
-# bits, top_k]
+# bits, top_k], a chunk's in one more word, final (the JAX layouts)
 _SAMPLE_TAIL = 5
 
 
@@ -364,6 +367,67 @@ class _DraftIndex:
         return []
 
 
+class _PrefillEntry:
+    """A prefill or chunk entry of the program cache: its program over
+    buffers of its own, which keep their identity, ``dev`` (the packed
+    upload on the device, copied from ``host``, pinned on the card) and
+    ``tok`` [1] int32 (the first token); the program reads the engine's
+    weights, pools and key chains. On the card the program is a
+    `StepGraph` captured over these buffers, in the engine's prefill pool;
+    on the CPU it is the eager body. The entry holds no reference to the
+    engine.
+
+    The warm-up and capture runs see the upload zeroed, so every write
+    goes to the trash page (length or valid 0) and, on a sampling engine,
+    a tail naming the key buffer's scratch row B with the greedy
+    arm: building a graph mid-serving leaves every live slot's pages and
+    key chain as they were.
+
+    Buffer reuse: the copy from the pinned host buffer is asynchronous and
+    a non-final chunk has no readback, so two chunks can follow one
+    another with no synchronization between them. Each upload records an
+    event, and `pack` waits on it before the host buffer is written again
+    (one host buffer an entry; an in-flight window, ROADMAP A5.2, keeps
+    this rule)."""
+
+    def __init__(self, eng, size: int, body, chunk: bool):
+        cuda = eng.device.type == "cuda"
+        self.host = torch.zeros(size, dtype=torch.int32, pin_memory=cuda)
+        self.host_np = self.host.numpy()
+        self.dev = torch.zeros(size, dtype=torch.int32, device=eng.device)
+        self.tok = torch.zeros(1, dtype=torch.int32, device=eng.device)
+        self.body = functools.partial(body, packed=self.dev, tok=self.tok)
+        self.uploaded = torch.cuda.Event() if cuda else None
+        self.graph = None
+        if cuda:
+            if eng._sampling:
+                tail = eng._sample_tail(eng.ecfg.max_slots, None,
+                                        final=False if chunk else None)
+                self.dev[size - tail.size:].copy_(torch.from_numpy(tail))
+            self.graph = StepGraph(functools.partial(self.body, eng),
+                                   eng.device, pool=eng._prefill_pool)
+
+    def pack(self) -> np.ndarray:
+        """The host buffer, zeroed, once the last upload from it is done."""
+        if self.uploaded is not None:
+            self.uploaded.synchronize()
+        self.host_np[:] = 0
+        return self.host_np
+
+    def upload(self, eng):
+        """The packed host buffer into ``dev``, on the current stream."""
+        eng.counters["h2d_transfers"] += 1
+        self.dev.copy_(self.host, non_blocking=True)
+        if self.uploaded is not None:
+            self.uploaded.record()
+
+    def __call__(self, eng):
+        """Upload the packed host buffer and run the program (a replay on
+        the card). Returns the logits of the program's run."""
+        self.upload(eng)
+        return (self.graph or self.body)(eng)
+
+
 def _resolve_device(device) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
@@ -449,8 +513,9 @@ class DecodeEngine:
         # fused sampling: per-slot (temperature, top_k) host mirrors ride the
         # packed upload; the key chains stay on the device, threaded through
         # every step like _tok_dev. Row B is the JAX engine's scratch row
-        # for prefills without a slot (export, streaming: A5); no port path
-        # writes it yet
+        # for prefills without a slot (export, streaming: A5); in the port
+        # only the warm-up and capture runs of a prefill graph write it, so
+        # a graph built mid-serving moves no live slot's chain
         self._sampling = bool(ecfg.sampling)
         self._temps = np.ones(B, np.float32)
         self._topks = np.zeros(B, np.int32)
@@ -482,6 +547,10 @@ class DecodeEngine:
         # device keys it, as the JAX engine's impl flag does
         self._impl = "cuda" if self.device.type == "cuda" else "plain"
         self._programs: dict[tuple, object] = {}
+        # one memory pool for this engine's prefill and chunk graphs
+        # (`inference/graphs.py`); None gives each graph its own
+        self._prefill_pool = torch.cuda.graph_pool_handle() \
+            if self.device.type == "cuda" else None
         # chunked-prefill progress: slot -> {"req", "done"}; these slots are
         # occupied (request and pages held) but NOT decode-active
         self._prefilling: dict[int, dict] = {}
@@ -745,12 +814,13 @@ class DecodeEngine:
         """Front-load what the first requests would otherwise pay for, the
         JAX engine's `warmup`: on the card build the CUDA kernels and
         capture the decode step's graph (the verify step's on a
-        speculating engine), then make the prefill entries covering
+        speculating engine), then the prefill entries covering
         ``prompt_lens`` (their buckets, or the chunk entry for prompts
         longer than ``prefill_chunk_tokens``) and the prefix-cache tail
-        entries of ``tail_lens`` (one a tail bucket, or the chunk entry).
-        The program cache then holds what the JAX engine's compiles for
-        the same arguments. Optional: every entry is also made on first
+        entries of ``tail_lens`` (one a tail bucket, or the chunk entry),
+        each a graph on the card. The program cache then holds what the
+        JAX engine's compiles for the same arguments, and no capture falls
+        inside a request. Optional: every entry is also made on first
         use."""
         if self.device.type == "cuda":
             from paddle_tpu_torch.kernels import _build
@@ -812,40 +882,76 @@ class DecodeEngine:
                                   DecodeEngine._verify_body))
 
     def _prefill_exe(self, bucket: int):
+        """The one-shot entry of ``bucket``: its upload is ``ids[bucket] |
+        length | row[ | slot, key0, key1, temperature bits, top_k]``."""
+        size = bucket + 1 + self.pages_per_slot \
+            + (_SAMPLE_TAIL if self._sampling else 0)
         return self._compiled(
             ("prefill", bucket, self._impl),
-            lambda: functools.partial(DecodeEngine._prefill_program,
-                                      bucket=bucket))
+            lambda: _PrefillEntry(self, size, functools.partial(
+                DecodeEngine._prefill_program, bucket=bucket), chunk=False))
 
     def _prefill_chunk_exe(self, c: int | None = None):
         """The chunk entry serves decode-priority chunks (``c`` the
         configured chunk size) and prefix-cache tails (``c`` the tail's
-        bucket), as in the JAX engine."""
+        bucket), as in the JAX engine. Its upload is ``ids[c] | start |
+        valid | row[ | slot, key0, key1, temperature bits, top_k, final]``,
+        the sample tail on every chunk."""
         c = int(self.ecfg.prefill_chunk_tokens if c is None else c)
+        size = c + 2 + self.pages_per_slot \
+            + (_SAMPLE_TAIL + 1 if self._sampling else 0)
         return self._compiled(
             ("prefill_chunk", c, self._impl),
-            lambda: functools.partial(DecodeEngine._chunk_program, c=c))
+            lambda: _PrefillEntry(self, size, functools.partial(
+                DecodeEngine._chunk_program, c=c), chunk=True))
 
-    def _prefill_program(self, dev, length, *, bucket):
-        """One-shot prefill from an uploaded ``ids | row[ | tail]`` (eager
-        on both devices; a graph needs the device-scalar prefill entry
-        points of ROADMAP A5a.2). Returns the last real token's logits."""
+    def _prefill_program(self, packed, tok, *, bucket):
+        """The one-shot prefill program: from its uploaded ``packed`` buffer
+        to the first token, written into ``tok`` [1] (`_first_token`).
+        Returns the last real token's logits."""
         maxp = self.pages_per_slot
-        return gpt_mod.prefill_step(
-            self._params, dev[:bucket], length, dev[bucket:bucket + maxp],
-            self._kc, self._vc, cfg=self.cfg, **self._scales())[0]
+        logits = gpt_mod.prefill_step(
+            self._params, packed[:bucket], packed[bucket],
+            packed[bucket + 1:bucket + 1 + maxp], self._kc, self._vc,
+            cfg=self.cfg, **self._scales())[0]
+        self._first_token(logits, packed[bucket + 1 + maxp:], tok)
+        return logits
 
-    def _chunk_program(self, dev, start, valid, *, c):
-        """One prefill chunk at ``start`` from an uploaded ``chunk | row[ |
-        tail]``, eager as `_prefill_program`."""
+    def _chunk_program(self, packed, tok, *, c):
+        """One prefill chunk from its uploaded ``packed`` buffer, at the
+        absolute position ``packed[c]`` with ``packed[c + 1]`` live tokens;
+        its first token goes into ``tok`` as `_prefill_program`'s, read
+        only after the final chunk. Returns the last live token's
+        logits."""
         maxp = self.pages_per_slot
-        return gpt_mod.prefill_chunk_step(
-            self._params, dev[:c], start, valid, dev[c:c + maxp],
-            self._kc, self._vc, cfg=self.cfg, **self._scales())[0]
+        logits = gpt_mod.prefill_chunk_step(
+            self._params, packed[:c], packed[c], packed[c + 1],
+            packed[c + 2:c + 2 + maxp], self._kc, self._vc, cfg=self.cfg,
+            **self._scales())[0]
+        tail = packed[c + 2 + maxp:]
+        self._first_token(logits, tail, tok, final=tail[5:6])
+        return logits
 
-    def _upload(self, packed: np.ndarray) -> torch.Tensor:
-        self.counters["h2d_transfers"] += 1
-        return torch.from_numpy(packed).to(self.device)
+    def _first_token(self, logits, tail, tok, final=None):
+        """Inside a prefill program: the prompt's first token from its last
+        logits ``[V]`` into ``tok``, the argmax, or on a sampling engine
+        the request's first draw from its seed key (``tail``: the upload's
+        sample tail), the advanced key written into row ``slot`` of the key
+        buffer. A chunk's ``final`` word keeps that row as it was unless it
+        is set (the JAX ``jnp.where(final, new_key, keys[slot])``): only
+        the final chunk moves the chain."""
+        if not self._sampling:
+            tok.copy_(logits.argmax(dim=-1))
+            return
+        slot = tail[0:1].long()
+        key = (tail[1:3].long() & prng.M32)[None]
+        drawn, new_key = smp.fused_sample(
+            logits[None], key, tail[3:4].view(torch.float32), tail[4:5])
+        if final is not None:
+            new_key = torch.where(final != 0, new_key,
+                                  self._keys_dev.index_select(0, slot))
+        self._keys_dev.index_copy_(0, slot, new_key)
+        tok.copy_(drawn)
 
     def _upload_state(self):
         """The step's one upload: the packed state (`_packed_state`, in
@@ -858,60 +964,82 @@ class DecodeEngine:
         self.counters["h2d_transfers"] += 1
         self._state_dev.copy_(self._state_host, non_blocking=True)
 
-    def _sample_tail(self, slot: int, req: GenerateRequest) -> np.ndarray:
-        """The ints that end a sampling engine's prefill upload (one-shot,
-        or the final chunk's): [slot, key0, key1, temperature bits, top_k].
-        The PRNGKey(seed) words are made once per request, on the host."""
-        if req._seed_key is None:
-            req._seed_key = prng.seed_words(req.seed)
-        tail = np.empty(_SAMPLE_TAIL, np.int32)
+    def _sample_tail(self, slot: int, req, final=None) -> np.ndarray:
+        """The ints that end a sampling engine's prefill upload: [slot,
+        key0, key1, temperature bits, top_k], and on a chunk's one more,
+        ``final``. The PRNGKey(seed) words are made once per request, on
+        the host, and shipped only where they are used: the one-shot
+        upload or the final chunk's (the JAX engine's tail). ``req`` None
+        rides the greedy arm with a zero key."""
+        tail = np.zeros(_SAMPLE_TAIL + (final is not None), np.int32)
         tail[0] = slot
-        tail[1:3] = req._seed_key.view(np.int32)
-        tail[3] = np.float32(req.temperature).view(np.int32)
-        tail[4] = req.top_k
+        tail[3] = np.float32(1.0).view(np.int32)
+        if req is not None:
+            if final is None or final:
+                if req._seed_key is None:
+                    req._seed_key = prng.seed_words(req.seed)
+                tail[1:3] = req._seed_key.view(np.int32)
+            tail[3] = np.float32(req.temperature).view(np.int32)
+            tail[4] = req.top_k
+        if final is not None:
+            tail[5] = int(bool(final))
         return tail
 
-    def _first_token(self, logits, tail):
-        """The prompt's first token from its last logits ``[V]``, on the
-        device: the argmax, or on a sampling engine the request's first
-        draw from its seed key, the advanced key written into the slot's
-        row of the key buffer (``tail``: the uploaded `_sample_tail`)."""
-        if tail is None:
-            return logits.argmax(dim=-1)
-        key = (tail[1:3].long() & prng.M32)[None]
-        tok, new_key = smp.fused_sample(
-            logits[None], key, tail[3:4].view(torch.float32), tail[4:5])
-        self._keys_dev.index_copy_(0, tail[0:1].long(), new_key)
-        return tok[0]
+    def _pack_prefill(self, ids, row, slot, req):
+        """``ids``' one-shot upload, packed into its entry's host buffer
+        (the JAX layout); returns the entry."""
+        s0, maxp = ids.size, self.pages_per_slot
+        bucket = self.bucket_for(s0)
+        entry = self._prefill_exe(bucket)
+        packed = entry.pack()
+        packed[:s0] = ids
+        packed[bucket] = s0
+        packed[bucket + 1:bucket + 1 + maxp] = row
+        if self._sampling:
+            packed[bucket + 1 + maxp:] = self._sample_tail(slot, req)
+        return entry
+
+    def _pack_chunk(self, ids, done, row, slot, req, c):
+        """The upload of the chunk ``ids[done:done+c]``, packed into the
+        chunk entry's host buffer (the JAX layout); returns the entry, the
+        chunk's live tokens and whether it is the final chunk."""
+        maxp = self.pages_per_slot
+        chunk = ids[done:done + c]
+        final = done + c >= ids.size
+        entry = self._prefill_chunk_exe(c)
+        packed = entry.pack()
+        packed[:chunk.size] = chunk
+        packed[c] = done
+        packed[c + 1] = chunk.size
+        packed[c + 2:c + 2 + maxp] = row
+        if self._sampling:
+            packed[c + 2 + maxp:] = self._sample_tail(slot, req, final=final)
+        return entry, int(chunk.size), final
+
+    def _tail_chunk(self, prompt_len: int, start: int) -> int:
+        """The chunk size of a prefix hit's tail: the configured chunk
+        size, else the tail's own bucket."""
+        c = self.ecfg.prefill_chunk_tokens
+        return int(c) if c is not None \
+            else self.bucket_for(prompt_len - start)
 
     def _run_prefill(self, ids: np.ndarray, row: np.ndarray, slot: int,
                      req: GenerateRequest, start: int = 0) -> int:
         """Prefill ``ids`` into ``row``'s pages from position ``start`` on
-        and return the first token (read back): one-shot bucketed from 0,
-        or, after a prefix hit (``start`` cached tokens), ONE chunk-step
-        call over the tail at the configured chunk size, else at the
-        tail's own bucket. The tail's queries attend over the shared pages
-        and their own writes, masked by absolute position."""
-        s0, maxp = ids.size, self.pages_per_slot
+        and return the first token (its one readback): one-shot bucketed
+        from 0, or, after a prefix hit (``start`` cached tokens), ONE
+        chunk-program call over the tail (`_tail_chunk`). The tail's
+        queries attend over the shared pages and their own writes, masked
+        by absolute position."""
         if start:
-            c = self.ecfg.prefill_chunk_tokens
-            c = int(c) if c is not None else self.bucket_for(s0 - start)
-            tok = self._run_chunk(ids, start, row, slot, req, c)
-            self.counters["d2h_transfers"] += 1
-            return int(tok)
-        bucket = self.bucket_for(s0)
-        x = _SAMPLE_TAIL if self._sampling else 0
-        packed = np.zeros(bucket + maxp + x, np.int32)  # ids | row | tail
-        packed[:s0] = ids
-        packed[bucket:bucket + maxp] = row
-        if self._sampling:
-            packed[bucket + maxp:] = self._sample_tail(slot, req)
-        exe = self._prefill_exe(bucket)
-        dev = self._upload(packed)
-        logits = exe(self, dev, s0)
-        self.counters["prefills"] += 1
-        self.counters["prefill_tokens"] += s0
-        tok = self._first_token(logits, dev[bucket + maxp:] if x else None)
+            tok = self._run_chunk(ids, start, row, slot, req,
+                                  self._tail_chunk(ids.size, start))
+        else:
+            entry = self._pack_prefill(ids, row, slot, req)
+            entry(self)
+            tok = entry.tok
+            self.counters["prefills"] += 1
+            self.counters["prefill_tokens"] += ids.size
         self.counters["d2h_transfers"] += 1
         return int(tok)
 
@@ -920,26 +1048,14 @@ class DecodeEngine:
         """Run ONE prefill chunk (``ids[done:done+c]`` against page ``row``;
         ``c`` defaults to the configured chunk size) and return its first
         token on the device when it is the FINAL chunk (no readback here),
-        else None: only the final chunk samples, so the chain advances once
-        per emitted token."""
+        else None: only the final chunk's draw is kept, so the chain
+        advances once per emitted token."""
         c = int(self.ecfg.prefill_chunk_tokens if c is None else c)
-        maxp = self.pages_per_slot
-        chunk = ids[done:done + c]
-        final = done + c >= ids.size
-        x = _SAMPLE_TAIL if self._sampling and final else 0
-        packed = np.zeros(c + maxp + x, np.int32)    # chunk | row | tail
-        packed[:chunk.size] = chunk
-        packed[c:c + maxp] = row
-        if x:
-            packed[c + maxp:] = self._sample_tail(slot, req)
-        exe = self._prefill_chunk_exe(c)
-        dev = self._upload(packed)
-        logits = exe(self, dev, done, int(chunk.size))
+        entry, n, final = self._pack_chunk(ids, done, row, slot, req, c)
+        entry(self)
         self.counters["prefill_chunks"] += 1
-        self.counters["prefill_tokens"] += int(chunk.size)
-        if not final:
-            return None
-        return self._first_token(logits, dev[c + maxp:] if x else None)
+        self.counters["prefill_tokens"] += n
+        return entry.tok if final else None
 
     # ---------------------------------------------------------- requests
 
@@ -1364,27 +1480,84 @@ class DecodeEngine:
         else:
             exe, body = self._decode_exe(), DecodeEngine._decode_body
             self._packed_state()
+
+        def run(program):
+            self._upload_state()
+            logits = program(self)
+            return None if self._spec else logits
+        return self._from_one_state(
+            self._spec_out if self._spec else self._tok_dev,
+            (lambda: run(exe), lambda: run(body)))
+
+    def _from_one_state(self, tokens, runs):
+        """Each of ``runs`` (a function that uploads and runs a program and
+        returns its logits, or None) from the engine's state as it is now:
+        the pools, the key chains and ``tokens`` (the buffer the program
+        writes its token(s) into) are restored before each run and after
+        the last, so the engine serves on as if nothing ran. Returns one
+        ``{"tokens", "keys", "logits", "pools"}`` a run, copies on the
+        engine's device."""
         pools = [t for t in (self._kc, self._vc, self._ks, self._vs)
                  if t is not None]
-        tokens = self._spec_out if self._spec else self._tok_dev
         written = pools + [t for t in (tokens, self._keys_dev)
                            if t is not None]
         saved = [t.clone() for t in written]
-        runs = []
-        for run in (exe, body):
+        out = []
+        for run in runs:
             for t, s in zip(written, saved):
                 t.copy_(s)
-            self._upload_state()
-            out = run(self)
-            runs.append({
+            logits = run()
+            out.append({
                 "tokens": tokens.clone(),
                 "keys": None if self._keys_dev is None
                 else self._keys_dev.clone(),
-                "logits": None if self._spec else out.clone(),
+                "logits": None if logits is None else logits.clone(),
                 "pools": [t.clone() for t in pools]})
         for t, s in zip(written, saved):
             t.copy_(s)
-        return runs[0], runs[1]
+        return tuple(out)
+
+    def check_prefill_graph(self, prompt_ids, start: int = 0,
+                            temperature: float = 1.0, top_k: int = 0,
+                            seed: int = 0):
+        """A prefill program run twice from one state, to hold the card's
+        captured graph against its eager body as `check_step_graph` does
+        for the step: the one-shot program over ``prompt_ids`` (``start``
+        0), or ONE chunk from ``start`` at a prefix tail's chunk size
+        (`_tail_chunk`; final when it reaches the prompt's end), for a
+        request with these sampling parameters in slot 0 over pages 1.. of
+        the pool. Every buffer the program writes (pools, key chains, the
+        entry's token) is restored after, and neither a host mirror nor a
+        counter moves, but the program cache's (an entry it builds
+        stays). Returns ``(graph, eager)``, each ``{"tokens",
+        "keys", "logits", "pools"}``, copies on the engine's device."""
+        ids = np.asarray(prompt_ids, np.int32).reshape(-1)
+        self._check_sample_params(temperature, top_k)
+        req = GenerateRequest(ids, 1, temperature=temperature, top_k=top_k,
+                              seed=seed)
+        npages = -(-ids.size // self.ecfg.page_size)
+        if npages > min(self.pages_per_slot, self.allocator.num_pages - 1):
+            raise ValueError(f"check_prefill_graph: {ids.size} tokens need "
+                             f"{npages} pages, more than a slot or the pool")
+        row = np.full(self.pages_per_slot, TRASH_PAGE, np.int32)
+        row[:npages] = np.arange(1, npages + 1)
+        counters = dict(self.counters)
+        if start:
+            entry = self._pack_chunk(ids, start, row, 0, req,
+                                     self._tail_chunk(ids.size, start))[0]
+        else:
+            entry = self._pack_prefill(ids, row, 0, req)
+
+        def run(program):
+            entry.upload(self)
+            return program(self)
+        graph, eager = self._from_one_state(
+            entry.tok, (lambda: run(entry.graph or entry.body),
+                        lambda: run(entry.body)))
+        program = ("cache_hit", "cache_miss", "compile_count")
+        self.counters.update((k, v) for k, v in counters.items()
+                             if k not in program)
+        return graph, eager
 
     def step(self) -> bool:
         """Admit waiting requests, run ONE batched decode step (a verify

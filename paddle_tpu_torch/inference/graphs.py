@@ -4,10 +4,10 @@ counterpart of the JAX engine's AOT-compiled step executables
 
 A :class:`StepGraph` captures ONE step body, a function with no arguments
 that reads only tensors which keep their identity between steps (the
-engine's packed-state buffer, its pools, weights, token and key buffers)
-and writes its results into such tensors with ``copy_``. Each call replays
-the graph: the step's hundreds of kernels go to the card in one
-``cudaGraphLaunch``.
+engine's packed-state or packed-prefill buffer, its pools, weights, token
+and key buffers) and writes its results into such tensors with
+``copy_``. Each call replays the graph: the step's hundreds of kernels go
+to the card in one ``cudaGraphLaunch``.
 
 Capture follows PyTorch's recipe. The body runs eagerly ``WARMUP_RUNS``
 times on the device's capture stream first, so that what it caches per
@@ -15,6 +15,13 @@ stream (cuBLAS workspaces, the split decode loop's tickets,
 `kernels/cuda/paged_attention.py::_tickets`) exists outside the graph's
 private memory pool; then one more run is captured on that stream. A
 failed capture raises: there is no eager fallback on the card.
+
+The engine's prefill and chunk graphs of one engine share one memory pool
+(``pool``, a `torch.cuda.graph_pool_handle`): they are replayed one at a
+time on one stream and their results leave through engine-owned buffers
+(the pools, the key chains, a token buffer) or are read before the next
+replay, so no graph needs its temporaries kept from one replay to the
+next. The decode and verify graph keeps a pool of its own.
 
 Every graph of a device is captured on ONE side stream,
 :func:`capture_stream`: cuBLAS keeps a 32 MiB workspace for each stream it
@@ -69,9 +76,11 @@ class StepGraph:
     Calling the graph replays it on the current stream, adds the capture's
     launch and dispatch counts, and returns ``outputs``; arguments are
     ignored, since the graph's inputs are the tensors it was captured
-    over. The body itself is not kept."""
+    over. The body itself is not kept. ``pool``: a memory pool shared with
+    other graphs (`torch.cuda.graph_pool_handle`), or None for a private
+    one."""
 
-    def __init__(self, body, device):
+    def __init__(self, body, device, pool=None):
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
@@ -87,7 +96,7 @@ class StepGraph:
             start = _counts()
             self.graph = torch.cuda.CUDAGraph()
             # synchronizes the device before capture begins
-            with torch.cuda.graph(self.graph, stream=stream):
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
                 self.outputs = body()
             end = _counts()
         finally:

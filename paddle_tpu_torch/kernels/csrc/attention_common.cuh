@@ -64,6 +64,22 @@ __device__ __forceinline__ float pool_value(const P* __restrict__ pool,
     return to_float(__ldg(pool + i));
 }
 
+// A prefill chunk's `start` (absolute position of its first row) and
+// `valid` (its live rows), read once from device memory: a captured CUDA
+// graph replays the pointers, so each replay sees the values uploaded for
+// it. Clamped so that no value can index out of bounds, whatever the
+// caller wrote: valid to [0, c] (the rows of q and out), start to [0, cap]
+// (cap = pages_per_slot * page_size, the slot's positions; a larger start
+// sees the same keys, all of them). Every later index derives from these.
+struct ChunkBounds {
+  int start, valid;
+};
+__device__ __forceinline__ ChunkBounds load_chunk_bounds(
+    const int* __restrict__ start, const int* __restrict__ valid, int c,
+    int cap) {
+  return {min(max(__ldg(start), 0), cap), min(max(__ldg(valid), 0), c)};
+}
+
 // Folds keys [0, n) of one tile (n <= 32; the caller has already cut the
 // tile at the causal limit, so every key here is visible) into the running
 // softmax state (m, l, acc) of one query row. Lane `lane` holds dims

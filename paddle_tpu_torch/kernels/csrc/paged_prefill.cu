@@ -27,39 +27,46 @@
 // C entry point, bound with ctypes by paddle_tpu_torch/kernels/cuda/
 // prefill_attention.py. Every tensor is contiguous: q and out [c, nh, dh],
 // pools [num_pages, ps, nh, dh] of q's dtype, page_table [maxp] int32 (this
-// sequence's row), visits [ceil(c / block_q), nh] int32 or null. block_q is
-// the query tile of the loop the call takes: at most 64 on the tensor-core
-// loop, whose tensors must start on 16-byte boundaries and whose slot has
-// at most 16384 pages, at most 32 on the CUDA-core loop. Launches on
-// `stream` without synchronising; returns the launch's cudaGetLastError().
+// sequence's row), visits [ceil(c / block_q), nh] int32 or null; `start`
+// and `valid` each point at one int32 in device memory (the chunk's first
+// position and its live rows), which every block reads and clamps when it
+// starts, so a captured graph serves any chunk its upload describes.
+// block_q is the query tile of the loop the call takes: at most 64 on the
+// tensor-core loop, whose tensors must start on 16-byte boundaries and
+// whose slot has at most 16384 pages, at most 32 on the CUDA-core loop.
+// Launches on `stream` without synchronising; returns the launch's
+// cudaGetLastError().
 extern "C" int paged_prefill(const void* q, const void* k_pages,
                              const void* v_pages, const void* page_table,
                              void* out, void* visits, int c, int nh, int dh,
-                             int ps, int maxp, int start, int valid,
-                             int block_q, int dtype, void* stream) {
+                             int ps, int maxp, const void* start,
+                             const void* valid, int block_q, int dtype,
+                             void* stream) {
   using namespace paddle_tpu_torch;
   const int* pt = static_cast<const int*>(page_table);
+  const int* st = static_cast<const int*>(start);
+  const int* va = static_cast<const int*>(valid);
   int* vis = static_cast<int*>(visits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mma_takes(dtype, dh)) {
-    if (!prefill_args_ok(c, nh, dh, ps, maxp, start, valid, block_q,
+    if (!prefill_args_ok(c, nh, dh, ps, maxp, st, va, block_q,
                          kMmaBlockQ) ||
         maxp > kMaxPages || !aligned16(q, k_pages, v_pages, out))
       return (int)cudaErrorInvalidValue;
     return launch_paged_prefill_mma<__nv_bfloat16>(
         q, k_pages, v_pages, nullptr, nullptr, pt, out, vis, c, nh, dh, ps,
-        maxp, start, valid, block_q, s);
+        maxp, st, va, block_q, s);
   }
-  if (!prefill_args_ok(c, nh, dh, ps, maxp, start, valid, block_q,
+  if (!prefill_args_ok(c, nh, dh, ps, maxp, st, va, block_q,
                        kCoreBlockQ))
     return (int)cudaErrorInvalidValue;
   if (dtype == kFloat32)
     return launch_paged_prefill<float, float>(
         q, k_pages, v_pages, nullptr, nullptr, pt, out, vis, c, nh, dh, ps,
-        maxp, start, valid, block_q, s);
+        maxp, st, va, block_q, s);
   if (dtype == kBFloat16)
     return launch_paged_prefill<__nv_bfloat16, __nv_bfloat16>(
         q, k_pages, v_pages, nullptr, nullptr, pt, out, vis, c, nh, dh, ps,
-        maxp, start, valid, block_q, s);
+        maxp, st, va, block_q, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -52,12 +52,15 @@ paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
                      const float* __restrict__ v_scale,
                      const int* __restrict__ page_table, T* __restrict__ out,
                      int* __restrict__ visits, int c, int nh, int dh, int ps,
-                     int maxp, int start, int valid, int block_q,
+                     int maxp, const int* __restrict__ start_p,
+                     const int* __restrict__ valid_p, int block_q,
                      float scale) {
   extern __shared__ float smem[];   // K tile [ps, dh] then V tile [ps, dh]
   float* ktile = smem;
   float* vtile = smem + (size_t)ps * dh;
 
+  const ChunkBounds cb = load_chunk_bounds(start_p, valid_p, c, maxp * ps);
+  const int start = cb.start, valid = cb.valid;
   const int qb = blockIdx.x, h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = qb * block_q;
@@ -138,8 +141,8 @@ int launch_paged_prefill(const void* q, const void* k_pages,
                          const void* v_pages, const void* k_scale,
                          const void* v_scale, const int* page_table,
                          void* out, int* visits, int c, int nh, int dh,
-                         int ps, int maxp, int start, int valid, int block_q,
-                         cudaStream_t stream) {
+                         int ps, int maxp, const int* start,
+                         const int* valid, int block_q, cudaStream_t stream) {
   const dim3 grid((c + block_q - 1) / block_q, nh);
   const dim3 block(kPrefillWarps * 32);
   const size_t smem = 2 * (size_t)ps * dh * sizeof(float);
@@ -172,14 +175,16 @@ int launch_paged_prefill(const void* q, const void* k_pages,
 
 constexpr int kCoreBlockQ = kPrefillWarps * kRowsPerWarp;
 
-// Checks the C entry points' scalar arguments; `max_block_q` is the query
-// tile of the loop the call takes (kCoreBlockQ, or kMmaBlockQ).
+// Checks the C entry points' shape arguments; `max_block_q` is the query
+// tile of the loop the call takes (kCoreBlockQ, or kMmaBlockQ). `start` and
+// `valid` are device values, never read on the host: the kernels clamp
+// them (`load_chunk_bounds`); here they must only be pointers.
 inline bool prefill_args_ok(int c, int nh, int dh, int ps, int maxp,
-                            int start, int valid, int block_q,
+                            const int* start, const int* valid, int block_q,
                             int max_block_q) {
   return c > 0 && nh > 0 && dh > 0 && dh <= 256 && ps > 0 && maxp > 0 &&
-         start >= 0 && valid >= 0 && valid <= c && block_q > 0 &&
-         block_q <= max_block_q;
+         (long long)maxp * ps <= 0x7fffffff - c && start != nullptr &&
+         valid != nullptr && block_q > 0 && block_q <= max_block_q;
 }
 
 }  // namespace paddle_tpu_torch

@@ -30,39 +30,43 @@
 // prefill_attention.py. Every tensor is contiguous: q and out [c, nh, dh]
 // (f32 or bf16, `dtype`), pools [num_pages, ps, nh, dh] int8, scales
 // [num_pages, ps, nh] f32, page_table [maxp] int32 (this sequence's row),
-// visits [ceil(c / block_q), nh] int32 or null. block_q is the query tile
-// of the loop the call takes, as in paged_prefill.cu. Launches on `stream`
+// visits [ceil(c / block_q), nh] int32 or null; `start` and `valid` point
+// at int32s in device memory, as in paged_prefill.cu. block_q is the query
+// tile of the loop the call takes, as in paged_prefill.cu. Launches on
+// `stream`
 // without synchronising; returns the launch's cudaGetLastError().
 extern "C" int paged_prefill_int8(const void* q, const void* k_pages,
                                   const void* v_pages, const void* k_scale,
                                   const void* v_scale, const void* page_table,
                                   void* out, void* visits, int c, int nh,
-                                  int dh, int ps, int maxp, int start,
-                                  int valid, int block_q, int dtype,
-                                  void* stream) {
+                                  int dh, int ps, int maxp,
+                                  const void* start, const void* valid,
+                                  int block_q, int dtype, void* stream) {
   using namespace paddle_tpu_torch;
   const int* pt = static_cast<const int*>(page_table);
+  const int* st = static_cast<const int*>(start);
+  const int* va = static_cast<const int*>(valid);
   int* vis = static_cast<int*>(visits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mma_takes(dtype, dh)) {
-    if (!prefill_args_ok(c, nh, dh, ps, maxp, start, valid, block_q,
+    if (!prefill_args_ok(c, nh, dh, ps, maxp, st, va, block_q,
                          kMmaBlockQ) ||
         maxp > kMaxPages || !aligned16(q, k_pages, v_pages, out))
       return (int)cudaErrorInvalidValue;
     return launch_paged_prefill_mma<signed char>(
         q, k_pages, v_pages, k_scale, v_scale, pt, out, vis, c, nh, dh, ps,
-        maxp, start, valid, block_q, s);
+        maxp, st, va, block_q, s);
   }
-  if (!prefill_args_ok(c, nh, dh, ps, maxp, start, valid, block_q,
+  if (!prefill_args_ok(c, nh, dh, ps, maxp, st, va, block_q,
                        kCoreBlockQ))
     return (int)cudaErrorInvalidValue;
   if (dtype == kFloat32)
     return launch_paged_prefill<float, signed char>(
         q, k_pages, v_pages, k_scale, v_scale, pt, out, vis, c, nh, dh, ps,
-        maxp, start, valid, block_q, s);
+        maxp, st, va, block_q, s);
   if (dtype == kBFloat16)
     return launch_paged_prefill<__nv_bfloat16, signed char>(
         q, k_pages, v_pages, k_scale, v_scale, pt, out, vis, c, nh, dh, ps,
-        maxp, start, valid, block_q, s);
+        maxp, st, va, block_q, s);
   return (int)cudaErrorInvalidValue;
 }

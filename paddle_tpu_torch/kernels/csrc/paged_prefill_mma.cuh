@@ -149,8 +149,9 @@ paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const int* __restrict__ page_table,
                          __nv_bfloat16* __restrict__ out,
                          int* __restrict__ visits, int c, int nh,
-                         FastDiv ps, int maxp, int start, int valid,
-                         int block_q, float scale) {
+                         FastDiv ps, int maxp, const int* __restrict__ start_p,
+                         const int* __restrict__ valid_p, int block_q,
+                         float scale) {
   using L = MmaLayout<P, DH>;
   constexpr bool kInt8 = L::kInt8;
   constexpr int kLd = L::kLd;
@@ -169,6 +170,9 @@ paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   unsigned char* wide = ring + kMmaStages * L::kStage;
   int* pts = reinterpret_cast<int*>(mma_smem + L::kBytes);   // page row
 
+  const ChunkBounds cb =
+      load_chunk_bounds(start_p, valid_p, c, maxp * (int)ps.d);
+  const int start = cb.start, valid = cb.valid;
   const int h = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;   // heaviest tile first
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -505,8 +509,8 @@ template <typename P, int DH>
 int launch_mma_dh(const void* q, const void* k_pages, const void* v_pages,
                   const void* k_scale, const void* v_scale,
                   const int* page_table, void* out, int* visits, int c,
-                  int nh, int ps, int maxp, int start, int valid, int block_q,
-                  cudaStream_t stream) {
+                  int nh, int ps, int maxp, const int* start,
+                  const int* valid, int block_q, cudaStream_t stream) {
   auto kern = paged_prefill_mma_kernel<P, DH>;
   // the layout, then the page-table row
   const int smem = MmaLayout<P, DH>::kBytes + (maxp * 4 + 15) / 16 * 16;
@@ -535,8 +539,9 @@ int launch_paged_prefill_mma(const void* q, const void* k_pages,
                              const void* v_pages, const void* k_scale,
                              const void* v_scale, const int* page_table,
                              void* out, int* visits, int c, int nh, int dh,
-                             int ps, int maxp, int start, int valid,
-                             int block_q, cudaStream_t stream) {
+                             int ps, int maxp, const int* start,
+                             const int* valid, int block_q,
+                             cudaStream_t stream) {
 #define PTT_MMA(DH)                                                          \
   case DH:                                                                   \
     return launch_mma_dh<P, DH>(q, k_pages, v_pages, k_scale, v_scale,       \

@@ -10,6 +10,14 @@ CUDA-core loop of `csrc/paged_prefill.cuh` (``"cuda_core"``). Each loop has
 its own query tile (:func:`default_block_q`), so the visits rows follow
 the arm.
 
+The kernels read ``start`` and ``valid`` from device memory and clamp
+them there (``load_chunk_bounds``, `csrc/attention_common.cuh`), so a
+captured CUDA graph serves every chunk its upload describes: the engine
+passes 0-d int32 views of its packed upload. Host ints are checked on the
+host and copied to the card first, for eager callers (tests, kernel
+timings); a host 0 is a persistent device zero, which the one-shot
+prefill's ``start`` uses.
+
 Bound on the H100: the visible pages' K/V bytes over 3.35 TB/s, or at long
 chunks the causal products over the peak rate of the dtype (see the
 sources' headers). The wrappers take CUDA tensors only and always launch
@@ -19,6 +27,7 @@ version, `_plain_prefill_attention`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,10 +40,13 @@ __all__ = ["KERNEL", "KERNEL_INT8", "MMA_BLOCK_Q", "MMA_MAX_PAGES",
            "paged_prefill", "paged_prefill_int8"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = CudaKernel("paged_prefill", "paged_prefill",
-                    [_P] * 6 + [_I] * 9 + [_P])
+# pointers (q, pools[, scales], page_table, out, visits), ints (c, nh, dh,
+# ps, maxp), the device pointers of start and valid, ints (block_q, dtype),
+# the stream
+_TAIL = [_I] * 5 + [_P, _P] + [_I] * 2 + [_P]
+KERNEL = CudaKernel("paged_prefill", "paged_prefill", [_P] * 6 + _TAIL)
 KERNEL_INT8 = CudaKernel("paged_prefill_int8", "paged_prefill_int8",
-                         [_P] * 8 + [_I] * 9 + [_P])
+                         [_P] * 8 + _TAIL)
 
 MMA_BLOCK_Q = 64     # 4 row groups of 16 (paged_prefill_mma.cuh)
 MMA_MAX_PAGES = 16384   # the page-table row the tensor-core loop holds
@@ -84,6 +96,53 @@ def grid(c: int, nh: int, dtype, dh: int) -> tuple[int, int]:
     return (nh, nq) if arm(dtype, dh) == "mma_bf16" else (nq, nh)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_zero(device) -> torch.Tensor:
+    """One int32 zero on ``device`` for the life of the process: the
+    ``start`` of every one-shot prefill. Made eagerly (a captured graph's
+    warm-up runs come first); made inside a capture, its zeroing would run
+    only at replay."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("prefill_attention: the device zero must exist "
+                           "before a graph is captured; run the body "
+                           "eagerly first")
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def _check_bounds(op, start, valid, c, cap, device):
+    """Refuse what the host can see of ``start`` and ``valid``. A tensor
+    must be a 0-d or one-element int32 tensor on ``device``; its value is
+    the kernel's to clamp. A host int must lie in range (the two together,
+    when both are ints)."""
+    for name, x, hi in (("start", start, cap), ("valid", valid, c)):
+        if torch.is_tensor(x):
+            if x.numel() != 1 or x.dtype != torch.int32 \
+                    or x.device != device:
+                raise ValueError(
+                    f"{op}: {name} must be an int or a one-element int32 "
+                    f"tensor on {device}, got {x.dtype} "
+                    f"{tuple(x.shape)} on {x.device}")
+        elif not 0 <= int(x) <= hi:
+            raise ValueError(f"{op}: {name}={x} out of range [0, {hi}] for "
+                             f"a chunk of {c} rows and a slot of {cap} "
+                             "positions")
+    if not (torch.is_tensor(start) or torch.is_tensor(valid)) \
+            and int(start) + int(valid) > cap:
+        raise ValueError(f"{op}: start={start}, valid={valid} out of range "
+                         f"for a slot of {cap} positions")
+
+
+def _on_device(x, device):
+    """A checked ``start`` or ``valid`` as an int32 device scalar: a tensor
+    as it is, a host int copied to the card (0 is `_device_zero`). The
+    copy serves eager callers and cannot be captured."""
+    if torch.is_tensor(x):
+        return x
+    if int(x) == 0:
+        return _device_zero(device)
+    return torch.tensor(int(x), dtype=torch.int32, device=device)
+
+
 def _launch(op, kernel, q, k_pages, v_pages, scales, page_table, start,
             valid, return_visits):
     check_attention_args(op, q, k_pages, v_pages,
@@ -91,15 +150,10 @@ def _launch(op, kernel, q, k_pages, v_pages, scales, page_table, start,
     c, nh, dh = q.shape
     _, ps, _, _ = k_pages.shape
     maxp = page_table.shape[0]
-    start, valid = int(start), int(valid)
     if page_table.dim() != 1:
         raise ValueError(f"{op}: page_table must be one row "
                          f"[pages_per_slot], got {tuple(page_table.shape)}")
-    if not (0 <= valid <= c and start >= 0
-            and start + valid <= maxp * ps):
-        raise ValueError(f"{op}: start={start}, valid={valid} out of range "
-                         f"for a chunk of {c} rows and a slot of "
-                         f"{maxp * ps} positions")
+    _check_bounds(op, start, valid, c, maxp * ps, q.device)
     if arm(q.dtype, dh) == "mma_bf16":
         if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
             raise ValueError(f"{op}: the tensor-core loop copies 16 bytes at "
@@ -114,6 +168,7 @@ def _launch(op, kernel, q, k_pages, v_pages, scales, page_table, start,
                          f"{2 * ps * dh * 4} bytes of shared memory, more "
                          "than 227 KB")
     require_cuda(op, q)
+    start, valid = (_on_device(x, q.device) for x in (start, valid))
     bq = default_block_q(c, q.dtype, dh)
     out = torch.empty_like(q)
     nq = -(-c // bq)
@@ -123,7 +178,8 @@ def _launch(op, kernel, q, k_pages, v_pages, scales, page_table, start,
                   *(s.data_ptr() for s in scales or ()),
                   page_table.data_ptr(), out.data_ptr(),
                   None if visits is None else visits.data_ptr(),
-                  c, nh, dh, ps, maxp, start, valid, bq,
+                  c, nh, dh, ps, maxp, start.data_ptr(), valid.data_ptr(),
+                  bq,
                   DTYPE_CODES[q.dtype],
                   torch.cuda.current_stream(q.device).cuda_stream)
     return (out, visits) if return_visits else out
@@ -135,8 +191,11 @@ def paged_prefill(q, k_pages, v_pages, page_table, start, valid, *,
 
     q [C, nh, dh]; pools [num_pages, page_size, nh, dh] of q's dtype
     (float32 or bfloat16); page_table [pages_per_slot] int32; start, valid
-    ints (absolute position of q[0], true token count); tensors on one CUDA
-    device. Returns [C, nh, dh] in q.dtype with rows >= valid set to 0 and,
+    (absolute position of q[0], true token count) each a host int or a
+    one-element int32 tensor on the card, whose value the kernel clamps
+    (``valid`` to [0, C], ``start`` to [0, pages_per_slot * page_size]);
+    tensors on one CUDA device. Returns [C, nh, dh] in q.dtype with rows >=
+    valid set to 0 and,
     with ``return_visits``, the per-(query block, head) trip counts
     [ceil(C / default_block_q(C, q.dtype, dh)), nh] int32.
     """

@@ -298,20 +298,30 @@ def decode_step(params, ids, cache, slot_mask, *, cfg):
                                                    lengths))
 
 
+def _last_row(x, n):
+    """Row ``n - 1`` of ``x`` [S, H], clamped to [0, S - 1], gathered on
+    the device: ``n`` (an int, or a 0-d device tensor from the packed
+    upload) is never read on the host, so a captured graph serves any
+    length."""
+    idx = torch.as_tensor(n, device=x.device) - 1
+    return x.index_select(0, idx.clamp(0, x.shape[0] - 1).reshape(1).long())[0]
+
+
 @torch.no_grad()
 def prefill_step(params, ids, length, page_table, k_pages, v_pages, *, cfg,
                  k_scale=None, v_scale=None):
     """Bucketed single-sequence prefill into the paged cache.
 
-    ids is PADDED to its bucket length S; ``length`` (int) is the true
-    prompt length. Writes positions < length into the slot's pages (padding
-    lands on the trash page), attends every query over the pages just
-    written (prefill attention with start=0, valid=length), and returns the
-    last REAL token's logits. Float pools carry the weights' dtype, so this
-    reads back exactly the K/V just computed; int8 pools (``k_scale`` /
-    ``v_scale`` given) read back their quantize-dequantize round trip, as
-    every later step does, so one-shot and chunked prefill condition on the
-    same cache.
+    ids is PADDED to its bucket length S; ``length`` (an int, or a 0-d int
+    tensor on the device, as the engine's packed upload gives it) is the
+    true prompt length. Writes positions < length into the slot's pages
+    (padding lands on the trash page), attends every query over the pages
+    just written (prefill attention with start=0, valid=length), and
+    returns the last REAL token's logits. Float pools carry the weights'
+    dtype, so this reads back exactly the K/V just computed; int8 pools
+    (``k_scale`` / ``v_scale`` given) read back their quantize-dequantize
+    round trip, as every later step does, so one-shot and chunked prefill
+    condition on the same cache.
 
     returns : (logits [V] f32, k_pages, v_pages[, k_scale, v_scale]), pools
               written in place
@@ -332,8 +342,8 @@ def prefill_step(params, ids, length, page_table, k_pages, v_pages, *, cfg,
                                     **_layer_scales(scales, i)).to(x.dtype)
 
     x = _block_stack(params, x, nl, nh, dh, attend)
-    last = x[0, min(max(int(length) - 1, 0), s - 1)]
-    return (_final_logits(params, last), k_pages, v_pages, *(scales or ()))
+    return (_final_logits(params, _last_row(x[0], length)), k_pages,
+            v_pages, *(scales or ()))
 
 
 @torch.no_grad()
@@ -341,12 +351,13 @@ def prefill_chunk_step(params, ids, start, valid, page_table, k_pages,
                        v_pages, *, cfg, k_scale=None, v_scale=None):
     """One CHUNK of a decode-priority chunked prefill into the paged cache.
 
-    ``ids`` is ONE chunk padded to the chunk length C; ``start`` (int) is
-    the absolute position of ``ids[0]``; ``valid`` (int) the true token
-    count in this chunk. Writes the chunk's K/V into the slot's pages
-    (padding and overflow land on the trash page), then attends the chunk's
-    queries over ALL cached positions, previous chunks and the current one,
-    masked by absolute position. With ``k_scale``/``v_scale`` the pools are
+    ``ids`` is ONE chunk padded to the chunk length C; ``start`` is the
+    absolute position of ``ids[0]``; ``valid`` the true token count in this
+    chunk (each an int, or a 0-d int tensor on the device). Writes the
+    chunk's K/V into the slot's pages (padding and overflow land on the
+    trash page), then attends the chunk's queries over ALL cached
+    positions, previous chunks and the current one, masked by absolute
+    position. With ``k_scale``/``v_scale`` the pools are
     int8, as in :func:`prefill_step`.
 
     returns : (logits [V] f32 of the chunk's LAST valid token, k_pages,
@@ -370,8 +381,8 @@ def prefill_chunk_step(params, ids, start, valid, page_table, k_pages,
                                     **_layer_scales(scales, i)).to(x.dtype)
 
     x = _block_stack(params, x, nl, nh, dh, attend)
-    last = x[0, min(max(int(valid) - 1, 0), c - 1)]
-    return (_final_logits(params, last), k_pages, v_pages, *(scales or ()))
+    return (_final_logits(params, _last_row(x[0], valid)), k_pages, v_pages,
+            *(scales or ()))
 
 
 @torch.no_grad()

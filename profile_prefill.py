@@ -92,16 +92,20 @@ def main():
         q = torch.from_numpy(rng.standard_normal(
             (c, cs.NH, cs.DH), dtype=np.float32)).to(dev, torch.bfloat16)
         ptrs = [t.data_ptr() for t in (q, kp, vp, *(scales or ()), row)]
+        # start and valid live in device memory (the kernels' ABI)
+        bounds = torch.tensor([start, valid], dtype=torch.int32, device=dev)
         out = torch.empty_like(q)
         runs = {}
         for variant in ABLATIONS:
             fn = getattr(ctypes.CDLL(str(libs[variant, stem])), stem)
             fn.argtypes = ([ctypes.c_void_p] * (len(ptrs) + 2)
-                           + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                           + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+                           + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
             def run(fn=fn):
                 rc = fn(*ptrs, out.data_ptr(), None, c, cs.NH, cs.DH, cs.PS,
-                        cs.MAXP, start, valid, 64, DTYPE_CODES[q.dtype],
+                        cs.MAXP, bounds.data_ptr(), bounds[1:].data_ptr(),
+                        64, DTYPE_CODES[q.dtype],
                         torch.cuda.current_stream(dev).cuda_stream)
                 if rc != 0:
                     raise SystemExit(f"{stem}: cudaError {rc}")

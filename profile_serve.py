@@ -19,9 +19,10 @@ wall time, the summed device time of all kernels, their share of the
 wall, the number of device kernel launches (graph-launched kernels
 included), the host's runtime calls that put work on the card
 (`chip_smoke.py::HOST_RUNTIME_CALLS`: kernel and graph launches, async
-copies), and the kernels with the most device time. The decode steps run
-as replays of the engine's captured CUDA graph. These runs keep the
-prefix cache off (`cs.serve_engine`).
+copies), and the kernels with the most device time. Every step program
+(the prefills of the admission, the decode steps) runs as a replay of
+the engine's captured CUDA graphs, captured by `cs.serve_engine`'s
+warm-up before the windows. These runs keep the prefix cache off.
 
 With ``--prefix`` it serves `chip_smoke.py`'s serve_prefix requests (a
 768-token system prompt shared by 8 prompts) in turns, hbm, cold, hbm,
@@ -44,11 +45,6 @@ import chip_smoke as cs
 from paddle_tpu_torch.models import gpt as gpt_mod
 
 
-def _device_us(evt):
-    return getattr(evt, "self_device_time_total", None) \
-        or getattr(evt, "self_cuda_time_total", 0)
-
-
 def window(name, run, top=8):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -58,9 +54,9 @@ def window(name, run, top=8):
         wall_us = (time.perf_counter() - t0) * 1e6
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and _device_us(e) > 0]
-    busy = sum(_device_us(e) for e in kern)
-    kern.sort(key=_device_us, reverse=True)
+            and cs.device_us(e) > 0]
+    busy = sum(cs.device_us(e) for e in kern)
+    kern.sort(key=cs.device_us, reverse=True)
     calls = cs.host_runtime_calls(prof)
     cs.emit({"window": name, "steps": steps, "wall_ms": wall_us / 1e3,
              "device_busy_ms": busy / 1e3, "device_busy_share": busy / wall_us,
@@ -68,8 +64,8 @@ def window(name, run, top=8):
              "host_runtime_calls": sum(calls.values()),
              "host_runtime_calls_by_name": calls,
              "top": [{"name": e.key[:80], "calls": e.count,
-                      "device_ms": _device_us(e) / 1e3,
-                      "share_of_busy": _device_us(e) / busy}
+                      "device_ms": cs.device_us(e) / 1e3,
+                      "share_of_busy": cs.device_us(e) / busy}
                      for e in kern[:top]]})
 
 
@@ -84,7 +80,7 @@ def main():
     args = sys.argv[1:]
     if "--prefix" in args:
         for turn, arm in enumerate(("hbm", "cold") * 2):
-            eng, _, prompts, _ = cs.prefix_engine(model, dev, arm)
+            eng, _, prompts, _, _ = cs.prefix_engine(model, dev, arm)
             cs.emit({"engine": {"arm": arm,
                                 "prefix_cache": eng.ecfg.prefix_cache}})
             profile_run(eng, prompts, [(1.0, 0, 0)] * len(prompts),
@@ -99,8 +95,8 @@ def main():
         ecfg, params = {"sampling": True}, cs.SAMPLED_PARAMS
     elif "--spec" in args:
         ecfg = {"speculate_k": cs.SPEC_K}
-    eng, prompts = cs.serve_engine(model, dev, tiled="--spec" in args,
-                                   **ecfg)
+    eng, prompts, _ = cs.serve_engine(model, dev, tiled="--spec" in args,
+                                      **ecfg)
     cs.emit({"engine": {"kv_dtype": eng.ecfg.kv_dtype,
                         "weight_dtype": eng.ecfg.weight_dtype,
                         "sampling": eng.ecfg.sampling,

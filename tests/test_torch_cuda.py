@@ -292,6 +292,41 @@ def test_prefill_kernels_cover_page_sizes_and_head_dims(card, quant, dtype,
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("start", ["zero", "mid_slot", "capacity"])
+@pytest.mark.parametrize("valid", ["zero", "one", "chunk"])
+def test_prefill_kernels_read_start_and_valid_from_the_card(
+        card, quant, dtype, tol, start, valid):
+    """``start`` and ``valid`` as one-element int32 tensors on the card (a
+    captured graph's packed upload): valid 0, 1 and the whole chunk; start
+    0, in the middle of a page of the slot, and at the slot's capacity,
+    where every key is visible and the kernel's clamp of the visible range
+    is what keeps it in the slot. Each equals the plain version on the
+    same values, and a host int call where the host allows one."""
+    rng = np.random.default_rng(11)
+    nh, dh, ps, maxp, c = 4, 64, 16, 12, 96
+    cap = maxp * ps
+    s = {"zero": 0, "mid_slot": 70, "capacity": cap}[start]
+    v = {"zero": 0, "one": 1, "chunk": c}[valid]
+    kp, vp, sc = _prefill_pools(rng, quant, 1 + maxp, ps, nh, dh, card,
+                                dtype)
+    row = torch.from_numpy((1 + rng.permutation(maxp)).astype(np.int32)
+                           ).to(card)
+    q = torch.from_numpy(rng.standard_normal((c, nh, dh), dtype=np.float32)
+                         ).to(card, dtype)
+    dev_s, dev_v = (torch.tensor(x, dtype=torch.int32, device=card)
+                    for x in (s, v))
+    out = _prefill(quant)(q, kp, vp, *sc, row, dev_s, dev_v)
+    torch.cuda.synchronize()
+    ref = pa._plain_prefill_attention(q[None], kp, vp, row, dev_s, dev_v,
+                                      *sc)[0]
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (out[v:] == 0).all()
+    if s + v <= cap:
+        assert torch.equal(out, _prefill(quant)(q, kp, vp, *sc, row, s, v))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
 def test_bf16_prefill_op_launches_the_tensor_core_kernel_once(
         card, quant, monkeypatch):
     rng = np.random.default_rng(7)
@@ -1190,3 +1225,69 @@ def test_card_refresh_params_reaches_the_captured_graph(card, weight_dtype):
     for a, b in zip(after, fresh):
         np.testing.assert_array_equal(a, b)
     assert any(not np.array_equal(a, b) for a, b in zip(first, after))
+
+
+@pytest.mark.parametrize("case", ["greedy", "sampled", "int8"])
+def test_card_prefill_graph_replays_two_lengths_of_one_bucket(card, case):
+    """One captured one-shot prefill graph (bucket 32) replayed for prompts
+    of 20 and 29 tokens, and one chunk graph for two tails: each replay
+    equals the eager body from the same state (first token, key chains,
+    logits, every pool page but the trash page), and no replay recaptures.
+    """
+    from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    from paddle_tpu_torch.inference.graphs import StepGraph
+    model = _small_model()
+    ecfg = EngineConfig(page_size=16, max_slots=2, prefix_cache=False,
+                        **GRAPH_CASES[case])
+    eng = DecodeEngine(model, ecfg, device="cuda")
+    eng.warmup(prompt_lens=(20,), tail_lens=(10,))
+    compiles = eng.counters["compile_count"]
+    entry = eng._programs[("prefill", 32, "cuda")]
+    assert isinstance(entry.graph, StepGraph)
+    rng = np.random.default_rng(8)
+    kw = dict(temperature=0.8, top_k=5, seed=2) if ecfg.sampling else {}
+    for n, start in ((20, 0), (29, 0), (40, 30), (45, 32)):
+        graph, eager = eng.check_prefill_graph(
+            rng.integers(0, 97, n).astype(np.int32), start, **kw)
+        for k in ("tokens", "keys", "logits"):
+            if graph[k] is not None:
+                assert torch.equal(graph[k], eager[k]), (n, start, k)
+        for a, b in zip(graph["pools"], eager["pools"]):
+            assert torch.equal(a[:, 1:], b[:, 1:]), (n, start)
+    assert entry.graph.replays == 2
+    assert eng._programs[("prefill_chunk", 16, "cuda")].graph.replays == 2
+    assert eng.counters["compile_count"] == compiles
+
+
+def test_card_prefill_graph_built_mid_serving_leaves_live_slots_alone(card):
+    """A prefill graph captured lazily while slot 0 is live and sampling:
+    its warm-up and capture runs write the trash page and the key buffer's
+    scratch row only, so slot 0's key chain and every other page stay as
+    they were, and the engine then serves the CPU engine's tokens."""
+    from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    model = _small_model()
+    prompts, params = _graph_prompts()
+    ecfg = EngineConfig(page_size=16, max_slots=2, prefix_cache=False,
+                        prefill_chunk_tokens=16, sampling=True)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        eng = DecodeEngine(model, ecfg, device=dev)
+        reqs = [eng.submit(p, max_new_tokens=10, **kw)
+                for p, kw in zip(prompts, params)]
+        eng.step()
+        eng.step()
+        if dev == "cuda":
+            assert eng._slot_req[0] is not None and eng._active[0]
+            keys = eng._keys_dev.clone()
+            pools = [eng._kc.clone(), eng._vc.clone()]
+            for build in (lambda: eng._prefill_exe(64),
+                          lambda: eng._prefill_chunk_exe(32)):
+                assert build().graph is not None
+            B = ecfg.max_slots
+            assert torch.equal(eng._keys_dev[:B], keys[:B])
+            for a, b in zip((eng._kc, eng._vc), pools):
+                assert torch.equal(a[:, 1:], b[:, 1:])
+        eng.run_until_idle(max_steps=200)
+        outs.append([r.result(timeout=0) for r in reqs])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)

@@ -270,8 +270,11 @@ def test_greedy_on_sampling_engine_matches_plain_engine(models):
 
 
 def test_chunked_prefill_samples_the_final_chunk_only(models):
-    """A 14-token prompt in 4-token chunks: one sampler call, in the final
-    chunk, and the slot's key row then holds the seed key split once."""
+    """A 14-token prompt in 4-token chunks: every chunk runs the one chunk
+    program, which draws (as the JAX chunk program does), but only the
+    final chunk's draw is kept: the slot's key row stays as it was and no
+    token is emitted until then, and the row then holds the seed key split
+    once."""
     jm, tm = models
     prompt = np.random.RandomState(3).randint(0, 97, 14).astype(np.int32)
     eng = DecodeEngine(tm, EngineConfig(**ECFG, sampling=True,
@@ -280,12 +283,13 @@ def test_chunked_prefill_samples_the_final_chunk_only(models):
     req = eng.submit(prompt, max_new_tokens=6, temperature=0.7, top_k=3,
                      seed=5)
     registry.reset_counts()
-    for _ in range(3):                 # chunks 1-3 of 4: nothing sampled
+    before = eng._keys_dev.clone()
+    for _ in range(3):                 # chunks 1-3 of 4: no draw is kept
         eng.step()
-    assert registry.counts().get("kernel.dispatch.fused_sampling.torch",
-                                 0) == 0 and not req.generated
-    eng.step()                         # the final chunk samples once
-    assert registry.counts()["kernel.dispatch.fused_sampling.torch"] == 1
+    assert registry.counts()["kernel.dispatch.fused_sampling.torch"] == 3
+    assert not req.generated and torch.equal(eng._keys_dev, before)
+    eng.step()                         # the final chunk's draw is kept
+    assert registry.counts()["kernel.dispatch.fused_sampling.torch"] == 4
     assert len(req.generated) == 1
     np.testing.assert_array_equal(
         eng._keys_dev[0].numpy(),
