@@ -54,6 +54,14 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    ``prefill_scalars`` holds both kernels, float32 and bfloat16, against
    the plain version for valid 0, 1 and the whole chunk at start 0,
    mid-page and at the slot's capacity (PREFILL_SCALAR_STARTS).
+   The hidden-dropout kernel (``dropout``) is held at a microbatch's
+   hidden states [8, 1024, 768], float32 and bfloat16, p = 0.1: zero
+   mask bits apart from `prng.bernoulli`, outputs and the op's gradient
+   bit-equal to the plain version's; its bound counts the integer
+   operations of the threefry hash (`kernels/cuda/dropout.py::
+   INT_OPS_PER_ELEMENT`) over the H100's INT32 rate (PEAK_INT32_OPS); no
+   PyTorch call draws the same masks, so it has no library time, and
+   `F.dropout`'s time at the shape is printed beside it as another RNG.
 4. ``serve_parity``: float32 engines on the card and on the CPU serve the
    same 4 requests (chunked prefill on); the greedy tokens must agree
    wherever the CPU logits' top-2 margin exceeds 1e-3, and the prefill
@@ -99,11 +107,22 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    TRAIN_BF16_GRAD_TOL, TRAIN_BF16_LOSS_TOL).
    ``bf16_parity_controls.py`` plants faults in the tensor-core loops and
    shows which of them these two checks catch.
+   ``train_dropout_parity`` and ``train_dropout_bf16_parity``: the same
+   two checks with ``hidden_dropout=0.1``, both devices drawing the masks
+   from the steps' key chains (seed 0), with exact launch and dispatch
+   counts (`train_launches`).
 7. ``train``: GPT-2 small (12 layers) in bfloat16 with float32 masters,
    B=16 as 2 microbatches of 8, S=1024, AdamW lr 1e-4, clip 1.0: 2 warm-up
    steps, then 8 timed steps on one fixed batch; tokens/s, step ms p50,
    MFU against the H100's 989 TFLOP/s, peak memory and the losses, which
-   must be finite and fall.
+   must be finite and fall. ``train_dropout`` does the same with
+   ``hidden_dropout=0.1`` (100 dropout launches a step), and
+   ``train_recompute`` once more for each of ``recompute=True`` and
+   ``recompute_granularity`` "mlp" and "mlp_up" (a
+   ``train_recompute_<arm>`` line each): full-block recompute must lower
+   the peak memory below ``train_dropout``'s, no arm may raise it, and
+   the losses must stay ``train_dropout``'s; the line also times the
+   fc_out product that "mlp" and "mlp_up" rerun beyond JAX's policy.
 8. ``incubate_parity``: the `incubate.nn` fused layers in float32 on the
    card against the port's CPU layers on the same weights:
    `FusedMultiTransformer` at GPT-2 small's width (768, 12 heads, FFN
@@ -148,8 +167,8 @@ it through `ScanTrainStep`, and prints one JSON object per line:
 11. ``kernels``: per kernel, its source, the TPU kernel it replaces, its
    launches in the run of the path that uses it (serve for the float paged
    kernels, serve_int8 for the int8 ones, train for the flash kernels,
-   incubate for the layernorm and rotary kernels) and its numbers at that
-   run's shapes.
+   incubate for the layernorm and rotary kernels, train_dropout for the
+   dropout kernel) and its numbers at that run's shapes.
 12. The last line: ``{"ok": true, "device": {...}}``.
 
 The card runs (4 to 10) are the paths of the main path: every
@@ -158,8 +177,10 @@ Each path states the kernels it must launch and how many times (the
 engine's steps imply one paged-decode launch per layer per decode step and
 one paged-prefill launch per layer per one-shot prefill or chunk, of the
 int8 kernels where the pool is int8; a train step launches each flash
-kernel once per layer per microbatch), every other kernel must show 0, and
-the run fails otherwise. Each line reports its counts.
+kernel once per layer per microbatch, and with hidden dropout the dropout
+kernel 2 (1 + 2 layers) times per microbatch, `train_launches`), every
+other kernel must show 0, and the run fails otherwise. Each line reports
+its counts.
 
 Any failure raises and exits non-zero. Without CUDA, or without the
 `paddle_tpu_torch` package beside it, it exits non-zero and prints no
@@ -167,6 +188,7 @@ result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -177,6 +199,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from paddle_tpu_torch.incubate.nn import (FusedLayerNorm,
@@ -184,12 +207,14 @@ from paddle_tpu_torch.incubate.nn import (FusedLayerNorm,
                                           fused_rotary_position_embedding)
 from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
 from paddle_tpu_torch.kernels import _build, registry
+from paddle_tpu_torch.kernels import dropout as tdrop
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import fused_layernorm as tfl
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.kernels import prng
 from paddle_tpu_torch.kernels import rotary as trot
 from paddle_tpu_torch.kernels import sampling as smp
+from paddle_tpu_torch.kernels.cuda import dropout as cdrop
 from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
 from paddle_tpu_torch.kernels.cuda import fused_layernorm as cln
 from paddle_tpu_torch.kernels.cuda import paged_attention as cdec
@@ -219,7 +244,18 @@ REPLACES = {
     "fused_layernorm_fwd": "paddle_tpu/kernels/pallas/fused_layernorm.py:21",
     "fused_layernorm_bwd": "paddle_tpu/kernels/pallas/fused_layernorm.py:33",
     "rotary": "paddle_tpu/kernels/pallas/rotary.py:20",
+    # computed in XLA by the JAX package: no pl.pallas_call behind it
+    "dropout": "paddle_tpu/models/gpt.py:655 (_fdropout, XLA, not Pallas)",
 }
+# integer operations a second of the H100 SXM: 64 INT32 lanes an SM
+# (NVIDIA's Hopper white paper) x 132 SMs x 1.98 GHz, the boost clock of
+# the data sheet's 67 TFLOP/s float32 (128 lanes x 2 x 132 x 1.98e9)
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
+DROPOUT_P = 0.1                                # GPTConfig's hidden_dropout
+DROPOUT_SHAPE = (8, 1024, 768)                 # a microbatch's hidden states
+RECOMPUTE_ARMS = (("full_block", {"recompute": True}),
+                  ("mlp", {"recompute_granularity": "mlp"}),
+                  ("mlp_up", {"recompute_granularity": "mlp_up"}))
 PS, MAXP, NUM_PAGES = 16, 64, 513              # page size, pages per slot, pool
 NH, DH = 12, 64                                # GPT-2 small's heads
 VOCAB = 50257                                  # GPT-2's tokenizer
@@ -1750,17 +1786,37 @@ def first_grads(step, x, y):
             for (grp, k), g in zip(_leaf_keys(step._params), grads)}
 
 
-def train_parity(dev, dtype=torch.float32):
+def train_launches(cfg, microbatches, steps):
+    """The kernel launches ``steps`` train steps of ``cfg`` make: each flash
+    kernel once per layer per microbatch (``flash_fwd`` twice under
+    ``recompute``, whose backward reruns each block); with hidden dropout
+    the embedding's and every layer's two masks forward and backward, and
+    the layers' masks once more under ``recompute``."""
+    nl, runs = cfg.num_layers, microbatches * steps
+    want = {"flash_fwd": nl * runs * (2 if cfg.recompute else 1),
+            "flash_dq": nl * runs, "flash_dkv": nl * runs}
+    if cfg.hidden_dropout:
+        want["dropout"] = runs * (2 * (1 + 2 * nl)
+                                  + (2 * nl if cfg.recompute else 0))
+    return want
+
+
+def train_parity(dev, smi, dtype=torch.float32, hidden_dropout=0.0):
     """Train steps of a 2-layer GPT-2-small-width model on the card and on
     the CPU, from the same weights and batch: ``train_parity`` in float32
     (the first step's gradients within TRAIN_GRAD_TOL, losses within
     TRAIN_LOSS_TOL), ``train_bf16_parity`` in bfloat16 with float32
     masters, which holds the bf16 tensor-core flash forward, dQ and dK/dV
     loops end to end: the first step's gradients within
-    TRAIN_BF16_GRAD_TOL, each step's losses within TRAIN_BF16_LOSS_TOL."""
+    TRAIN_BF16_GRAD_TOL, each step's losses within TRAIN_BF16_LOSS_TOL.
+    With ``hidden_dropout`` (``train_dropout_parity``,
+    ``train_dropout_bf16_parity``) both sides draw the same masks from the
+    steps' key chains (seed 0), the card's through the dropout kernel."""
     bf16 = dtype == torch.bfloat16
-    phase = "train_bf16_parity" if bf16 else "train_parity"
-    cfg = dict(num_layers=2, hidden_dropout=0.0, attention_dropout=0.0)
+    phase = "train_" + ("dropout_" if hidden_dropout else "") + \
+        ("bf16_parity" if bf16 else "parity")
+    cfg = dict(num_layers=2, hidden_dropout=hidden_dropout,
+               attention_dropout=0.0)
     x, y = train_batch(np.random.default_rng(SEED + 3), 4, 256, VOCAB)
     losses, grads, launches = {}, {}, None
     for where in (dev, "cpu"):
@@ -1775,8 +1831,8 @@ def train_parity(dev, dtype=torch.float32):
             registry.reset_counts()
         losses[str(where)] = [step.step(x, y) for _ in range(3)]
         if where == dev:
-            n = 2 * 2 * 3                  # layers x microbatches x steps
-            launches = read_launches(phase, dict.fromkeys(FLASH_KERNELS, n))
+            expected = train_launches(model.cfg, 2, 3)
+            launches = read_launches(phase, expected)
             dispatch = registry.counts()
             card_s = time.perf_counter() - t0
     card, cpu = losses[str(dev)], losses["cpu"]
@@ -1786,11 +1842,16 @@ def train_parity(dev, dtype=torch.float32):
            for n, g in grads[str(dev)].items()}
     worst = max(rel, key=rel.get)
     grad_tol = TRAIN_BF16_GRAD_TOL if bf16 else TRAIN_GRAD_TOL
-    ok = max(diffs) <= tol and rel[worst] <= grad_tol and dispatch == {
-        "kernel.dispatch.flash_attention.cuda": 12}
+    want_dispatch = {"kernel.dispatch.flash_attention.cuda": 12}
+    if hidden_dropout:
+        want_dispatch["kernel.dispatch.fused_dropout.cuda"] = \
+            expected["dropout"]
+    ok = max(diffs) <= tol and rel[worst] <= grad_tol and \
+        dispatch == want_dispatch
     emit({"phase": phase, "model": "gpt2-small width, 2 layers",
-          "dtype": dtype_name(dtype),
+          "card": smi, "dtype": dtype_name(dtype),
           "master_weights": "float32" if bf16 else None,
+          "hidden_dropout": hidden_dropout,
           "flash_fwd_arm": cfa.arm(dtype, DH),
           "batch": 4, "microbatches": 2, "seq": 256,
           "steps": 3, "card_losses": card, "cpu_losses": cpu,
@@ -1798,16 +1859,22 @@ def train_parity(dev, dtype=torch.float32):
           "tol": tol, "grad_rel_l2_max": rel[worst], "grad_rel_l2_leaf": worst,
           "grad_rel_l2": rel, "grad_tol": grad_tol,
           "launches": launches, "dispatch": dispatch,
+          "expected_dispatch": want_dispatch,
           "card_seconds": card_s, "ok": ok})
     if not ok:
         raise SystemExit(f"{phase}: card and CPU train steps disagree")
 
 
-def train_run(dev, smi, warmup=2, timed=8):
+def train_run(dev, smi, phase="train", warmup=2, timed=8, **over):
     """GPT-2 small in bf16 with f32 masters: warm-up steps, then timed
-    steps on one fixed batch. Returns the flash kernels' launches."""
+    steps on one fixed batch. ``over`` overrides config fields (``train``
+    trains without dropout, ``train_dropout`` with the config's 0.1).
+    Returns the phase's line."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dict(dict(hidden_dropout=0.0, attention_dropout=0.0), **over)
     model = gpt_mod.gpt2_small(generator=torch.Generator().manual_seed(SEED),
-                               hidden_dropout=0.0, attention_dropout=0.0)
+                               **cfg)
     model = model.to(torch.bfloat16)
     step = ScanTrainStep(model, AdamW(learning_rate=1e-4, clip_norm=1.0),
                          microbatches=2, device=dev)
@@ -1816,28 +1883,139 @@ def train_run(dev, smi, warmup=2, timed=8):
     losses = [step.step(x, y) for _ in range(warmup)]
     reset_launches()                       # the train path's timed run
     losses += [step.step(x, y) for _ in range(timed)]
-    n = model.cfg.num_layers * 2 * timed   # layers x microbatches x steps
-    launches = read_launches("train", dict.fromkeys(FLASH_KERNELS, n))
+    expected = train_launches(model.cfg, 2, timed)
+    launches = read_launches(phase, expected)
     recs = step.records[warmup:]
     step_ms = statistics.median(r["step_ms"] for r in recs)
     tokens = x.size
     flops = gpt_mod.analytic_flops_per_token(model.cfg, x.shape[1]) * tokens
     ok = bool(np.isfinite(losses).all()) and losses[-1] < losses[0] \
         and step.bad_steps == 0
-    emit({"phase": "train", "model": "gpt2-small", "dtype": "bfloat16",
-          "master_weights": "float32", "card": smi, "batch": 16,
-          "microbatches": 2, "seq": 1024, "tokens_per_step": tokens,
-          "warmup_steps": warmup, "timed_steps": timed,
-          "step_ms_p50": step_ms, "step_ms": [r["step_ms"] for r in recs],
-          "tokens_per_s": tokens / (step_ms / 1e3),
-          "mfu": flops / (step_ms / 1e3 * H100_BF16_PEAK),
-          "flops_per_step": flops,
-          "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
-          "losses": losses, "launches": launches, "expected_launches": n,
-          "ok": ok})
+    line = {"phase": phase, "model": "gpt2-small", "dtype": "bfloat16",
+            "master_weights": "float32", "card": smi,
+            "hidden_dropout": model.cfg.hidden_dropout,
+            "recompute": model.cfg.recompute,
+            "recompute_granularity": model.cfg.recompute_granularity,
+            "batch": 16, "microbatches": 2, "seq": 1024,
+            "tokens_per_step": tokens, "warmup_steps": warmup,
+            "timed_steps": timed, "step_ms_p50": step_ms,
+            "step_ms": [r["step_ms"] for r in recs],
+            "tokens_per_s": tokens / (step_ms / 1e3),
+            "mfu": flops / (step_ms / 1e3 * H100_BF16_PEAK),
+            "flops_per_step": flops,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+            "losses": losses, "launches": launches,
+            "expected_launches": expected, "ok": ok}
+    if model.cfg.hidden_dropout:
+        line["dropout_launches_per_step"] = launches["dropout"] / timed
+    emit(line)
     if not ok:
-        raise SystemExit(f"train: losses {losses} not finite and falling")
-    return launches
+        raise SystemExit(f"{phase}: losses {losses} not finite and falling")
+    return line
+
+
+def fc_out_product_ms(dev, timer, b=8, s=1024):
+    """One microbatch's fc_out product, ``up @ W + b`` at [8, 1024, 3072] x
+    [3072, 768] in bf16: what the "mlp" and "mlp_up" recompute settings
+    rerun per layer beyond what JAX's remat policy reruns."""
+    rng = np.random.default_rng(SEED + 11)
+    up, w, bias = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(dev, torch.bfloat16)
+        for shape in ((b, s, FFN), (FFN, D_MODEL), (D_MODEL,)))
+    return timer.ms(lambda: up @ w + bias)
+
+
+def train_recompute(dev, smi, plain):
+    """The ``train_dropout`` run once under each recompute setting
+    (RECOMPUTE_ARMS), against ``plain``, that run's line without recompute:
+    full-block recompute must lower the peak memory and no arm may raise
+    it; the losses must stay those of the run without recompute (the same
+    ops on the same inputs)."""
+    arms = {}
+    for name, over in RECOMPUTE_ARMS:
+        line = train_run(dev, smi, f"train_recompute_{name}",
+                         hidden_dropout=DROPOUT_P, **over)
+        diff = max(abs(a - b) for a, b in zip(line["losses"],
+                                              plain["losses"]))
+        arms[name] = {"step_ms_p50": line["step_ms_p50"],
+                      "peak_memory_bytes": line["peak_memory_bytes"],
+                      "launches": line["launches"],
+                      "loss_max_abs_diff_vs_plain": diff}
+    timer = Timer(dev)
+    product_ms = fc_out_product_ms(dev, timer)
+    del timer
+    nl = gpt_mod.GPTConfig().num_layers
+    peak = plain["peak_memory_bytes"]
+    ok = arms["full_block"]["peak_memory_bytes"] < peak and all(
+        a["peak_memory_bytes"] <= peak and
+        a["loss_max_abs_diff_vs_plain"] <= TRAIN_BF16_LOSS_TOL
+        for a in arms.values())
+    emit({"phase": "train_recompute", "card": smi, "dtype": "bfloat16",
+          "hidden_dropout": DROPOUT_P,
+          "no_recompute": {"step_ms_p50": plain["step_ms_p50"],
+                           "peak_memory_bytes": peak},
+          "arms": arms,
+          "fc_out_product_ms": product_ms,
+          "fc_out_recompute_ms_per_step": product_ms * nl * 2,
+          "loss_tol": TRAIN_BF16_LOSS_TOL, "ok": ok})
+    if not ok:
+        raise SystemExit("train_recompute: a recompute setting raised the "
+                         "peak memory, full-block recompute did not lower "
+                         "it, or the losses moved")
+
+
+def check_dropout(dev, timer, smi, dtype, shape=DROPOUT_SHAPE):
+    """The dropout kernel against its plain version at a microbatch's
+    hidden states: zero mismatched mask bits, bit-equal outputs, and the op's
+    gradient (the kernel on the incoming gradient) bit-equal to the plain
+    version's; timed beside `F.dropout`, another RNG (not a yardstick of
+    the same function: no PyTorch call draws threefry masks)."""
+    rng = np.random.default_rng(SEED + 10)
+    x, g = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(dev, dtype) for _ in "xg")
+    key = prng.split(prng.prng_key(SEED + 10, dev), 2)[1]
+    p = DROPOUT_P
+    ints = torch.int32 if dtype == torch.float32 else torch.int16
+    got = cdrop.dropout(x, key, p)
+    ref = tdrop._plain_dropout(x, key, p)
+    mask = cdrop.dropout(torch.ones_like(x), key, p) != 0
+    want_mask = prng.bernoulli(key, 1.0 - p, shape)
+    xg = x.detach().requires_grad_(True)
+    tdrop.hidden_dropout(xg, key, p).backward(g)
+    torch.cuda.synchronize()
+    mismatched = int((mask != want_mask).sum().item())
+    out_equal = torch.equal(got.view(ints), ref.view(ints))
+    grad_equal = torch.equal(xg.grad.view(ints),
+                             tdrop._plain_dropout(g, key, p).view(ints))
+    n = x.numel()
+    nbytes = 2 * n * x.element_size()
+    ops = cdrop.INT_OPS_PER_ELEMENT * n
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_INT32_OPS * 1e3
+    ok = mismatched == 0 and out_equal and grad_equal
+    line = {
+        "phase": "kernel", "kernel": "dropout", "dtype": dtype_name(dtype),
+        "card": smi, "shape": list(shape), "p": p,
+        "kept_share": mask.float().mean().item(),
+        "mask_bits_mismatched": mismatched, "outputs_bit_equal": out_equal,
+        "grads_bit_equal": grad_equal, "within_tol": ok,
+        "max_abs_err": max_err(got, ref), "tol": 0.0,
+        "kernel_ms": timer.ms(lambda: cdrop.dropout(x, key, p)),
+        "plain_ms": timer.ms(lambda: tdrop._plain_dropout(x, key, p)),
+        "library_ms": None, "library": None,
+        "other_rng_F_dropout_ms": timer.ms(
+            lambda: F.dropout(x, p, training=True)),
+        "bound_ms": max(by_bytes, by_ops),
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        "bytes": nbytes, "int_ops": ops,
+        "int_ops_per_element": cdrop.INT_OPS_PER_ELEMENT,
+        "peak_int32_ops_per_s": PEAK_INT32_OPS}
+    emit(line)
+    if not ok:
+        raise SystemExit(f"dropout {dtype}: {mismatched} mask bits differ, "
+                         f"outputs equal {out_equal}, grads equal "
+                         f"{grad_equal}")
+    return line
 
 
 def rel_tol(ref, tol):
@@ -2176,6 +2354,7 @@ def main():
         for kern, line in check_layernorm(dev, timer, dtype).items():
             cases[(kern, dtype)] = line
         cases[("rotary", dtype)] = check_rope(dev, timer, dtype)
+        cases[("dropout", dtype)] = check_dropout(dev, timer, smi, dtype)
     del timer
     torch.cuda.empty_cache()
 
@@ -2206,10 +2385,15 @@ def main():
     launches.update((k, quantized[k]) for k in INT8_KERNELS)
     del model
     torch.cuda.empty_cache()
-    train_parity(dev)
-    train_parity(dev, torch.bfloat16)
-    trained = train_run(dev, smi)
+    train_parity(dev, smi)
+    train_parity(dev, smi, torch.bfloat16)
+    train_parity(dev, smi, hidden_dropout=DROPOUT_P)
+    train_parity(dev, smi, torch.bfloat16, hidden_dropout=DROPOUT_P)
+    trained = train_run(dev, smi)["launches"]
     launches.update((k, trained[k]) for k in FLASH_KERNELS)
+    dropped = train_run(dev, smi, "train_dropout", hidden_dropout=DROPOUT_P)
+    launches["dropout"] = dropped["launches"]["dropout"]
+    train_recompute(dev, smi, dropped)
     torch.cuda.empty_cache()
     incubate_parity(dev)
     incubated = incubate_run(dev, smi)
@@ -2224,7 +2408,8 @@ def main():
     head.update((k, cases[(k, bf16, 1024)]) for k in ("paged_prefill",
                                                       "paged_prefill_int8"))
     head.update((k, cases[(k, bf16, "train")]) for k in FLASH_KERNELS)
-    head.update((k, cases[(k, bf16)]) for k in (*LN_KERNELS, "rotary"))
+    head.update((k, cases[(k, bf16)]) for k in (*LN_KERNELS, "rotary",
+                                                "dropout"))
     summary = []
     for k in _build.kernels():
         h = head[k.source]

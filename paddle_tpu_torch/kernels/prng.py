@@ -1,9 +1,9 @@
 """The threefry-2x32 key chain of `jax.random`, in torch integer ops on any
-device: the port's own copy of what the JAX package's sampler calls
-(`jax.random.PRNGKey`, `split`, `bits`, `uniform`, `gumbel`,
-`categorical`), bit for bit as jax does it with ``jax_threefry_partitionable``
-on (the default since jax 0.5) and 64-bit types on (``paddle_tpu`` turns
-them on at import, so its seeds are int64).
+device: the port's own copy of what the JAX package's sampler and its
+training forward call (`jax.random.PRNGKey`, `split`, `bits`, `uniform`,
+`bernoulli`, `gumbel`, `categorical`), bit for bit as jax does it with
+``jax_threefry_partitionable`` on (the default since jax 0.5) and 64-bit
+types on (``paddle_tpu`` turns them on at import, so its seeds are int64).
 
 - A key is two uint32 words. They are carried in int64 tensors and every
   result is masked with ``0xFFFFFFFF``: torch's uint32 lacks shifts and
@@ -18,7 +18,10 @@ them on at import, so its seeds are int64).
 
 Nothing here reads a value back to the host, so a step that samples can be
 captured whole. These are plain PyTorch ops on both devices: the JAX
-package computes them in XLA, outside any Pallas kernel.
+package computes them in XLA, outside any Pallas kernel. The training
+forward's hidden dropout draws `bernoulli`'s bits inside its own Hopper
+kernel on the card (`kernels/dropout.py`); `bernoulli` is its plain
+version's mask.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 __all__ = ["threefry2x32", "seed_words", "prng_key", "split", "random_bits",
-           "uniform", "gumbel", "categorical"]
+           "uniform", "bernoulli", "gumbel", "categorical"]
 
 M32 = 0xFFFFFFFF
 # the two rotation schedules, alternating every 4 rounds (prng.py:893)
@@ -91,10 +94,12 @@ def _hash(key, shape):
     return threefry2x32(k0, k1, hi, lo)
 
 
-def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+def split(key: torch.Tensor, num=2) -> torch.Tensor:
     """``jax.random.split`` (fold-like form): key ``[..., 2]`` -> ``[...,
-    num, 2]`` new keys."""
-    b0, b1 = _hash(key, (num,))
+    *shape, 2]`` new keys, ``shape`` being ``(num,)`` for an int ``num``
+    and ``num`` itself for a tuple (``split(key, (nl, 2))``)."""
+    shape = (num,) if isinstance(num, int) else tuple(num)
+    b0, b1 = _hash(key, shape)
     return torch.stack([b0, b1], dim=-1)
 
 
@@ -123,6 +128,13 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     span = np.float32(maxval) - lo
     y = (f.double() * float(span) + float(lo)).float()
     return y.clamp_min(float(lo))
+
+
+def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli`` in mode "low" with a float32 ``p`` (64-bit
+    types off, as the JAX train step traces): ``uniform(key, shape) <
+    float32(p)``, a bool tensor ``[..., *shape]``."""
+    return uniform(key, shape) < float(np.float32(p))
 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:

@@ -32,10 +32,12 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.kernels import prng
 from paddle_tpu_torch.kernels import sampling as smp
+from paddle_tpu_torch.kernels.dropout import hidden_dropout
 from paddle_tpu_torch.kernels.flash_attention import (NEG_INF,
                                                       flash_attention_fn)
 from paddle_tpu_torch.kernels.fused_ce import fused_linear_cross_entropy
@@ -56,11 +58,14 @@ class GPTConfig:
     num_heads: int = 12
     intermediate_size: int = 3072
     max_position_embeddings: int = 1024
-    hidden_dropout: float = 0.1      # training only; > 0 is not ported yet
-    attention_dropout: float = 0.1   # training only; > 0 is not ported yet
+    hidden_dropout: float = 0.1      # training only (embeddings, residuals)
+    attention_dropout: float = 0.1   # training only; > 0 is refused (A8)
     initializer_range: float = 0.02
     use_flash: bool = True           # flash attention in training, else dense
-    recompute: bool = False          # block rematerialization: not ported yet
+    recompute: bool = False          # rematerialize each block in training
+    recompute_granularity: str = "full"  # "full" | "mlp" | "mlp_up": with
+                                     # recompute=False, "mlp" recomputes
+                                     # ln_2 and the MLP, "mlp_up" the MLP
     fused_ce: bool = True            # chunked LM-head CE, no [N, V] logits
 
 
@@ -103,6 +108,10 @@ class _MLP(nn.Module):
 class _Block(nn.Module):
     def __init__(self, cfg):
         super().__init__()
+        if cfg.recompute_granularity not in ("full", "mlp", "mlp_up"):
+            raise ValueError(
+                f"recompute_granularity={cfg.recompute_granularity!r}: "
+                "expected 'full', 'mlp', or 'mlp_up'")
         self.ln_1 = _LayerNorm(cfg.hidden_size)
         self.attn = _Attention(cfg)
         self.ln_2 = _LayerNorm(cfg.hidden_size)
@@ -173,29 +182,48 @@ def _ln_ref(x, w, b):
     return (y * w + b).to(x.dtype)
 
 
-def _block_stack(p, x, nl, nh, dh, attend):
-    """All nl transformer blocks over x ([..., H], H = nh*dh). ``attend(i,
-    q, k, v)`` gets [..., nh, dh] q/k/v for layer i and returns the attention
-    context in x.dtype with q's shape."""
+def _attention_branch(p, layer, x, nh, dh, attend):
+    """Layer ``layer``'s attention branch over x ([..., H], H = nh*dh):
+    ln_1, the qkv projection, ``attend(layer, q, k, v)`` on [..., nh, dh]
+    q/k/v (returning the context in x.dtype with q's shape) and out_proj.
+    The residual add is the caller's."""
     lead = x.shape[:-1]
+    hpre = _ln_ref(x, _pget(p, layer, "ln_1.weight"),
+                   _pget(p, layer, "ln_1.bias"))
+    qkv = hpre @ _pget(p, layer, "attn.qkv_proj.weight") + \
+        _pget(p, layer, "attn.qkv_proj.bias")
+    q, k, v = qkv.split(nh * dh, dim=-1)
+    att = attend(layer, q.reshape(*lead, nh, dh), k.reshape(*lead, nh, dh),
+                 v.reshape(*lead, nh, dh))
+    att = att.reshape(*lead, nh * dh)
+    return att @ _pget(p, layer, "attn.out_proj.weight") + \
+        _pget(p, layer, "attn.out_proj.bias")
+
+
+def _mlp_ln(p, layer, x):
+    """ln_2 of x: the MLP's input (the JAX checkpoint name ``mlp_ln``)."""
+    return _ln_ref(x, _pget(p, layer, "ln_2.weight"),
+                   _pget(p, layer, "ln_2.bias"))
+
+
+def _mlp_up(p, layer, hn):
+    """gelu(hn @ fc_in + b), the [..., 4H] activation (``mlp_up``)."""
+    m = hn @ _pget(p, layer, "mlp.fc_in.weight") + \
+        _pget(p, layer, "mlp.fc_in.bias")
+    return F.gelu(m, approximate="tanh")
+
+
+def _mlp_down(p, layer, up):
+    return up @ _pget(p, layer, "mlp.fc_out.weight") + \
+        _pget(p, layer, "mlp.fc_out.bias")
+
+
+def _block_stack(p, x, nl, nh, dh, attend):
+    """All nl transformer blocks over x ([..., H], H = nh*dh); ``attend`` as
+    `_attention_branch` takes it."""
     for i in range(nl):
-        hpre = _ln_ref(x, _pget(p, i, "ln_1.weight"), _pget(p, i, "ln_1.bias"))
-        qkv = hpre @ _pget(p, i, "attn.qkv_proj.weight") + \
-            _pget(p, i, "attn.qkv_proj.bias")
-        q, k, v = qkv.split(nh * dh, dim=-1)
-        att = attend(i, q.reshape(*lead, nh, dh), k.reshape(*lead, nh, dh),
-                     v.reshape(*lead, nh, dh))
-        att = att.reshape(*lead, nh * dh)
-        att = att @ _pget(p, i, "attn.out_proj.weight") + \
-            _pget(p, i, "attn.out_proj.bias")
-        x = x + att
-        hpre = _ln_ref(x, _pget(p, i, "ln_2.weight"), _pget(p, i, "ln_2.bias"))
-        m = hpre @ _pget(p, i, "mlp.fc_in.weight") + \
-            _pget(p, i, "mlp.fc_in.bias")
-        m = F.gelu(m, approximate="tanh")
-        m = m @ _pget(p, i, "mlp.fc_out.weight") + \
-            _pget(p, i, "mlp.fc_out.bias")
-        x = x + m
+        x = x + _attention_branch(p, i, x, nh, dh, attend)
+        x = x + _mlp_down(p, i, _mlp_up(p, i, _mlp_ln(p, i, x)))
     return x
 
 
@@ -552,16 +580,13 @@ def unstack_gpt_params(stacked):
 
 
 def check_trainable(cfg):
-    """Raise NotImplementedError for what training does not port yet."""
-    if cfg.hidden_dropout or cfg.attention_dropout:
+    """Raise NotImplementedError for what training does not port: attention
+    dropout, which the JAX scan path refuses too."""
+    if cfg.attention_dropout:
         raise NotImplementedError(
-            "training with dropout > 0 is not ported (ROADMAP A8: dropout "
-            "that matches the JAX package's threefry bits); set "
-            "hidden_dropout=0 and attention_dropout=0")
-    if cfg.recompute:
-        raise NotImplementedError(
-            "recompute=True is not ported (ROADMAP A8: block "
-            "rematerialization)")
+            "training with attention_dropout > 0 is not ported: the JAX scan "
+            "step has no attention-dropout implementation either (ROADMAP "
+            "A8.1); set attention_dropout=0")
 
 
 def _dense_causal_attend(q, k, v):
@@ -576,42 +601,112 @@ def _dense_causal_attend(q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", pr, v.float()).to(q.dtype)
 
 
-def scan_blocks(blocks, x, cfg, *, training=False):
+def _recomputed(fn, *args):
+    """``fn(*args)`` whose activations are recomputed in the backward
+    instead of saved (`jax.checkpoint`). The dropout keys make the
+    recomputation deterministic, so no RNG state is saved."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _train_block(p, layer, x, nh, dh, attend, cfg, keys, p_drop):
+    """One block in training: hidden dropout after out_proj and after
+    fc_out (``keys[0]``, ``keys[1]``) when ``p_drop``, and the MLP
+    recomputed by ``cfg.recompute_granularity`` unless the whole block is.
+
+    A torch checkpoint region recomputes everything it holds, and a region
+    that drops the gelu output ``up`` must hold fc_out too, whose backward
+    reads ``up``. So "mlp" (ln_2 through fc_out) and "mlp_up" (fc_in
+    through fc_out) recompute the fc_out product as well, one product a
+    layer that JAX's ``save_anything_except_these_names`` policy does not
+    recompute; the results are the same ops on the same inputs."""
+    def drop(t, j):
+        return hidden_dropout(t, keys[j], p_drop) if p_drop else t
+
+    x = x + drop(_attention_branch(p, layer, x, nh, dh, attend), 0)
+    gran = None if cfg.recompute else cfg.recompute_granularity
+    if gran == "mlp":
+        m = _recomputed(lambda t: _mlp_down(p, layer, _mlp_up(
+            p, layer, _mlp_ln(p, layer, t))), x)
+    elif gran == "mlp_up":
+        m = _recomputed(lambda hn: _mlp_down(p, layer, _mlp_up(p, layer, hn)),
+                        _mlp_ln(p, layer, x))
+    else:
+        m = _mlp_down(p, layer, _mlp_up(p, layer, _mlp_ln(p, layer, x)))
+    return x + drop(m, 1)
+
+
+def scan_blocks(blocks, x, cfg, *, training=False, dropout_keys=None):
     """All nl transformer blocks over x [B, S, H], from the stacked block
     leaves; attention is causal flash attention (``cfg.use_flash``) or the
     dense softmax. A stacked `QuantizedLeaf` unbinds into per-layer leaves,
-    each dequantized where its layer uses it."""
-    if training:
-        check_trainable(cfg)
+    each dequantized where its layer uses it.
+
+    In training, ``dropout_keys`` [nl, 2, 2] holds each layer's key pair
+    (attention residual, MLP residual) when ``cfg.hidden_dropout > 0``;
+    ``cfg.recompute`` recomputes each whole block in the backward, else
+    ``cfg.recompute_granularity`` "mlp" / "mlp_up" part of its MLP."""
     nh = cfg.num_heads
+    dh = cfg.hidden_size // nh
     nl = next(iter(blocks.values())).shape[0]
     per_layer = unstack_gpt_params({"blocks": blocks, "top": {}})
-    attend = flash_attention_fn(causal=True) if cfg.use_flash \
+    flash = flash_attention_fn(causal=True) if cfg.use_flash \
         else _dense_causal_attend
-    return _block_stack(per_layer, x, nl, nh, cfg.hidden_size // nh,
-                        lambda i, q, k, v: attend(q, k, v))
+
+    def attend(i, q, k, v):
+        return flash(q, k, v)
+
+    if not training:
+        return _block_stack(per_layer, x, nl, nh, dh, attend)
+    check_trainable(cfg)
+    p_drop = float(cfg.hidden_dropout)
+    if p_drop and dropout_keys is None:
+        raise ValueError("hidden_dropout > 0 needs dropout_keys")
+    for i in range(nl):
+        args = (per_layer, i, x, nh, dh, attend, cfg,
+                dropout_keys[i] if p_drop else None, p_drop)
+        x = _recomputed(_train_block, *args) if cfg.recompute \
+            else _train_block(*args)
+    return x
 
 
-def scan_hidden(stacked, ids, cfg, *, training=False):
-    """[B, S] ids -> final-layernorm hidden states [B, S, H]."""
+def scan_hidden(stacked, ids, cfg, *, training=False, dropout_key=None):
+    """[B, S] ids -> final-layernorm hidden states [B, S, H]. Training with
+    ``cfg.hidden_dropout > 0`` needs ``dropout_key`` ([2] int64, on the
+    weights' device): it splits into the embedding's key and the layers'
+    [nl, 2] keys, and the embedding sum is dropped out, as in JAX."""
+    if training:
+        check_trainable(cfg)
     top = stacked["top"]
     s = ids.shape[-1]
     x = top["gpt.wte.weight"][ids.long()] + top["gpt.wpe.weight"][:s]
-    x = scan_blocks(stacked["blocks"], x, cfg, training=training)
+    keys = None
+    if training and cfg.hidden_dropout:
+        if dropout_key is None:
+            raise ValueError("hidden_dropout > 0 needs a dropout_key")
+        nl = next(iter(stacked["blocks"].values())).shape[0]
+        emb_key, layer_key = prng.split(dropout_key)
+        x = hidden_dropout(x, emb_key, cfg.hidden_dropout)
+        keys = prng.split(layer_key, (nl, 2))
+    x = scan_blocks(stacked["blocks"], x, cfg, training=training,
+                    dropout_keys=keys)
     return _ln_ref(x, top["gpt.ln_f.weight"], top["gpt.ln_f.bias"])
 
 
-def scan_logits(stacked, ids, cfg, *, training=False):
+def scan_logits(stacked, ids, cfg, *, training=False, dropout_key=None):
     """[B, S] ids -> [B, S, V] f32 logits (tied LM head)."""
-    h = scan_hidden(stacked, ids, cfg, training=training)
+    h = scan_hidden(stacked, ids, cfg, training=training,
+                    dropout_key=dropout_key)
     return (h @ stacked["top"]["gpt.wte.weight"].T).float()
 
 
-def scan_loss(stacked, ids, labels, cfg, *, training=True):
-    """Scalar f32 causal-LM loss, the mean over the tokens: the fused
-    LM-head cross-entropy (``cfg.fused_ce``) or dense logits and
-    log-softmax."""
-    h = scan_hidden(stacked, ids, cfg, training=training)
+def scan_loss(stacked, ids, labels, cfg, *, loss_mask=None, training=True,
+              dropout_key=None):
+    """Scalar f32 causal-LM loss: the fused LM-head cross-entropy
+    (``cfg.fused_ce``) or dense logits and log-softmax, averaged over the
+    tokens, or over ``loss_mask`` [B, S] as ``sum(loss * m) / sum(m)``."""
+    h = scan_hidden(stacked, ids, cfg, training=training,
+                    dropout_key=dropout_key)
     wte = stacked["top"]["gpt.wte.weight"]
     n = h.shape[0] * h.shape[1]
     labels = labels.reshape(-1).long()
@@ -620,4 +715,7 @@ def scan_loss(stacked, ids, labels, cfg, *, training=True):
     else:
         logits = (h @ wte.T).float().reshape(n, -1)
         loss = -F.log_softmax(logits, dim=-1).gather(1, labels[:, None])[:, 0]
+    if loss_mask is not None:
+        m = loss_mask.reshape(-1).to(torch.float32)
+        return (loss * m).sum() / m.sum()
     return loss.mean()

@@ -46,16 +46,16 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False, scale=None,
                                  training=True, name=None):
     """Attention on [B, S, H, D]. Attention dropout in training (``dropout_p
-    > 0``) raises NotImplementedError: its mask needs the JAX package's
-    global key stream over the threefry chain, not ported yet (ROADMAP
-    A8.1)."""
+    > 0``) raises NotImplementedError: its mask keys come from Paddle's
+    global seed stream (``paddle.seed``), which is not ported (ROADMAP
+    A7); the threefry chain itself is (`kernels/prng.py`)."""
     if attn_mask is None and dropout_p == 0.0:
         return flash_attention_fn(causal=is_causal, scale=scale)(
             query, key, value)
     if dropout_p > 0.0 and training:
         raise NotImplementedError(
-            f"attention dropout with p={dropout_p} in training: masks "
-            "bit-identical to the JAX package's need its global key stream "
-            "over the threefry chain (kernels/prng.py), not ported yet "
-            "(ROADMAP A8.1); call .eval() or set the rate to 0")
+            f"attention dropout with p={dropout_p} in training: the mask "
+            "keys come from Paddle's global seed stream (paddle.seed), "
+            "which is not ported (ROADMAP A7); the threefry chain is "
+            "(kernels/prng.py). Call .eval() or set the rate to 0")
     return _sdpa_plain(query, key, value, attn_mask, is_causal, scale)

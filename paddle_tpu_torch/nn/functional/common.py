@@ -21,9 +21,11 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     """The deterministic arms of the JAX ``dropout``: the identity when not
     training or ``p == 0`` (times ``1 - p`` in eval under
     ``mode="downscale_in_infer"``), zeros for ``p == 1`` in training. With
-    ``0 < p < 1`` in training it raises NotImplementedError: masks equal to
-    the JAX package's need its global key stream drawn through the threefry
-    chain of `kernels/prng.py`, not ported yet (ROADMAP A8.1)."""
+    ``0 < p < 1`` in training it raises NotImplementedError: the threefry
+    chain and its bernoulli are ported (`kernels/prng.py`, and the hidden
+    dropout of training, `kernels/dropout.py`), but the eager layer draws
+    its keys from Paddle's global seed stream (``paddle.seed``), which is
+    not (ROADMAP A7)."""
     if mode not in ("upscale_in_train", "downscale_in_infer"):
         raise ValueError(f"dropout: unknown mode {mode!r}; expected "
                          "'upscale_in_train' or 'downscale_in_infer'")
@@ -34,7 +36,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     if p == 1.0:
         return torch.zeros_like(x)
     raise NotImplementedError(
-        f"dropout with p={p} in training: masks bit-identical to the JAX "
-        "package's need its global key stream over the threefry chain "
-        "(kernels/prng.py), not ported yet (ROADMAP A8.1); call .eval() or "
-        "set the rate to 0")
+        f"dropout with p={p} in training: the eager layer draws its mask "
+        "keys from Paddle's global seed stream (paddle.seed), which is not "
+        "ported (ROADMAP A7); the threefry chain is (kernels/prng.py). Call "
+        ".eval() or set the rate to 0")

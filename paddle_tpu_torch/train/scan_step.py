@@ -5,7 +5,13 @@ One call of `step` is the JAX step's one program, run eagerly:
 
 - forward and backward of `models/gpt.py::scan_loss` over the STACKED
   block leaves, once per microbatch, the gradients accumulated in float32
-  and the loss and gradients averaged over the microbatches;
+  and the loss and gradients averaged over the microbatches; with
+  ``use_loss_mask`` each microbatch's loss is averaged over its mask;
+- the JAX step's key chain: the step holds ``PRNGKey(seed)`` on its
+  device and splits it once every step, before anything runs (a step the
+  finite check then skips has still advanced it); the step key splits
+  into one key per microbatch, each of them `scan_loss`'s ``dropout_key``
+  (hidden dropout, `kernels/dropout.py`);
 - an all-finite check over the loss and the raw gradients: a step that
   fails it changes nothing, is not counted as an optimizer step, and
   counts in ``bad_steps``;
@@ -18,8 +24,9 @@ Each step records its time, tokens/s and MFU (``records``). MFU is
 ``analytic_flops_per_token * tokens / (seconds * peak)`` with the H100 SXM
 bf16 dense peak from NVIDIA's data sheet; a CPU step records no MFU.
 
-Not ported yet (ROADMAP A8): ZeRO-1, the cross-process grad reducer, the
-CUDA graph of the whole step, loss masks.
+Not ported yet (ROADMAP A8): ZeRO-1 and the cross-process grad reducer
+(A8.3), the CUDA graph of the whole step (A8.4), the other arms of the
+flash op (A8.5).
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import time
 
 import torch
 
+from paddle_tpu_torch.kernels import prng
 from paddle_tpu_torch.models.gpt import (analytic_flops_per_token,
                                          check_trainable, scan_loss,
                                          stack_gpt_params, unstack_gpt_params)
@@ -60,15 +68,19 @@ class ScanTrainStep:
     The step holds a copy of the parameters stacked, as leaves on
     ``device``, and the optimizer state beside them, both seeded from the
     model and the optimizer when it is built; ``sync_to_model`` writes them
-    back.
+    back. It holds the dropout key chain ``PRNGKey(seed)`` on ``device``
+    too. With ``use_loss_mask`` every step needs a ``loss_mask``.
     ``device=None`` means ``cuda`` and raises where CUDA is absent.
     """
 
-    def __init__(self, model, optimizer, *, microbatches=1, device=None):
+    def __init__(self, model, optimizer, *, microbatches=1,
+                 use_loss_mask=False, seed=0, device=None):
         self.device = _resolve_device(device)
         check_trainable(model.cfg)
         self.model, self.opt, self.cfg = model, optimizer, model.cfg
         self.microbatches = max(1, int(microbatches))
+        self.use_loss_mask = bool(use_loss_mask)
+        self._key = prng.prng_key(seed, self.device)
         self.bad_steps = 0
         self.consecutive_bad_steps = 0
         self.last_step_ok = True
@@ -123,23 +135,29 @@ class ScanTrainStep:
 
     # ------------------------------------------------------------- the step
 
-    def _grads(self, xs, ys):
-        """(mean loss f32, mean f32 grads in `_leaf_keys` order)."""
-        keys = list(_leaf_keys(self._params))
-        leaves = [self._params[g][k] for g, k in keys]
+    def _grads(self, xs, ys, ms=None, keys=None):
+        """(mean loss f32, mean f32 grads in `_leaf_keys` order) over the
+        microbatches ``xs``, ``ys`` [m, b, S] with masks ``ms`` (or None)
+        and dropout keys ``keys`` [m, 2]. Without ``keys``, the keys the
+        next `step` will draw, leaving the chain where it is."""
+        if keys is None:
+            keys = prng.split(prng.split(self._key)[1], xs.shape[0])
+        leaves = [self._params[g][k] for g, k in _leaf_keys(self._params)]
 
-        def one(x, y):
-            loss = scan_loss(self._params, x, y, self.cfg, training=True)
+        def one(j):
+            loss = scan_loss(self._params, xs[j], ys[j], self.cfg,
+                             loss_mask=None if ms is None else ms[j],
+                             training=True, dropout_key=keys[j])
             return loss.detach(), torch.autograd.grad(loss, leaves)
 
         if xs.shape[0] == 1:
-            loss, g = one(xs[0], ys[0])
+            loss, g = one(0)
             return loss, [a.float() for a in g]
         gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                 for p in leaves]
         lsum = torch.zeros((), dtype=torch.float32, device=self.device)
-        for x, y in zip(xs, ys):
-            loss, g = one(x, y)
+        for j in range(xs.shape[0]):
+            loss, g = one(j)
             gsum = [a + b.float() for a, b in zip(gsum, g)]
             lsum = lsum + loss
         inv = 1.0 / xs.shape[0]
@@ -167,21 +185,33 @@ class ScanTrainStep:
                 st["master"] = new_p32
             p.copy_(new_p32.to(p.dtype))
 
-    def step(self, x, y, *, inject_nan=False):
-        """One train step. x: [B, S] int token ids, y: [B, S] int labels
-        (tensors or arrays); B must divide by the microbatch count.
+    def step(self, x, y, loss_mask=None, microbatches=None, *,
+             inject_nan=False):
+        """One train step. x: [B, S] int token ids, y: [B, S] int labels,
+        loss_mask: [B, S] (tensors or arrays; the mask is required with
+        ``use_loss_mask`` and ignored without); B must divide by the
+        microbatch count (``microbatches``, else the step's own).
         ``inject_nan`` adds NaN to the loss, the counterpart of the JAX
         step's ``train.step_nan`` fault, to drive the skip. Returns the mean
         f32 loss as a Python float."""
         x = torch.as_tensor(x).to(self.device)
         y = torch.as_tensor(y).to(self.device)
-        m, b = self.microbatches, x.shape[0]
+        m = self.microbatches if microbatches is None else int(microbatches)
+        b = x.shape[0]
         if b % m:
             raise ValueError(f"batch {b} not divisible by microbatches {m}")
         xs = x.reshape(m, b // m, *x.shape[1:])
         ys = y.reshape(m, b // m, *y.shape[1:])
+        ms = None
+        if self.use_loss_mask:
+            if loss_mask is None:
+                raise ValueError("step built with use_loss_mask=True needs a "
+                                 "loss_mask")
+            mask = torch.as_tensor(loss_mask).to(self.device)
+            ms = mask.reshape(m, b // m, *mask.shape[1:])
+        self._key, sub = prng.split(self._key)
         t0 = time.perf_counter()
-        loss, grads = self._grads(xs, ys)
+        loss, grads = self._grads(xs, ys, ms, prng.split(sub, m))
         if inject_nan:
             loss = loss + float("nan")
         with torch.no_grad():

@@ -2,15 +2,17 @@
 """Where the device time of the port's train step goes, on one NVIDIA card.
 Run from the repository root:
 
-    python3 profile_train.py
+    python3 profile_train.py [--dropout]
 
 It builds the same bf16 GPT-2 small train run as `chip_smoke.py`'s train
 phase (12 layers, B=16 as 2 microbatches of 8, S=1024, AdamW with float32
 masters, one fixed batch), takes 2 warm-up steps, then 3 steps under
 `torch.profiler`. It prints one JSON line: the host wall time, the summed
 device time of all kernels and its share of the wall, that time split into
-the flash-attention kernels, the matrix products and the rest, and the
-kernels with the most device time.
+the flash-attention kernels, the dropout kernel, the matrix products and
+the rest, the kernel launches, and the kernels with the most device time.
+``--dropout`` profiles `chip_smoke.py`'s train_dropout run instead
+(``hidden_dropout=0.1``).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.train import ScanTrainStep
 
 GROUPS = (("flash attention", ("flash_",)),
+          ("dropout", ("dropout_kernel",)),
           ("matrix products", ("gemm", "nvjet", "cutlass", "xmma", "sm90")))
 
 
@@ -39,11 +42,12 @@ def main(steps=3, top=12):
     if not torch.cuda.is_available():
         print("profile_train: CUDA is not available", file=sys.stderr)
         return 1
+    p_drop = cs.DROPOUT_P if "--dropout" in sys.argv[1:] else 0.0
     dev = torch.device("cuda", 0)
     print(cs.nvidia_smi(), flush=True)
     model = gpt_mod.gpt2_small(
         generator=torch.Generator().manual_seed(cs.SEED),
-        hidden_dropout=0.0, attention_dropout=0.0).to(torch.bfloat16)
+        hidden_dropout=p_drop, attention_dropout=0.0).to(torch.bfloat16)
     step = ScanTrainStep(model, AdamW(learning_rate=1e-4, clip_norm=1.0),
                          microbatches=2, device=dev)
     x, y = cs.train_batch(np.random.default_rng(cs.SEED + 4), 16, 1024,
@@ -68,9 +72,11 @@ def main(steps=3, top=12):
                  "other")
         groups[g] += _device_us(e)
     kern.sort(key=_device_us, reverse=True)
-    cs.emit({"window": "train_steps", "steps": steps, "losses": losses,
+    cs.emit({"window": "train_steps", "hidden_dropout": p_drop,
+             "steps": steps, "losses": losses,
              "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
              "device_busy_share": busy / wall_us, "kernels": len(kern),
+             "kernel_launches": sum(e.count for e in kern),
              "groups_ms": {g: t / 1e3 for g, t in groups.items()},
              "groups_share_of_busy": {g: t / busy for g, t in groups.items()},
              "top": [{"name": e.key[:80], "calls": e.count,

@@ -1291,3 +1291,103 @@ def test_card_prefill_graph_built_mid_serving_leaves_live_slots_alone(card):
         outs.append([r.result(timeout=0) for r in reqs])
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------------------- dropout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", [
+    ((8, 1024, 768), 0), ((3, 7), 0), ((5, 33), 1), ((4096,), 3),
+    ((2, 129, 64), 0)])
+def test_dropout_kernel_matches_plain(card, dtype, shape, offset):
+    """Bit for bit: the mask (zeros where the plain version drops), the
+    output and the gradient, in the vector arm (16 aligned bytes) and the
+    one-element arm (a ragged size, or x at an element offset)."""
+    from paddle_tpu_torch.kernels import dropout as tdrop
+    from paddle_tpu_torch.kernels import prng
+    from paddle_tpu_torch.kernels.cuda import dropout as cdrop
+    rng = np.random.default_rng(sum(shape) + offset)
+    n = int(np.prod(shape))
+    flat = torch.from_numpy(rng.standard_normal(
+        n + offset, dtype=np.float32)).to(card, dtype)
+    x = flat[offset:].reshape(shape)
+    key = prng.split(prng.prng_key(sum(shape), card), 3)[2]
+    before = cdrop.KERNEL.launches
+    for p in (0.1, 0.5):
+        got = cdrop.dropout(x, key, p)
+        want = tdrop._plain_dropout(x, key, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got == 0, want == 0)
+        assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                    else torch.int32),
+                           want.view(torch.int16 if dtype == torch.bfloat16
+                                     else torch.int32))
+        cpu = tdrop._plain_dropout(x.cpu(), key.cpu(), p)
+        assert torch.equal(got.cpu(), cpu)
+    assert cdrop.KERNEL.launches == before + 2
+
+
+def test_dropout_op_takes_the_kernel_forward_and_backward(card):
+    from paddle_tpu_torch.kernels import prng, registry
+    from paddle_tpu_torch.kernels.cuda import dropout as cdrop
+    from paddle_tpu_torch.kernels.dropout import hidden_dropout
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((4, 96, 768), dtype=np.float32))
+    g = torch.from_numpy(rng.standard_normal((4, 96, 768), dtype=np.float32))
+    key = prng.prng_key(9)
+    ins = [x.to(card).requires_grad_(True), x.clone().requires_grad_(True)]
+    before = cdrop.KERNEL.launches
+    registry.reset_counts()
+    out = hidden_dropout(ins[0], key.to(card), 0.1)
+    out.backward(g.to(card))
+    assert cdrop.KERNEL.launches == before + 2
+    assert registry.counts() == {"kernel.dispatch.fused_dropout.cuda": 2}
+    ref = hidden_dropout(ins[1], key, 0.1)
+    ref.backward(g)
+    assert torch.equal(out.detach().cpu(), ref.detach())
+    assert torch.equal(ins[0].grad.cpu(), ins[1].grad)
+
+
+@pytest.mark.parametrize("over", [{}, {"recompute": True},
+                                  {"recompute_granularity": "mlp"},
+                                  {"recompute_granularity": "mlp_up"}],
+                         ids=["none", "full_block", "mlp", "mlp_up"])
+def test_card_train_forward_with_dropout_matches_cpu(card, over):
+    """scan_loss with hidden dropout on the card against the CPU, f32 (the
+    flash kernels' bounds), and each recompute setting equal on the card
+    to the card's run without it."""
+    from paddle_tpu_torch.kernels import prng
+    from paddle_tpu_torch.models import gpt as tgpt
+    cfg = tgpt.GPTConfig(vocab_size=256, hidden_size=64, num_layers=2,
+                         num_heads=2, intermediate_size=128,
+                         max_position_embeddings=64, hidden_dropout=0.1,
+                         attention_dropout=0.0, **over)
+    base = tgpt.GPTConfig(**dict(cfg.__dict__, recompute=False,
+                                 recompute_granularity="full"))
+    model = tgpt.GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(2))
+    rng = np.random.default_rng(4)
+    ids = torch.from_numpy(rng.integers(0, 256, (2, 65)))
+    x, y = ids[:, :-1], ids[:, 1:]
+
+    def run(dev, c):
+        stacked = tgpt.stack_gpt_params({k: v.detach().to(dev).clone()
+                                         for k, v in model.state_dict().items()})
+        leaves = [stacked[g][k] for g in ("blocks", "top") for k in stacked[g]]
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = tgpt.scan_loss(stacked, x.to(dev), y.to(dev), c,
+                              training=True,
+                              dropout_key=prng.prng_key(5, dev))
+        return loss, torch.autograd.grad(loss, leaves)
+
+    loss, grads = run(card, cfg)
+    ref_loss, ref_grads = run("cpu", cfg)
+    assert abs(loss.item() - ref_loss.item()) <= 2e-5
+    for a, b in zip(grads, ref_grads):
+        assert (a.cpu() - b).abs().max().item() <= \
+            1e-4 * max(1.0, b.abs().max().item())
+    plain_loss, plain_grads = run(card, base)
+    assert torch.equal(loss, plain_loss)
+    for a, b in zip(grads, plain_grads):
+        assert torch.equal(a, b)

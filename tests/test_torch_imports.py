@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels.cuda import dropout as cdrop
 from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
 from paddle_tpu_torch.kernels.cuda import fused_layernorm as cln
 from paddle_tpu_torch.kernels.cuda import paged_attention as cdec
@@ -133,9 +134,10 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         k.launch(*([None] * 7 + [1] * 6 + [None]))
     assert k.launches == before
-    sources = ["flash_dkv", "flash_dq", "flash_fwd", "fused_layernorm_bwd",
-               "fused_layernorm_fwd", "paged_decode", "paged_decode_int8",
-               "paged_prefill", "paged_prefill_int8", "rotary"]
+    sources = ["dropout", "flash_dkv", "flash_dq", "flash_fwd",
+               "fused_layernorm_bwd", "fused_layernorm_fwd", "paged_decode",
+               "paged_decode_int8", "paged_prefill", "paged_prefill_int8",
+               "rotary"]
     assert {x.source for x in _build.kernels()} >= set(sources)
     assert sorted(s.stem for s in _build.CSRC.glob("*.cu")) == sources
 
@@ -278,6 +280,26 @@ def test_rotary_wrapper_refuses_bad_input(case, match):
         sin = sin.bfloat16()
     with pytest.raises(ValueError, match=match):
         crot.rotary(q, k, cos, sin)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu_tensors", "CUDA tensors"), ("float16", "not supported"),
+    ("noncontig_x", "x must be contiguous"), ("key_dtype", "key must be"),
+    ("key_shape", "key must be")])
+def test_dropout_wrapper_refuses_bad_input(case, match):
+    x, key = torch.zeros(4, 8), torch.zeros(2, dtype=torch.int64)
+    if case == "float16":
+        x = x.half()
+    elif case == "noncontig_x":
+        x = torch.zeros(8, 4).t()
+    elif case == "key_dtype":
+        key = key.int()
+    elif case == "key_shape":
+        key = torch.zeros(2, 2, dtype=torch.int64)
+    before = cdrop.KERNEL.launches
+    with pytest.raises(ValueError, match=match):
+        cdrop.dropout(x, key, 0.1)
+    assert cdrop.KERNEL.launches == before
 
 
 @pytest.mark.parametrize("fault", ["mask_leak", "pv_pair_swap",
