@@ -163,15 +163,35 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    reused, re-uploads, spill and re-upload ms a page, exact launches.
    ``hbm`` and ``host_tier`` tokens must be equal, against ``cold`` they
    are gated as ``serve_bf16_parity``'s. The earlier serve phases keep
-   the prefix cache off, as before it was ported.
-11. ``kernels``: per kernel, its source, the TPU kernel it replaces, its
+   the prefix cache off, as before it was ported. Every serve phase
+   above reads each step's tokens back before the next step is
+   dispatched (``inflight=1``), as before the readback window was ported,
+   so their lines stay comparable with earlier runs.
+11. ``serve_inflight``: `serve`'s engine and 8 prompts with 124 new
+   tokens each (decode dominates; 900 + 124 fills the position table), at
+   readback windows (``inflight``) 1, 2 and 3, one warm engine each, in
+   the turns 1, 2, 3, 3, 2, 1, with no synchronization between steps
+   (one at the end): per turn decode tokens/s, step ms p50 (the host's
+   step intervals), TTFT p50 and exact launches; the tokens identical in
+   every turn and their first 32 equal to `serve`'s. ``serve_lifecycle`` (bf16, ``inflight=2``): engine
+   A sheds the 17th of 17 submits (``Overloaded``), cancels two queued
+   requests (no prefill for them), a running one that shares prefix
+   pages (its slot goes to the next queued request), cuts a request with
+   a 0.05 s deadline under an injected 0.1 s step delay
+   (``DeadlineExceeded``), attaches and then replays a keyed resubmit,
+   ends at its pool baseline, and its survivors' tokens equal an
+   undisturbed engine's (margin-gated); engine B (``speculate_k=4``, a
+   host tier) is pushed to ladder level 2 by its queue: the idle prefix
+   pages go to the host tier, drafting stops from level 1 on, and the
+   level falls to 0 as the queue drains. Every outcome is on the line.
+12. ``kernels``: per kernel, its source, the TPU kernel it replaces, its
    launches in the run of the path that uses it (serve for the float paged
    kernels, serve_int8 for the int8 ones, train for the flash kernels,
    incubate for the layernorm and rotary kernels, train_dropout for the
    dropout kernel) and its numbers at that run's shapes.
-12. The last line: ``{"ok": true, "device": {...}}``.
+13. The last line: ``{"ok": true, "device": {...}}``.
 
-The card runs (4 to 10) are the paths of the main path: every
+The card runs (4 to 11) are the paths of the main path: every
 kernel's launch count is set to 0 just before each and read just after.
 Each path states the kernels it must launch and how many times (the
 engine's steps imply one paged-decode launch per layer per decode step and
@@ -205,7 +225,8 @@ from torch.profiler import ProfilerActivity, profile
 from paddle_tpu_torch.incubate.nn import (FusedLayerNorm,
                                           FusedMultiTransformer,
                                           fused_rotary_position_embedding)
-from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+from paddle_tpu_torch.inference.engine import (DecodeEngine, EngineConfig,
+                                               Overloaded)
 from paddle_tpu_torch.kernels import _build, registry
 from paddle_tpu_torch.kernels import dropout as tdrop
 from paddle_tpu_torch.kernels import flash_attention as tfa
@@ -225,6 +246,7 @@ from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.quantization.serving import (QUANT_LOGIT_BOUND,
                                                    margin_gated_parity)
 from paddle_tpu_torch.serving.disagg import prompt_page_hashes
+from paddle_tpu_torch.testing import faults
 from paddle_tpu_torch.train import H100_BF16_PEAK, ScanTrainStep
 from paddle_tpu_torch.train.scan_step import _leaf_keys
 
@@ -843,7 +865,7 @@ def serve_parity(model, dev, kv_dtype="native"):
     prompts = [rng.integers(0, min(VOCAB, cfg.vocab_size), n)
                .astype(np.int32) for n in lens]
     ecfg = EngineConfig(prefill_chunk_tokens=256, kv_dtype=kv_dtype,
-                        prefix_cache=False)
+                        prefix_cache=False, inflight=1)
     eng = DecodeEngine(model, ecfg, device=dev)
     t0 = time.perf_counter()
     counters0 = dict(eng.counters)
@@ -1029,7 +1051,7 @@ def serve_sampled_parity(model, dev):
                .astype(np.int32) for n in (5, 300, 600)]
     params = [SAMPLED_PARAMS[0], SAMPLED_PARAMS[1], SAMPLED_PARAMS[3]]
     ecfg = EngineConfig(prefill_chunk_tokens=256, sampling=True,
-                        prefix_cache=False)
+                        prefix_cache=False, inflight=1)
     eng = DecodeEngine(model, ecfg, device=dev)
     counters0 = dict(eng.counters)
     reset_launches()                       # the sampled chunked path's run
@@ -1061,9 +1083,9 @@ def serve_spec_parity(model, dev):
     prompts = spec_prompts(rng, (64, 300, 600), cfg.vocab_size)
     params = [SAMPLED_PARAMS[1], SAMPLED_PARAMS[0], SAMPLED_PARAMS[4]]
     plain = EngineConfig(prefill_chunk_tokens=256, sampling=True,
-                         prefix_cache=False)
+                         prefix_cache=False, inflight=1)
     spec = EngineConfig(prefill_chunk_tokens=256, sampling=True,
-                        speculate_k=SPEC_K, prefix_cache=False)
+                        speculate_k=SPEC_K, prefix_cache=False, inflight=1)
     eng = DecodeEngine(model, spec, device=dev)
     counters0 = dict(eng.counters)
     reset_launches()                       # the speculative path's run
@@ -1122,18 +1144,20 @@ def serve_engine(model, dev, tiled=False, **ecfg):
     pattern when ``tiled``). The prefix cache is off, as before it was
     ported, so that a request never hits the warm-up's pages (nor, in the
     tiled runs, another request's) and these runs stay comparable with
-    earlier ones; `serve_prefix` measures it. Returns the engine, the
-    prompts and `warm`'s line (the step programs of SERVE_LENS
-    captured)."""
+    earlier ones; `serve_prefix` measures it. The readback window is one
+    step (``inflight=1``: each step's tokens are read back before the next
+    is dispatched), as before the window was ported, unless ``ecfg``
+    gives another (`serve_inflight`). Returns the engine, the prompts and
+    `warm`'s line (the step programs of SERVE_LENS captured)."""
     rng = np.random.default_rng(SEED + 2)
     if tiled:
         prompts = spec_prompts(rng, SERVE_LENS, model.cfg.vocab_size)
     else:
         prompts = [rng.integers(0, min(VOCAB, model.cfg.vocab_size), n)
                    .astype(np.int32) for n in SERVE_LENS]
-    eng = DecodeEngine(model, EngineConfig(page_size=PS, max_slots=8,
-                                           prefix_cache=False, **ecfg),
-                       device=dev)
+    eng = DecodeEngine(model, EngineConfig(**{
+        "page_size": PS, "max_slots": 8, "prefix_cache": False,
+        "inflight": 1, **ecfg}), device=dev)
     warmed = warm(eng, SERVE_LENS)
     serve(eng, prompts[:1], 2)             # first cuBLAS/allocator touches
     torch.cuda.synchronize()
@@ -1151,7 +1175,8 @@ def prefill_graph_memory(model, dev, smi):
             "dtype": "bfloat16", "card": smi, "prompt_lens": list(SERVE_LENS)}
     for arm in ("shared_pool", "pool_per_graph"):
         eng = DecodeEngine(model, EngineConfig(page_size=PS, max_slots=8,
-                                               prefix_cache=False),
+                                               prefix_cache=False,
+                                               inflight=1),
                            device=dev)
         if arm == "pool_per_graph":
             eng._prefill_pool = None
@@ -1424,6 +1449,7 @@ def serve_prefix_parity(model, dev, kv_dtype="native"):
         for i, where in enumerate((dev, "cpu")):
             def engine(arm):
                 return DecodeEngine(model, EngineConfig(
+                    inflight=1,
                     kv_dtype=kv_dtype, kv_host_tier_bytes=3 * (blob + 1024),
                     kv_disk_tier_bytes=1 << 30,
                     kv_disk_tier_dir=f"{tmp}/{i}-{arm}"), device=where)
@@ -1526,7 +1552,8 @@ def prefix_engine(model, dev, arm):
     system, prompts = prefix_prompts(np.random.default_rng(SEED + 6),
                                      model.cfg.vocab_size, PREFIX_SYSTEM,
                                      PREFIX_SUFFIXES)
-    ecfg = dict(page_size=PS, max_slots=8, prefix_cache=arm != "cold")
+    ecfg = dict(page_size=PS, max_slots=8, prefix_cache=arm != "cold",
+                inflight=1)
     if arm == "host_tier":
         ecfg["kv_host_tier_bytes"] = PREFIX_HOST_TIER
     eng = DecodeEngine(model, EngineConfig(**ecfg), device=dev)
@@ -1546,6 +1573,29 @@ def prefix_engine(model, dev, arm):
         spill = ((time.perf_counter() - t0) * 1e3, n)
     torch.cuda.synchronize()
     return eng, system, prompts, spill, warmed
+
+
+def bf16_gated_tokens(got, want, prompts, card_params, cfg, dev,
+                      name="want"):
+    """Per request: the bf16 tokens ``got`` equal to ``want``, else the
+    first divergence, which must come where ``want``'s top-2 margin there
+    (the card's logits) is within `bf16_logit_bound`, as
+    `serve_bf16_parity` gates. Returns the records and whether all pass."""
+    recs, ok = [], True
+    for p, a, b in zip(prompts, got, want):
+        rec = {"prompt_len": len(p), "tokens_equal": bool(np.array_equal(a,
+                                                                         b))}
+        if not rec["tokens_equal"]:
+            t = int(np.flatnonzero(a != b)[0])
+            lg = prefill_logits(card_params, b[:t], dev, cfg)[0]
+            top2 = lg.topk(2).values
+            rec["first_divergence"] = {
+                "position": t, name + "_margin": float(top2[0] - top2[1]),
+                "gate": bf16_logit_bound(lg)}
+            ok &= rec["first_divergence"][name + "_margin"] \
+                <= rec["first_divergence"]["gate"]
+        recs.append(rec)
+    return recs, ok
 
 
 def serve_prefix(model, dev, smi):
@@ -1603,20 +1653,9 @@ def serve_prefix(model, dev, smi):
         bool(np.array_equal(a, b))
         for a, b in zip(outs["host_tier"], outs["hbm"])]
     ok &= all(eq)
-    recs = []
-    for p, a, b in zip(prompts, outs["hbm"], outs["cold"]):
-        rec = {"prompt_len": len(p), "tokens_equal": bool(np.array_equal(a,
-                                                                         b))}
-        if not rec["tokens_equal"]:
-            t = int(np.flatnonzero(a != b)[0])
-            lg = prefill_logits(card_params, b[:t], dev, model.cfg)[0]
-            top2 = lg.topk(2).values
-            rec["first_divergence"] = {
-                "position": t, "cold_margin": float(top2[0] - top2[1]),
-                "gate": bf16_logit_bound(lg)}
-            ok &= rec["first_divergence"]["cold_margin"] \
-                <= rec["first_divergence"]["gate"]
-        recs.append(rec)
+    recs, gated = bf16_gated_tokens(outs["hbm"], outs["cold"], prompts,
+                                    card_params, model.cfg, dev, "cold")
+    ok &= gated
     lines["hbm"]["vs_cold"] = recs
     want = {"cold": (8 * PREFIX_SYSTEM + sum(PREFIX_SUFFIXES), 0),
             "hbm": (sum(PREFIX_SUFFIXES), 8),
@@ -1631,6 +1670,322 @@ def serve_prefix(model, dev, smi):
                          "unlike the prefix store's, or tokens that differ "
                          "between arms")
     return lines
+
+
+# serve_inflight: the readback window's arms, in turns, and the new tokens
+# a request: as many as the longest prompt (900) leaves of the position
+# table (1024), so that decode dominates the run
+INFLIGHT_TURNS = (1, 2, 3, 3, 2, 1)
+INFLIGHT_NEW_TOKENS = 124
+
+
+def windowed_serve(eng, prompts, n, phase):
+    """Serve ``prompts``, ``n`` new tokens each, with NO synchronization
+    between steps (the window stays full) and one `torch.cuda.synchronize`
+    at the end; every kernel's launch count set to 0 just before and held
+    just after (`engine_launches`). The host's step intervals are the
+    clock: step 1 admits and prefills every request; decode tokens/s is
+    the tokens delivered in steps 2.. over the time from step 1's end to
+    the final synchronize, `timed_serve`'s definition. Returns the line
+    and the outputs."""
+    counters0 = dict(eng.counters)
+    reset_launches()                       # the path's run
+    torch.cuda.synchronize()
+    reqs = [eng.submit(p, max_new_tokens=n) for p in prompts]
+    stamps = [time.perf_counter()]
+    delivered = []
+    more = True
+    while more:
+        more = eng.step()
+        stamps.append(time.perf_counter())
+        delivered.append(sum(len(r.generated) for r in reqs))
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    launches, expected, ran = engine_launches(eng, counters0, phase)
+    outs = [r.result(timeout=0) for r in reqs]
+    step_ms = np.diff(stamps) * 1e3
+    ok = all(o.shape == (len(p) + n,)
+             and ((o >= 0) & (o < eng.cfg.vocab_size)).all()
+             for o, p in zip(outs, prompts))
+    line = {"inflight": eng.ecfg.inflight,
+            "decode_tokens_per_s": (delivered[-1] - delivered[0])
+            / (end - stamps[1]),
+            "step_ms_p50": float(np.median(step_ms[1:])),
+            "first_step_ms": float(step_ms[0]),
+            "ttft_ms_p50": statistics.median(
+                (r.first_token_t - r.submit_t) * 1e3 for r in reqs),
+            "wall_s": end - stamps[0], "engine_steps": len(step_ms),
+            "decode_steps": ran["steps"],
+            "d2h_transfers": ran["d2h_transfers"],
+            "h2d_transfers": ran["h2d_transfers"],
+            "launches": launches, "expected_launches": expected,
+            "outputs_ok": ok}
+    return line, outs
+
+
+def serve_inflight(model, dev, smi, serve_outs):
+    """The bf16 engine of `serve` (8 requests of SERVE_LENS prompts, one-shot
+    prefill, prefix cache off) at readback windows 1, 2 and 3, one warm
+    engine each, INFLIGHT_NEW_TOKENS new tokens a request, run in the turns
+    of INFLIGHT_TURNS (`windowed_serve`: no synchronization between
+    steps). The tokens must be identical in every turn, and their first 32
+    equal to ``serve_outs`` (the `serve` phase's, ``inflight=1``); each
+    turn's launches exact. One line: each turn's numbers, and per window
+    the mean of its two turns."""
+    phase = "serve_inflight"
+    engines, prompts, warmed = {}, None, {}
+    for k in sorted(set(INFLIGHT_TURNS)):
+        engines[k], prompts, warmed[k] = serve_engine(model, dev, inflight=k)
+    turns, ok, first = [], True, None
+    for turn, k in enumerate(INFLIGHT_TURNS):
+        line, outs = windowed_serve(engines[k], prompts, INFLIGHT_NEW_TOKENS,
+                                    f"{phase}:{k}")
+        first = first or outs
+        line["turn"] = turn
+        line["tokens_equal_first_turn"] = all(
+            np.array_equal(a, b) for a, b in zip(outs, first))
+        line["first_32_equal_serve"] = all(
+            np.array_equal(a[:len(p) + 32], b)
+            for a, b, p in zip(outs, serve_outs, prompts))
+        ok &= (line["outputs_ok"] and line["tokens_equal_first_turn"]
+               and line["first_32_equal_serve"])
+        turns.append(line)
+    by_window = {}
+    for k in sorted(set(INFLIGHT_TURNS)):
+        mine = [t for t in turns if t["inflight"] == k]
+        by_window[str(k)] = {
+            m: statistics.mean(t[m] for t in mine)
+            for m in ("decode_tokens_per_s", "step_ms_p50", "ttft_ms_p50",
+                      "first_step_ms")}
+    emit({"phase": phase, "model": "gpt2-small", "dtype": "bfloat16",
+          "card": smi, "requests": len(prompts),
+          "prompt_lens": list(SERVE_LENS),
+          "max_new_tokens": INFLIGHT_NEW_TOKENS,
+          "warmup_s": {str(k): w["warmup_s"] for k, w in warmed.items()},
+          "by_inflight": by_window, "turns": turns, "ok": ok})
+    if not ok:
+        raise SystemExit(f"{phase}: tokens differ between readback windows "
+                         "or from serve's, or malformed outputs")
+    del engines
+    torch.cuda.empty_cache()
+
+
+# serve_lifecycle: engine A's two waves (prompt lengths; its request 5 is
+# request 1's first LIFECYCLE_SYSTEM tokens plus a suffix of its own, and
+# is cancelled mid-decode), their new tokens, and engine B's prompts
+LIFECYCLE_WAVE1 = (40, 100, 200, 64, 129, 250, 380, 511)
+LIFECYCLE_WAVE2 = (30, 90, 150, 47, 77, 120, 200, 60)
+LIFECYCLE_SYSTEM = 64                      # 4 pages shared by requests 1, 5
+LIFECYCLE_KEY = bytes(range(16))
+LADDER_PRIME = 200                         # 12 full pages, idle when queued
+LADDER_LENS = (64, 96, 128, 160, 192, 224, 256, 288)
+LADDER_QUEUE = 6                           # 6 / max_queue_depth 8: level 2
+
+
+def lifecycle_admission(model, dev, card_params):
+    """Engine A of `serve_lifecycle` (B=8, ``max_queue_depth=8``, prefix
+    cache on, ``inflight=2``): returns its record and whether every check
+    passed."""
+    cfg, rng = model.cfg, np.random.default_rng(SEED + 10)
+    vocab = min(VOCAB, cfg.vocab_size)
+    wave1 = [rng.integers(0, vocab, n).astype(np.int32)
+             for n in LIFECYCLE_WAVE1]
+    wave1[5][:LIFECYCLE_SYSTEM] = wave1[1][:LIFECYCLE_SYSTEM]
+    wave2 = [rng.integers(0, vocab, n).astype(np.int32)
+             for n in LIFECYCLE_WAVE2]
+    ecfg = EngineConfig(page_size=PS, max_slots=8, max_queue_depth=8,
+                        inflight=2)
+    eng = DecodeEngine(model, ecfg, device=dev)
+    warm(eng, LIFECYCLE_WAVE1 + LIFECYCLE_WAVE2,
+         [LIFECYCLE_WAVE1[5] - LIFECYCLE_SYSTEM])
+    counters0 = dict(eng.counters)
+    reset_launches()                       # the lifecycle path's run
+    rec, ok = {}, True
+    news = [96 if i == 5 else 48 for i in range(8)]
+    first = [eng.submit(wave1[0], news[0], request_key=LIFECYCLE_KEY)] \
+        + [eng.submit(p, n) for p, n in zip(wave1[1:], news[1:])]
+    eng.step()                             # all eight admitted
+    rec["admitted"] = sum(r is not None for r in eng._slot_req)
+    rec["dedup_in_flight_same_request"] = eng.submit(
+        wave1[0], news[0], request_key=LIFECYCLE_KEY) is first[0]
+    second = [eng.submit(p, 32) for p in wave2]
+    try:
+        eng.submit(wave2[0], 32)
+        rec["shed"] = None
+    except Overloaded as e:
+        rec["shed"] = f"Overloaded: {e}"
+    rec["queue_depth"] = eng.gauges["queue_depth"]
+    rec["cancel_queued"] = [eng.cancel(r.request_id) for r in second[:2]]
+    for _ in range(3):
+        eng.step()
+    victim = first[5]
+    slot = eng._slot_req.index(victim)
+    rec["cancel_running"] = eng.cancel(victim.request_id,
+                                       reason="client went away")
+    eng.step()
+    rec["freed_slot_went_to_next_queued"] = eng._slot_req[slot] is second[2]
+    with faults.scoped("engine.step_delay", times=1, delay_s=0.1):
+        late = eng.submit(wave2[3], 32, deadline_s=0.05)
+        eng.step()
+    eng.run_until_idle(max_steps=10_000)
+    launches, expected, ran = engine_launches(eng, counters0,
+                                              "serve_lifecycle:admission")
+    rec["replay_same_request"] = eng.submit(
+        wave1[0], news[0], request_key=LIFECYCLE_KEY) is first[0]
+
+    def error(r):
+        try:
+            r.result(timeout=0)
+        except RuntimeError as e:
+            return f"{type(e).__name__}: {e}"
+        return None
+
+    rec["errors"] = {"queued_cancelled": [error(r) for r in second[:2]],
+                     "running_cancelled": error(victim),
+                     "deadline": error(late)}
+    ran.update((k, eng.counters[k] - counters0[k]) for k in (
+        "requests", "shed", "dedup_hits", "dedup_replays", "cancelled",
+        "deadline_exceeded", "prefix_hit", "prefix_pages_reused"))
+    survivors = [r for r in first + second
+                 if r is not victim and r not in second[:2]]
+    want_prefill = sum(r.prompt.size for r in survivors + [victim]) \
+        - PS * ran["prefix_pages_reused"]
+    rec.update(counters=ran, expected_prefill_tokens=want_prefill,
+               free_pages=eng.allocator.free_pages,
+               pool_pages=eng.allocator.num_pages - 1,
+               launches=launches, expected_launches=expected)
+    ok &= (rec["admitted"] == 8 and rec["dedup_in_flight_same_request"]
+           and rec["shed"] == "Overloaded: engine queue full: depth 8 >= "
+                             "max_queue_depth 8"
+           and rec["queue_depth"] == 8
+           and rec["cancel_queued"] == [True, True]
+           and rec["cancel_running"] and rec["freed_slot_went_to_next_queued"]
+           and rec["replay_same_request"]
+           and rec["errors"]["queued_cancelled"]
+           == ["Cancelled: cancelled by client"] * 2
+           and rec["errors"]["running_cancelled"]
+           == "Cancelled: client went away"
+           and rec["errors"]["deadline"]
+           == "DeadlineExceeded: request deadline (0.05s) passed after 0 "
+              "generated tokens"
+           and ran["requests"] == 17 and ran["shed"] == 1
+           and ran["dedup_hits"] == 1 and ran["dedup_replays"] == 1
+           and ran["cancelled"] == 3 and ran["deadline_exceeded"] == 1
+           and ran["prefix_hit"] == 1
+           and ran["prefix_pages_reused"] == LIFECYCLE_SYSTEM // PS
+           and ran["prefill_tokens"] == want_prefill
+           and rec["free_pages"] == rec["pool_pages"])
+    # the survivors' tokens against an undisturbed engine's (no queue
+    # bound: it takes them all at once)
+    calm = DecodeEngine(model, EngineConfig(page_size=PS, max_slots=8,
+                                            inflight=2), device=dev)
+    again = [calm.submit(r.prompt, r.max_new_tokens) for r in survivors]
+    calm.run_until_idle(max_steps=10_000)
+    want = [r.result(timeout=0) for r in again]
+    got = [r.result(timeout=0) for r in survivors]
+    rec["survivors_vs_undisturbed"], gated = bf16_gated_tokens(
+        got, want, [r.prompt for r in survivors], card_params, cfg, dev,
+        "undisturbed")
+    ok &= gated
+    del eng, calm
+    return rec, ok
+
+
+def lifecycle_ladder(model, dev):
+    """Engine B of `serve_lifecycle` (B=8, ``speculate_k=SPEC_K``, a host
+    tier, ``max_queue_depth=8``): a primed idle prefix, 8 staggered
+    speculative requests, then LADDER_QUEUE queued ones push the ladder to
+    level 2. Returns its record and whether every check passed."""
+    cfg, rng = model.cfg, np.random.default_rng(SEED + 11)
+    prime = spec_prompts(rng, (LADDER_PRIME,), cfg.vocab_size)[0]
+    # a pattern each, so that no request hits another's pages
+    runs, queued_prompts = ([spec_prompts(rng, (n,), cfg.vocab_size)[0]
+                             for n in lens]
+                            for lens in (LADDER_LENS, (48,) * LADDER_QUEUE))
+    eng = DecodeEngine(model, EngineConfig(
+        page_size=PS, max_slots=8, max_queue_depth=8, speculate_k=SPEC_K,
+        kv_host_tier_bytes=PREFIX_HOST_TIER, inflight=2), device=dev)
+    warm(eng, (LADDER_PRIME, 48) + LADDER_LENS)
+    counters0 = dict(eng.counters)
+    reset_launches()                       # the ladder path's run
+    serve(eng, [prime], 4)                 # its pages stay, idle, indexed
+    prime_hashes = [h.hex() for h in prompt_page_hashes(prime, PS)]
+    rec = {"primed_pages_indexed": sum(h in eng.prefix_hashes()
+                                       for h in prime_hashes)}
+    reqs = [eng.submit(p, 24 + 8 * i) for i, p in enumerate(runs)]
+    eng.step()                             # all eight admitted
+    drafted = [eng.counters["spec_drafted"]]
+    reqs += [eng.submit(p, 2) for p in queued_prompts]
+    levels = []
+    more = True
+    while more:
+        more = eng.step()
+        levels.append(eng.gauges["degradation_level"])
+        drafted.append(eng.counters["spec_drafted"])
+        if len(levels) == 1:
+            rec["after_first_queued_step"] = {
+                "level": levels[0],
+                "primed_pages_indexed": sum(
+                    h in eng.prefix_hashes() for h in prime_hashes),
+                "primed_pages_in_host_tier": sum(
+                    h in eng.tier_hashes() for h in prime_hashes)}
+    launches, expected, ran = engine_launches(eng, counters0,
+                                              "serve_lifecycle:ladder")
+    frozen = all(now == prev for lvl, prev, now in
+                 zip(levels, drafted, drafted[1:]) if lvl >= 1)
+    outs = [r.result(timeout=0) for r in reqs]
+    rec.update(levels=levels, drafted_frozen_from_level_1=frozen,
+               drafted_while_level_0=drafted[-1] - drafted[0],
+               counters={k: eng.counters[k] - counters0[k] for k in (
+                   "spec_drafted", "prefix_evictions",
+                   "prefix_evictions_demoted", "kvtier_spills_host")},
+               free_pages=eng.allocator.free_pages,
+               pool_pages=eng.allocator.num_pages - 1,
+               launches=launches, expected_launches=expected)
+    after = rec["after_first_queued_step"]
+    n_prime = len(prime_hashes)
+    ok = (rec["primed_pages_indexed"] == n_prime and after["level"] == 2
+          and after["primed_pages_indexed"] == 0
+          and after["primed_pages_in_host_tier"] == n_prime
+          and rec["counters"]["prefix_evictions_demoted"] >= n_prime
+          and frozen and levels[-1] == 0 and 1 in levels
+          and rec["free_pages"] == rec["pool_pages"]
+          and all(o.shape == (len(r.prompt) + r.max_new_tokens,)
+                  for o, r in zip(outs, reqs)))
+    del eng
+    return rec, ok
+
+
+def serve_lifecycle(model, dev, smi):
+    """The request lifecycle on the card, bf16 at full width, two engines
+    with the default readback window (``inflight=2``), every outcome held
+    exactly. Engine A (`lifecycle_admission`): 8 requests fill the slots,
+    8 more the queue (``max_queue_depth=8``), the 17th is shed with
+    ``Overloaded``; two queued requests are cancelled (they never
+    prefill: ``prefill_tokens`` is the admitted prompts' tokens less the
+    pages the prefix cache reused), one running request that shares 4
+    prefix pages with another is cancelled mid-decode and its slot goes
+    to the next queued request, a request with a 0.05 s deadline meets an
+    injected 0.1 s step delay (``DeadlineExceeded``, 0 tokens), a keyed
+    request is resubmitted in flight (the same request) and after it
+    finished (replayed); the pool ends at its baseline and the survivors'
+    tokens equal an undisturbed engine's (margin-gated as
+    `serve_bf16_parity`). Engine B (`lifecycle_ladder`): speculative with
+    a host tier; a queue at 6/8 puts the ladder at level 2, which drops
+    the idle primed prefix pages into the host tier, drafting stops from
+    level 1 on, and the level falls back to 0 as the queue drains."""
+    card_params = {k: v.detach().to(dev) for k, v in
+                   model.state_dict().items()}
+    admission, ok_a = lifecycle_admission(model, dev, card_params)
+    ladder, ok_b = lifecycle_ladder(model, dev)
+    emit({"phase": "serve_lifecycle", "model": "gpt2-small",
+          "dtype": "bfloat16", "card": smi, "inflight": 2,
+          "admission": admission, "ladder": ladder,
+          "ok": bool(ok_a and ok_b)})
+    torch.cuda.empty_cache()
+    if not (ok_a and ok_b):
+        raise SystemExit("serve_lifecycle: an outcome differs from the "
+                         "expected one")
 
 
 # the serve_graph phase's engines a dtype: (name, EngineConfig keywords);
@@ -1701,7 +2056,7 @@ def serve_graph(model, other, dev):
                .astype(np.int32) for n in GRAPH_LENS]
     for arm, kw in GRAPH_ARMS[dtype]:
         ecfg = EngineConfig(page_size=PS, max_slots=8, prefix_cache=False,
-                            **kw)
+                            inflight=1, **kw)
         params = SAMPLED_PARAMS if ecfg.sampling \
             else [(1.0, 0, 0)] * len(prompts)
         eng = DecodeEngine(model, ecfg, device=dev)
@@ -2382,6 +2737,8 @@ def main():
     quantized = serve_run(model, dev, smi, "serve_int8", kv_dtype="int8",
                           weight_dtype="int8")[0]["launches"]
     serve_prefix(model, dev, smi)
+    serve_inflight(model, dev, smi, greedy_outs)
+    serve_lifecycle(model, dev, smi)
     launches.update((k, quantized[k]) for k in INT8_KERNELS)
     del model
     torch.cuda.empty_cache()

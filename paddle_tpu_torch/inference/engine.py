@@ -64,22 +64,52 @@ reduced to the serving slice of the port).
   program picks the first token itself, so its one readback is that
   token. On the CPU an entry runs its step eagerly.
 
-Harvest is synchronous: each step reads its sampled tokens back before the
-next step is dispatched (the JAX engine keeps ``inflight`` steps in flight).
-The tokens a request receives are the same either way.
+- **Deferred readback** (``EngineConfig.inflight``, default 2, the JAX
+  engine's): up to ``inflight`` decode steps stay in flight before the
+  host blocks on the oldest one's tokens (`_harvest_one`), so the host's
+  admission and retirement work for step N+1 overlaps the card's step N.
+  Each decode step's tokens are copied out of the one device buffer the
+  graph writes (``_tok_dev``) into that step's slot of a pinned token
+  ring right after its replay; each step's packed state is written into
+  a ring of pinned host buffers, and every ring slot is guarded by a
+  CUDA event (`_packed_state`, `_upload_state`). EOS is seen up to
+  ``inflight`` steps late; the surplus tokens are discarded at harvest.
+  A speculating engine reads each verify step back at once (its next
+  drafts need the tokens), as the JAX engine does.
+- **Request lifecycle**: admission control (``max_queue_depth``,
+  ``max_queue_tokens``: a typed ``Overloaded`` refusal), per-request
+  deadlines (``submit(deadline_s=)``: ``DeadlineExceeded``), cancellation
+  (`cancel`: ``Cancelled``), idempotent resubmits (``submit(request_key=)``,
+  an LRU dedup table of ``dedup_capacity`` keys), `drain` and `abort`,
+  and the pressure ladder (`_apply_degradation`: level 1 stops drafting,
+  level 2 returns idle prefix pages to the pool, demoting them to the KV
+  tiers first). Cancellations and deadlines act between fixed-shape
+  steps (`_reap`), so they never change a step program. The JAX fault
+  sites fire here too (`testing/faults.py`).
+
+One stream: every step, prefill, tier re-upload (`import_pages`) and
+spill (`export_pages`, then a copy to the host) runs on the caller's
+current stream; `kv_tiers.py` moves host bytes only and the port starts no
+side stream outside graph capture (`inference/graphs.py`). Stream order is
+what makes the window safe: a retired slot's pages may be handed to a new
+request while a later step that still names them is queued, since that
+step runs before anything the new request enqueues.
 
 Not in this slice (see ROADMAP.md): handoff/migration and streamed
-prefill, the router's prefix directory, dedup (of key chains too),
-deadlines, cancel, fault injection and the degradation ladder (A5); a
-metrics registry and tracing (counters live in ``DecodeEngine.counters``);
-a float KV pool of another dtype than the weights (A9).
+prefill (``drain(migrate=True)``, the import mailbox), the router's prefix
+directory (A5.5-A5.6); a metrics registry, tracing, ``serve_loop`` and
+``start_watchdog`` (A5.4, A5.6: counters live in ``DecodeEngine.counters``
+and gauges in ``DecodeEngine.gauges``); a float KV pool of another dtype
+than the weights (A9).
 
-Thread model: `submit()` is safe from any thread; `step()` /
-`run_until_idle()` must all run on ONE thread, the loop's owner.
+Thread model: `submit()`, `cancel()`, `drain()` are safe from any thread;
+`step()` / `run_until_idle()` / `abort()` must all run on ONE thread, the
+loop's owner.
 """
 from __future__ import annotations
 
 import functools
+import itertools
 import logging
 import threading
 import time
@@ -90,7 +120,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from paddle_tpu_torch.inference.errors import from_wire
+from paddle_tpu_torch.inference.errors import (Cancelled, DeadlineExceeded,
+                                               Overloaded, from_wire)
 from paddle_tpu_torch.inference.graphs import StepGraph
 from paddle_tpu_torch.inference.kv_tiers import KVTierStore
 from paddle_tpu_torch.inference.kv_tiers import dtype_name as _dtype_name
@@ -103,10 +134,18 @@ from paddle_tpu_torch.models import gpt as gpt_mod
 from paddle_tpu_torch.quantization.serving import (QuantizedLeaf,
                                                    quantize_gpt_params)
 from paddle_tpu_torch.serving.disagg import prompt_page_hashes
+from paddle_tpu_torch.testing import faults
 
-__all__ = ["EngineConfig", "PageAllocator", "GenerateRequest", "DecodeEngine"]
+__all__ = ["EngineConfig", "PageAllocator", "GenerateRequest", "DecodeEngine",
+           "DeadlineExceeded", "Cancelled", "Overloaded"]
 
 _log = logging.getLogger(__name__)
+
+# process-unique request ids, ``req-<n>`` (the JAX package takes them from
+# `observability/tracing.py::new_request_id`; tracing is ROADMAP A5.4):
+# `itertools.count` is atomic under the GIL, so submitter threads never
+# share an id
+_request_ids = itertools.count(1)
 
 # packed slot-state upload layout: [B, _STATE_COLS + pages_per_slot] int32;
 # the verify step's is [B, _SPEC_COLS + K + pages_per_slot] (a draft-length
@@ -132,6 +171,19 @@ class EngineConfig:
                    plus the reserved trash page
     min_bucket   : smallest prefill bucket (power-of-two padding starts here)
     eos_id       : optional token id that retires a slot early
+    donate       : the JAX engine's buffer donation into its step programs.
+                   Accepted with any value, so a JAX config constructs: the
+                   port's step programs always write the pools and the
+                   token and key buffers in place, which is what donation
+                   buys
+    inflight     : decode steps kept in flight before the host blocks on
+                   the oldest step's sampled tokens (deferred readback; 1
+                   restores the synchronous loop). Read at construction:
+                   the engine keeps ``max(1, inflight)`` pinned state and
+                   token buffers. EOS detection lags by up to this many
+                   steps; the surplus tokens are discarded at harvest,
+                   never delivered. A speculating engine reads each verify
+                   step back at once, whatever this says
     prefill_chunk_tokens : prompts LONGER than this are prefilled in chunks
                    of this many tokens, one chunk per engine step after the
                    decode step; None keeps the one-shot bucketed prefill
@@ -170,6 +222,23 @@ class EngineConfig:
                    all k+1 positions in one step, emitting 1..k+1 tokens,
                    the tokens plain decode gives; per request opt-out with
                    ``submit(..., speculate=False)``
+    max_queue_depth  : admission control: a submit arriving with this many
+                   requests already queued fails FAST with a typed
+                   ``Overloaded`` error instead of joining an unbounded
+                   queue (a router resubmits it elsewhere, the client gets
+                   a bounded answer). None keeps the queue unbounded
+    max_queue_tokens : the same, bounding the SUM of queued prompt tokens
+                   (a few giant prompts can overload a queue long before
+                   max_queue_depth does). Backlog only: an empty queue
+                   always admits, so one prompt larger than the bound is
+                   never shed with a retry-forever Overloaded
+    dedup_capacity : bound on the idempotency dedup table: requests
+                   submitted with a client-generated ``request_key`` are
+                   remembered here. A resubmit of an IN-FLIGHT key attaches
+                   to the existing request (``dedup_hits``), a resubmit of
+                   a COMPLETED key replays its answer verbatim
+                   (``dedup_replays``). LRU-evicted past the bound; 0
+                   turns dedup off (every keyed submit executes)
     """
     page_size: int = 16
     max_slots: int = 8
@@ -177,15 +246,20 @@ class EngineConfig:
     num_pages: int | None = None
     min_bucket: int = 16
     eos_id: int | None = None
+    donate: bool | None = None
+    inflight: int = 2
     prefill_chunk_tokens: int | None = None
     prefix_cache: bool = True
     kv_host_tier_bytes: int | None = None
     kv_disk_tier_bytes: int | None = None
     kv_disk_tier_dir: str | None = None
+    speculate_k: int | None = None
+    max_queue_depth: int | None = None
+    max_queue_tokens: int | None = None
     kv_dtype: str = "native"
     weight_dtype: str = "native"
     sampling: bool = False
-    speculate_k: int | None = None
+    dedup_capacity: int = 1024
 
 
 class PageAllocator:
@@ -225,6 +299,8 @@ class PageAllocator:
         keeps the request queued: admission waits, it never allocates
         part of a request). Evicts retained pages through ``evict_hook``
         when the free list alone is short."""
+        if faults.ENABLED and faults.fire("engine.pool_pressure"):
+            return None        # injected pool pressure (testing/faults.py)
         if n > self.free_pages:
             return None
         if n > len(self._free) and self.evict_hook is not None:
@@ -290,13 +366,20 @@ class PageAllocator:
 
 class GenerateRequest:
     """One queued or running generation. `result()` blocks until the
-    sequence retires and returns prompt + generated ids."""
+    sequence retires and returns prompt + generated ids. ``deadline_s``
+    starts the request's deadline clock HERE (construction = submit): past
+    it the engine retires the request with a typed ``DeadlineExceeded`` at
+    the next enforcement point (admission, step start or harvest, never
+    inside a step program)."""
 
     def __init__(self, prompt: np.ndarray, max_new_tokens: int,
                  cache: bool = True, speculate: bool = True,
+                 deadline_s: float | None = None,
+                 request_key: bytes | None = None,
                  temperature: float = 1.0, top_k: int = 0, seed: int = 0):
         self.prompt = prompt
         self.max_new_tokens = int(max_new_tokens)
+        self.request_id = f"req-{next(_request_ids)}"
         self.cache = bool(cache)          # prefix-cache participation
         self.speculate = bool(speculate)  # n-gram drafting participation
         self.page_hashes: list[bytes] = []  # rolling full-page prompt hashes
@@ -305,11 +388,46 @@ class GenerateRequest:
         self.top_k = int(top_k)
         self.seed = int(seed)
         self._seed_key: np.ndarray | None = None   # PRNGKey(seed) words
+        self.deadline_s = None if deadline_s is None else float(deadline_s)
+        self.deadline_t = None if deadline_s is None \
+            else time.monotonic() + float(deadline_s)
+        # client-generated idempotency key (16 bytes): the engine's dedup
+        # table attaches resubmits of this key to THIS request
+        self.request_key = None if request_key is None \
+            else bytes(request_key)
+        self.imported = False           # resumed from a KV handoff (A5.5)
         self.generated: list[int] = []
         self.submit_t = time.perf_counter()
         self.first_token_t: float | None = None   # TTFT = this - submit_t
+        self._waiters = 0               # live result() waiters (serve tier)
+        self._wlock = threading.Lock()
         self._done = threading.Event()
         self._error: str | None = None
+
+    def add_waiter(self):
+        """One more party is blocked on this request (a serve connection
+        thread, possibly a dedup-attached resubmit). A disconnect-cancel
+        consults `waiters`, so one client hanging up cannot kill a
+        generation another attached client still wants."""
+        with self._wlock:
+            self._waiters += 1
+
+    def remove_waiter(self) -> int:
+        """Detach one waiter; returns the REMAINING count. The decrement and
+        the read are one atomic step, so two waits giving up at once elect
+        exactly one canceller."""
+        with self._wlock:
+            self._waiters = max(0, self._waiters - 1)
+            return self._waiters
+
+    @property
+    def waiters(self) -> int:
+        with self._wlock:
+            return self._waiters
+
+    def expired(self, now: float | None = None) -> bool:
+        return self.deadline_t is not None and \
+            (time.monotonic() if now is None else now) >= self.deadline_t
 
     def _finish(self, error: str | None = None):
         self._error = error
@@ -323,6 +441,8 @@ class GenerateRequest:
         if not self._done.wait(timeout):
             raise TimeoutError("generation still running")
         if self._error is not None:
+            # typed where the error names a known type ("DeadlineExceeded:
+            # ...", "Cancelled: ..."), RuntimeError otherwise
             raise from_wire(self._error)
         return np.concatenate(
             [self.prompt, np.asarray(self.generated, self.prompt.dtype)])
@@ -530,16 +650,33 @@ class DecodeEngine:
         self._slot_draft: list[_DraftIndex | None] = [None] * B
         # the decode or verify step's inputs and outputs, which keep their
         # identity (a captured graph reads and writes these very tensors):
-        # the packed state's host buffer (pinned on the card) and its
-        # device copy, and the verify step's [B, K+2] tokens and counts
+        # the packed state's device buffer, and the verify step's [B, K+2]
+        # tokens and counts
         lead = _SPEC_COLS + self._spec_k if self._spec else _STATE_COLS
         cols = lead + maxp + (2 if self._sampling else 0)
-        self._state_host = torch.zeros(
-            (B, cols), dtype=torch.int32,
-            pin_memory=self.device.type == "cuda")
-        self._state_np = self._state_host.numpy()
         self._state_dev = torch.zeros((B, cols), dtype=torch.int32,
                                       device=self.device)
+        # the in-flight window: up to `_window` decode steps dispatched and
+        # not yet harvested, one (token ring slot, [(slot, request)]) entry
+        # each. Each step packs its state into the next of `_window` host
+        # buffers (pinned on the card) and its tokens leave `_tok_dev` for
+        # the next of `_window` token buffers right after its replay; an
+        # event a buffer guards each reuse (`_packed_state`, `_dispatch`)
+        self._window = max(1, int(ecfg.inflight))
+        self._inflight: deque[tuple[int, list]] = deque()
+        cuda = self.device.type == "cuda"
+        self._state_ring = [torch.zeros((B, cols), dtype=torch.int32,
+                                        pin_memory=cuda)
+                            for _ in range(self._window)]
+        self._state_uploaded = [torch.cuda.Event() if cuda else None
+                                for _ in range(self._window)]
+        self._state_i = 0
+        self._state_host = self._state_ring[0]
+        self._tok_ring = [torch.zeros(B, dtype=torch.int32, pin_memory=cuda)
+                          for _ in range(self._window)]
+        self._tok_copied = [torch.cuda.Event() if cuda else None
+                            for _ in range(self._window)]
+        self._tok_i = 0
         self._spec_out = torch.zeros((B, self._spec_k + 2),
                                      dtype=torch.int32, device=self.device) \
             if self._spec else None
@@ -557,11 +694,24 @@ class DecodeEngine:
 
         self._queue: deque[GenerateRequest] = deque()
         self._qlock = threading.Lock()
+        self._work = threading.Condition(self._qlock)
+        self._queue_tokens = 0        # sum of queued prompt tokens (_qlock)
+        self._dead: str | None = None  # set by abort(); submits then fail
+        self._draining = False        # drain(): refuse NEW submits only
+        # cancellation mailbox: any thread posts request_id -> reason, the
+        # loop's thread applies it between fixed-shape steps (`_reap`)
+        self._cancels: dict[str, str] = {}
+        # idempotency dedup table: request_key -> GenerateRequest, LRU
+        # bounded at ecfg.dedup_capacity (_qlock)
+        self._dedup: OrderedDict[bytes, GenerateRequest] = OrderedDict()
+        self._deg = 0                 # applied degradation level (loop)
         # d2h_transfers: token readbacks, one per decode or verify step and
         # per finished prefill; logits are never read back. The program
-        # cache's, prefix and tier counters carry the JAX package's metric
-        # names without its "engine." prefix
+        # cache's, prefix, tier and lifecycle counters carry the JAX
+        # package's metric names without its "engine." prefix
         self.counters = dict.fromkeys((
+            "requests", "shed", "dedup_hits", "dedup_replays", "cancelled",
+            "deadline_exceeded", "drains",
             "cache_hit", "cache_miss", "compile_count", "steps",
             "h2d_transfers", "d2h_transfers", "prefills",
             "prefill_chunks", "prefill_tokens", "spec_steps", "spec_drafted",
@@ -620,7 +770,8 @@ class DecodeEngine:
         inputs, so this never recaptures, and a replayed graph reads the
         new values. Then FLUSH the prefix store, host and disk tiers
         included: cached or spilled pages hold KV computed under the old
-        weights."""
+        weights. Steps in flight are harvested first."""
+        self._drain_window()
         params = self._load_params(model)
         dt = params["gpt.wte.weight"].dtype
         if dt != self._cdtype:
@@ -675,9 +826,21 @@ class DecodeEngine:
 
     def _retain_page(self, page: int) -> bool:
         """Allocator retain hook: a refcount-0 page the store still indexes
-        stays resident, most recently idled last in the LRU. (The JAX
-        engine's degradation arm, which stops retention under pressure
-        level >= 2, comes with the pressure ladder, ROADMAP A5.)"""
+        stays resident, most recently idled last in the LRU. Under
+        degradation level >= 2 retention stops: the page goes straight
+        back to the free list (capacity over cache warmth), its contents
+        demoted to the tiers first when they are configured."""
+        if self._deg >= 2:
+            h = self._page_hash.pop(page, None)
+            if h is not None and self._prefix_pages.get(h) == page:
+                del self._prefix_pages[h]
+            self._prefix_idle.pop(page, None)
+            if h is not None:
+                demoted = self._spill_pages([page], [h])
+                self.counters["prefix_evictions"] += 1
+                self.counters["prefix_evictions_demoted"] += demoted
+                self.counters["prefix_evictions_discarded"] += 1 - demoted
+            return False
         if page in self._page_hash:
             self._prefix_idle[page] = None
             return True
@@ -711,6 +874,9 @@ class DecodeEngine:
         if self._tiers is None or not pages:
             return 0
         try:
+            if faults.ENABLED and faults.fire("kvtier.spill_fail"):
+                raise faults.FaultInjected(
+                    "injected spill failure (kvtier.spill_fail)")
             blobs = [t.cpu() for t in export_pages(
                 self._kc, self._vc, pages,
                 *((self._ks, self._vs) if self._quant_kv else ()))]
@@ -744,6 +910,9 @@ class DecodeEngine:
             return 0
         n = len(entries)
         try:
+            if faults.ENABLED and faults.fire("kvtier.reupload_fail"):
+                raise faults.FaultInjected(
+                    "injected re-upload failure (kvtier.reupload_fail)")
             blobs = [torch.stack([getattr(e, f) for e in entries], dim=1)
                      for f in (("k", "v", "ks", "vs") if self._quant_kv
                                else ("k", "v"))]
@@ -954,15 +1123,19 @@ class DecodeEngine:
         tok.copy_(drawn)
 
     def _upload_state(self):
-        """The step's one upload: the packed state (`_packed_state`, in
-        the host buffer) into the device buffer the step program reads, on
-        the current stream, ahead of the step. The copy from pinned memory
-        is asynchronous, so the host buffer may be rewritten only after
-        the step's readback (`_harvest` / `_harvest_spec`, every step
-        today); an in-flight window of steps (ROADMAP A5.2) must
-        double-buffer it."""
+        """The step's one upload: the packed state (`_packed_state`, in the
+        ring's current host buffer) into the device buffer the step program
+        reads, on the current stream, ahead of the step. The copy from
+        pinned memory is asynchronous, so it records the buffer's event,
+        which `_packed_state` waits on before it writes that buffer again.
+        ``_state_dev`` is one buffer (the graph's input keeps its
+        identity): stream order keeps each replay ahead of the next
+        copy."""
         self.counters["h2d_transfers"] += 1
         self._state_dev.copy_(self._state_host, non_blocking=True)
+        event = self._state_uploaded[self._state_i]
+        if event is not None:
+            event.record()
 
     def _sample_tail(self, slot: int, req, final=None) -> np.ndarray:
         """The ints that end a sampling engine's prefill upload: [slot,
@@ -1065,26 +1238,35 @@ class DecodeEngine:
         """Queue one prompt (1-D or [1, S] int array). Thread-safe. The
         parameters are the JAX engine's, in its order.
 
-        ``trace`` (an upstream request trace), ``deadline_s`` and
-        ``request_key`` (deadlines and idempotent resubmits) are not
-        ported: anything but None raises NotImplementedError, never a
-        silent drop. ``cache=False`` keeps this prompt out of the prefix
-        cache (it neither reuses nor registers pages). ``speculate=False``
-        keeps this request out of n-gram drafting on a speculating engine.
+        ``trace`` (an upstream request trace) is not ported: anything but
+        None raises NotImplementedError (ROADMAP A5.4), never a silent
+        drop. ``cache=False`` keeps this prompt out of the prefix cache (it
+        neither reuses nor registers pages). ``speculate=False`` keeps this
+        request out of n-gram drafting on a speculating engine.
+        ``deadline_s`` bounds the request end to end: past it the engine
+        retires it with a typed ``DeadlineExceeded`` (at admission, so an
+        expired request never reaches a prefill program, at each step's
+        start and at each harvest). Raises a typed ``Overloaded`` when the
+        queue is past ``EngineConfig.max_queue_depth`` /
+        ``max_queue_tokens``.
+
+        ``request_key``: a client-generated 16-byte idempotency key. A
+        resubmit of a key whose request is still IN FLIGHT returns the
+        SAME `GenerateRequest` (``dedup_hits``); a key that COMPLETED
+        replays the answer or typed error verbatim (``dedup_replays``); a
+        key whose attempt was CANCELLED executes again. Dedup hits bypass
+        admission control: attaching to work already paid for costs
+        nothing, so a draining or shedding engine still answers them.
+
         ``temperature`` / ``top_k`` / ``seed`` need
         ``EngineConfig(sampling=True)``: the semantics and key chain of the
         JAX package's `fast_generate` (temperature before the top-k mask,
         one split of ``PRNGKey(seed)`` per sampled token). Sampled
         parameters on an engine without ``sampling`` raise ValueError:
         there is no host-sampled path."""
-        for name, value, item in (("trace", trace, "A5.4, tracing"),
-                                  ("deadline_s", deadline_s,
-                                   "A5.1, deadlines"),
-                                  ("request_key", request_key,
-                                   "A5.1, dedup")):
-            if value is not None:
-                raise NotImplementedError(
-                    f"submit({name}=...) is not ported (ROADMAP {item})")
+        if trace is not None:
+            raise NotImplementedError(
+                "submit(trace=...) is not ported (ROADMAP A5.4, tracing)")
         ids = np.ascontiguousarray(np.asarray(prompt_ids)).reshape(-1)
         if ids.size == 0:
             raise ValueError("empty prompt")
@@ -1104,15 +1286,39 @@ class DecodeEngine:
             raise ValueError(
                 f"prompt {ids.size} + max_new_tokens {n} exceeds engine "
                 f"max_seq_len={self.max_seq_len}")
+        if deadline_s is not None and float(deadline_s) <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
         self._check_sample_params(temperature, top_k)
+        key = self._dedup_key(request_key)
         req = GenerateRequest(ids, n, cache=cache, speculate=speculate,
+                              deadline_s=deadline_s, request_key=key,
                               temperature=temperature, top_k=top_k,
                               seed=seed)
-        if self._prefix_enabled and req.cache:
-            # on the submitter's thread, outside the queue lock
-            req.page_hashes = prompt_page_hashes(ids, self.ecfg.page_size)
+        # double-checked admission: the first check fails a shed, dead or
+        # draining submit fast, BEFORE the O(prompt) hash pass; the hash
+        # then runs on the submitter's thread with no lock held, and the
+        # second check, atomic with the enqueue, re-validates. The dedup
+        # lookup runs before each check: an attach or a replay must succeed
+        # on a draining or full engine
+        sample = (float(temperature), int(top_k), int(seed))
         with self._qlock:
+            prev = self._dedup_lookup(key, ids, n, sample)
+            if prev is not None:
+                return prev
+            self._check_admission(ids.size)
+        if self._prefix_enabled and req.cache:
+            req.page_hashes = prompt_page_hashes(ids, self.ecfg.page_size)
+        with self._work:
+            # two concurrent resubmits of one key must not both enqueue
+            prev = self._dedup_lookup(key, ids, n, sample)
+            if prev is not None:
+                return prev
+            self._check_admission(ids.size)
             self._queue.append(req)
+            self._queue_tokens += int(ids.size)
+            self._register_dedup(key, req)
+            self.counters["requests"] += 1
+            self._work.notify()
         return req
 
     def _check_sample_params(self, temperature, top_k):
@@ -1128,6 +1334,217 @@ class DecodeEngine:
                 "sampled generation (temperature/top_k) needs "
                 "EngineConfig(sampling=True): the fused sampler runs in the "
                 "step on the device, not in a per-step host round trip")
+
+    # ------------------------------------------------ idempotency dedup
+
+    def _dedup_key(self, request_key) -> bytes | None:
+        """Normalize and check one request key (None passes through;
+        dedup turned off drops it)."""
+        if request_key is None or not self.ecfg.dedup_capacity:
+            return None
+        key = bytes(request_key)
+        if len(key) != 16:
+            raise ValueError(
+                f"request_key must be exactly 16 bytes, got {len(key)}")
+        return key
+
+    def _dedup_lookup(self, key: bytes | None, ids: np.ndarray, mnt: int,
+                      sample: tuple) -> GenerateRequest | None:
+        """One dedup probe (the caller holds ``_qlock``): the request to
+        attach to or replay, or None for a miss. A key reused for another
+        prompt, budget or (temperature, top_k, seed) is a client bug and
+        raises: answering with another request's tokens would be worse
+        than failing."""
+        if key is None:
+            return None
+        prev = self._dedup.get(key)
+        if prev is None:
+            return None
+        if not prev.imported and (
+                prev.max_new_tokens != int(mnt)
+                or not np.array_equal(prev.prompt, ids)
+                or sample != (prev.temperature, prev.top_k, prev.seed)):
+            raise ValueError(
+                "request_key reused for a different request (prompt, "
+                "max_new_tokens, or temperature/top_k/seed mismatch) — "
+                "an idempotency key names ONE logical request")
+        if not prev.done:
+            self._dedup.move_to_end(key)
+            self.counters["dedup_hits"] += 1
+            # a pending cancel of the first attempt is void: the resubmit
+            # is the evidence that the client still wants the answer
+            self._cancels.pop(prev.request_id, None)
+            return prev
+        if prev._error is not None and prev._error.startswith("Cancelled"):
+            # a cancelled attempt produced no answer: the resubmit is a
+            # fresh attempt, registered anew
+            del self._dedup[key]
+            return None
+        self._dedup.move_to_end(key)
+        self.counters["dedup_replays"] += 1
+        return prev
+
+    def _register_dedup(self, key: bytes | None, req: GenerateRequest):
+        """Remember a freshly accepted keyed request (the caller holds
+        ``_qlock``); LRU-evict past the configured bound."""
+        if key is None:
+            return
+        self._dedup[key] = req
+        self._dedup.move_to_end(key)
+        while len(self._dedup) > int(self.ecfg.dedup_capacity):
+            self._dedup.popitem(last=False)
+
+    # ------------------------------------------------- admission control
+
+    def _refuse_not_accepting(self):
+        """The typed not-taking-work refusals (stopped, draining). The
+        caller holds ``_qlock``."""
+        if self._dead is not None:
+            raise RuntimeError(f"engine stopped: {self._dead}")
+        if self._draining:
+            raise RuntimeError(
+                "engine draining: not accepting new requests")
+
+    def _check_admission(self, n_tokens: int):
+        """Refuse or pass one submit (the caller holds ``_qlock``): the
+        not-accepting refusals, then the SHED rung of the pressure ladder,
+        a typed, resubmittable ``Overloaded`` past a queue bound."""
+        self._refuse_not_accepting()
+        mqd, mqt = self.ecfg.max_queue_depth, self.ecfg.max_queue_tokens
+        if mqd is not None and len(self._queue) >= int(mqd):
+            self.counters["shed"] += 1
+            raise Overloaded(
+                f"engine queue full: depth {len(self._queue)} >= "
+                f"max_queue_depth {int(mqd)}")
+        # a backlog bound only: an EMPTY queue always admits
+        if mqt is not None and self._queue and \
+                self._queue_tokens + n_tokens > int(mqt):
+            self.counters["shed"] += 1
+            raise Overloaded(
+                f"engine queue full: {self._queue_tokens} queued + "
+                f"{n_tokens} new tokens > max_queue_tokens {int(mqt)}")
+
+    def cancel(self, request_id: str,
+               reason: str = "cancelled by client") -> bool:
+        """Cancel a queued or running request by id. Thread-safe: posts to
+        the loop's cancellation mailbox; the loop's thread retires the request
+        and frees its pages between fixed-shape steps (`_reap`; shared
+        prefix pages through the per-owner refcounted free, never under a
+        sharer). Returns True when the id names a request the engine still
+        owes an answer, False for an unknown or finished one (a
+        retirement racing the cancel is a no-op). The post is
+        unconditional: a request caught mid-admission is in neither the
+        queue nor a slot, and its cancel must still land. (The JAX
+        engine's import mailbox is cancellable too; it comes with
+        migration, ROADMAP A5.5.)"""
+        with self._work:
+            if self._dead is not None:
+                return False
+            self._cancels[request_id] = reason
+            known = any(r.request_id == request_id for r in self._queue)
+            self._work.notify()
+        # slot membership is the loop thread's; a stale True only means the
+        # reap finds nothing
+        return known or any(
+            r is not None and r.request_id == request_id and not r.done
+            for r in self._slot_req)
+
+    def _reap(self):
+        """The loop's enforcement point at each step's start, before
+        admission and dispatch: apply posted cancellations and expire
+        blown deadlines. A queued request leaves the queue before any
+        prefill (``prefill_tokens`` does not move for it); a slotted one,
+        decoding or still chunk-prefilling, retires between steps and runs
+        no further step or chunk."""
+        with self._qlock:
+            cancels, self._cancels = self._cancels, {}
+            now = time.monotonic()
+            drop = []
+            for req in self._queue:
+                if req.request_id in cancels:
+                    drop.append((req, f"Cancelled: "
+                                      f"{cancels[req.request_id]}"))
+                elif req.expired(now):
+                    drop.append((req, self._deadline_error(req)))
+            for req, _ in drop:
+                self._queue.remove(req)
+                self._queue_tokens -= int(req.prompt.size)
+        for req, err in drop:
+            self._count_reap(err)
+            req._finish(err)
+        now = time.monotonic()
+        for slot in range(self.ecfg.max_slots):
+            req = self._slot_req[slot]
+            if req is None or req.done:
+                continue
+            if req.request_id in cancels:
+                err = f"Cancelled: {cancels[req.request_id]}"
+            elif req.expired(now):
+                err = self._deadline_error(req)
+            else:
+                continue
+            self._count_reap(err)
+            self._retire(slot, error=err)
+
+    @staticmethod
+    def _deadline_error(req: GenerateRequest) -> str:
+        return (f"DeadlineExceeded: request deadline "
+                f"({req.deadline_s:g}s) passed after "
+                f"{len(req.generated)} generated tokens")
+
+    def _count_reap(self, err: str):
+        self.counters["deadline_exceeded" if err.startswith(
+            "DeadlineExceeded") else "cancelled"] += 1
+
+    # ------------------------------------------------ degradation ladder
+
+    def _pressure(self) -> float:
+        """Queue pressure: the occupied fraction of whichever admission
+        bound is closest to tripping (the caller holds ``_qlock``); 0.0
+        without a bound (the ladder has no yardstick then)."""
+        frac = 0.0
+        if self.ecfg.max_queue_depth:
+            frac = max(frac, len(self._queue)
+                       / int(self.ecfg.max_queue_depth))
+        if self.ecfg.max_queue_tokens:
+            frac = max(frac, self._queue_tokens
+                       / int(self.ecfg.max_queue_tokens))
+        return frac
+
+    def _apply_degradation(self):
+        """Degrade before shedding: level 1 (pressure >= 0.5) stops
+        drafting (the same warm verify step runs with no drafts), level 2
+        (>= 0.75) also stops retaining prefix pages and returns the idle
+        ones to the free list, demoting them to the KV tiers first when
+        configured; level 3 (>= 1.0) is the shed threshold `submit`
+        enforces. Levels fall back as the queue drains. Loop thread only."""
+        with self._qlock:
+            frac = self._pressure()
+        target = 3 if frac >= 1.0 else 2 if frac >= 0.75 \
+            else 1 if frac >= 0.5 else 0
+        if target == self._deg:
+            return
+        if target >= 2 > self._deg:
+            self._shrink_prefix()
+        self._deg = target
+
+    def _shrink_prefix(self):
+        """Level >= 2: every IDLE cached page back to the free list, with
+        the bookkeeping of a pressure eviction (a demotion when tiers are
+        configured); live slots' pages only lose their index, through the
+        retain hook declining them at retirement."""
+        idle = self._evict_prefix_pages(len(self._prefix_idle))
+        if idle:
+            self.allocator.reclaim(idle)
+
+    @property
+    def gauges(self) -> dict:
+        """The JAX engine's gauges of the lifecycle, under its names
+        without ``engine.``: the applied degradation level, the queue's
+        depth and the decode steps in flight."""
+        return {"degradation_level": self._deg,
+                "queue_depth": len(self._queue),
+                "steps_in_flight": len(self._inflight)}
 
     def _free_slots(self):
         # occupancy, not the dispatch mask
@@ -1151,6 +1568,16 @@ class DecodeEngine:
                 if not self._queue:
                     return
                 req = self._queue[0]
+                if req.done or req.expired():
+                    # finished (an abort) or expired while queued: skipped
+                    # BEFORE any prefill runs, zero prefill tokens spent
+                    self._queue.popleft()
+                    self._queue_tokens -= int(req.prompt.size)
+                    if not req.done:
+                        err = self._deadline_error(req)
+                        self._count_reap(err)
+                        req._finish(err)
+                    continue
                 total = -(-(req.prompt.size + req.max_new_tokens) // ps)
                 use_cache = self._prefix_enabled and req.cache
                 shared: list[int] = []
@@ -1167,10 +1594,11 @@ class DecodeEngine:
                 if pages is None:
                     if shared:
                         self.allocator.free(shared)    # back to idle
-                    if not self._occupied():
+                    if not (self._occupied() or self._inflight):
                         # nothing will ever retire to free pages: the pool
                         # itself is too small for this request
                         self._queue.popleft()
+                        self._queue_tokens -= int(req.prompt.size)
                         req._finish(error=f"request needs {total} pages, "
                                     f"pool has "
                                     f"{self.allocator.num_pages - 1}")
@@ -1181,6 +1609,7 @@ class DecodeEngine:
                                   else "prefix_miss"] += 1
                     self.counters["prefix_pages_reused"] += len(shared)
                 self._queue.popleft()
+                self._queue_tokens -= int(req.prompt.size)
             n_up = self._tier_reupload(req.page_hashes, req.prompt.size,
                                        shared, pages) if use_cache else 0
             self._place(req, slots[0], shared + pages, len(shared) + n_up)
@@ -1276,12 +1705,20 @@ class DecodeEngine:
     # -------------------------------------------------------------- step
 
     def _packed_state(self, drafts=None, draft_lens=None):
-        """The step's one upload, written into the host buffer every column
-        of it: per slot (token, length, flags[, draft length, K drafts],
-        page-table row[, temperature bits, top_k])."""
+        """The step's one upload, written into the next host buffer of the
+        ring, every column of it: per slot (token, length, flags[, draft
+        length, K drafts], page-table row[, temperature bits, top_k])."""
         maxp = self.pages_per_slot
         lead = _STATE_COLS if drafts is None else _SPEC_COLS + self._spec_k
-        packed = self._state_np
+        # the next host buffer of the ring, once its last upload is done
+        # (at most `_window` - 1 steps are in flight here and the buffer's
+        # step was harvested, so on a card the wait returns at once)
+        self._state_i = (self._state_i + 1) % self._window
+        event = self._state_uploaded[self._state_i]
+        if event is not None:
+            event.synchronize()
+        self._state_host = self._state_ring[self._state_i]
+        packed = self._state_host.numpy()
         packed[:, _COL_TOKEN] = self._tokens
         packed[:, _COL_LENGTH] = self._lengths
         packed[:, _COL_FLAGS] = (self._active.astype(np.int32) * _FLAG_ACTIVE
@@ -1332,48 +1769,76 @@ class DecodeEngine:
 
     def _dispatch(self):
         """Run ONE fixed-shape decode step from one fused upload, through
-        the decode entry (a graph replay on the card); the sampled tokens
-        (and key chains) stay on the device. Returns the slots to
-        harvest."""
+        the decode entry (a graph replay on the card), and queue its
+        tokens' readback: right after the replay they are copied from
+        ``_tok_dev``, which the next step overwrites, into the step's slot
+        of the token ring, whose event `_harvest_one` waits on. The step
+        joins the in-flight window with the slots to harvest."""
         exe = self._decode_exe()
         self._packed_state()
         self._upload_state()
         exe(self)
+        j = self._tok_i = (self._tok_i + 1) % self._window
+        self._tok_ring[j].copy_(self._tok_dev, non_blocking=True)
+        if self._tok_copied[j] is not None:
+            self._tok_copied[j].record()
         snapshot = [(int(i), self._slot_req[i])
                     for i in np.flatnonzero(self._active)]
+        self._inflight.append((j, snapshot))
         # host bookkeeping for the step: each active slot advances one
-        # position; a slot at its token budget stops being dispatched
+        # position; a slot at its token budget stops being dispatched but
+        # stays occupied until its tokens are harvested
         self._lengths[self._active] += 1
         self._budget[self._active] -= 1
         self._fresh[:] = False
         self._active &= self._budget > 0
         self.counters["steps"] += 1
-        return snapshot
 
-    def _harvest(self, snapshot):
-        """Read the step's sampled token ids back and deliver them: append to
-        each request, retire slots that hit max_new_tokens or EOS."""
-        toks_np = self._tok_dev.cpu().numpy()
+    def _harvest_one(self):
+        """Block on the OLDEST in-flight step's tokens (its ring slot's
+        event; the only blocking readback of the loop) and deliver them:
+        append to each snapshot request, retire slots that hit
+        max_new_tokens or EOS, or whose deadline passed. A token for a
+        request already retired (EOS seen in an earlier step of the
+        window, or a cancel) is discarded."""
+        j, snapshot = self._inflight.popleft()
+        if self._tok_copied[j] is not None:
+            self._tok_copied[j].synchronize()
+        toks = self._tok_ring[j].tolist()
         self.counters["d2h_transfers"] += 1
         for slot, req in snapshot:
             if req.done or self._slot_req[slot] is not req:
                 continue
-            tok = int(toks_np[slot])
+            tok = toks[slot]
             req.generated.append(tok)
             if len(req.generated) >= req.max_new_tokens \
                     or tok == self.ecfg.eos_id:
                 self._retire(slot)
+            elif req.expired():
+                # the tokens already cost device time, but nobody inside
+                # the deadline will read them
+                err = self._deadline_error(req)
+                self._count_reap(err)
+                self._retire(slot, error=err)
+
+    def _drain_window(self):
+        """Harvest every step in flight."""
+        while self._inflight:
+            self._harvest_one()
 
     # ------------------------------------------------------ speculative step
 
     def _drafts(self):
         """The n-gram drafts of the active slots for the next verify step:
         ``(drafts [B, K], draft_lens [B])`` int32, each slot's at most its
-        budget less one."""
+        budget less one; none from degradation level 1 on."""
         K, B = self._spec_k, self.ecfg.max_slots
         drafts = np.zeros((B, K), np.int32)
         draft_lens = np.zeros(B, np.int32)
-        for slot in np.flatnonzero(self._active):
+        # degradation level >= 1: no drafts (the same warm verify step
+        # emits one token a slot; the ladder never captures anything)
+        active = () if self._deg >= 1 else np.flatnonzero(self._active)
+        for slot in active:
             idx = self._slot_draft[slot]
             budget = int(self._budget[slot])   # tokens this step may emit
             if idx is None or budget <= 1:
@@ -1460,18 +1925,24 @@ class DecodeEngine:
             if self._budget[slot] <= 0 or toks[-1] == self.ecfg.eos_id \
                     or len(req.generated) >= req.max_new_tokens:
                 self._retire(slot)
+            elif req.expired():
+                err = self._deadline_error(req)
+                self._count_reap(err)
+                self._retire(slot, error=err)
 
     def check_step_graph(self):
         """The next decode (or verify) step run twice from one state, to
         hold the card's captured graph against its eager body: first
         through the program entry (a graph replay), then, with every
-        buffer the step writes restored, through the body run eagerly.
+        buffer the step writes restored, through the body run eagerly
+        (steps in flight are harvested first).
         The buffers are restored again after, and no host mirror moves, so
         the engine serves on as if nothing ran. Returns ``(graph, eager)``,
         each ``{"tokens", "keys", "logits", "pools"}``: the tokens
         written (``_tok_dev``, or ``_spec_out`` [B, K+2]), the key chains
         (or None), the decode logits (None for a verify step) and the
         pools with their scales, copies on the engine's device."""
+        self._drain_window()
         if not self._active.any():
             raise ValueError("check_step_graph: no slot is decoding")
         if self._spec:
@@ -1526,13 +1997,15 @@ class DecodeEngine:
         0), or ONE chunk from ``start`` at a prefix tail's chunk size
         (`_tail_chunk`; final when it reaches the prompt's end), for a
         request with these sampling parameters in slot 0 over pages 1.. of
-        the pool. Every buffer the program writes (pools, key chains, the
-        entry's token) is restored after, and neither a host mirror nor a
+        the pool, after the steps in flight are harvested. Every buffer the
+        program writes (pools, key chains, the entry's token) is restored
+        after, and neither a host mirror nor a
         counter moves, but the program cache's (an entry it builds
         stays). Returns ``(graph, eager)``, each ``{"tokens",
         "keys", "logits", "pools"}``, copies on the engine's device."""
         ids = np.asarray(prompt_ids, np.int32).reshape(-1)
         self._check_sample_params(temperature, top_k)
+        self._drain_window()
         req = GenerateRequest(ids, 1, temperature=temperature, top_k=top_k,
                               seed=seed)
         npages = -(-ids.size // self.ecfg.page_size)
@@ -1560,9 +2033,17 @@ class DecodeEngine:
         return graph, eager
 
     def step(self) -> bool:
-        """Admit waiting requests, run ONE batched decode step (a verify
-        step on a speculating engine) plus at most one prefill chunk,
-        harvest the step. Returns False when idle."""
+        """One step, in the JAX engine's order: the fault sites, `_reap`
+        (cancels, deadlines), `_apply_degradation`, `_admit` (prefills),
+        the capacity tripwire, ONE batched decode step (a verify step on a
+        speculating engine), at most one prefill chunk, then the harvest
+        of the steps past the in-flight window (a verify step's at once).
+        Returns False when idle."""
+        if faults.ENABLED:
+            faults.fire("engine.step_delay")   # armed: sleeps delay_s
+            faults.fire("engine.crash")        # armed with exc=: raises
+        self._reap()
+        self._apply_degradation()
         self._admit()
         # capacity tripwire: a token at pos >= slot_capacity would spill to
         # the trash page; retire the sequence with an error instead
@@ -1572,19 +2053,26 @@ class DecodeEngine:
                 f"sequence hit slot capacity {self.slot_capacity} "
                 f"(pages_per_slot * page_size); token at position "
                 f"{int(self._lengths[slot])} cannot be cached"))
+        n_active = bool(self._active.any())
         spec_out = snapshot = None
-        if self._active.any():
+        if n_active:
             if self._spec:
                 spec_out, snapshot = self._dispatch_spec()
             else:
-                snapshot = self._dispatch()
+                self._dispatch()
         # decode-priority: the chunk runs AFTER the decode step, so a long
         # prompt adds at most one chunk per step to the running decodes
         chunked = self._advance_prefill()
         if spec_out is not None:
+            # the next drafts need these tokens: no window
             self._harvest_spec(spec_out, snapshot)
-        elif snapshot is not None:
-            self._harvest(snapshot)
+        elif n_active:
+            while len(self._inflight) >= self._window:
+                self._harvest_one()
+        elif self._inflight:
+            # nothing to dispatch: drain the window one step at a time so
+            # budget-spent slots retire and free their pages
+            self._harvest_one()
         elif not chunked:
             with self._qlock:
                 return bool(self._queue)
@@ -1593,7 +2081,8 @@ class DecodeEngine:
     def _has_work(self) -> bool:
         with self._qlock:
             queued = bool(self._queue)
-        return queued or bool(self._prefilling) or self._occupied()
+        return queued or bool(self._inflight) or bool(self._prefilling) \
+            or self._occupied()
 
     def run_until_idle(self, max_steps: int | None = None):
         """Drive step() until the queue and the slots drain."""
@@ -1603,3 +2092,39 @@ class DecodeEngine:
             if max_steps is not None and n >= max_steps:
                 raise RuntimeError(
                     f"engine still busy after {max_steps} steps")
+
+    # ------------------------------------------------------ drain / abort
+
+    def drain(self, migrate: bool = False):
+        """Refuse NEW submits while everything already accepted runs to the
+        end, the first half of a graceful shutdown; nothing is failed.
+        Callers watch their requests (or `run_until_idle`) to know when the
+        engine is quiet. ``migrate=True`` (export the live requests to a
+        peer) is not ported: NotImplementedError (ROADMAP A5.5)."""
+        if migrate:
+            raise NotImplementedError(
+                "drain(migrate=True) is not ported (ROADMAP A5.5, live "
+                "migration)")
+        with self._work:
+            self._draining = True
+            self._work.notify()
+        self.counters["drains"] += 1
+
+    def abort(self, reason: str):
+        """Fail every queued and running request with ``reason``, free
+        their pages and refuse later submits; blocked `result()` callers
+        get the error at once. The in-flight window is cleared: its
+        tokens are never delivered, and its ring slots' events are simply
+        recorded anew when the slots are reused."""
+        with self._qlock:
+            self._dead = reason
+            queued = list(self._queue)
+            self._queue.clear()
+            self._queue_tokens = 0
+            self._cancels.clear()
+        for req in queued:
+            req._finish(reason)
+        self._inflight.clear()
+        for slot in range(self.ecfg.max_slots):
+            if self._slot_req[slot] is not None:
+                self._retire(slot, error=reason)

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.inference.errors import HandoffCorrupt
+from paddle_tpu_torch.testing import faults
 
 __all__ = ["KVTierStore", "TierEntry", "MAGIC"]
 
@@ -255,7 +256,8 @@ class KVTierStore:
                 self._put_disk(h, blob)
 
     def get(self, h: bytes) -> TierEntry | None:
-        """One chain hash, host tier first. A corrupt or stale entry is
+        """One chain hash, host tier first. A corrupt or stale entry (or
+        the armed ``kvtier.disk_corrupt`` fault on a disk entry) is
         dropped, counted in ``kvtier_refusals`` and returned as a miss."""
         h = bytes(h)
         with self._lock:
@@ -273,6 +275,10 @@ class KVTierStore:
             if h in self._disk:
                 self._disk.move_to_end(h)
                 try:
+                    if faults.ENABLED and faults.fire("kvtier.disk_corrupt"):
+                        raise HandoffCorrupt(
+                            "injected disk-tier corruption "
+                            "(kvtier.disk_corrupt)")
                     with open(self._path(h), "rb") as f:
                         blob = f.read()
                     entry = self._unpack(h, blob)

@@ -7,6 +7,7 @@ Run from the repository root:
     python3 profile_serve.py --sampled  # the fused sampler, mixed requests
     python3 profile_serve.py --spec     # speculative decode, tiled prompts
     python3 profile_serve.py --prefix   # prefix hits against cold prefills
+    python3 profile_serve.py --inflight 1,2,3   # readback windows, in turns
 
 It serves the same bf16 GPT-2 small run as `chip_smoke.py`'s serve phase
 (8 requests of 7-900 prompt tokens, 32 new tokens each; with ``--int8``
@@ -31,6 +32,14 @@ admission prefills only its tail), the ``cold`` arm's has the prefix
 cache off. Each run has the same two windows, named
 ``hbm#1:admission_step`` and so on; the second round is clear of the
 first profiled window's start-up.
+
+With ``--inflight N[,N...]`` it serves `chip_smoke.py`'s serve_inflight
+run (the serve phase's 8 prompts, `cs.INFLIGHT_NEW_TOKENS` new tokens
+each) once for each readback window listed, in that order, on an engine
+of that ``inflight`` each: the same two windows, named
+``inflight=2#1:decode_steps`` and so on. No step synchronizes inside a
+window (the engine's own readbacks aside), so the decode window's
+device-busy share is the card's share of that run's wall.
 """
 from __future__ import annotations
 
@@ -88,6 +97,18 @@ def main():
             del eng
             torch.cuda.empty_cache()
         return 0
+    if "--inflight" in args:
+        windows = [int(k) for k in args[args.index("--inflight") + 1]
+                   .split(",")]
+        for turn, k in enumerate(windows):
+            eng, prompts, _ = cs.serve_engine(model, dev, inflight=k)
+            cs.emit({"engine": {"inflight": eng.ecfg.inflight, "turn": turn}})
+            profile_run(eng, prompts, [(1.0, 0, 0)] * len(prompts),
+                        f"inflight={k}#{windows[:turn + 1].count(k)}:",
+                        cs.INFLIGHT_NEW_TOKENS)
+            del eng
+            torch.cuda.empty_cache()
+        return 0
     ecfg, params = {}, [(1.0, 0, 0)] * len(cs.SERVE_LENS)
     if "--int8" in args:
         ecfg = {"kv_dtype": "int8", "weight_dtype": "int8"}
@@ -105,10 +126,11 @@ def main():
     return 0
 
 
-def profile_run(eng, prompts, params, prefix=""):
-    """Submit ``prompts`` (32 new tokens each) and profile the admission
+def profile_run(eng, prompts, params, prefix="", new_tokens=32):
+    """Submit ``prompts`` (``new_tokens`` each) and profile the admission
     step, then the decode steps to the end."""
-    reqs = [eng.submit(p, max_new_tokens=32, temperature=t, top_k=k, seed=s)
+    reqs = [eng.submit(p, max_new_tokens=new_tokens, temperature=t, top_k=k,
+                       seed=s)
             for p, (t, k, s) in zip(prompts, params)]
     state = {"more": True}
 

@@ -1391,3 +1391,106 @@ def test_card_train_forward_with_dropout_matches_cpu(card, over):
     assert torch.equal(loss, plain_loss)
     for a, b in zip(grads, plain_grads):
         assert torch.equal(a, b)
+
+
+# ----------------------------------------------- the in-flight window
+
+def _window_run(eng, lag_cycles=0):
+    """Five greedy requests on two slots, two of them submitted mid-run, so
+    that admissions and retirements fall inside the window. With
+    ``lag_cycles`` every state upload is queued behind a spin of that many
+    cycles, so the card runs far behind the host. Returns the outputs, the
+    deepest window seen after a step, and whether every state buffer's
+    last upload had landed when the host packed into it again."""
+    rng = np.random.default_rng(8)
+    upload, pack = eng._upload_state, eng._packed_state
+    landed = []
+
+    def lagged_upload():
+        torch.cuda._sleep(lag_cycles)
+        upload()
+
+    def checked_pack(*a):
+        pack(*a)
+        event = eng._state_uploaded[eng._state_i]
+        landed.append(event is None or event.query())
+
+    if lag_cycles:
+        eng._upload_state = lagged_upload
+    eng._packed_state = checked_pack
+    reqs = [eng.submit(rng.integers(0, 97, n).astype(np.int32), new)
+            for n, new in ((5, 9), (40, 4), (17, 12))]
+    deepest = 0
+    for i in range(1000):
+        more = eng.step()
+        deepest = max(deepest, len(eng._inflight))
+        if i == 2:
+            reqs += [eng.submit(rng.integers(0, 97, n).astype(np.int32), new)
+                     for n, new in ((9, 7), (3, 5))]
+        elif not more:
+            break
+    return [r.result(timeout=0) for r in reqs], deepest, all(landed)
+
+
+def test_card_window_gives_the_synchronous_tokens_under_a_lagging_stream(
+        card):
+    """``inflight=3`` against ``inflight=1`` and the CPU engine, with the
+    card held ~1 ms behind the host at every step: the tokens are equal,
+    the window reaches two steps in flight, and no state buffer is written
+    before its last copy to the card has landed (the ring's events)."""
+    from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    model = _small_model()
+    outs = {}
+    for dev, inflight, lag in (("cpu", 1, 0), ("cuda", 1, 0),
+                               ("cuda", 3, 0), ("cuda", 3, 2_000_000)):
+        eng = DecodeEngine(model, EngineConfig(
+            page_size=16, max_slots=2, prefix_cache=False,
+            inflight=inflight), device=dev)
+        outs[dev, inflight, lag], deepest, landed = _window_run(eng, lag)
+        assert landed
+        assert deepest == (2 if inflight == 3 else 0)
+        assert len(eng._state_ring) == len(eng._tok_ring) == inflight
+        assert eng.allocator.free_pages == eng.allocator.num_pages - 1
+    want = outs["cpu", 1, 0]
+    for key, got in outs.items():
+        for a, b in zip(got, want, strict=True):
+            np.testing.assert_array_equal(a, b, err_msg=str(key))
+
+
+def test_card_cancel_and_deadline_keep_the_captured_graphs(card):
+    """A cancel mid-decode and a deadline cut under an injected step delay
+    on a warm card engine: typed errors, the survivors' tokens equal to
+    the CPU engine's, the pool back at its baseline, and no new capture
+    (``compile_count`` unchanged)."""
+    from paddle_tpu_torch.inference.engine import (Cancelled,
+                                                   DeadlineExceeded,
+                                                   DecodeEngine, EngineConfig)
+    from paddle_tpu_torch.testing import faults
+    model = _small_model()
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, 97, n).astype(np.int32) for n in (6, 20, 33)]
+    ecfg = EngineConfig(page_size=16, max_slots=4, prefix_cache=True)
+    cpu = DecodeEngine(model, ecfg, device="cpu")
+    ref = [cpu.submit(p, 12) for p in prompts]
+    cpu.run_until_idle(max_steps=200)
+    eng = DecodeEngine(model, ecfg, device=card)
+    eng.warmup((6, 20, 33), (4,))           # the victim's 4-token tail
+    compiles = eng.counters["compile_count"]
+    reqs = [eng.submit(p, 12) for p in prompts]
+    victim = eng.submit(prompts[1], 40)            # shares prompt 1's pages
+    for _ in range(3):
+        eng.step()
+    assert eng.cancel(victim.request_id, reason="client left")
+    with faults.scoped("engine.step_delay", times=-1, delay_s=0.2):
+        late = eng.submit(prompts[0], 30, deadline_s=0.5)
+        eng.run_until_idle(max_steps=400)
+    with pytest.raises(Cancelled, match="client left"):
+        victim.result(timeout=0)
+    with pytest.raises(DeadlineExceeded, match="deadline"):
+        late.result(timeout=0)
+    for r, want in zip(reqs, ref):
+        np.testing.assert_array_equal(r.result(timeout=0),
+                                      want.result(timeout=0))
+    assert eng.counters["cancelled"] == eng.counters["deadline_exceeded"] == 1
+    assert eng.counters["compile_count"] == compiles
+    assert eng.allocator.free_pages == eng.allocator.num_pages - 1

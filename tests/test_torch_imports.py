@@ -68,6 +68,32 @@ def test_prefix_and_tier_modules_import_no_jax_or_ml_dtypes():
     assert "BAD []" in r.stdout, r.stdout
 
 
+_TESTING_PROBE = r"""
+import sys
+from paddle_tpu_torch.testing import faults
+import paddle_tpu_torch.inference.engine as engine
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+print("BAD", bad)
+print("ARMED", faults.ENABLED, faults.remaining("engine.step_delay"),
+      engine.faults is faults)
+"""
+
+
+def test_testing_package_imports_no_jax_and_reads_paddle_faults():
+    """`paddle_tpu_torch.testing` (the port's copy of the JAX package's
+    stdlib-only `testing/faults.py`) loads neither JAX nor the JAX
+    package, is the module the engine's fault sites read, and arms the
+    sites ``PADDLE_FAULTS`` names when it is imported."""
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               PADDLE_FAULTS="engine.step_delay:delay_s=0:times=2")
+    r = subprocess.run([sys.executable, "-c", _TESTING_PROBE], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+    assert "ARMED True 2 True" in r.stdout, r.stdout
+
+
 def test_engine_default_device_is_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
