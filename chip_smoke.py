@@ -115,7 +115,9 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    B=16 as 2 microbatches of 8, S=1024, AdamW lr 1e-4, clip 1.0: 2 warm-up
    steps, then 8 timed steps on one fixed batch; tokens/s, step ms p50,
    MFU against the H100's 989 TFLOP/s, peak memory and the losses, which
-   must be finite and fall. ``train_dropout`` does the same with
+   must be finite and fall; under an armed watchdog (no dump), the
+   ``train.mfu`` gauge must equal the last step's MFU record and
+   ``train.steps`` count every step. ``train_dropout`` does the same with
    ``hidden_dropout=0.1`` (100 dropout launches a step), and
    ``train_recompute`` once more for each of ``recompute=True`` and
    ``recompute_granularity`` "mlp" and "mlp_up" (a
@@ -184,6 +186,18 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    host tier) is pushed to ladder level 2 by its queue: the idle prefix
    pages go to the host tier, drafting stops from level 1 on, and the
    level falls to 0 as the queue drains. Every outcome is on the line.
+   ``serve_observe`` (bf16, ``inflight=2``): `serve`'s 8 prompts and a
+   9th whose prefill bucket is left unwarmed, 32 new tokens, a
+   `RequestTrace` each, through `run_until_idle` on one engine and
+   through `serve_loop` on a thread of its own (under its watchdog,
+   requests submitted from the main thread, the 9th's graph captured in
+   the loop) on another: the tokens equal `serve`'s and each other's, the
+   metrics registry's counter and histogram deltas and the usage records
+   (but their times) equal between the two loops, every request's four
+   ``request.*`` spans, one ``engine.device_ms`` observation a step that
+   did work, the Prometheus text within the exposition grammar, no
+   watchdog dump from the healthy loop and exactly one from a loop whose
+   step sleeps 2 s past a 0.5 s deadline (``engine.step_delay``).
 12. ``kernels``: per kernel, its source, the TPU kernel it replaces, its
    launches in the run of the path that uses it (serve for the float paged
    kernels, serve_int8 for the int8 ones, train for the flash kernels,
@@ -209,12 +223,17 @@ result.
 from __future__ import annotations
 
 import gc
+import glob
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -242,6 +261,10 @@ from paddle_tpu_torch.kernels.cuda import paged_attention as cdec
 from paddle_tpu_torch.kernels.cuda import prefill_attention as cpre
 from paddle_tpu_torch.kernels.cuda import rotary as crot
 from paddle_tpu_torch.models import gpt as gpt_mod
+from paddle_tpu_torch.observability import metrics
+from paddle_tpu_torch.observability.flight_recorder import flight
+from paddle_tpu_torch.observability.tracing import RequestTrace
+from paddle_tpu_torch.observability.usage import usage_log
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.quantization.serving import (QUANT_LOGIT_BOUND,
                                                    margin_gated_parity)
@@ -1988,6 +2011,277 @@ def serve_lifecycle(model, dev, smi):
                          "expected one")
 
 
+# serve_observe: the 9th prompt's length, whose prefill bucket (128) no
+# SERVE_LENS prompt uses, so its graph is captured inside the loop; the
+# watchdog deadlines of the healthy and the stalled loop, and the stall
+OBSERVE_UNWARMED = 100
+OBSERVE_DEADLINE_S = 30.0
+STALL_DEADLINE_S = 0.5
+STALL_DELAY_S = 2.0
+REQUEST_SPANS = ("request.queue", "request.prefill", "request.decode",
+                 "request.e2e")
+
+# the Prometheus text exposition grammar (format 0.0.4) of the JAX
+# package's tests/test_tracing.py::check_exposition, which this script
+# cannot import (it loads JAX)
+_PROM_NAME = r"[a-zA-Z_:][a-zA-Z0-9_:]*"
+_PROM_LABEL = r'[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\\\|\\"|\\n)*"'
+_PROM_VALUE = r"(?:[+-]?(?:\d+(?:\.\d+)?(?:[eE][+-]?\d+)?|Inf)|NaN)"
+PROM_SAMPLE = re.compile(rf"^{_PROM_NAME}(?:\{{{_PROM_LABEL}"
+                         rf"(?:,{_PROM_LABEL})*\}})? {_PROM_VALUE}$")
+PROM_TYPE = re.compile(
+    rf"^# TYPE {_PROM_NAME} (?:counter|gauge|summary|histogram|untyped)$")
+
+
+def exposition_ok(text):
+    """Every line within the exposition grammar, every sample under its
+    one ``# TYPE`` (a summary's ``_sum`` / ``_count`` too)."""
+    typed, current = {}, None
+    if not text.endswith("\n"):
+        return False
+    for line in text.splitlines():
+        if line.startswith("#"):
+            if not PROM_TYPE.match(line):
+                return False
+            name, kind = line.split()[2:4]
+            if name in typed:
+                return False
+            typed[name], current = kind, name
+            continue
+        if not PROM_SAMPLE.match(line):
+            return False
+        base = re.match(_PROM_NAME, line).group(0)
+        allowed = (current, current + "_sum", current + "_count") \
+            if typed.get(current) == "summary" else (current,)
+        if base not in allowed:
+            return False
+    return bool(typed)
+
+
+# the histograms whose summed seconds `serve_observe` reports a loop:
+# where its wall went (inside steps, inside the graph capture, blocked on
+# readbacks)
+TIMED_TOTALS = ("engine.step_seconds", "engine.compile_seconds",
+                "engine.device_ms", "engine.host_ms")
+
+
+class Observed:
+    """What the port's observability layer records over one serving run:
+    the ``engine.*`` counter deltas and histogram count deltas of the
+    metrics registry (and the summed values of TIMED_TOTALS), the flight
+    events and the usage records since it began."""
+
+    def __init__(self):
+        snap = metrics.snapshot()
+        self.counters0 = snap["counters"]
+        self.hists0 = {k: v["count"] for k, v in snap["histograms"].items()}
+        self.totals0 = {k: snap["histograms"].get(k, {}).get("total", 0.0)
+                        for k in TIMED_TOTALS}
+        evs = flight.events()
+        self.seq0 = evs[-1]["seq"] if evs else 0
+        self.used0 = usage_log.emitted
+
+    def read(self, reqs):
+        snap = metrics.snapshot()
+        ids = {r.request_id: i for i, r in enumerate(reqs)}
+        counters = {k: v - self.counters0.get(k, 0)
+                    for k, v in snap["counters"].items()
+                    if k.startswith(("engine.", "usage.", "serve."))
+                    and v != self.counters0.get(k, 0)}
+        hists = {k: v["count"] - self.hists0.get(k, 0)
+                 for k, v in snap["histograms"].items()
+                 if v["count"] != self.hists0.get(k, 0)}
+        events = [e for e in flight.events() if e["seq"] > self.seq0]
+        n = usage_log.emitted - self.used0
+        usage = sorted(
+            ({k: (v if k not in ("t", "queue_wait_s", "ttft_s", "e2e_s")
+                  else v is None) for k, v in r.items()
+              if k != "request_id"} | {"request": ids.get(r["request_id"])}
+             for r in (usage_log.records()[-n:] if n else ())),
+            key=lambda r: r["request"])
+        spans = {i: [] for i in range(len(reqs))}
+        for e in metrics.chrome_trace()["traceEvents"]:
+            i = ids.get((e.get("args") or {}).get("request_id"))
+            if i is not None:
+                spans[i].append(e["name"])
+        totals = {k: snap["histograms"].get(k, {}).get("total", 0.0)
+                  - self.totals0[k] for k in TIMED_TOTALS}
+        return {"counters": counters, "histograms": hists, "events": events,
+                "usage": usage, "spans": spans, "totals": totals}
+
+
+def observe_run(eng, prompts, n, loop, phase):
+    """Serve ``prompts`` (``n`` new tokens each, a `RequestTrace` each)
+    on ``eng``, with every kernel's launch count set to 0 just before and
+    held just after: through `run_until_idle` here, or (``loop``) through
+    `serve_loop` on a thread of its own, every request submitted from
+    this thread, all but the last before the loop takes its first step
+    and the last while it runs (it queues behind 8 busy slots, so both
+    loops take the same steps). Returns the outputs, what the
+    observability layer recorded, the launches, the engine's counter
+    deltas and the seconds from the first submit to the last result."""
+    counters0 = dict(eng.counters)
+    torch.cuda.synchronize()
+    reset_launches()                       # the path's run
+    seen = Observed()
+    t0 = time.perf_counter()
+    if loop:
+        stop, go = threading.Event(), threading.Event()
+
+        def drive():
+            go.wait()
+            eng.serve_loop(stop)
+        thread = threading.Thread(target=drive, name="serve-loop")
+        thread.start()
+        try:
+            reqs = [eng.submit(p, n, RequestTrace()) for p in prompts[:-1]]
+            go.set()
+            reqs.append(eng.submit(prompts[-1], n, RequestTrace()))
+            outs = [r.result(timeout=300) for r in reqs]
+            wall = time.perf_counter() - t0
+        finally:
+            stop.set()
+            thread.join(timeout=300)
+        if thread.is_alive():
+            raise SystemExit(f"{phase}: serve_loop did not stop")
+    else:
+        reqs = [eng.submit(p, n, RequestTrace()) for p in prompts]
+        eng.run_until_idle(max_steps=10_000)
+        outs = [r.result(timeout=0) for r in reqs]
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches, expected, ran = engine_launches(eng, counters0, phase)
+    return outs, seen.read(reqs), launches, ran, wall
+
+
+def observe_stall(model, dev, prompts, dump_dir):
+    """A warm engine's `serve_loop` under a watchdog of STALL_DEADLINE_S
+    while one step sleeps STALL_DELAY_S (the ``engine.step_delay`` fault):
+    exactly one dump, holding the flight ring, the stalled requests'
+    traces and the metrics snapshot. Returns the dump's summary."""
+    eng, _, _ = serve_engine(model, dev, inflight=2)
+    os.environ["PADDLE_WATCHDOG_S"] = str(STALL_DEADLINE_S)
+    stop = threading.Event()
+    thread = threading.Thread(target=eng.serve_loop, args=(stop,),
+                              name="serve-loop-stall")
+    thread.start()
+    try:
+        with faults.scoped("engine.step_delay", delay_s=STALL_DELAY_S,
+                           times=1):
+            reqs = [eng.submit(p, 8, RequestTrace()) for p in prompts[:2]]
+            outs = [r.result(timeout=300) for r in reqs]
+    finally:
+        stop.set()
+        thread.join(timeout=300)
+    dumps = sorted(glob.glob(os.path.join(dump_dir,
+                                          "watchdog_engine_*.json")))
+    payloads = [json.load(open(p)) for p in dumps]
+    ids = {r.request_id for r in reqs}
+    return {"dumps": len(dumps),
+            "stalled_for_s": [p["stalled_for_s"] for p in payloads],
+            "events": [len(p["events"]) for p in payloads],
+            "event_kinds": sorted({e["kind"] for p in payloads
+                                   for e in p["events"]}),
+            "stalled_traces": [sorted(t["phase"] for t in p["traces"]
+                                      if t["request_id"] in ids)
+                               for p in payloads],
+            "metrics_keys": [sorted(p["metrics"]) for p in payloads],
+            "outputs_ok": all(o.shape == (len(p) + 8,)
+                              for o, p in zip(outs, prompts))}
+
+
+def serve_observe(model, dev, smi, serve_outs):
+    """The observability layer on the card (bf16, full width, ``inflight``
+    2): `serve`'s 8 prompts and a 9th of OBSERVE_UNWARMED tokens, 32 new
+    tokens each, a `RequestTrace` each. Engine B runs them through
+    `run_until_idle`; engine A through `serve_loop` on a thread of its
+    own under its watchdog, every request submitted from this thread, the
+    9th's prefill graph captured inside the loop. Held: the 8 outputs
+    equal `serve`'s, A's 9 equal B's, the ``engine.*`` / ``usage.*`` /
+    ``serve.*`` counter deltas and the usage records (all but the times)
+    equal between the two loops, every request's four ``request.*`` spans,
+    one ``engine.device_ms`` (and ``host_ms``, ``step_seconds``)
+    observation a step that did work, `render()` within the exposition
+    grammar, no dump from the healthy loop, and exactly one, holding the
+    ring, the stalled traces and the snapshot, from a loop whose step
+    sleeps past a 0.5 s deadline."""
+    phase = "serve_observe"
+    rng = np.random.default_rng(SEED + 11)
+    dump_dir = tempfile.mkdtemp(prefix="serve_observe_")
+    saved = {k: os.environ.get(k) for k in ("PADDLE_WATCHDOG_S",
+                                            "PADDLE_WATCHDOG_DIR")}
+    os.environ["PADDLE_WATCHDOG_DIR"] = dump_dir
+    os.environ["PADDLE_WATCHDOG_S"] = str(OBSERVE_DEADLINE_S)
+    try:
+        runs = {}
+        for name, loop in (("run_until_idle", False), ("serve_loop", True)):
+            eng, prompts, _ = serve_engine(model, dev, inflight=2)
+            extra = rng.integers(0, min(VOCAB, model.cfg.vocab_size),
+                                 OBSERVE_UNWARMED).astype(np.int32) \
+                if not runs else runs["run_until_idle"]["extra"]
+            outs, seen, launches, ran, wall = observe_run(
+                eng, prompts + [extra], 32, loop, f"{phase}:{name}")
+            runs[name] = {"outs": outs, "seen": seen, "launches": launches,
+                          "ran": ran, "wall": wall, "extra": extra}
+            del eng
+        healthy_dumps = len(os.listdir(dump_dir))
+        stall = observe_stall(model, dev, prompts, dump_dir)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    shutil.rmtree(dump_dir, ignore_errors=True)
+    a, b = runs["serve_loop"], runs["run_until_idle"]
+    sa, sb = a["seen"], b["seen"]
+    steps = [e for e in sa["events"] if e["kind"] == "engine.step"]
+    worked = sa["histograms"].get("engine.device_ms", 0)
+    text = metrics.to_prometheus()
+    checks = {
+        "tokens_equal_serve": all(np.array_equal(o, r) for o, r in
+                                  zip(a["outs"][:8], serve_outs)),
+        "tokens_equal_run_until_idle": all(
+            np.array_equal(x, y) for x, y in zip(a["outs"], b["outs"])),
+        "counters_equal": sa["counters"] == sb["counters"],
+        "usage_equal": sa["usage"] == sb["usage"] and len(sa["usage"]) == 9,
+        "spans_ok": all(sorted(set(v)) == sorted(REQUEST_SPANS)
+                        for s in (sa, sb) for v in s["spans"].values()),
+        "histogram_counts_equal": sa["histograms"] == sb["histograms"],
+        "device_ms_per_step": worked == len(steps) > 0
+        and sa["histograms"].get("engine.host_ms") == worked
+        and sa["histograms"].get("engine.step_seconds") == worked,
+        "capture_in_loop": a["ran"]["compile_count"] == 1
+        and sa["histograms"].get("engine.compile_seconds") == 1,
+        "exposition_ok": exposition_ok(text),
+        "healthy_dumps_zero": healthy_dumps == 0,
+        "stall_dumped_once": stall["dumps"] == 1
+        and stall["stalled_traces"][0] != []
+        and {"counters", "gauges", "histograms"} <=
+        set(stall["metrics_keys"][0])
+        and "engine.step" in stall["event_kinds"],
+        "launches_exact": a["launches"] == b["launches"]}
+    ok = all(checks.values()) and stall["outputs_ok"]
+    emit({"phase": phase, "model": "gpt2-small", "dtype": "bfloat16",
+          "card": smi, "inflight": 2, "requests": 9,
+          "prompt_lens": list(SERVE_LENS) + [OBSERVE_UNWARMED],
+          "max_new_tokens": 32, **checks,
+          "counters": {k: sa["counters"][k] for k in sorted(sa["counters"])
+                       if k.startswith("engine.")},
+          "histogram_counts": {"serve_loop": sa["histograms"],
+                               "run_until_idle": sb["histograms"]},
+          "worked_steps": worked, "flight_events": len(sa["events"]),
+          "wall_s": {"serve_loop": a["wall"], "run_until_idle": b["wall"]},
+          "timed_totals": {"serve_loop": sa["totals"],
+                           "run_until_idle": sb["totals"]},
+          "launches": a["launches"], "stall": stall,
+          "exposition_lines": text.count("\n"), "ok": ok})
+    if not ok:
+        raise SystemExit(f"{phase}: a check failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    torch.cuda.empty_cache()
+
+
 # the serve_graph phase's engines a dtype: (name, EngineConfig keywords);
 # the float32 run adds an int8-KV engine, the bfloat16 run int8 KV with
 # int8 weights (serve_int8's engine)
@@ -2235,17 +2529,35 @@ def train_run(dev, smi, phase="train", warmup=2, timed=8, **over):
                          microbatches=2, device=dev)
     x, y = train_batch(np.random.default_rng(SEED + 4), 16, 1024, VOCAB)
     torch.cuda.reset_peak_memory_stats(dev)
-    losses = [step.step(x, y) for _ in range(warmup)]
-    reset_launches()                       # the train path's timed run
-    losses += [step.step(x, y) for _ in range(timed)]
+    steps0 = metrics.counter("train.steps").value
+    dump_dir = tempfile.mkdtemp(prefix=f"{phase}_watchdog_")
+    watchdog = step.start_watchdog(deadline_s=OBSERVE_DEADLINE_S,
+                                   dump_dir=dump_dir)
+    try:
+        losses = [step.step(x, y) for _ in range(warmup)]
+        reset_launches()                   # the train path's timed run
+        losses += [step.step(x, y) for _ in range(timed)]
+    finally:
+        watchdog.stop()
     expected = train_launches(model.cfg, 2, timed)
     launches = read_launches(phase, expected)
+    # the train step's series: its MFU gauge is its last record's, every
+    # step counted, and the healthy loop left no dump
+    observed = {
+        "train_mfu_gauge": metrics.gauge("train.mfu").value,
+        "train_mfu_equals_record": metrics.gauge("train.mfu").value
+        == step.records[-1]["mfu"],
+        "train_steps_counted": metrics.counter("train.steps").value - steps0,
+        "watchdog_dumps": watchdog.dump_count + len(os.listdir(dump_dir))}
+    shutil.rmtree(dump_dir, ignore_errors=True)
     recs = step.records[warmup:]
     step_ms = statistics.median(r["step_ms"] for r in recs)
     tokens = x.size
     flops = gpt_mod.analytic_flops_per_token(model.cfg, x.shape[1]) * tokens
     ok = bool(np.isfinite(losses).all()) and losses[-1] < losses[0] \
-        and step.bad_steps == 0
+        and step.bad_steps == 0 and observed["train_mfu_equals_record"] \
+        and observed["train_steps_counted"] == warmup + timed \
+        and observed["watchdog_dumps"] == 0
     line = {"phase": phase, "model": "gpt2-small", "dtype": "bfloat16",
             "master_weights": "float32", "card": smi,
             "hidden_dropout": model.cfg.hidden_dropout,
@@ -2260,12 +2572,13 @@ def train_run(dev, smi, phase="train", warmup=2, timed=8, **over):
             "flops_per_step": flops,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
             "losses": losses, "launches": launches,
-            "expected_launches": expected, "ok": ok}
+            "expected_launches": expected, **observed, "ok": ok}
     if model.cfg.hidden_dropout:
         line["dropout_launches_per_step"] = launches["dropout"] / timed
     emit(line)
     if not ok:
-        raise SystemExit(f"{phase}: losses {losses} not finite and falling")
+        raise SystemExit(f"{phase}: losses {losses} not finite and "
+                         f"falling, or the train series off: {observed}")
     return line
 
 
@@ -2739,6 +3052,7 @@ def main():
     serve_prefix(model, dev, smi)
     serve_inflight(model, dev, smi, greedy_outs)
     serve_lifecycle(model, dev, smi)
+    serve_observe(model, dev, smi, greedy_outs)
     launches.update((k, quantized[k]) for k in INT8_KERNELS)
     del model
     torch.cuda.empty_cache()

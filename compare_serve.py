@@ -3,6 +3,7 @@
 repository, in turns, on one NVIDIA card. Run from the repository root:
 
     python3 compare_serve.py parent_check . . parent_check
+    python3 compare_serve.py --inflight parent_check . . parent_check
 
 Each argument is the root of a checkout (this one is ``.``; another is
 unpacked with ``git archive``); each runs in a process of its own, in the
@@ -11,7 +12,8 @@ card under the same conditions. A process builds that checkout's kernels
 and serves bf16 GPT-2 small through that checkout's `chip_smoke.py`
 functions: ``serve``, ``serve_sampled``, ``serve_spec``, ``serve_int8``
 and the three ``serve_prefix`` arms, each line with its exact launch
-counts held. Every JSON line a process prints is printed again with
+counts held; with ``--inflight``, ``serve`` and then ``serve_inflight``
+(readback windows 1, 2, 3 in turns, 124 new tokens). Every JSON line a process prints is printed again with
 ``checkout`` and ``turn`` added; a process that fails ends the run with its
 exit code.
 """
@@ -40,14 +42,31 @@ cs.serve_run(model, dev, smi, "serve_int8", kv_dtype="int8",
 cs.serve_prefix(model, dev, smi)
 """
 
+INFLIGHT_PHASES = """
+import torch
+import chip_smoke as cs
+from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.models import gpt as gpt_mod
+dev = torch.device("cuda", 0)
+smi = cs.nvidia_smi()
+_build.build_all()
+model = gpt_mod.gpt2_small(
+    generator=torch.Generator().manual_seed(cs.SEED)).to(torch.bfloat16)
+line, outs = cs.serve_run(model, dev, smi)
+cs.serve_inflight(model, dev, smi, outs)
+"""
+
 
 def main():
     checkouts = sys.argv[1:]
+    phases = SERVE_PHASES
+    if checkouts[:1] == ["--inflight"]:
+        checkouts, phases = checkouts[1:], INFLIGHT_PHASES
     if not checkouts:
         print(__doc__, file=sys.stderr)
         return 2
     for turn, root in enumerate(checkouts):
-        proc = subprocess.run([sys.executable, "-c", SERVE_PHASES],
+        proc = subprocess.run([sys.executable, "-c", phases],
                               cwd=root, capture_output=True, text=True)
         for ln in proc.stdout.splitlines():
             if ln.startswith("{"):

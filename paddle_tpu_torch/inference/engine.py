@@ -95,21 +95,39 @@ what makes the window safe: a retired slot's pages may be handed to a new
 request while a later step that still names them is queued, since that
 step runs before anything the new request enqueues.
 
+- **Observability** (`observability/`, the JAX package's names): every
+  count goes both to ``DecodeEngine.counters`` (the names without
+  ``engine.``) and, through one helper (`_count`), to the port's metrics
+  registry as ``engine.*``; the registry also holds the JAX engine's gauges
+  (set at events, where ``DecodeEngine.gauges`` reads three of them
+  live), its histograms (queue wait, prefill, step, host and device ms a
+  step, graph captures, tier spills and re-uploads) and its
+  ``engine.dispatch`` / ``engine.step`` / ``engine.compile:{kind}`` spans.
+  Each request carries a `RequestTrace` (``submit(trace=)`` or a fresh
+  one: the ``request.*`` spans and the ``serve.*`` SLO histograms) and
+  emits one usage record when it ends (`observability/usage.py`); the
+  lifecycle's events land on the flight recorder's ring. ``engine.device_ms``
+  is the JAX meaning, the time the host blocked on a readback (a harvest's
+  event wait, a prefill's first token, a verify step's tokens): the
+  metering adds no synchronization and no event. `serve_loop` drives the
+  engine on a thread of its own under a stall watchdog
+  (`start_watchdog`).
+
 Not in this slice (see ROADMAP.md): handoff/migration and streamed
 prefill (``drain(migrate=True)``, the import mailbox), the router's prefix
-directory (A5.5-A5.6); a metrics registry, tracing, ``serve_loop`` and
-``start_watchdog`` (A5.4, A5.6: counters live in ``DecodeEngine.counters``
-and gauges in ``DecodeEngine.gauges``); a float KV pool of another dtype
-than the weights (A9).
+directory (A5.5-A5.6), with the export's ``engine.quant_dequant_ms``
+observation (the weight conversion's is in `quantization/serving.py`); a
+float KV pool of another dtype than the weights (A9).
 
-Thread model: `submit()`, `cancel()`, `drain()` are safe from any thread;
-`step()` / `run_until_idle()` / `abort()` must all run on ONE thread, the
-loop's owner.
+Thread model: `submit()`, `cancel()`, `drain()` are safe from any thread
+and make no CUDA call; `step()` / `run_until_idle()` / `serve_loop()` /
+`abort()` must all run on ONE thread, the loop's owner (`serve_loop`
+enters the engine's device on it).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-import itertools
 import logging
 import threading
 import time
@@ -131,6 +149,12 @@ from paddle_tpu_torch.kernels.paged_attention import (KV_DTYPES, TRASH_PAGE,
                                                       export_pages,
                                                       import_pages)
 from paddle_tpu_torch.models import gpt as gpt_mod
+from paddle_tpu_torch.observability import metrics
+from paddle_tpu_torch.observability.flight_recorder import (Watchdog,
+                                                            default_deadline,
+                                                            flight)
+from paddle_tpu_torch.observability.tracing import RequestTrace
+from paddle_tpu_torch.observability.usage import emit_request as _emit_usage
 from paddle_tpu_torch.quantization.serving import (QuantizedLeaf,
                                                    quantize_gpt_params)
 from paddle_tpu_torch.serving.disagg import prompt_page_hashes
@@ -141,11 +165,14 @@ __all__ = ["EngineConfig", "PageAllocator", "GenerateRequest", "DecodeEngine",
 
 _log = logging.getLogger(__name__)
 
-# process-unique request ids, ``req-<n>`` (the JAX package takes them from
-# `observability/tracing.py::new_request_id`; tracing is ROADMAP A5.4):
-# `itertools.count` is atomic under the GIL, so submitter threads never
-# share an id
-_request_ids = itertools.count(1)
+
+def _metric_name(key: str) -> str | None:
+    """The JAX engine's metric of one of ``DecodeEngine.counters``' names
+    ("engine." + the name, ``kvtier_`` written ``kvtier.``), or None for
+    the port's own ``prefills``, which the JAX engine does not keep."""
+    if key == "prefills":
+        return None
+    return "engine." + key.replace("kvtier_", "kvtier.")
 
 # packed slot-state upload layout: [B, _STATE_COLS + pages_per_slot] int32;
 # the verify step's is [B, _SPEC_COLS + K + pages_per_slot] (a draft-length
@@ -284,12 +311,16 @@ class PageAllocator:
         self._retained: set[int] = set()
         self.retain_hook = None   # page -> bool: keep this refcount-0 page?
         self.evict_hook = None    # n -> list[page]: reclaim retained pages
+        self._g_in_use = metrics.gauge("engine.pages_in_use")
 
     @property
     def free_pages(self) -> int:
         """Pages allocatable now: the free list plus the refcount-0 cached
         pages eviction can reclaim."""
         return len(self._free) + len(self._retained)
+
+    def _update_gauge(self):
+        self._g_in_use.set(self.num_pages - 1 - self.free_pages)
 
     def refcount(self, page: int) -> int:
         return self._refcnt[page]
@@ -315,6 +346,7 @@ class PageAllocator:
         pages = [self._free.popleft() for _ in range(n)]
         for p in pages:
             self._refcnt[p] = 1
+        self._update_gauge()
         return pages
 
     def reclaim(self, pages: list[int]):
@@ -326,6 +358,7 @@ class PageAllocator:
         for p in pages:
             self._retained.discard(p)
             self._free.append(p)
+        self._update_gauge()
 
     def share(self, pages: list[int]):
         """Attach cached pages to ONE more owner (a prefix hit): retained
@@ -338,6 +371,7 @@ class PageAllocator:
         for p in pages:
             self._retained.discard(p)
             self._refcnt[p] += 1
+        self._update_gauge()
 
     def free(self, pages: list[int]):
         """Release one owner's claim on each page. Fails LOUDLY, before
@@ -362,24 +396,27 @@ class PageAllocator:
                     self._retained.add(p)
                 else:
                     self._free.append(p)
+        self._update_gauge()
 
 
 class GenerateRequest:
     """One queued or running generation. `result()` blocks until the
-    sequence retires and returns prompt + generated ids. ``deadline_s``
-    starts the request's deadline clock HERE (construction = submit): past
-    it the engine retires the request with a typed ``DeadlineExceeded`` at
-    the next enforcement point (admission, step start or harvest, never
-    inside a step program)."""
+    sequence retires and returns prompt + generated ids. ``trace`` is the
+    request's `RequestTrace` (an upstream acceptor's, so that TTFT and e2e
+    start there), else a fresh one; its ``request_id`` is the request's.
+    ``deadline_s`` starts the request's deadline clock HERE (construction =
+    submit): past it the engine retires the request with a typed
+    ``DeadlineExceeded`` at the next enforcement point (admission, step
+    start or harvest, never inside a step program)."""
 
-    def __init__(self, prompt: np.ndarray, max_new_tokens: int,
+    def __init__(self, prompt: np.ndarray, max_new_tokens: int, trace=None,
                  cache: bool = True, speculate: bool = True,
                  deadline_s: float | None = None,
                  request_key: bytes | None = None,
                  temperature: float = 1.0, top_k: int = 0, seed: int = 0):
         self.prompt = prompt
         self.max_new_tokens = int(max_new_tokens)
-        self.request_id = f"req-{next(_request_ids)}"
+        self.trace = trace if trace is not None else RequestTrace()
         self.cache = bool(cache)          # prefix-cache participation
         self.speculate = bool(speculate)  # n-gram drafting participation
         self.page_hashes: list[bytes] = []  # rolling full-page prompt hashes
@@ -396,6 +433,19 @@ class GenerateRequest:
         self.request_key = None if request_key is None \
             else bytes(request_key)
         self.imported = False           # resumed from a KV handoff (A5.5)
+        self.tenant = None              # reserved multi-tenant identity
+        # usage metering (`observability/usage.py`): per-request mirrors of
+        # the engine's token counters, kept at admission, prefill, harvest
+        # and slot detach (never in a step program) and folded into ONE
+        # record at the first `_finish`
+        self.u_prefill_computed = 0     # prompt tokens a prefill ran over
+        self.u_prefill_saved = 0        # prompt tokens answered from cache
+        self.u_generated = 0            # tokens delivered
+        self.u_spec_accepted = 0        # of those, speculation's surplus
+        self.u_page_steps = 0           # KV pages held x decode steps held
+        self.u_migrations = 0           # times this request moved (A5.5)
+        self.u_admit_step = None        # step_seq at slot placement
+        self._usage_emitted = False
         self.generated: list[int] = []
         self.submit_t = time.perf_counter()
         self.first_token_t: float | None = None   # TTFT = this - submit_t
@@ -429,9 +479,22 @@ class GenerateRequest:
         return self.deadline_t is not None and \
             (time.monotonic() if now is None else now) >= self.deadline_t
 
+    @property
+    def request_id(self) -> str:
+        return self.trace.request_id
+
     def _finish(self, error: str | None = None):
+        """Every termination (retire, reap, abort, deadline) ends here: the
+        trace is marked done, the future set, and the ONE usage record
+        emitted behind a latch, so a second `_finish` never bills twice."""
+        self.trace.mark_done(error)
         self._error = error
         self._done.set()
+        with self._wlock:
+            first = not self._usage_emitted
+            self._usage_emitted = True
+        if first:
+            _emit_usage(self, error)
 
     @property
     def done(self) -> bool:
@@ -534,9 +597,11 @@ class _PrefillEntry:
         self.host_np[:] = 0
         return self.host_np
 
-    def upload(self, eng):
-        """The packed host buffer into ``dev``, on the current stream."""
-        eng.counters["h2d_transfers"] += 1
+    def upload(self, eng, count=True):
+        """The packed host buffer into ``dev``, on the current stream;
+        counted in ``h2d_transfers`` unless ``count`` is False."""
+        if count:
+            eng._count("h2d_transfers")
         self.dev.copy_(self.host, non_blocking=True)
         if self.uploaded is not None:
             self.uploaded.record()
@@ -617,6 +682,9 @@ class DecodeEngine:
         self.kv_bytes_per_token = nl * 2 * (
             nh * dh * self._kc.element_size()
             + (nh * 4 if self._quant_kv else 0))
+        metrics.gauge("engine.kv_bytes_per_token").set(
+            self.kv_bytes_per_token)
+        metrics.gauge("engine.page_size").set(ps)
         # host-side mirrors of the per-slot state, fused into ONE packed
         # int32 upload per step; sampled tokens live on the device and only
         # the _tokens column is consulted for freshly admitted slots
@@ -688,9 +756,13 @@ class DecodeEngine:
         # (`inference/graphs.py`); None gives each graph its own
         self._prefill_pool = torch.cuda.graph_pool_handle() \
             if self.device.type == "cuda" else None
-        # chunked-prefill progress: slot -> {"req", "done"}; these slots are
-        # occupied (request and pages held) but NOT decode-active
+        # chunked-prefill progress: slot -> {"req", "done", "t0"}; these
+        # slots are occupied (request and pages held) but NOT decode-active
         self._prefilling: dict[int, dict] = {}
+        self.step_seq = 0             # advances once a step(): the usage
+        #                               integral's clock, the watchdog's
+        #                               progress reading
+        self._blocked_s = 0.0         # readback waits within this step
 
         self._queue: deque[GenerateRequest] = deque()
         self._qlock = threading.Lock()
@@ -712,8 +784,8 @@ class DecodeEngine:
         self.counters = dict.fromkeys((
             "requests", "shed", "dedup_hits", "dedup_replays", "cancelled",
             "deadline_exceeded", "drains",
-            "cache_hit", "cache_miss", "compile_count", "steps",
-            "h2d_transfers", "d2h_transfers", "prefills",
+            "cache_hit", "cache_miss", "compile_count", "steps", "tokens",
+            "h2d_transfers", "d2h_transfers", "logits_readback", "prefills",
             "prefill_chunks", "prefill_tokens", "spec_steps", "spec_drafted",
             "spec_accepted", "prefix_hit", "prefix_miss",
             "prefix_pages_reused", "prefix_evictions",
@@ -722,6 +794,30 @@ class DecodeEngine:
             "kvtier_spills_disk", "kvtier_refusals", "kvtier_reuploads_host",
             "kvtier_reuploads_disk", "kvtier_spill_fail",
             "kvtier_reupload_fail"), 0)
+        # the same counts in the metrics registry (`_count` writes both),
+        # and the JAX engine's other series there: the migration counters
+        # (A5.5) stay 0, ``logits_readback`` stays 0 by design (no engine
+        # path reads logits back)
+        self._m = {k: metrics.counter(_metric_name(k))
+                   for k in self.counters if _metric_name(k)}
+        for name in ("engine.migrations_out", "engine.migrations_in"):
+            metrics.counter(name)
+        self._g_prefix_pages = metrics.gauge("engine.prefix_pages")
+        self._g_prefix_bytes = metrics.gauge("engine.prefix_store_bytes")
+        self._g_spec_rate = metrics.gauge("engine.spec_accept_rate")
+        self._g_spec_tps = metrics.gauge("engine.spec_tokens_per_step")
+        self._g_deg = metrics.gauge("engine.degradation_level")
+        self._g_occupancy = metrics.gauge("engine.batch_occupancy")
+        self._g_queue = metrics.gauge("engine.queue_depth")
+        self._g_tps = metrics.gauge("engine.tokens_per_s")
+        self._g_inflight = metrics.gauge("engine.steps_in_flight")
+        self._h_wait = metrics.histogram("engine.queue_wait_seconds")
+        self._h_step = metrics.histogram("engine.step_seconds")
+        self._h_prefill = metrics.histogram("engine.prefill_seconds")
+        self._h_host = metrics.histogram("engine.host_ms")
+        self._h_device = metrics.histogram("engine.device_ms")
+        self._h_spill = metrics.histogram("engine.kvtier.spill_ms")
+        self._h_reupload = metrics.histogram("engine.kvtier.reupload_ms")
 
         # prefix cache: rolling full-page hash -> resident page, the reverse
         # map, and the LRU of refcount-0 ("idle") cached pages the
@@ -750,6 +846,14 @@ class DecodeEngine:
                 page_shape=(nl, ps, nh, dh),
                 dtype=_dtype_name(self._kc.dtype), scales=self._quant_kv,
                 counters=self.counters)
+
+    def _count(self, key: str, n: int = 1):
+        """Count ``n`` under ``key`` in ``counters`` and under its JAX name
+        in the metrics registry: the one place an engine count moves."""
+        self.counters[key] += n
+        m = self._m.get(key)
+        if m is not None:
+            m.inc(n)
 
     def _load_params(self, model) -> dict:
         """The model's weights on the engine's device, int8 matmul leaves
@@ -824,6 +928,13 @@ class DecodeEngine:
         """Hex chain hashes of every spilled page, host tier first."""
         return [] if self._tiers is None else self._tiers.hashes()
 
+    def _update_prefix_gauges(self):
+        """The prefix store's size: indexed pages and the bytes they pin."""
+        n = len(self._page_hash)
+        self._g_prefix_pages.set(n)
+        self._g_prefix_bytes.set(
+            n * self.ecfg.page_size * self.kv_bytes_per_token)
+
     def _retain_page(self, page: int) -> bool:
         """Allocator retain hook: a refcount-0 page the store still indexes
         stays resident, most recently idled last in the LRU. Under
@@ -837,9 +948,10 @@ class DecodeEngine:
             self._prefix_idle.pop(page, None)
             if h is not None:
                 demoted = self._spill_pages([page], [h])
-                self.counters["prefix_evictions"] += 1
-                self.counters["prefix_evictions_demoted"] += demoted
-                self.counters["prefix_evictions_discarded"] += 1 - demoted
+                self._count("prefix_evictions")
+                self._count("prefix_evictions_demoted", demoted)
+                self._count("prefix_evictions_discarded", 1 - demoted)
+            self._update_prefix_gauges()
             return False
         if page in self._page_hash:
             self._prefix_idle[page] = None
@@ -860,9 +972,10 @@ class DecodeEngine:
             hashes.append(h)
         if out:
             demoted = self._spill_pages(out, hashes)
-            self.counters["prefix_evictions"] += len(out)
-            self.counters["prefix_evictions_demoted"] += demoted
-            self.counters["prefix_evictions_discarded"] += len(out) - demoted
+            self._count("prefix_evictions", len(out))
+            self._count("prefix_evictions_demoted", demoted)
+            self._count("prefix_evictions_discarded", len(out) - demoted)
+        self._update_prefix_gauges()
         return out
 
     def _spill_pages(self, pages: list[int], hashes: list[bytes]) -> int:
@@ -873,6 +986,7 @@ class DecodeEngine:
         discard (an eviction never fails)."""
         if self._tiers is None or not pages:
             return 0
+        t0 = time.perf_counter()
         try:
             if faults.ENABLED and faults.fire("kvtier.spill_fail"):
                 raise faults.FaultInjected(
@@ -883,11 +997,15 @@ class DecodeEngine:
             for i, h in enumerate(hashes):
                 self._tiers.put(h, *(b[:, i] for b in blobs[:2]),
                                 *(b[:, i] for b in blobs[2:]))
-        except Exception:  # noqa: BLE001 - a failed spill is a discard
-            self.counters["kvtier_spill_fail"] += 1
+        except Exception as e:  # noqa: BLE001 - a failed spill is a discard
+            self._count("kvtier_spill_fail")
+            flight.record("engine.kvtier.spill_fail", pages=len(pages),
+                          error=f"{type(e).__name__}: {e}")
             _log.warning("KV tier spill of %d pages failed; they are "
                          "discarded", len(pages), exc_info=True)
             return 0
+        self._h_spill.observe((time.perf_counter() - t0) * 1e3)
+        flight.record("engine.kvtier.spill", pages=len(pages))
         return len(pages)
 
     def _tier_reupload(self, hashes: list[bytes], prompt_len: int,
@@ -909,6 +1027,7 @@ class DecodeEngine:
         if not entries:
             return 0
         n = len(entries)
+        t0 = time.perf_counter()
         try:
             if faults.ENABLED and faults.fire("kvtier.reupload_fail"):
                 raise faults.FaultInjected(
@@ -919,13 +1038,19 @@ class DecodeEngine:
             import_pages(self._kc, self._vc, *blobs[:2], pages[:n],
                          *((self._ks, self._vs) if self._quant_kv else ()),
                          *blobs[2:])
-        except Exception:  # noqa: BLE001 - a failed re-upload prefills cold
-            self.counters["kvtier_reupload_fail"] += 1
+        except Exception as e:  # noqa: BLE001 - a failed re-upload: cold
+            self._count("kvtier_reupload_fail")
+            flight.record("engine.kvtier.reupload_fail", pages=n,
+                          error=f"{type(e).__name__}: {e}")
             _log.warning("KV tier re-upload of %d pages failed; the request "
                          "prefills cold", n, exc_info=True)
             return 0
         for e in entries:
-            self.counters["kvtier_reuploads_" + e.tier] += 1
+            self._count("kvtier_reuploads_" + e.tier)
+        self._h_reupload.observe((time.perf_counter() - t0) * 1e3)
+        flight.record("engine.kvtier.reupload", pages=n,
+                      from_host=sum(1 for e in entries if e.tier == "host"),
+                      from_disk=sum(1 for e in entries if e.tier == "disk"))
         return n
 
     def _flush_prefix(self):
@@ -940,6 +1065,7 @@ class DecodeEngine:
             self.allocator.reclaim(idle)
         if self._tiers is not None:
             self._tiers.flush()
+        self._update_prefix_gauges()
 
     def _prefix_lookup(self, hashes: list[bytes]) -> list[int]:
         """Longest cached prefix: pages for the leading run of hash hits."""
@@ -966,6 +1092,7 @@ class DecodeEngine:
                 continue
             self._prefix_pages[h] = p
             self._page_hash[p] = h
+        self._update_prefix_gauges()
 
     # ----------------------------------------------------------- prefill
 
@@ -1016,17 +1143,25 @@ class DecodeEngine:
 
     def _compiled(self, key, build):
         """The program cache: ``build()`` once per key, counted as
-        ``cache_miss`` and ``compile_count`` (a hit as ``cache_hit``). An
-        entry is called as ``entry(engine, *inputs)``; it holds no
-        reference to the engine, so a dropped engine frees its pools
-        without a garbage-collector pass."""
+        ``cache_miss`` and ``compile_count`` (a hit as ``cache_hit``), with
+        an ``engine.compile_start`` event, the ``engine.compile_seconds``
+        histogram and an ``engine.compile:{kind}`` span: on the card a
+        miss is a graph capture. An entry is called as ``entry(engine,
+        *inputs)``; it holds no reference to the engine, so a dropped
+        engine frees its pools without a garbage-collector pass."""
         exe = self._programs.get(key)
         if exe is None:
-            self.counters["cache_miss"] += 1
+            self._count("cache_miss")
+            flight.record("engine.compile_start", program=str(key))
+            t0 = time.perf_counter()
             exe = self._programs[key] = build()
-            self.counters["compile_count"] += 1
+            self._count("compile_count")
+            dt = time.perf_counter() - t0
+            metrics.histogram("engine.compile_seconds").observe(dt)
+            metrics.add_span(f"engine.compile:{key[0]}", t0, dt,
+                             cat="compile")
         else:
-            self.counters["cache_hit"] += 1
+            self._count("cache_hit")
         return exe
 
     def _step_program(self, body):
@@ -1131,7 +1266,7 @@ class DecodeEngine:
         ``_state_dev`` is one buffer (the graph's input keeps its
         identity): stream order keeps each replay ahead of the next
         copy."""
-        self.counters["h2d_transfers"] += 1
+        self._count("h2d_transfers")
         self._state_dev.copy_(self._state_host, non_blocking=True)
         event = self._state_uploaded[self._state_i]
         if event is not None:
@@ -1211,10 +1346,14 @@ class DecodeEngine:
             entry = self._pack_prefill(ids, row, slot, req)
             entry(self)
             tok = entry.tok
-            self.counters["prefills"] += 1
-            self.counters["prefill_tokens"] += ids.size
-        self.counters["d2h_transfers"] += 1
-        return int(tok)
+            self._count("prefills")
+            self._count("prefill_tokens", ids.size)
+            req.u_prefill_computed += int(ids.size)
+        tb = time.perf_counter()
+        first = int(tok)                        # the prefill's one readback
+        self._blocked_s += time.perf_counter() - tb
+        self._count("d2h_transfers")
+        return first
 
     def _run_chunk(self, ids: np.ndarray, done: int, row: np.ndarray,
                    slot: int, req: GenerateRequest, c: int | None = None):
@@ -1226,8 +1365,9 @@ class DecodeEngine:
         c = int(self.ecfg.prefill_chunk_tokens if c is None else c)
         entry, n, final = self._pack_chunk(ids, done, row, slot, req, c)
         entry(self)
-        self.counters["prefill_chunks"] += 1
-        self.counters["prefill_tokens"] += n
+        self._count("prefill_chunks")
+        self._count("prefill_tokens", n)
+        req.u_prefill_computed += n
         return entry.tok if final else None
 
     # ---------------------------------------------------------- requests
@@ -1238,9 +1378,9 @@ class DecodeEngine:
         """Queue one prompt (1-D or [1, S] int array). Thread-safe. The
         parameters are the JAX engine's, in its order.
 
-        ``trace`` (an upstream request trace) is not ported: anything but
-        None raises NotImplementedError (ROADMAP A5.4), never a silent
-        drop. ``cache=False`` keeps this prompt out of the prefix cache (it
+        ``trace``: a `RequestTrace` made upstream (a server's acceptor), so
+        that the SLO clock starts there; by default it starts here.
+        ``cache=False`` keeps this prompt out of the prefix cache (it
         neither reuses nor registers pages). ``speculate=False`` keeps this
         request out of n-gram drafting on a speculating engine.
         ``deadline_s`` bounds the request end to end: past it the engine
@@ -1264,9 +1404,6 @@ class DecodeEngine:
         one split of ``PRNGKey(seed)`` per sampled token). Sampled
         parameters on an engine without ``sampling`` raise ValueError:
         there is no host-sampled path."""
-        if trace is not None:
-            raise NotImplementedError(
-                "submit(trace=...) is not ported (ROADMAP A5.4, tracing)")
         ids = np.ascontiguousarray(np.asarray(prompt_ids)).reshape(-1)
         if ids.size == 0:
             raise ValueError("empty prompt")
@@ -1290,10 +1427,10 @@ class DecodeEngine:
             raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
         self._check_sample_params(temperature, top_k)
         key = self._dedup_key(request_key)
-        req = GenerateRequest(ids, n, cache=cache, speculate=speculate,
-                              deadline_s=deadline_s, request_key=key,
-                              temperature=temperature, top_k=top_k,
-                              seed=seed)
+        req = GenerateRequest(ids, n, trace=trace, cache=cache,
+                              speculate=speculate, deadline_s=deadline_s,
+                              request_key=key, temperature=temperature,
+                              top_k=top_k, seed=seed)
         # double-checked admission: the first check fails a shed, dead or
         # draining submit fast, BEFORE the O(prompt) hash pass; the hash
         # then runs on the submitter's thread with no lock held, and the
@@ -1314,10 +1451,17 @@ class DecodeEngine:
             if prev is not None:
                 return prev
             self._check_admission(ids.size)
+            # trace marks and ring entries only for ACCEPTED submits: a
+            # refused one must not leave a never-retired request in a
+            # watchdog dump
+            req.trace.mark_submit()
+            flight.record("engine.submit", request_id=req.request_id,
+                          prompt_len=int(ids.size), max_new_tokens=n)
             self._queue.append(req)
             self._queue_tokens += int(ids.size)
+            self._g_queue.set(len(self._queue))
             self._register_dedup(key, req)
-            self.counters["requests"] += 1
+            self._count("requests")
             self._work.notify()
         return req
 
@@ -1370,10 +1514,12 @@ class DecodeEngine:
                 "an idempotency key names ONE logical request")
         if not prev.done:
             self._dedup.move_to_end(key)
-            self.counters["dedup_hits"] += 1
+            self._count("dedup_hits")
             # a pending cancel of the first attempt is void: the resubmit
             # is the evidence that the client still wants the answer
             self._cancels.pop(prev.request_id, None)
+            flight.record("engine.dedup_attach",
+                          request_id=prev.request_id)
             return prev
         if prev._error is not None and prev._error.startswith("Cancelled"):
             # a cancelled attempt produced no answer: the resubmit is a
@@ -1381,7 +1527,8 @@ class DecodeEngine:
             del self._dedup[key]
             return None
         self._dedup.move_to_end(key)
-        self.counters["dedup_replays"] += 1
+        self._count("dedup_replays")
+        flight.record("engine.dedup_replay", request_id=prev.request_id)
         return prev
 
     def _register_dedup(self, key: bytes | None, req: GenerateRequest):
@@ -1412,14 +1559,14 @@ class DecodeEngine:
         self._refuse_not_accepting()
         mqd, mqt = self.ecfg.max_queue_depth, self.ecfg.max_queue_tokens
         if mqd is not None and len(self._queue) >= int(mqd):
-            self.counters["shed"] += 1
+            self._count("shed")
             raise Overloaded(
                 f"engine queue full: depth {len(self._queue)} >= "
                 f"max_queue_depth {int(mqd)}")
         # a backlog bound only: an EMPTY queue always admits
         if mqt is not None and self._queue and \
                 self._queue_tokens + n_tokens > int(mqt):
-            self.counters["shed"] += 1
+            self._count("shed")
             raise Overloaded(
                 f"engine queue full: {self._queue_tokens} queued + "
                 f"{n_tokens} new tokens > max_queue_tokens {int(mqt)}")
@@ -1469,8 +1616,12 @@ class DecodeEngine:
             for req, _ in drop:
                 self._queue.remove(req)
                 self._queue_tokens -= int(req.prompt.size)
+            if drop:
+                self._g_queue.set(len(self._queue))
         for req, err in drop:
             self._count_reap(err)
+            flight.record("engine.reap", request_id=req.request_id,
+                          where="queue", error=err)
             req._finish(err)
         now = time.monotonic()
         for slot in range(self.ecfg.max_slots):
@@ -1484,6 +1635,8 @@ class DecodeEngine:
             else:
                 continue
             self._count_reap(err)
+            flight.record("engine.reap", request_id=req.request_id,
+                          where="slot", error=err)
             self._retire(slot, error=err)
 
     @staticmethod
@@ -1493,8 +1646,8 @@ class DecodeEngine:
                 f"{len(req.generated)} generated tokens")
 
     def _count_reap(self, err: str):
-        self.counters["deadline_exceeded" if err.startswith(
-            "DeadlineExceeded") else "cancelled"] += 1
+        self._count("deadline_exceeded" if err.startswith(
+            "DeadlineExceeded") else "cancelled")
 
     # ------------------------------------------------ degradation ladder
 
@@ -1527,6 +1680,9 @@ class DecodeEngine:
         if target >= 2 > self._deg:
             self._shrink_prefix()
         self._deg = target
+        self._g_deg.set(target)
+        flight.record("engine.degradation", level=target,
+                      pressure=round(frac, 3))
 
     def _shrink_prefix(self):
         """Level >= 2: every IDLE cached page back to the free list, with
@@ -1566,6 +1722,7 @@ class DecodeEngine:
                 return
             with self._qlock:
                 if not self._queue:
+                    self._g_queue.set(0)
                     return
                 req = self._queue[0]
                 if req.done or req.expired():
@@ -1573,9 +1730,13 @@ class DecodeEngine:
                     # BEFORE any prefill runs, zero prefill tokens spent
                     self._queue.popleft()
                     self._queue_tokens -= int(req.prompt.size)
+                    self._g_queue.set(len(self._queue))
                     if not req.done:
                         err = self._deadline_error(req)
                         self._count_reap(err)
+                        flight.record("engine.reap",
+                                      request_id=req.request_id,
+                                      where="admission", error=err)
                         req._finish(err)
                     continue
                 total = -(-(req.prompt.size + req.max_new_tokens) // ps)
@@ -1599,17 +1760,20 @@ class DecodeEngine:
                         # itself is too small for this request
                         self._queue.popleft()
                         self._queue_tokens -= int(req.prompt.size)
+                        self._g_queue.set(len(self._queue))
                         req._finish(error=f"request needs {total} pages, "
                                     f"pool has "
                                     f"{self.allocator.num_pages - 1}")
                         continue
                     return                 # wait for a retirement
                 if use_cache:
-                    self.counters["prefix_hit" if shared
-                                  else "prefix_miss"] += 1
-                    self.counters["prefix_pages_reused"] += len(shared)
+                    self._count("prefix_hit" if shared
+                                else "prefix_miss")
+                    self._count("prefix_pages_reused", len(shared))
                 self._queue.popleft()
                 self._queue_tokens -= int(req.prompt.size)
+                self._g_queue.set(len(self._queue))
+            self._h_wait.observe(time.perf_counter() - req.submit_t)
             n_up = self._tier_reupload(req.page_hashes, req.prompt.size,
                                        shared, pages) if use_cache else 0
             self._place(req, slots[0], shared + pages, len(shared) + n_up)
@@ -1619,12 +1783,20 @@ class DecodeEngine:
         """``pages``: the slot's allocation in token order, ``n_shared``
         leading pages already holding the prompt's KV (attached or
         re-uploaded). The prefill covers only the positions after them."""
+        req.trace.mark_admitted()
+        flight.record("engine.admit", request_id=req.request_id,
+                      slot=slot, pages=len(pages), shared=n_shared,
+                      prompt_len=int(req.prompt.size))
         cached = n_shared * self.ecfg.page_size
         row = np.full(self.pages_per_slot, TRASH_PAGE, np.int32)
         row[:len(pages)] = pages
         self._page_table[slot] = row
         self._slot_req[slot] = req
         self._slot_pages[slot] = pages
+        # usage: the prompt tokens the caches answered, and the step clock
+        # at placement (the page-step integral closes at `_detach_slot`)
+        req.u_prefill_saved = min(cached, int(req.prompt.size))
+        req.u_admit_step = self.step_seq
         if self._sampling:
             self._temps[slot] = req.temperature
             self._topks[slot] = req.top_k
@@ -1634,10 +1806,13 @@ class DecodeEngine:
             # the decode step until the prompt is cached. A prefix hit
             # starts the chunk cursor after the shared pages
             self._lengths[slot] = 0
-            self._prefilling[slot] = {"req": req, "done": cached}
+            self._prefilling[slot] = {"req": req, "done": cached,
+                                      "t0": time.perf_counter()}
             return
-        self._seed_first_token(slot, req, self._run_prefill(
-            req.prompt, row, slot, req, start=cached))
+        t0 = time.perf_counter()
+        first = self._run_prefill(req.prompt, row, slot, req, start=cached)
+        self._h_prefill.observe(time.perf_counter() - t0)
+        self._seed_first_token(slot, req, first)
 
     def _seed_first_token(self, slot: int, req: GenerateRequest, first: int):
         """Prefill finished: activate the slot for decode and deliver the
@@ -1655,6 +1830,9 @@ class DecodeEngine:
             self._slot_draft[slot] = idx
         req.generated.append(first)
         req.first_token_t = time.perf_counter()
+        req.trace.mark_first_token()
+        req.u_generated += 1
+        self._count("tokens")
         if self._prefix_enabled and req.cache:
             # the prompt's full pages are resident and final: index them
             # (a hit's shared leading pages are indexed already)
@@ -1676,14 +1854,25 @@ class DecodeEngine:
         st["done"] = min(st["done"] + c, req.prompt.size)
         if tok is not None:                    # the final chunk's token
             del self._prefilling[slot]
-            self.counters["d2h_transfers"] += 1
-            self._seed_first_token(slot, req, int(tok))
+            tb = time.perf_counter()
+            first = int(tok)                   # the prefill's one readback
+            self._blocked_s += time.perf_counter() - tb
+            self._count("d2h_transfers")
+            self._h_prefill.observe(time.perf_counter() - st["t0"])
+            self._seed_first_token(slot, req, first)
         return True
 
     def _detach_slot(self, slot: int):
         """Release a slot's pages and mirrors without touching the request
         future."""
         self._prefilling.pop(slot, None)
+        req = self._slot_req[slot]
+        if req is not None and req.u_admit_step is not None:
+            # the occupancy integral, closed at once: pages held x steps
+            # held, so the step loop never does usage work
+            req.u_page_steps += len(self._slot_pages[slot]) * max(
+                0, self.step_seq - req.u_admit_step)
+            req.u_admit_step = None
         self.allocator.free(self._slot_pages[slot])
         self._slot_pages[slot] = []
         self._slot_req[slot] = None
@@ -1700,6 +1889,8 @@ class DecodeEngine:
         req = self._slot_req[slot]
         self._detach_slot(slot)
         if req is not None:
+            flight.record("engine.retire", request_id=req.request_id,
+                          slot=slot, tokens=len(req.generated), error=error)
             req._finish(error)
 
     # -------------------------------------------------------------- step
@@ -1777,6 +1968,7 @@ class DecodeEngine:
         exe = self._decode_exe()
         self._packed_state()
         self._upload_state()
+        t0 = time.perf_counter()
         exe(self)
         j = self._tok_i = (self._tok_i + 1) % self._window
         self._tok_ring[j].copy_(self._tok_dev, non_blocking=True)
@@ -1785,6 +1977,7 @@ class DecodeEngine:
         snapshot = [(int(i), self._slot_req[i])
                     for i in np.flatnonzero(self._active)]
         self._inflight.append((j, snapshot))
+        self._g_inflight.set(len(self._inflight))
         # host bookkeeping for the step: each active slot advances one
         # position; a slot at its token budget stops being dispatched but
         # stays occupied until its tokens are harvested
@@ -1792,25 +1985,34 @@ class DecodeEngine:
         self._budget[self._active] -= 1
         self._fresh[:] = False
         self._active &= self._budget > 0
-        self.counters["steps"] += 1
+        self._count("steps")
+        metrics.add_span("engine.dispatch", t0, time.perf_counter() - t0,
+                         cat="engine")
 
-    def _harvest_one(self):
+    def _harvest_one(self) -> int:
         """Block on the OLDEST in-flight step's tokens (its ring slot's
         event; the only blocking readback of the loop) and deliver them:
         append to each snapshot request, retire slots that hit
         max_new_tokens or EOS, or whose deadline passed. A token for a
         request already retired (EOS seen in an earlier step of the
-        window, or a cancel) is discarded."""
+        window, or a cancel) is discarded. Returns the tokens delivered."""
         j, snapshot = self._inflight.popleft()
+        self._g_inflight.set(len(self._inflight))
+        tb = time.perf_counter()
         if self._tok_copied[j] is not None:
             self._tok_copied[j].synchronize()
         toks = self._tok_ring[j].tolist()
-        self.counters["d2h_transfers"] += 1
+        self._blocked_s += time.perf_counter() - tb
+        self._count("d2h_transfers")
+        n = 0
         for slot, req in snapshot:
             if req.done or self._slot_req[slot] is not req:
                 continue
             tok = toks[slot]
             req.generated.append(tok)
+            req.trace.mark_tokens(1)
+            req.u_generated += 1
+            n += 1
             if len(req.generated) >= req.max_new_tokens \
                     or tok == self.ecfg.eos_id:
                 self._retire(slot)
@@ -1820,6 +2022,8 @@ class DecodeEngine:
                 err = self._deadline_error(req)
                 self._count_reap(err)
                 self._retire(slot, error=err)
+        self._count("tokens", n)
+        return n
 
     def _drain_window(self):
         """Harvest every step in flight."""
@@ -1861,13 +2065,16 @@ class DecodeEngine:
         exe = self._verify_exe()
         self._packed_state(drafts, draft_lens)
         self._upload_state()
+        t0 = time.perf_counter()
         out = exe(self)
         snapshot = [(int(i), self._slot_req[i])
                     for i in np.flatnonzero(self._active)]
         self._fresh[:] = False
-        self.counters["steps"] += 1
-        self.counters["spec_steps"] += 1
-        self.counters["spec_drafted"] += int(draft_lens.sum())
+        self._count("steps")
+        self._count("spec_steps")
+        self._count("spec_drafted", int(draft_lens.sum()))
+        metrics.add_span("engine.dispatch", t0, time.perf_counter() - t0,
+                         cat="engine")
         return out, snapshot
 
     def _verify_body(self):
@@ -1901,9 +2108,12 @@ class DecodeEngine:
         exactly what was kept, so rejected drafts sit past every live
         position until a later step writes them. The host is the authority
         on each slot's next token from here (``_fresh``), so the verify
-        step leaves ``_tok_dev`` alone."""
+        step leaves ``_tok_dev`` alone. Returns the tokens delivered."""
+        tb = time.perf_counter()
         out = out_dev.cpu().numpy()
-        self.counters["d2h_transfers"] += 1
+        self._blocked_s += time.perf_counter() - tb
+        self._count("d2h_transfers")
+        harvested = accepted = 0
         for slot, req in snapshot:
             if req.done or self._slot_req[slot] is not req:
                 continue
@@ -1917,7 +2127,11 @@ class DecodeEngine:
             if idx is not None:
                 for t in toks:
                     idx.append(t)
-            self.counters["spec_accepted"] += n - 1
+            req.trace.mark_tokens(n)
+            req.u_generated += n
+            req.u_spec_accepted += n - 1
+            harvested += n
+            accepted += n - 1
             self._lengths[slot] += n
             self._budget[slot] -= n
             self._tokens[slot] = toks[-1]
@@ -1929,6 +2143,16 @@ class DecodeEngine:
                 err = self._deadline_error(req)
                 self._count_reap(err)
                 self._retire(slot, error=err)
+        self._count("tokens", harvested)
+        self._count("spec_accepted", accepted)
+        # the JAX gauge: the registry's cumulative counts, every engine of
+        # the process
+        drafted = self._m["spec_drafted"].value
+        if drafted:
+            self._g_spec_rate.set(self._m["spec_accepted"].value / drafted)
+        if snapshot:
+            self._g_spec_tps.set(harvested / len(snapshot))
+        return harvested
 
     def check_step_graph(self):
         """The next decode (or verify) step run twice from one state, to
@@ -2014,7 +2238,6 @@ class DecodeEngine:
                              f"{npages} pages, more than a slot or the pool")
         row = np.full(self.pages_per_slot, TRASH_PAGE, np.int32)
         row[:npages] = np.arange(1, npages + 1)
-        counters = dict(self.counters)
         if start:
             entry = self._pack_chunk(ids, start, row, 0, req,
                                      self._tail_chunk(ids.size, start))[0]
@@ -2022,15 +2245,11 @@ class DecodeEngine:
             entry = self._pack_prefill(ids, row, 0, req)
 
         def run(program):
-            entry.upload(self)
+            entry.upload(self, count=False)
             return program(self)
-        graph, eager = self._from_one_state(
+        return self._from_one_state(
             entry.tok, (lambda: run(entry.graph or entry.body),
                         lambda: run(entry.body)))
-        program = ("cache_hit", "cache_miss", "compile_count")
-        self.counters.update((k, v) for k, v in counters.items()
-                             if k not in program)
-        return graph, eager
 
     def step(self) -> bool:
         """One step, in the JAX engine's order: the fault sites, `_reap`
@@ -2038,7 +2257,13 @@ class DecodeEngine:
         the capacity tripwire, ONE batched decode step (a verify step on a
         speculating engine), at most one prefill chunk, then the harvest
         of the steps past the in-flight window (a verify step's at once).
-        Returns False when idle."""
+        Returns False when idle. ``step_seq`` advances on every call; a
+        step that did work observes ``engine.step_seconds``, ``host_ms``
+        and ``device_ms`` (the time blocked on readbacks) and records an
+        ``engine.step`` span and flight event."""
+        t_step = time.perf_counter()
+        self.step_seq += 1
+        self._blocked_s = 0.0
         if faults.ENABLED:
             faults.fire("engine.step_delay")   # armed: sleeps delay_s
             faults.fire("engine.crash")        # armed with exc=: raises
@@ -2053,7 +2278,14 @@ class DecodeEngine:
                 f"sequence hit slot capacity {self.slot_capacity} "
                 f"(pages_per_slot * page_size); token at position "
                 f"{int(self._lengths[slot])} cannot be cached"))
-        n_active = bool(self._active.any())
+        n_active = int(self._active.sum())
+        self._g_occupancy.set(n_active)
+        if n_active or self._inflight or self._prefilling:
+            # idle polls stay out of the ring: an hour of an idle
+            # serve_loop must not push out the events of the last work
+            flight.record("engine.step", step_seq=self.step_seq,
+                          occupancy=n_active, inflight=len(self._inflight))
+        harvested = 0
         spec_out = snapshot = None
         if n_active:
             if self._spec:
@@ -2065,17 +2297,24 @@ class DecodeEngine:
         chunked = self._advance_prefill()
         if spec_out is not None:
             # the next drafts need these tokens: no window
-            self._harvest_spec(spec_out, snapshot)
+            harvested += self._harvest_spec(spec_out, snapshot)
         elif n_active:
             while len(self._inflight) >= self._window:
-                self._harvest_one()
+                harvested += self._harvest_one()
         elif self._inflight:
             # nothing to dispatch: drain the window one step at a time so
             # budget-spent slots retire and free their pages
-            self._harvest_one()
+            harvested += self._harvest_one()
         elif not chunked:
             with self._qlock:
                 return bool(self._queue)
+        dt = time.perf_counter() - t_step
+        self._h_step.observe(dt)
+        self._h_host.observe((dt - self._blocked_s) * 1e3)
+        self._h_device.observe(self._blocked_s * 1e3)
+        if harvested:
+            self._g_tps.set(harvested / dt if dt > 0 else 0.0)
+        metrics.add_span("engine.step", t_step, dt, cat="engine")
         return self._has_work()
 
     def _has_work(self) -> bool:
@@ -2108,7 +2347,7 @@ class DecodeEngine:
         with self._work:
             self._draining = True
             self._work.notify()
-        self.counters["drains"] += 1
+        self._count("drains")
 
     def abort(self, reason: str):
         """Fail every queued and running request with ``reason``, free
@@ -2122,9 +2361,85 @@ class DecodeEngine:
             self._queue.clear()
             self._queue_tokens = 0
             self._cancels.clear()
+            self._g_queue.set(0)
         for req in queued:
             req._finish(reason)
         self._inflight.clear()
+        self._g_inflight.set(0)
         for slot in range(self.ecfg.max_slots):
             if self._slot_req[slot] is not None:
                 self._retire(slot, error=reason)
+        self._g_occupancy.set(0)
+
+    # -------------------------------------------- watchdog and serve loop
+
+    def active_traces(self):
+        """Traces of every request the engine still owes an answer: queued,
+        slotted, or awaiting an in-flight harvest (what a watchdog dump
+        lists as the stalled requests). Host state only."""
+        with self._qlock:
+            reqs = list(self._queue)
+        reqs += [r for r in self._slot_req if r is not None]
+        for _, snapshot in list(self._inflight):
+            reqs += [r for _, r in snapshot]
+        seen, traces = set(), []
+        for r in reqs:
+            if id(r) not in seen and not r.done:
+                seen.add(id(r))
+                traces.append(r.trace)
+        return traces
+
+    def start_watchdog(self, deadline_s=None, dump_dir=None,
+                       interval_s=None):
+        """Arm a stall watchdog over this engine's step loop: if the engine
+        has work but ``step_seq`` stops advancing for ``deadline_s``
+        (default ``PADDLE_WATCHDOG_S``, 300 s; <= 0 disables and returns
+        None), the flight recorder's ring, the stalled requests' traces and
+        the metrics snapshot are dumped to a JSON file
+        (`observability/flight_recorder.py`). `serve_loop` arms one; a
+        caller driving `step` / `run_until_idle` opts in here. The
+        watchdog's thread reads host state only, never the card, so it
+        can dump while a step waits on the device."""
+        deadline = default_deadline() if deadline_s is None \
+            else float(deadline_s)
+        if deadline <= 0:
+            return None
+        return Watchdog("engine", progress=lambda: self.step_seq,
+                        busy=self._has_work, deadline_s=deadline,
+                        dump_dir=dump_dir, traces=self.active_traces,
+                        interval_s=interval_s).start()
+
+    def _on_device(self):
+        """The engine's CUDA device as the current one of the calling
+        thread (a null context on the CPU): a thread that did not build
+        the engine captures and replays its graphs there."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        return torch.cuda.device(self._tok_dev.device)
+
+    def serve_loop(self, stop_event: threading.Event, idle_wait=0.05):
+        """The engine's loop for a thread of its own: steps while there is
+        work, parks on the submit condition when idle, on the engine's
+        device. On exit, a clean stop or a step raising (a fault, a device
+        error), every outstanding request is aborted, so no caller is left
+        blocking on a request nobody will finish. A stall watchdog
+        (`start_watchdog`) guards the loop: a step that wedges leaves a
+        flight-recorder dump instead of a silent hang. Other threads only
+        `submit` / `cancel` / `drain`, which make no CUDA call."""
+        watchdog = self.start_watchdog()
+        try:
+            with self._on_device():
+                while not stop_event.is_set():
+                    if self.step():
+                        continue
+                    with self._work:
+                        if not self._queue:
+                            self._work.wait(idle_wait)
+        except Exception as e:  # noqa: BLE001 - surface it to every waiter
+            metrics.counter("engine.loop_errors").inc()
+            self.abort(f"engine loop died: {type(e).__name__}: {e}")
+            raise
+        finally:
+            if watchdog is not None:
+                watchdog.stop()
+        self.abort("engine stopped (server shutdown)")

@@ -13,7 +13,10 @@ Capture follows PyTorch's recipe. The body runs eagerly ``WARMUP_RUNS``
 times on the device's capture stream first, so that what it caches per
 stream (cuBLAS workspaces, the split decode loop's tickets,
 `kernels/cuda/paged_attention.py::_tickets`) exists outside the graph's
-private memory pool; then one more run is captured on that stream. A
+private memory pool; then one more run is captured on that stream, in
+the thread-local capture mode: only the capturing thread is barred from
+CUDA calls that would break a capture, so an engine loop may capture
+while other threads of its process (a server's, a watchdog's) run. A
 failed capture raises: there is no eager fallback on the card.
 
 The engine's prefill and chunk graphs of one engine share one memory pool
@@ -65,8 +68,7 @@ def _restore(snap):
     launches, dispatches = snap
     for k in _build.kernels():
         k.launches = launches.get(k, 0)
-    registry.reset_counts()
-    registry.add_counts(dispatches)
+    registry.restore_counts(dispatches)
 
 
 class StepGraph:
@@ -89,16 +91,23 @@ class StepGraph:
         stream = capture_stream(device)
         before = _counts()
         try:
-            stream.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(stream):
-                for _ in range(WARMUP_RUNS):
-                    body()
-            start = _counts()
-            self.graph = torch.cuda.CUDAGraph()
-            # synchronizes the device before capture begins
-            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
-                self.outputs = body()
-            end = _counts()
+            # the warm-up runs and the capture count into the launch and
+            # dispatch counts only, never the metrics registry, and are
+            # taken back after
+            with registry.capturing():
+                stream.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(stream):
+                    for _ in range(WARMUP_RUNS):
+                        body()
+                start = _counts()
+                self.graph = torch.cuda.CUDAGraph()
+                # synchronizes the device before capture begins; a CUDA
+                # call of another thread (a server's, while its engine
+                # loop captures) cannot invalidate this capture
+                with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self.outputs = body()
+                end = _counts()
         finally:
             _restore(before)
         self.kernel_launches = {k: n - start[0].get(k, 0)

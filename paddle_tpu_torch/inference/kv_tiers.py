@@ -20,8 +20,15 @@ page geometry, the pool dtype by its numpy name (``bfloat16`` too: the
 values travel as raw bytes, never through a numpy bfloat16 type), a
 per-store salt and the flush epoch. A corrupt, truncated, mis-keyed or
 stale blob raises the typed :class:`HandoffCorrupt` inside the store, is
-counted in ``kvtier_refusals`` and reads as a plain miss: the request
-prefills cold and never sees an error.
+counted in ``kvtier_refusals`` (an ``engine.kvtier.refused`` flight
+event) and reads as a plain miss: the request prefills cold and never
+sees an error.
+
+Each count goes to the engine's ``counters`` dict and, under the JAX
+package's name (``engine.kvtier.hits_host``, ...), to the port's metrics
+registry, with the blob bytes spilled and the tiers' sizes
+(``engine.kvtier.host_pages`` / ``host_bytes`` / ``disk_pages`` /
+``disk_bytes`` gauges).
 
 The store moves bytes only; the engine gathers and scatters the pages on
 the device (`kernels/paged_attention.py::export_pages` / `import_pages`).
@@ -43,6 +50,8 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.inference.errors import HandoffCorrupt
+from paddle_tpu_torch.observability import metrics
+from paddle_tpu_torch.observability.flight_recorder import flight
 from paddle_tpu_torch.testing import faults
 
 __all__ = ["KVTierStore", "TierEntry", "MAGIC"]
@@ -141,6 +150,14 @@ class KVTierStore:
             for f in os.listdir(self._dir):          # the store owns it
                 if f.endswith(".ptkt"):
                     self._unlink(os.path.join(self._dir, f))
+        self._metrics = {k: metrics.counter("engine." + k.replace(
+            "kvtier_", "kvtier.")) for k in (
+                "kvtier_hits_host", "kvtier_hits_disk", "kvtier_spills_host",
+                "kvtier_spills_disk", "kvtier_bytes_host",
+                "kvtier_bytes_disk", "kvtier_refusals")}
+        self._gauges = {k: metrics.gauge("engine.kvtier." + k) for k in (
+            "host_pages", "host_bytes", "disk_pages", "disk_bytes")}
+        self._update_gauges()
 
     # --------------------------------------------------------------- framing
 
@@ -213,8 +230,23 @@ class KVTierStore:
         except OSError:
             pass
 
-    def _count(self, key: str):
+    def _count(self, key: str, nbytes: int = 0):
+        """One count of ``key`` into the engine's dict and the registry;
+        a spill's ``nbytes`` also into its tier's bytes counter."""
         self.counters[key] += 1
+        self._metrics[key].inc()
+        if nbytes:
+            self._metrics[key.replace("spills", "bytes")].inc(nbytes)
+
+    def _refuse(self, h: bytes, why: str):
+        self._count("kvtier_refusals")
+        flight.record("engine.kvtier.refused", hash=h.hex(), error=why)
+
+    def _update_gauges(self):
+        self._gauges["host_pages"].set(len(self._host))
+        self._gauges["host_bytes"].set(self._host_bytes)
+        self._gauges["disk_pages"].set(len(self._disk))
+        self._gauges["disk_bytes"].set(self._disk_bytes)
 
     def _put_disk(self, h: bytes, blob: bytes):
         if not self._disk_cap or len(blob) > self._disk_cap:
@@ -229,7 +261,7 @@ class KVTierStore:
         os.replace(tmp, path)                 # never a torn final file
         self._disk[h] = len(blob)
         self._disk_bytes += len(blob)
-        self._count("kvtier_spills_disk")
+        self._count("kvtier_spills_disk", len(blob))
         while self._disk_bytes > self._disk_cap and self._disk:
             old, sz = self._disk.popitem(last=False)
             self._disk_bytes -= sz
@@ -247,13 +279,14 @@ class KVTierStore:
                     self._host_bytes -= len(self._host.pop(h))
                 self._host[h] = blob
                 self._host_bytes += len(blob)
-                self._count("kvtier_spills_host")
+                self._count("kvtier_spills_host", len(blob))
                 while self._host_bytes > self._host_cap and self._host:
                     old, old_blob = self._host.popitem(last=False)
                     self._host_bytes -= len(old_blob)
                     self._put_disk(old, old_blob)   # demote, else discard
             else:
                 self._put_disk(h, blob)
+            self._update_gauges()
 
     def get(self, h: bytes) -> TierEntry | None:
         """One chain hash, host tier first. A corrupt or stale entry (or
@@ -266,9 +299,10 @@ class KVTierStore:
                 self._host.move_to_end(h)
                 try:
                     entry = self._unpack(h, blob)
-                except HandoffCorrupt:
+                except HandoffCorrupt as e:
                     self._host_bytes -= len(self._host.pop(h))
-                    self._count("kvtier_refusals")
+                    self._refuse(h, str(e))
+                    self._update_gauges()
                     return None
                 self._count("kvtier_hits_host")
                 return TierEntry(*entry, "host")
@@ -282,10 +316,11 @@ class KVTierStore:
                     with open(self._path(h), "rb") as f:
                         blob = f.read()
                     entry = self._unpack(h, blob)
-                except (HandoffCorrupt, OSError):
+                except (HandoffCorrupt, OSError) as e:
                     self._disk_bytes -= self._disk.pop(h)
                     self._unlink(self._path(h))
-                    self._count("kvtier_refusals")
+                    self._refuse(h, f"{type(e).__name__}: {e}")
+                    self._update_gauges()
                     return None
                 self._count("kvtier_hits_disk")
                 return TierEntry(*entry, "disk")
@@ -319,3 +354,4 @@ class KVTierStore:
             self._disk.clear()
             self._disk_bytes = 0
             self._epoch += 1
+            self._update_gauges()

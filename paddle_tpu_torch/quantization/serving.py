@@ -9,8 +9,11 @@ head, where its error would land on every logit.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
+from paddle_tpu_torch.observability import metrics
 from paddle_tpu_torch.quantization.comms import absmax_int8
 
 __all__ = ["QuantizedLeaf", "quantize_gpt_params", "GPT_MATMUL_SUFFIXES",
@@ -105,14 +108,21 @@ def quantize_gpt_params(params, dtype: str = "int8"):
     (``gpt.h.<i>.attn.qkv_proj.weight`` ...) the step functions take, and
     the stacked ``{"blocks": {suffix: [nl, ...]}, "top": {...}}`` layout of
     `models/gpt.py::stack_gpt_params`. Returns a NEW dict of the same
-    layout; every other leaf is passed through by reference."""
+    layout; every other leaf is passed through by reference. The
+    conversion's wall time is observed as ``engine.quant_dequant_ms``, as
+    the JAX package observes it."""
     if dtype != "int8":
         raise ValueError(f"weight_dtype={dtype!r}: only 'int8' is "
                          "implemented")
+    t0 = time.perf_counter()
     if set(params.keys()) == {"blocks", "top"}:
-        return {"blocks": {suf: (_quantize_leaf(v) if suf in
-                                 GPT_MATMUL_SUFFIXES else v)
-                           for suf, v in params["blocks"].items()},
-                "top": dict(params["top"])}
-    return {k: (_quantize_leaf(v) if _is_matmul_key(k) else v)
-            for k, v in params.items()}
+        out = {"blocks": {suf: (_quantize_leaf(v) if suf in
+                                GPT_MATMUL_SUFFIXES else v)
+                          for suf, v in params["blocks"].items()},
+               "top": dict(params["top"])}
+    else:
+        out = {k: (_quantize_leaf(v) if _is_matmul_key(k) else v)
+               for k, v in params.items()}
+    metrics.histogram("engine.quant_dequant_ms").observe(
+        (time.perf_counter() - t0) * 1e3)
+    return out

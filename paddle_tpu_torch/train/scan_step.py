@@ -20,9 +20,23 @@ One call of `step` is the JAX step's one program, run eagerly:
   weights where the parameters are held in bfloat16, at ``t = global_step
   + 1``.
 
-Each step records its time, tokens/s and MFU (``records``). MFU is
-``analytic_flops_per_token * tokens / (seconds * peak)`` with the H100 SXM
-bf16 dense peak from NVIDIA's data sheet; a CPU step records no MFU.
+Each taken step appends its time, tokens/s and MFU to ``records`` (the
+per-step table `chip_smoke.py` reads). MFU is ``analytic_flops_per_token *
+tokens / (seconds * peak)`` with the H100 SXM bf16 dense peak from
+NVIDIA's data sheet; a CPU step's record holds no MFU.
+
+The step also reports to the port's metrics registry and flight recorder
+under the JAX step's names (`observability/`): a ``train.dispatch`` event
+before any work, ``train.steps`` / ``train.microbatches`` on every step,
+``train.bad_steps`` and a ``train.bad_step`` event on a skipped one,
+``train.tokens`` and a ``train.step`` event on a taken one. The first step
+at an input signature is the JAX step's compile step (here: kernel builds
+and the allocator's first touches): ``train.compile_count``,
+``train.compile_ms`` and a ``train.compile`` span; every later taken step
+sets ``train.step_ms``, ``train.mfu`` and ``train.goodput_tokens_per_s``
+and observes ``train.step_seconds``. ``train.mfu`` divides by
+``H100_BF16_PEAK`` on the card and by the JAX package's nominal 1e12
+FLOP/s on the CPU. `start_watchdog` arms a stall watchdog over the loop.
 
 Not ported yet (ROADMAP A8): ZeRO-1 and the cross-process grad reducer
 (A8.3), the CUDA graph of the whole step (A8.4), the other arms of the
@@ -35,6 +49,10 @@ import time
 import torch
 
 from paddle_tpu_torch.kernels import prng
+from paddle_tpu_torch.observability import metrics
+from paddle_tpu_torch.observability.flight_recorder import (Watchdog,
+                                                            default_deadline,
+                                                            flight)
 from paddle_tpu_torch.models.gpt import (analytic_flops_per_token,
                                          check_trainable, scan_loss,
                                          stack_gpt_params, unstack_gpt_params)
@@ -42,6 +60,7 @@ from paddle_tpu_torch.models.gpt import (analytic_flops_per_token,
 __all__ = ["H100_BF16_PEAK", "ScanTrainStep"]
 
 H100_BF16_PEAK = 989e12     # FLOP/s, H100 SXM bf16 dense (NVIDIA data sheet)
+CPU_NOMINAL_PEAK = 1e12     # FLOP/s, the JAX package's nominal non-TPU peak
 
 
 def _resolve_device(device) -> torch.device:
@@ -85,7 +104,19 @@ class ScanTrainStep:
         self.consecutive_bad_steps = 0
         self.last_step_ok = True
         self.records: list[dict] = []
+        self._seen_sigs: set = set()
         self._load_state()
+
+    def _peak(self) -> float:
+        """The MFU denominator of the ``train.mfu`` gauge."""
+        return H100_BF16_PEAK if self.device.type == "cuda" \
+            else CPU_NOMINAL_PEAK
+
+    def opt_state_bytes(self) -> int:
+        """The optimizer state's footprint on the device (one replica)."""
+        return sum(v.numel() * v.element_size()
+                   for grp in self._opt_state.values()
+                   for st in grp.values() for v in st.values())
 
     # ------------------------------------------------------------- state io
 
@@ -115,6 +146,8 @@ class ScanTrainStep:
             self._params[grp][key].requires_grad_(True)
             self._opt_state[grp][key] = {s: stacked[s][grp][key]
                                          for s in names}
+        metrics.gauge("train.opt_state_bytes").set(self.opt_state_bytes())
+        metrics.gauge("train.zero1").set(0.0)      # ZeRO-1 is ROADMAP A8.3
 
     def sync_to_model(self):
         """Write the step's parameters into the model and its optimizer state
@@ -210,6 +243,10 @@ class ScanTrainStep:
             mask = torch.as_tensor(loss_mask).to(self.device)
             ms = mask.reshape(m, b // m, *mask.shape[1:])
         self._key, sub = prng.split(self._key)
+        # the dispatch marker comes BEFORE the work: if the step wedges, a
+        # watchdog dump's last event shows where
+        flight.record("train.dispatch", step=self.opt.global_step + 1,
+                      shape=str(tuple(xs.shape)))
         t0 = time.perf_counter()
         loss, grads = self._grads(xs, ys, ms, prng.split(sub, m))
         if inject_nan:
@@ -219,22 +256,67 @@ class ScanTrainStep:
                              + [torch.isfinite(g).all() for g in grads]).all()
         lossf, okb = float(loss), bool(ok)
         self.last_step_ok = okb
+        if okb:
+            self._apply(grads, self.opt.global_step + 1)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0
+        tokens = int(x.numel())
+        flops = analytic_flops_per_token(self.cfg, int(x.shape[-1])) * tokens
+        mfu = min(1.0, flops / (max(dt, 1e-9) * self._peak()))
+        # one compile step per input signature, as the JAX step counts
+        # when it cannot read its program cache
+        sig = (tuple(xs.shape), tuple(ys.shape), str(xs.dtype))
+        compiled = sig not in self._seen_sigs
+        self._seen_sigs.add(sig)
+        if compiled:
+            metrics.counter("train.compile_count").inc()
+            metrics.gauge("train.compile_ms").set(dt * 1e3)
+            metrics.add_span("train.compile", t0, dt, cat="compile")
+        elif okb:
+            # steady steps only: a compile step's time would read as a
+            # collapsed MFU
+            metrics.gauge("train.step_ms").set(dt * 1e3)
+            metrics.histogram("train.step_seconds").observe(dt)
+            metrics.gauge("train.mfu").set(mfu)
+            metrics.gauge("train.goodput_tokens_per_s").set(
+                tokens / max(dt, 1e-9))
+        metrics.counter("train.steps").inc()
+        metrics.counter("train.microbatches").inc(m)
         if not okb:
             # the step never happened as far as the optimizer clock goes
             self.bad_steps += 1
             self.consecutive_bad_steps += 1
+            metrics.counter("train.bad_steps").inc()
+            flight.record("train.bad_step", step=self.opt.global_step + 1,
+                          loss=lossf, consecutive=self.consecutive_bad_steps,
+                          injected=bool(inject_nan))
             return lossf
-        self._apply(grads, self.opt.global_step + 1)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        dt = time.perf_counter() - t0
-        tokens = int(x.numel())
-        flops = analytic_flops_per_token(self.cfg, int(x.shape[-1])) * tokens
         self.records.append({
             "step": self.opt.global_step + 1, "loss": lossf,
             "step_ms": dt * 1e3, "tokens_per_s": tokens / dt,
-            "mfu": (min(1.0, flops / (dt * H100_BF16_PEAK))
-                    if self.device.type == "cuda" else None)})
+            "mfu": mfu if self.device.type == "cuda" else None})
         self.consecutive_bad_steps = 0
+        metrics.counter("train.tokens").inc(tokens)
+        flight.record("train.step", step=self.opt.global_step + 1,
+                      loss=lossf, ms=round(dt * 1e3, 3),
+                      mfu=round(mfu, 5), compiled=bool(compiled))
         self.opt.global_step += 1
         return lossf
+
+    def start_watchdog(self, deadline_s=None, dump_dir=None,
+                       interval_s=None):
+        """Arm a stall watchdog over the train loop: if `step` stops
+        completing (a wedged device call) for ``deadline_s`` (default
+        ``PADDLE_WATCHDOG_S``; <= 0 disables and returns None), the flight
+        recorder's ring and the metrics snapshot are dumped to a JSON
+        file. The caller owns its life: arm it before the loop and
+        ``.stop()`` it after; it treats the loop as always busy, so it
+        must not outlive a pause longer than the deadline."""
+        deadline = default_deadline() if deadline_s is None \
+            else float(deadline_s)
+        if deadline <= 0:
+            return None
+        return Watchdog("train", progress=lambda: self.opt.global_step,
+                        deadline_s=deadline, dump_dir=dump_dir,
+                        interval_s=interval_s).start()

@@ -1494,3 +1494,89 @@ def test_card_cancel_and_deadline_keep_the_captured_graphs(card):
     assert eng.counters["cancelled"] == eng.counters["deadline_exceeded"] == 1
     assert eng.counters["compile_count"] == compiles
     assert eng.allocator.free_pages == eng.allocator.num_pages - 1
+
+
+def test_card_serve_loop_captures_an_unwarmed_length_on_its_thread(
+        card, tmp_path, monkeypatch):
+    """`serve_loop` on a thread that did not build the engine, under its
+    watchdog, with requests submitted from this thread while the loop
+    captures the prefill graph of a prompt length left unwarmed (the
+    submit makes no CUDA call and the capture is thread-local): the
+    tokens equal the CPU engine's and `run_until_idle`'s on a second card
+    engine, one capture lands inside the loop, the ``engine.*`` counter
+    deltas are equal between the two loops, and the healthy loop leaves
+    no watchdog dump."""
+    import threading
+
+    from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.observability.tracing import RequestTrace
+    model = _small_model()
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, 97, n).astype(np.int32)
+               for n in (6, 20, 33, 70)]
+    ecfg = EngineConfig(page_size=16, max_slots=4, prefix_cache=False)
+    cpu = DecodeEngine(model, ecfg, device="cpu")
+    ref = [cpu.submit(p, 10) for p in prompts]
+    cpu.run_until_idle(max_steps=200)
+
+    def counters(eng):
+        return dict(eng.counters)
+
+    direct = DecodeEngine(model, ecfg, device=card)
+    direct.warmup((6, 20, 33))
+    c0 = counters(direct)
+    reqs = [direct.submit(p, 10, RequestTrace()) for p in prompts]
+    direct.run_until_idle(max_steps=200)
+    want = {k: v - c0[k] for k, v in counters(direct).items()}
+
+    monkeypatch.setenv("PADDLE_WATCHDOG_S", "30")
+    monkeypatch.setenv("PADDLE_WATCHDOG_DIR", str(tmp_path))
+    eng = DecodeEngine(model, ecfg, device=card)
+    eng.warmup((6, 20, 33))                 # 70 (bucket 128) left unwarmed
+    torch.cuda.synchronize()
+    c0 = counters(eng)
+    errors0 = metrics.counter("engine.loop_errors").value
+    stop = threading.Event()
+    loop = threading.Thread(target=eng.serve_loop, args=(stop,))
+    loop.start()
+    try:
+        looped = [eng.submit(p, 10, RequestTrace()) for p in prompts]
+        outs = [r.result(timeout=120) for r in looped]
+    finally:
+        stop.set()
+        loop.join(timeout=120)
+    got = {k: v - c0[k] for k, v in counters(eng).items()}
+    for a, b, c in zip(outs, reqs, ref, strict=True):
+        np.testing.assert_array_equal(a, c.result(timeout=0))
+        np.testing.assert_array_equal(a, b.result(timeout=0))
+    assert got["compile_count"] == want["compile_count"] == 1
+    for k in ("requests", "prefill_tokens", "tokens", "prefills"):
+        assert got[k] == want[k], k
+    assert metrics.counter("engine.loop_errors").value == errors0
+    assert list(tmp_path.iterdir()) == []
+    assert not loop.is_alive()
+
+
+def test_card_train_step_reports_its_mfu(card):
+    """The train step on the card: ``train.mfu`` is the step's own MFU
+    record (divided by the H100 bf16 peak) and ``train.steps`` counts the
+    steps taken."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.train import ScanTrainStep
+    cfg = GPTConfig(vocab_size=97, hidden_size=64, num_layers=2, num_heads=2,
+                    intermediate_size=128, max_position_embeddings=128,
+                    hidden_dropout=0.0, attention_dropout=0.0)
+    model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(5))
+    ts = ScanTrainStep(model, AdamW(learning_rate=1e-3), device=card)
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, 97, (4, 65))
+    x, y = ids[:, :-1].astype(np.int64), ids[:, 1:].astype(np.int64)
+    s0 = metrics.counter("train.steps").value
+    for _ in range(3):
+        ts.step(x, y)
+    assert metrics.counter("train.steps").value - s0 == 3
+    assert metrics.gauge("train.mfu").value == ts.records[-1]["mfu"]
+    assert 0 < ts.records[-1]["mfu"] <= 1

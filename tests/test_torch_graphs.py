@@ -335,11 +335,19 @@ def test_submit_and_warmup_take_the_jax_parameter_order(models):
 
 @pytest.mark.parametrize("kw", [{"trace": object()}])
 def test_submit_refuses_parameters_that_are_not_ported(models, kw):
-    eng = DecodeEngine(models[11][1], EngineConfig(page_size=4, max_slots=3),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        eng.submit(np.arange(5), 3, **kw)
-    assert not eng._queue
+    """``trace`` is ported: like the JAX engine, the port takes it in third
+    place and refuses one that is not a request trace (AttributeError at
+    its first mark) before anything is queued."""
+    jm, tm = models[11]
+    refused = []
+    for eng in (JEngine(jm, JConfig(page_size=4, max_slots=3)),
+                DecodeEngine(tm, EngineConfig(page_size=4, max_slots=3),
+                             device="cpu")):
+        with pytest.raises(AttributeError, match="mark_submit") as e:
+            eng.submit(np.arange(5), 3, kw["trace"])
+        refused.append(type(e.value))
+        assert not eng._queue
+    assert refused[0] is refused[1]
 
 
 @pytest.mark.parametrize("ecfg", [{}, {"sampling": True},

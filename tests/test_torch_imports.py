@@ -94,6 +94,43 @@ def test_testing_package_imports_no_jax_and_reads_paddle_faults():
     assert "ARMED True 2 True" in r.stdout, r.stdout
 
 
+_OBSERVABILITY_PROBE = r"""
+import sys
+import paddle_tpu_torch.observability as obs
+from paddle_tpu_torch.observability import (flight_recorder, prometheus,
+                                            slo, tracing, usage)
+stdlib_only = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("torch", "numpy"))
+import paddle_tpu_torch.inference.engine as engine
+import paddle_tpu_torch.train.scan_step as scan_step
+import paddle_tpu_torch.kernels.registry as registry
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+print("BAD", bad)
+print("STDLIB", stdlib_only)
+print("SAME", engine.metrics is obs.metrics is registry.metrics
+      is scan_step.metrics, engine.flight is flight_recorder.flight)
+print("DEADLINE", flight_recorder.default_deadline())
+"""
+
+
+def test_observability_package_imports_no_jax_and_keeps_its_own_registry():
+    """`paddle_tpu_torch.observability` (the port's copies of the JAX
+    package's stdlib-only modules) loads neither JAX, the JAX package,
+    torch nor numpy; the engine, the train step and the kernel registry
+    report to its one process-wide registry and flight ring; and its
+    watchdog reads the JAX package's ``PADDLE_WATCHDOG_S``."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), PADDLE_WATCHDOG_S="42")
+    r = subprocess.run([sys.executable, "-c", _OBSERVABILITY_PROBE],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+    assert "STDLIB []" in r.stdout, r.stdout
+    assert "SAME True True" in r.stdout, r.stdout
+    assert "DEADLINE 42.0" in r.stdout, r.stdout
+
+
 def test_engine_default_device_is_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
