@@ -11,8 +11,9 @@ its native dtype and quantized (int8 KV pages, weight-only int8), trains
 it through `ScanTrainStep`, and prints one JSON object per line:
 
 1. ``device``: the card's name and power limit as nvidia-smi gives them
-   (that raw line is also printed alone), and its compute capability,
-   which must be (9, 0).
+   (that raw line is also printed alone), its SM and memory clocks,
+   temperature, power draw and active throttle reasons (``clocks``,
+   `card_clocks`), and its compute capability, which must be (9, 0).
 2. ``build``: the nvcc build, all kernels compiled in parallel.
 3. ``kernel``: one line per kernel, dtype and shape: the max-abs error
    against the plain version on the card with its tolerance (2e-5 in
@@ -30,7 +31,10 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    and the three flash lines also name the loop the
    call took (``arm``: ``mma_bf16``, the tensor cores, for bfloat16;
    ``cuda_core`` for float32) and its launch ``grid`` (the prefill's
-   ``block_q`` is in ``shape``); the ``paged_decode`` and
+   ``block_q`` is in ``shape``; on the prefill's CUDA-core loop the grid
+   is (query tiles, heads, splits), ``splits`` the blocks that share a
+   tile's keys, and ``visits_ok`` also holds each split's page count
+   against `split_pages`); the ``paged_decode`` and
    ``paged_decode_int8`` lines name theirs (``split``) with its ``splits``
    and ``grid``, at the serve run's B=8 positions and at B=1, pos=1023
    (``case`` ``b1_long``, DECODE_CASES).
@@ -577,16 +581,26 @@ def check_prefill(dev, timer, dtype, c, start, valid, quant=False):
         run = lambda **kw: cpre.paged_prefill(q, kp, vp, row, dev_s, dev_v,
                                               **kw)
 
-    out, visits = run(return_visits=True)
+    out, split_visits = run(return_visits="splits")
     torch.cuda.synchronize()
     ref = pa._plain_prefill_attention(q[None], kp, vp, row, start, valid,
                                       *sc)[0]
     err = (out.float() - ref.float()).abs().max().item()
     bq = cpre.default_block_q(c, dtype, DH)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = cpre.grid(c, NH, dtype, DH, MAXP, PS, sms)
+    n = grid[2] if len(grid) == 3 else 1
+    visits = split_visits.sum(-1)
     want = [min(cpre.block_visits(start, valid, i * bq, bq, PS), MAXP)
             for i in range(visits.shape[0])]
     visits_ok = bool((visits == torch.tensor(want, dtype=torch.int32,
                                              device=dev)[:, None]).all())
+    if len(grid) == 3:   # each split's pages: its units, each page once
+        per_split = [[len(p) for p in cpre.split_pages(
+            start, valid, i * bq, bq, PS, MAXP, DH, n)]
+            for i in range(visits.shape[0])]
+        visits_ok &= bool((split_visits == torch.tensor(
+            per_split, dtype=torch.int32, device=dev)[:, None, :]).all())
     padded_zero = bool((out[valid:] == 0).all())
 
     kw = library_window(kp, sc[0] if quant else None, row[None], dtype)
@@ -608,7 +622,7 @@ def check_prefill(dev, timer, dtype, c, start, valid, quant=False):
         "pool": "int8" if quant else dtype_name(dtype),
         "shape": {"C": c, "start": start, "valid": valid, "nh": NH, "dh": DH,
                   "page_size": PS, "pages_per_slot": MAXP, "block_q": bq},
-        "arm": cpre.arm(dtype, DH), "grid": list(cpre.grid(c, NH, dtype, DH)),
+        "arm": cpre.arm(dtype, DH), "grid": list(grid), "splits": n,
         "max_abs_err": err, "tol": TOL[dtype], "visits_ok": visits_ok,
         "padded_rows_zero": padded_zero,
         "visits": sorted(set(visits[:, 0].tolist())),
@@ -1335,7 +1349,8 @@ def serve_run(model, dev, smi, phase="serve", params=None, greedy_ref=None,
     line, outs, ran = timed_serve(eng, prompts, params, dev, phase)
     step_tokens = line.pop("step_tokens")
     ok = line["outputs_ok"]
-    line = {"phase": phase, "model": "gpt2-small", "dtype": "bfloat16",
+    line = {"phase": phase, "model": "gpt2-small",
+            "dtype": dtype_name(next(model.parameters()).dtype),
             "kv_dtype": eng.ecfg.kv_dtype,
             "weight_dtype": eng.ecfg.weight_dtype,
             "card": smi, "requests": len(prompts), "prompt_lens": list(lens),
@@ -2558,7 +2573,8 @@ def train_run(dev, smi, phase="train", warmup=2, timed=8, **over):
         and step.bad_steps == 0 and observed["train_mfu_equals_record"] \
         and observed["train_steps_counted"] == warmup + timed \
         and observed["watchdog_dumps"] == 0
-    line = {"phase": phase, "model": "gpt2-small", "dtype": "bfloat16",
+    line = {"phase": phase, "model": "gpt2-small",
+            "dtype": dtype_name(next(model.parameters()).dtype),
             "master_weights": "float32", "card": smi,
             "hidden_dropout": model.cfg.hidden_dropout,
             "recompute": model.cfg.recompute,
@@ -2982,6 +2998,36 @@ def nvidia_smi():
     ).stdout.strip()
 
 
+# the state a speed line is read in: SM and memory clocks now and at most,
+# temperature, power draw, and the active throttle reasons (a bit mask;
+# 0x0 none, 0x1 idle). Newer drivers name the last field
+# clocks_event_reasons; older ones clocks_throttle_reasons.
+CLOCK_FIELDS = ("clocks.sm", "clocks.mem", "clocks.max.sm",
+                "temperature.gpu", "power.draw")
+THROTTLE_FIELDS = ("clocks_event_reasons.active",
+                   "clocks_throttle_reasons.active")
+
+
+def card_clocks():
+    """Card 0's clocks, temperature, power draw and active throttle
+    reasons as nvidia-smi gives them, a dict of strings; ``{"error": ...}``
+    where nvidia-smi answers none of the queries."""
+    err = ""
+    for reasons in THROTTLE_FIELDS:
+        fields = (*CLOCK_FIELDS, reasons)
+        proc = subprocess.run(
+            ["nvidia-smi", "--query-gpu=" + ",".join(fields),
+             "--format=csv,noheader", "--id=0"],
+            capture_output=True, text=True, timeout=60)
+        vals = [v.strip() for v in proc.stdout.strip().split(",")]
+        if proc.returncode == 0 and len(vals) == len(fields):
+            out = dict(zip(CLOCK_FIELDS, vals))
+            out["throttle_reasons"] = vals[-1]
+            return out
+        err = (proc.stderr or proc.stdout).strip()[-200:]
+    return {"error": err}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2991,7 +3037,8 @@ def main():
     cap = torch.cuda.get_device_capability(dev)
     print(smi, flush=True)
     emit({"phase": "device", "nvidia_smi": smi, "capability": list(cap),
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "clocks": card_clocks(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
     if tuple(cap) != (9, 0):
         raise SystemExit(f"expected a Hopper card (9, 0), got {cap}")
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -4,6 +4,8 @@ repository, in turns, on one NVIDIA card. Run from the repository root:
 
     python3 compare_serve.py parent_check . . parent_check
     python3 compare_serve.py --inflight parent_check . . parent_check
+    python3 compare_serve.py --f32 parent_check . . parent_check
+    python3 compare_serve.py --prefill parent_check . . parent_check
 
 Each argument is the root of a checkout (this one is ``.``; another is
 unpacked with ``git archive``); each runs in a process of its own, in the
@@ -13,9 +15,15 @@ and serves bf16 GPT-2 small through that checkout's `chip_smoke.py`
 functions: ``serve``, ``serve_sampled``, ``serve_spec``, ``serve_int8``
 and the three ``serve_prefix`` arms, each line with its exact launch
 counts held; with ``--inflight``, ``serve`` and then ``serve_inflight``
-(readback windows 1, 2, 3 in turns, 124 new tokens). Every JSON line a process prints is printed again with
-``checkout`` and ``turn`` added; a process that fails ends the run with its
-exit code.
+(readback windows 1, 2, 3 in turns, 124 new tokens); with ``--f32``,
+GPT-2 small in its default float32 (no cast to bf16), ``serve`` over
+float32 pools and ``serve_int8`` over int8 K/V pools (weights native), so
+that every prefill runs the CUDA-core prefill loop; with ``--prefill``,
+no serving but `check_prefill`'s kernel lines at every PREFILL_CASES
+shape, float32 and bfloat16 q over float and int8 pools. Every JSON line a
+process prints is printed again with ``checkout``, ``turn`` and the
+``card_clocks`` read before the process started added; a process that
+fails ends the run with its exit code.
 """
 from __future__ import annotations
 
@@ -57,20 +65,54 @@ cs.serve_inflight(model, dev, smi, outs)
 """
 
 
+F32_PHASES = """
+import torch
+import chip_smoke as cs
+from paddle_tpu_torch.kernels import _build
+dev = torch.device("cuda", 0)
+smi = cs.nvidia_smi()
+_build.build_all()
+from paddle_tpu_torch.models import gpt as gpt_mod
+model = gpt_mod.gpt2_small(generator=torch.Generator().manual_seed(cs.SEED))
+cs.serve_run(model, dev, smi)
+cs.serve_run(model, dev, smi, "serve_int8", kv_dtype="int8")
+"""
+
+PREFILL_PHASES = """
+import torch
+import chip_smoke as cs
+from paddle_tpu_torch.kernels import _build
+dev = torch.device("cuda", 0)
+_build.build_all()
+torch.backends.cuda.matmul.allow_tf32 = False
+timer = cs.Timer(dev)
+for dtype in (torch.float32, torch.bfloat16):
+    for quant in (False, True):
+        for c, start, valid in cs.PREFILL_CASES:
+            cs.check_prefill(dev, timer, dtype, c, start, valid, quant)
+"""
+
+PHASES = {"--inflight": INFLIGHT_PHASES, "--f32": F32_PHASES,
+          "--prefill": PREFILL_PHASES}
+
+
 def main():
     checkouts = sys.argv[1:]
     phases = SERVE_PHASES
-    if checkouts[:1] == ["--inflight"]:
-        checkouts, phases = checkouts[1:], INFLIGHT_PHASES
+    if checkouts[:1] and checkouts[0] in PHASES:
+        checkouts, phases = checkouts[1:], PHASES[checkouts[0]]
     if not checkouts:
         print(__doc__, file=sys.stderr)
         return 2
+    import chip_smoke as cs
     for turn, root in enumerate(checkouts):
+        clocks = cs.card_clocks()
         proc = subprocess.run([sys.executable, "-c", phases],
                               cwd=root, capture_output=True, text=True)
         for ln in proc.stdout.splitlines():
             if ln.startswith("{"):
                 print(json.dumps({"checkout": root, "turn": turn,
+                                  "card_clocks": clocks,
                                   **json.loads(ln)}), flush=True)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)

@@ -11,8 +11,9 @@ to the card in one ``cudaGraphLaunch``.
 
 Capture follows PyTorch's recipe. The body runs eagerly ``WARMUP_RUNS``
 times on the device's capture stream first, so that what it caches per
-stream (cuBLAS workspaces, the split decode loop's tickets,
-`kernels/cuda/paged_attention.py::_tickets`) exists outside the graph's
+stream (cuBLAS workspaces, the tickets of the split decode loop and of
+the CUDA-core prefill loop, `kernels/cuda/paged_attention.py::_tickets`)
+exists outside the graph's
 private memory pool; then one more run is captured on that stream, in
 the thread-local capture mode: only the capturing thread is barred from
 CUDA calls that would break a capture, so an engine loop may capture
@@ -30,7 +31,7 @@ Every graph of a device is captured on ONE side stream,
 :func:`capture_stream`: cuBLAS keeps a 32 MiB workspace for each stream it
 has run on for the life of the process, so a stream per engine would leave
 32 MiB behind per engine (PyTorch's pool of 32 streams a device bounds
-that at 1 GiB). The graphs therefore share that stream's decode tickets:
+that at 1 GiB). The graphs therefore share that stream's tickets:
 replay them on one stream at a time (the engine replays on the caller's
 current stream, the legacy default stream unless the caller set another).
 

@@ -1,6 +1,8 @@
 // Device helpers shared by the three flash-attention kernels
 // (flash_fwd.cu, flash_dq.cu, flash_dkv.cu): the thread grid, tile staging
 // into shared memory, and the register-tiled product of two staged tiles.
+// The paged prefill's CUDA-core loop (paged_prefill.cuh) takes the same
+// 16 x 16 grid and its half-warp row reductions.
 //
 // Layout: every tensor is [B*H, S, D], contiguous. A block has 256 threads
 // seen as a 16 x 16 grid: tx = lane & 15 walks columns, ty = threadIdx.x >> 4

@@ -18,10 +18,11 @@
 //   sqrt(dh) in f32, and p_t * vs_t before P is rounded to bf16 for the
 //   P V product. Not wgmma yet (see that header).
 // - q in float32, or another head dim: the CUDA-core loop of
-//   paged_prefill.cuh, where each value is widened to f32 and multiplied
-//   by its slot's scale as a page is staged (`pool_value` in
-//   attention_common.cuh), before any product, as the Pallas quant arm
-//   does.
+//   paged_prefill.cuh. Its ring holds a tile's int8 bytes and scales
+//   (cp.async); once a tile each value is widened to f32 and multiplied by
+//   its slot's scale in shared memory, before any product, as the Pallas
+//   quant arm does (`pool_value` in attention_common.cuh rounds the same
+//   way), and the keys are split across blocks as for float pools.
 
 #include "paged_prefill.cuh"
 #include "paged_prefill_mma.cuh"
@@ -30,27 +31,29 @@
 // prefill_attention.py. Every tensor is contiguous: q and out [c, nh, dh]
 // (f32 or bf16, `dtype`), pools [num_pages, ps, nh, dh] int8, scales
 // [num_pages, ps, nh] f32, page_table [maxp] int32 (this sequence's row),
-// visits [ceil(c / block_q), nh] int32 or null; `start` and `valid` point
-// at int32s in device memory, as in paged_prefill.cu. block_q is the query
-// tile of the loop the call takes, as in paged_prefill.cu. Launches on
-// `stream`
-// without synchronising; returns the launch's cudaGetLastError().
+// visits [ceil(c / block_q), nh, splits] int32 or null; `start` and `valid`
+// point at int32s in device memory, as in paged_prefill.cu. block_q,
+// splits, partials and tickets as in paged_prefill.cu. Launches on
+// `stream` without synchronising; returns the launch's cudaGetLastError().
 extern "C" int paged_prefill_int8(const void* q, const void* k_pages,
                                   const void* v_pages, const void* k_scale,
                                   const void* v_scale, const void* page_table,
-                                  void* out, void* visits, int c, int nh,
-                                  int dh, int ps, int maxp,
-                                  const void* start, const void* valid,
-                                  int block_q, int dtype, void* stream) {
+                                  void* out, void* visits, void* partials,
+                                  void* tickets, int c, int nh, int dh,
+                                  int ps, int maxp, const void* start,
+                                  const void* valid, int block_q,
+                                  int splits, int dtype, void* stream) {
   using namespace paddle_tpu_torch;
   const int* pt = static_cast<const int*>(page_table);
   const int* st = static_cast<const int*>(start);
   const int* va = static_cast<const int*>(valid);
   int* vis = static_cast<int*>(visits);
+  float* part = static_cast<float*>(partials);
+  unsigned* tik = static_cast<unsigned*>(tickets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mma_takes(dtype, dh)) {
     if (!prefill_args_ok(c, nh, dh, ps, maxp, st, va, block_q,
-                         kMmaBlockQ) ||
+                         kMmaBlockQ) || splits != 1 ||
         maxp > kMaxPages || !aligned16(q, k_pages, v_pages, out))
       return (int)cudaErrorInvalidValue;
     return launch_paged_prefill_mma<signed char>(
@@ -62,11 +65,11 @@ extern "C" int paged_prefill_int8(const void* q, const void* k_pages,
     return (int)cudaErrorInvalidValue;
   if (dtype == kFloat32)
     return launch_paged_prefill<float, signed char>(
-        q, k_pages, v_pages, k_scale, v_scale, pt, out, vis, c, nh, dh, ps,
-        maxp, st, va, block_q, s);
+        q, k_pages, v_pages, k_scale, v_scale, pt, out, vis, part, tik, c,
+        nh, dh, ps, maxp, st, va, block_q, splits, s);
   if (dtype == kBFloat16)
     return launch_paged_prefill<__nv_bfloat16, signed char>(
-        q, k_pages, v_pages, k_scale, v_scale, pt, out, vis, c, nh, dh, ps,
-        maxp, st, va, block_q, s);
+        q, k_pages, v_pages, k_scale, v_scale, pt, out, vis, part, tik, c,
+        nh, dh, ps, maxp, st, va, block_q, splits, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -91,7 +91,9 @@ def _tickets(device, rows, stream):
     one launch, with no memset). A launch's blocks count on its tickets
     until its last block merges, so launches that share them must run one
     after another: each stream has its own. The float and int8 kernels
-    share them, since a launch of either leaves them zero."""
+    share them, and so do the CUDA-core prefill loop's launches
+    (`kernels/cuda/prefill_attention.py`, one ticket a query tile and
+    head), since a launch of any of them leaves them zero."""
     return torch.zeros(rows, dtype=torch.int32, device=device)
 
 

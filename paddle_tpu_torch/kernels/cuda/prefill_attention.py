@@ -6,9 +6,10 @@ Pallas kernel's ``quant=True`` arm). Each kernel holds two loops and picks
 one by a fixed rule before the launch (:func:`arm`): q in bfloat16 with a
 head dim that is a multiple of 16 up to 128 takes the tensor-core loop of
 `csrc/paged_prefill_mma.cuh` (``"mma_bf16"``), everything else the
-CUDA-core loop of `csrc/paged_prefill.cuh` (``"cuda_core"``). Each loop has
-its own query tile (:func:`default_block_q`), so the visits rows follow
-the arm.
+CUDA-core loop of `csrc/paged_prefill.cuh` (``"cuda_core"``: exact f32
+products, register-tiled, with each query tile's keys split across
+:func:`core_splits` blocks and merged in the same launch). Both take
+64-row query tiles (:func:`default_block_q`).
 
 The kernels read ``start`` and ``valid`` from device memory and clamp
 them there (``load_chunk_bounds``, `csrc/attention_common.cuh`), so a
@@ -16,7 +17,8 @@ captured CUDA graph serves every chunk its upload describes: the engine
 passes 0-d int32 views of its packed upload. Host ints are checked on the
 host and copied to the card first, for eager callers (tests, kernel
 timings); a host 0 is a persistent device zero, which the one-shot
-prefill's ``start`` uses.
+prefill's ``start`` uses. For the same reason the split count comes from
+shapes only.
 
 Bound on the H100: the visible pages' K/V bytes over 3.35 TB/s, or at long
 chunks the causal products over the peak rate of the dtype (see the
@@ -34,23 +36,30 @@ import torch
 from paddle_tpu_torch.kernels._build import CudaKernel
 from paddle_tpu_torch.kernels.cuda import (DTYPE_CODES, check_attention_args,
                                            require_cuda)
+from paddle_tpu_torch.kernels.cuda.paged_attention import _sm_count, _tickets
 
 __all__ = ["KERNEL", "KERNEL_INT8", "MMA_BLOCK_Q", "MMA_MAX_PAGES",
-           "CORE_BLOCK_Q", "arm", "block_visits", "default_block_q", "grid",
-           "paged_prefill", "paged_prefill_int8"]
+           "CORE_BLOCK_Q", "CORE_BLOCKS_PER_SM", "CORE_MAX_SPLITS", "arm",
+           "block_visits", "core_keys", "core_splits", "default_block_q",
+           "grid", "paged_prefill", "paged_prefill_int8", "split_pages",
+           "unit_pages"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# pointers (q, pools[, scales], page_table, out, visits), ints (c, nh, dh,
-# ps, maxp), the device pointers of start and valid, ints (block_q, dtype),
-# the stream
-_TAIL = [_I] * 5 + [_P, _P] + [_I] * 2 + [_P]
+# pointers (q, pools[, scales], page_table, out, visits, partials,
+# tickets), ints (c, nh, dh, ps, maxp), the device pointers of start and
+# valid, ints (block_q, splits, dtype), the stream
+_TAIL = [_P, _P] + [_I] * 5 + [_P, _P] + [_I] * 3 + [_P]
 KERNEL = CudaKernel("paged_prefill", "paged_prefill", [_P] * 6 + _TAIL)
 KERNEL_INT8 = CudaKernel("paged_prefill_int8", "paged_prefill_int8",
                          [_P] * 8 + _TAIL)
 
 MMA_BLOCK_Q = 64     # 4 row groups of 16 (paged_prefill_mma.cuh)
 MMA_MAX_PAGES = 16384   # the page-table row the tensor-core loop holds
-CORE_BLOCK_Q = 32    # 8 warps x 4 rows (paged_prefill.cuh)
+CORE_BLOCK_Q = 64    # a 16 x 16 thread grid, 4 rows a thread
+                     # (paged_prefill.cuh, prefill_core::kBlockQ)
+CORE_BLOCKS_PER_SM = 2   # blocks an SM the split count asks for: two fit
+                         # at dh 64 (shared memory and registers)
+CORE_MAX_SPLITS = 32     # prefill_core::kMaxSplits
 
 
 def arm(dtype, dh: int) -> str:
@@ -76,24 +85,77 @@ def block_visits(start, valid, row0, block_q, page_size):
 
 
 def default_block_q(c: int, dtype, dh: int) -> int:
-    """Query rows per block, the tile of the loop :func:`arm` picks. The
-    TPU kernel takes up to 256 rows per grid cell because its grid runs in
-    order on one core; on the H100 the tile is what one block's warps hold
-    and the grid has to fill 132 SMs. The tensor-core loop gives each of
-    4 row groups the 16 rows of one mma tile, each taken by two warps that
-    split every key tile in halves (C=1024 and 12 heads: 192 blocks of 64
-    rows); the CUDA-core loop gives each of 8 warps 4 rows, one at a time
-    (384 blocks of 32)."""
+    """Query rows per block. The TPU kernel takes up to 256 rows per grid
+    cell because its grid runs in order on one core; on the H100 the tile
+    is what one block holds and the grid has to fill 132 SMs. Both loops
+    take 64-row tiles: the tensor-core loop gives each of 4 row groups the
+    16 rows of one mma tile, each taken by two warps that split every key
+    tile in halves; the CUDA-core loop gives each of its 16 x 16 threads 4
+    rows against 4 keys of a 64-key tile (2 of a 32-key tile above dh
+    128), and splits the keys across blocks where the query tiles alone
+    would leave SMs idle (:func:`core_splits`). ``dtype`` and ``dh`` pick
+    the arm; the tile is the same."""
     tile = MMA_BLOCK_Q if arm(dtype, dh) == "mma_bf16" else CORE_BLOCK_Q
     return min(int(c), tile)
 
 
-def grid(c: int, nh: int, dtype, dh: int) -> tuple[int, int]:
+def core_keys(dh: int) -> int:
+    """Keys of one tile of the CUDA-core loop: 64, or 32 above dh 128 so
+    that the widest rows still fit two stages of the ring."""
+    return 64 if int(dh) <= 128 else 32
+
+
+def unit_pages(dh: int, page_size: int) -> int:
+    """Pages of one split unit of the CUDA-core loop: a key tile's worth
+    (``core_keys(dh) // page_size``), or one page when a page holds a tile
+    or more, so that no page is split between two blocks."""
+    return max(1, core_keys(dh) // int(page_size))
+
+
+def core_splits(c: int, nh: int, dh: int, pages_per_slot: int,
+                page_size: int, sm_count: int) -> int:
+    """Blocks each (query tile, head) of the CUDA-core loop splits its keys
+    across, from shapes only: enough that the grid asks for about
+    CORE_BLOCKS_PER_SM blocks on each of ``sm_count`` SMs, at most
+    CORE_MAX_SPLITS, and no more than the slot has units
+    (:func:`unit_pages`), so that a tile as deep as the slot gives every
+    split work. Never from ``start`` / ``valid``, which lie on the card:
+    reading them would synchronise every prefill and break its graph.
+    Split s walks units s, s + splits, ... (:func:`split_pages`)."""
+    nq = -(-int(c) // CORE_BLOCK_Q)
+    units = -(-int(pages_per_slot) // unit_pages(dh, page_size))
+    by_card = -(-CORE_BLOCKS_PER_SM * int(sm_count) // (nq * int(nh)))
+    return max(1, min(units, by_card, CORE_MAX_SPLITS))
+
+
+def split_pages(start, valid, row0, block_q, page_size, pages_per_slot,
+                dh, splits):
+    """The pages each of ``splits`` blocks of one query tile visits on the
+    CUDA-core loop, as lists of page indices: the tile's
+    :func:`block_visits` pages (clamped to the slot) cut into units of
+    :func:`unit_pages`, unit u to split u % splits. The kernel's
+    ``visits`` holds each list's length."""
+    npages = min(block_visits(start, valid, row0, block_q, page_size),
+                 int(pages_per_slot))
+    ppt = unit_pages(dh, page_size)
+    out = [[] for _ in range(splits)]
+    for u in range(-(-npages // ppt)):
+        out[u % splits].extend(range(u * ppt, min((u + 1) * ppt, npages)))
+    return out
+
+
+def grid(c: int, nh: int, dtype, dh: int, pages_per_slot: int,
+         page_size: int, sm_count: int) -> tuple[int, ...]:
     """The launch grid: (heads, query tiles) on the tensor-core loop, whose
-    blockIdx.y 0 takes the last (heaviest) tile; (query blocks, heads) on
-    the CUDA-core loop."""
+    blockIdx.y 0 takes the last (heaviest) tile; (query tiles, heads,
+    splits) on the CUDA-core loop, whose blocks take, in launch order, the
+    splits of a (tile, head), then the heads, then the tiles from the last
+    back."""
     nq = -(-int(c) // default_block_q(c, dtype, dh))
-    return (nh, nq) if arm(dtype, dh) == "mma_bf16" else (nq, nh)
+    if arm(dtype, dh) == "mma_bf16":
+        return nh, nq
+    return nq, nh, core_splits(c, nh, dh, pages_per_slot, page_size,
+                               sm_count)
 
 
 @functools.lru_cache(maxsize=None)
@@ -163,26 +225,36 @@ def _launch(op, kernel, q, k_pages, v_pages, scales, page_table, start,
             raise ValueError(f"{op}: the tensor-core loop keeps the slot's "
                              f"page-table row in shared memory, at most "
                              f"{MMA_MAX_PAGES} pages; got {maxp}")
-    elif 2 * ps * dh * 4 > 227 * 1024:
-        raise ValueError(f"{op}: a [{ps}, {dh}] K/V page tile needs "
-                         f"{2 * ps * dh * 4} bytes of shared memory, more "
-                         "than 227 KB")
     require_cuda(op, q)
     start, valid = (_on_device(x, q.device) for x in (start, valid))
     bq = default_block_q(c, q.dtype, dh)
-    out = torch.empty_like(q)
     nq = -(-c // bq)
-    visits = torch.empty((nq, nh), dtype=torch.int32, device=q.device) \
+    n, part, tickets = 1, None, None
+    if arm(q.dtype, dh) == "cuda_core":
+        n = core_splits(c, nh, dh, maxp, ps, _sm_count(q.device.index))
+        if n > 1:
+            part = torch.empty(nq * nh * n * CORE_BLOCK_Q
+                               * (-(-dh // 4) * 4 + 2),
+                               dtype=torch.float32, device=q.device)
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            tickets = _tickets(q.device, nq * nh, stream)
+    out = torch.empty_like(q)
+    visits = torch.empty((nq, nh, n), dtype=torch.int32, device=q.device) \
         if return_visits else None
     kernel.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                   *(s.data_ptr() for s in scales or ()),
                   page_table.data_ptr(), out.data_ptr(),
-                  None if visits is None else visits.data_ptr(),
+                  *(None if t is None else t.data_ptr()
+                    for t in (visits, part, tickets)),
                   c, nh, dh, ps, maxp, start.data_ptr(), valid.data_ptr(),
-                  bq,
+                  bq, n,
                   DTYPE_CODES[q.dtype],
                   torch.cuda.current_stream(q.device).cuda_stream)
-    return (out, visits) if return_visits else out
+    if not return_visits:
+        return out
+    if return_visits == "splits":
+        return out, visits
+    return out, visits.sum(-1, dtype=torch.int32)
 
 
 def paged_prefill(q, k_pages, v_pages, page_table, start, valid, *,
@@ -195,9 +267,10 @@ def paged_prefill(q, k_pages, v_pages, page_table, start, valid, *,
     one-element int32 tensor on the card, whose value the kernel clamps
     (``valid`` to [0, C], ``start`` to [0, pages_per_slot * page_size]);
     tensors on one CUDA device. Returns [C, nh, dh] in q.dtype with rows >=
-    valid set to 0 and,
-    with ``return_visits``, the per-(query block, head) trip counts
-    [ceil(C / default_block_q(C, q.dtype, dh)), nh] int32.
+    valid set to 0 and, with ``return_visits``, the per-(query block, head)
+    trip counts [ceil(C / default_block_q(C, q.dtype, dh)), nh] int32, the
+    pages its splits visited summed; with ``return_visits="splits"`` each
+    split's count, [..., nh, splits] (one split on the tensor-core loop).
     """
     return _launch("paged_prefill", KERNEL, q, k_pages, v_pages, None,
                    page_table, start, valid, return_visits)

@@ -17,7 +17,10 @@ of the largest |v| in an output). Over int8 pools there is no other: the
 int8 values widen to bf16 exactly, and the K and V scales multiply the f32
 scores and P after the products instead of the values before them.
 `tests/test_torch_quant.py` emulates that rounding on the CPU against the
-same tolerance. Float32 stays on the CUDA cores. The card engine equals
+same tolerance. Float32 stays on the CUDA cores (the register-tiled
+loop, its keys split across blocks and merged in one launch: held at
+its split edges, under a captured graph, bit for bit run to run, and
+on tickets it shares with the decode loop). The card engine equals
 the CPU engine token for token, native and int8.
 The flash kernels: in float32 2e-5 (forward) and 1e-4 (gradients) times
 the largest reference value when that exceeds 1; in bfloat16 one bfloat16
@@ -355,6 +358,169 @@ def test_bf16_prefill_op_launches_the_tensor_core_kernel_once(
     assert torch.equal(got, _prefill(quant)(q, kp, vp, *sc, row, 0, c))
     ref = plain(q[None], kp, vp, row, 0, c, *sc)[0]
     assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+# the CUDA-core loop's key splits at GPT-2 small's heads and a serve slot
+# (64 pages of 16): a prefix tail deep in the slot, a chunk at the slot's
+# capacity, and valid 0 / 1 / C mid-slot
+CORE_NH, CORE_DH, CORE_PS, CORE_MAXP = 12, 64, 16, 64
+CORE_EDGES = [(64, 768, 50), (64, CORE_MAXP * CORE_PS, 64), (256, 501, 0),
+              (256, 501, 1), (256, 501, 256), (1024, 0, 1024)]
+
+
+def _core_case(rng, quant, dtype, c, nh=CORE_NH, dh=CORE_DH, ps=CORE_PS,
+               maxp=CORE_MAXP, dev="cuda"):
+    kp, vp, sc = _prefill_pools(rng, quant, 1 + maxp, ps, nh, dh, dev, dtype)
+    row = torch.from_numpy((1 + rng.permutation(maxp)).astype(np.int32)
+                           ).to(dev)
+    q = torch.from_numpy(rng.standard_normal((c, nh, dh), dtype=np.float32)
+                         ).to(dev, dtype)
+    return q, kp, vp, sc, row
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("c,start,valid", CORE_EDGES)
+def test_core_prefill_splits_match_plain_at_their_edges(card, quant, c,
+                                                        start, valid):
+    """f32 q over float and int8 pools through the CUDA-core loop: within
+    2e-5 of the plain version, padded rows zero, each split's page count
+    equal to `split_pages` (together `block_visits`, each page once), the
+    op dispatching to the kernel, and a second run bit-identical (the
+    merge takes the splits in index order)."""
+    rng = np.random.default_rng(c + start + valid + quant)
+    q, kp, vp, sc, row = _core_case(rng, quant, torch.float32, c)
+    assert cpre.arm(q.dtype, CORE_DH) == "cuda_core"
+    sm = torch.cuda.get_device_properties(card).multi_processor_count
+    nq, nh, n = cpre.grid(c, CORE_NH, q.dtype, CORE_DH, CORE_MAXP, CORE_PS,
+                          sm)
+    # on the card, as a captured graph passes them (a host start at the
+    # slot's capacity would be refused)
+    dev_s, dev_v = torch.tensor([start, valid], dtype=torch.int32,
+                                device=card)
+    out, visits = _prefill(quant)(q, kp, vp, *sc, row, dev_s, dev_v,
+                                  return_visits="splits")
+    torch.cuda.synchronize()
+    ref = pa._plain_prefill_attention(q[None], kp, vp, row, dev_s, dev_v,
+                                      *sc)[0]
+    assert (out - ref).abs().max().item() <= 2e-5
+    assert (out[valid:] == 0).all()
+    assert tuple(visits.shape) == (nq, nh, n)
+    for qt in range(nq):
+        want = cpre.split_pages(start, valid, qt * 64, 64, CORE_PS,
+                                CORE_MAXP, CORE_DH, n)
+        assert (visits[qt] == torch.tensor(
+            [len(p) for p in want], dtype=torch.int32, device=card)).all()
+    kern = cpre.KERNEL_INT8 if quant else cpre.KERNEL
+    before = kern.launches
+    again = pa.prefill_attention(q[None], kp, vp, row, dev_s, dev_v,
+                                 *sc)[0]
+    assert kern.launches == before + 1
+    assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 72),
+                                      (torch.bfloat16, 256),
+                                      (torch.bfloat16, 33),
+                                      (torch.float32, 33)])
+@pytest.mark.parametrize("ps", [8, 16, 64])
+def test_core_prefill_covers_other_head_dims(card, quant, dtype, dh, ps):
+    """The head dims the tensor cores do not take (not a multiple of 16,
+    or above 128), and an odd one whose rows the gather copies 4, 2 or 1
+    bytes at a time, at page sizes of 8, 16 and 64: within the dtype's
+    tolerance of the plain version, padded rows zero, visits equal to
+    `block_visits`."""
+    rng = np.random.default_rng(ps * 300 + dh + quant)
+    nh, maxp = 2, -(-600 // ps)
+    cap = maxp * ps
+    q, kp, vp, sc, row = _core_case(rng, quant, dtype, 256, nh, dh, ps, maxp,
+                                    card)
+    assert cpre.arm(dtype, dh) == "cuda_core"
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for start, valid in ((0, 256), (37, 100), (cap - 64, 64), (300, 1)):
+        out, visits = _prefill(quant)(q, kp, vp, *sc, row, start, valid,
+                                      return_visits=True)
+        torch.cuda.synchronize()
+        ref = pa._plain_prefill_attention(q[None], kp, vp, row, start,
+                                          valid, *sc)[0]
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= tol, (start, valid, err)
+        assert (out[valid:] == 0).all()
+        want = [min(cpre.block_visits(start, valid, i * 64, 64, ps), maxp)
+                for i in range(visits.shape[0])]
+        assert visits[:, 0].tolist() == want, (start, valid)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_core_prefill_graph_replays_other_uploads(card, quant):
+    """A CUDA graph of one f32 call captured over device `start` / `valid`
+    and replayed with two other uploads equals eager calls on the same
+    values bit for bit (the split count is the shape's, the merge order
+    fixed)."""
+    rng = np.random.default_rng(60 + quant)
+    c = 256
+    q, kp, vp, sc, row = _core_case(rng, quant, torch.float32, c)
+    fn = _prefill(quant)
+    dev_s, dev_v = (torch.zeros((), dtype=torch.int32, device=card)
+                    for _ in range(2))
+    dev_s.fill_(96)
+    dev_v.fill_(c)
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        for _ in range(2):      # caches the side stream's tickets
+            fn(q, kp, vp, *sc, row, dev_s, dev_v)
+    torch.cuda.current_stream(card).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn(q, kp, vp, *sc, row, dev_s, dev_v)
+    for start, valid in ((768, 50), (501, c)):
+        dev_s.fill_(start)
+        dev_v.fill_(valid)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = fn(q, kp, vp, *sc, row, start, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), (start, valid)
+        ref = pa._plain_prefill_attention(q[None], kp, vp, row, start, valid,
+                                          *sc)[0]
+        assert (out - ref).abs().max().item() <= 2e-5
+
+
+def test_core_prefill_float_and_int8_share_tickets_on_a_stream(card):
+    """f32 calls over float and int8 pools at one (query tile, head) count
+    (and the split decode loop at the same row count), alternating back to
+    back on one stream with no synchronisation, share its tickets: each
+    equals its plain version and its repeat, and the tickets are zero
+    after them."""
+    rng = np.random.default_rng(70)
+    c, start, valid = 64, 768, 50
+    calls = []
+    for quant in (False, True):
+        q, kp, vp, sc, row = _core_case(rng, quant, torch.float32, c)
+        calls.append((_prefill(quant), (q, kp, vp, *sc, row, start, valid)))
+    sm = torch.cuda.get_device_properties(card).multi_processor_count
+    assert cpre.core_splits(c, CORE_NH, CORE_DH, CORE_MAXP, CORE_PS, sm) > 1
+    # a decode call whose (b, h) count is the prefill's (query tiles x
+    # heads): one tickets tensor for both loops
+    kd, vd = _pools(rng, 1 + CORE_MAXP, CORE_PS, CORE_NH, CORE_DH, card,
+                    torch.float32)
+    qd = torch.randn(1, CORE_NH, CORE_DH, device=card)
+    ptd = row[None].clone()
+    posd = torch.tensor([900], dtype=torch.int32, device=card)
+    calls.append((cdec.paged_decode, (qd, kd, vd, ptd, posd)))
+    refs = [pa._plain_prefill_attention(a[0][None], a[1], a[2], a[-3],
+                                        start, valid, *a[3:-3])[0]
+            for _, a in calls[:2]]
+    refs.append(pa._plain_paged_attention(qd, kd, vd, ptd, posd))
+    outs = [fn(*args) for _ in range(3) for fn, args in calls]
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        j = i % len(calls)
+        assert (out - refs[j]).abs().max().item() <= 2e-5, i
+        assert torch.equal(out, outs[j])
+    stream = torch.cuda.current_stream(card).cuda_stream
+    assert int(cdec._tickets(card, CORE_NH, stream).abs().sum()) == 0
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)

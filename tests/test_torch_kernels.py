@@ -161,19 +161,22 @@ def test_plain_prefill_matches_xla_and_pallas(start, valid, c, block_q,
             start, valid, i * block_q, block_q, 4)).all()
 
 
+# the CUDA-core grid is (query tiles, heads, splits): at a slot of 64
+# pages of 16 on 132 SMs, C=1024 asks for 2 splits (192 tiles x heads),
+# and dh 256 (32-key tiles, units of 2 pages) at C=100 for 11
 @pytest.mark.parametrize("dtype,dh,c,want_arm,want_bq,want_grid", [
     (torch.bfloat16, 64, 1024, "mma_bf16", 64, (12, 16)),  # the serve path
     (torch.bfloat16, 128, 16, "mma_bf16", 16, (12, 1)),
     (torch.bfloat16, 16, 200, "mma_bf16", 64, (12, 4)),
-    (torch.float32, 64, 1024, "cuda_core", 32, (32, 12)),  # f32: no TF32
-    (torch.bfloat16, 72, 1024, "cuda_core", 32, (32, 12)),  # not 16 | dh
-    (torch.bfloat16, 256, 100, "cuda_core", 32, (4, 12)),   # above 128
+    (torch.float32, 64, 1024, "cuda_core", 64, (16, 12, 2)),  # f32: no TF32
+    (torch.bfloat16, 72, 1024, "cuda_core", 64, (16, 12, 2)),  # not 16 | dh
+    (torch.bfloat16, 256, 100, "cuda_core", 64, (2, 12, 11)),  # above 128
 ])
 def test_prefill_arm_rule_and_query_tiles(dtype, dh, c, want_arm, want_bq,
                                           want_grid):
     assert cpre.arm(dtype, dh) == want_arm
     assert cpre.default_block_q(c, dtype, dh) == want_bq
-    assert cpre.grid(c, 12, dtype, dh) == want_grid
+    assert cpre.grid(c, 12, dtype, dh, 64, 16, 132) == want_grid
 
 
 def test_tensor_core_prefill_refuses_what_it_cannot_take():
