@@ -129,6 +129,12 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    the peak memory below ``train_dropout``'s, no arm may raise it, and
    the losses must stay ``train_dropout``'s; the line also times the
    fc_out product that "mlp" and "mlp_up" rerun beyond JAX's policy.
+   ``train_f32``: GPT-2 small in its default float32 (no cast to bf16),
+   B=16 as 2 microbatches of 8, S=1024, 2 warm-up and 4 timed steps: the
+   f32 CUDA-core loops of the three flash kernels on the main path, each
+   24 times a step (held exact, ``flash_launches_per_step``), with the
+   step's share of the H100's 67 TFLOP/s f32 rate (``f32_peak_share``)
+   beside its MFU. Every train line carries the card's clocks.
 8. ``incubate_parity``: the `incubate.nn` fused layers in float32 on the
    card against the port's CPU layers on the same weights:
    `FusedMultiTransformer` at GPT-2 small's width (768, 12 heads, FFN
@@ -2529,17 +2535,18 @@ def train_parity(dev, smi, dtype=torch.float32, hidden_dropout=0.0):
         raise SystemExit(f"{phase}: card and CPU train steps disagree")
 
 
-def train_run(dev, smi, phase="train", warmup=2, timed=8, **over):
-    """GPT-2 small in bf16 with f32 masters: warm-up steps, then timed
-    steps on one fixed batch. ``over`` overrides config fields (``train``
-    trains without dropout, ``train_dropout`` with the config's 0.1).
-    Returns the phase's line."""
+def train_run(dev, smi, phase="train", warmup=2, timed=8,
+              dtype=torch.bfloat16, **over):
+    """GPT-2 small in ``dtype`` (bf16 with f32 masters, or the config's
+    own float32): warm-up steps, then timed steps on one fixed batch.
+    ``over`` overrides config fields (``train`` trains without dropout,
+    ``train_dropout`` with the config's 0.1). Returns the phase's line."""
     gc.collect()
     torch.cuda.empty_cache()
     cfg = dict(dict(hidden_dropout=0.0, attention_dropout=0.0), **over)
     model = gpt_mod.gpt2_small(generator=torch.Generator().manual_seed(SEED),
                                **cfg)
-    model = model.to(torch.bfloat16)
+    model = model.to(dtype)
     step = ScanTrainStep(model, AdamW(learning_rate=1e-4, clip_norm=1.0),
                          microbatches=2, device=dev)
     x, y = train_batch(np.random.default_rng(SEED + 4), 16, 1024, VOCAB)
@@ -2575,7 +2582,8 @@ def train_run(dev, smi, phase="train", warmup=2, timed=8, **over):
         and observed["watchdog_dumps"] == 0
     line = {"phase": phase, "model": "gpt2-small",
             "dtype": dtype_name(next(model.parameters()).dtype),
-            "master_weights": "float32", "card": smi,
+            "master_weights": "float32" if dtype != torch.float32 else None,
+            "card": smi,
             "hidden_dropout": model.cfg.hidden_dropout,
             "recompute": model.cfg.recompute,
             "recompute_granularity": model.cfg.recompute_granularity,
@@ -2585,17 +2593,32 @@ def train_run(dev, smi, phase="train", warmup=2, timed=8, **over):
             "step_ms": [r["step_ms"] for r in recs],
             "tokens_per_s": tokens / (step_ms / 1e3),
             "mfu": flops / (step_ms / 1e3 * H100_BF16_PEAK),
-            "flops_per_step": flops,
+            "flops_per_step": flops, "clocks": card_clocks(),
             "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
             "losses": losses, "launches": launches,
             "expected_launches": expected, **observed, "ok": ok}
     if model.cfg.hidden_dropout:
         line["dropout_launches_per_step"] = launches["dropout"] / timed
+    if dtype == torch.float32:   # the matrix products' own peak: f32 FFMA
+        line["f32_peak_share"] = flops / (step_ms / 1e3
+                                          * PEAK_OPS[torch.float32])
+        line["flash_launches_per_step"] = {
+            k: launches[k] / timed for k in FLASH_KERNELS}
+        line["flash_arm"] = cfa.arm(dtype, DH)
     emit(line)
     if not ok:
         raise SystemExit(f"{phase}: losses {losses} not finite and "
                          f"falling, or the train series off: {observed}")
     return line
+
+
+def train_f32(dev, smi):
+    """GPT-2 small trained in its default float32 (no cast): B=16 as 2
+    microbatches of 8, S=1024, AdamW, 2 warm-up and 4 timed steps. Every
+    attention call runs the f32 CUDA-core flash loops, each kernel 24 times
+    a step (12 layers x 2 microbatches), held exact."""
+    return train_run(dev, smi, "train_f32", warmup=2, timed=4,
+                     dtype=torch.float32)
 
 
 def fc_out_product_ms(dev, timer, b=8, s=1024):
@@ -3112,6 +3135,7 @@ def main():
     dropped = train_run(dev, smi, "train_dropout", hidden_dropout=DROPOUT_P)
     launches["dropout"] = dropped["launches"]["dropout"]
     train_recompute(dev, smi, dropped)
+    train_f32(dev, smi)
     torch.cuda.empty_cache()
     incubate_parity(dev)
     incubated = incubate_run(dev, smi)

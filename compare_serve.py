@@ -6,6 +6,8 @@ repository, in turns, on one NVIDIA card. Run from the repository root:
     python3 compare_serve.py --inflight parent_check . . parent_check
     python3 compare_serve.py --f32 parent_check . . parent_check
     python3 compare_serve.py --prefill parent_check . . parent_check
+    python3 compare_serve.py --flash parent_check . . parent_check
+    python3 compare_serve.py --train-f32 parent_check . . parent_check
 
 Each argument is the root of a checkout (this one is ``.``; another is
 unpacked with ``git archive``); each runs in a process of its own, in the
@@ -20,10 +22,16 @@ GPT-2 small in its default float32 (no cast to bf16), ``serve`` over
 float32 pools and ``serve_int8`` over int8 K/V pools (weights native), so
 that every prefill runs the CUDA-core prefill loop; with ``--prefill``,
 no serving but `check_prefill`'s kernel lines at every PREFILL_CASES
-shape, float32 and bfloat16 q over float and int8 pools. Every JSON line a
-process prints is printed again with ``checkout``, ``turn`` and the
-``card_clocks`` read before the process started added; a process that
-fails ends the run with its exit code.
+shape, float32 and bfloat16 q over float and int8 pools; with ``--flash``,
+`check_flash`'s kernel lines (forward, dQ, dK/dV) at every FLASH_CASES
+shape in float32 and bfloat16; with ``--train-f32``, `chip_smoke.py`'s
+``train_f32`` line (GPT-2 small trained in its default float32, B=16 as 2
+microbatches, S=1024, 2 warm-up and 4 timed steps; the parent has no
+``train_f32`` phase, so its process runs its own `train_run` with 2
+warm-up and 4 timed steps and the cast to bfloat16 skipped). Every JSON
+line a process prints is printed again with ``checkout``, ``turn`` and
+the ``card_clocks`` read before the process started added; a process
+that fails ends the run with its exit code.
 """
 from __future__ import annotations
 
@@ -92,8 +100,45 @@ for dtype in (torch.float32, torch.bfloat16):
             cs.check_prefill(dev, timer, dtype, c, start, valid, quant)
 """
 
+FLASH_PHASES = """
+import torch
+import chip_smoke as cs
+from paddle_tpu_torch.kernels import _build
+dev = torch.device("cuda", 0)
+_build.build_all()
+torch.backends.cuda.matmul.allow_tf32 = False
+timer = cs.Timer(dev)
+for dtype in (torch.float32, torch.bfloat16):
+    for case in cs.FLASH_CASES:
+        cs.check_flash(dev, timer, dtype, case)
+"""
+
+TRAIN_F32_PHASES = """
+import torch
+import chip_smoke as cs
+from paddle_tpu_torch.kernels import _build
+dev = torch.device("cuda", 0)
+smi = cs.nvidia_smi()
+_build.build_all()
+torch.backends.cuda.matmul.allow_tf32 = False
+if hasattr(cs, "train_f32"):
+    cs.train_f32(dev, smi)
+else:   # a checkout before train_f32: its train_run, the bf16 cast skipped
+    make = cs.gpt_mod.gpt2_small
+
+    def f32_model(*args, **kw):
+        model = make(*args, **kw)
+        to = model.to
+        model.to = lambda *a, **k: model if a[:1] == (torch.bfloat16,) \
+            else to(*a, **k)
+        return model
+    cs.gpt_mod.gpt2_small = f32_model
+    cs.train_run(dev, smi, "train_f32", warmup=2, timed=4)
+"""
+
 PHASES = {"--inflight": INFLIGHT_PHASES, "--f32": F32_PHASES,
-          "--prefill": PREFILL_PHASES}
+          "--prefill": PREFILL_PHASES, "--flash": FLASH_PHASES,
+          "--train-f32": TRAIN_F32_PHASES}
 
 
 def main():

@@ -15,7 +15,13 @@ bfloat16 with a head dim that is a multiple of 16 up to 128 takes the
 tensor-core loop (``"mma_bf16"``: `csrc/flash_fwd_mma.cuh`,
 `csrc/flash_dq_mma.cuh`, `csrc/flash_dkv_mma.cuh`), everything else the
 CUDA-core loop of `csrc/flash_fwd.cu` / `csrc/flash_dq.cu` /
-`csrc/flash_dkv.cu` (``"cuda_core"``).
+`csrc/flash_dkv.cu` (``"cuda_core"``). The forward's and dK/dV's CUDA-core
+loops are register-tiled over f32 tiles in shared memory
+(`csrc/flash_common.cuh`); :func:`core_fwd_smem` and
+:func:`core_dkv_layout` mirror their shared-memory layouts, which fit the
+H100's 227 KB a block at every head dim up to 256. They copy with
+cp.async at whatever alignment the tensors have (16, 8 or 4 bytes a copy),
+so only the tensor-core loops demand 16-byte boundaries.
 """
 from __future__ import annotations
 
@@ -28,8 +34,10 @@ from paddle_tpu_torch.kernels.cuda import (DTYPE_CODES, MAX_HEAD_DIM,
                                            require_cuda)
 
 __all__ = ["FWD", "DQ", "DKV", "MMA_BLOCK_Q", "CORE_BLOCK_Q", "MMA_DQ_BLOCK_Q",
-           "MMA_BLOCK_K", "arm", "grid", "dq_arm", "dq_grid", "dkv_arm",
-           "dkv_grid", "flash_fwd", "flash_dq", "flash_dkv"]
+           "MMA_BLOCK_K", "MAX_SMEM", "CORE_DKV_STAGES", "arm", "grid",
+           "dq_arm", "dq_grid", "dkv_arm", "dkv_grid", "core_keys",
+           "core_ld", "core_fwd_smem", "core_dkv_layout", "flash_fwd",
+           "flash_dq", "flash_dkv"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FWD = CudaKernel("flash_fwd", "flash_fwd", [_P] * 5 + [_I] * 5 + [_F, _I, _P])
@@ -41,6 +49,50 @@ MMA_BLOCK_Q = 128     # query rows a block (flash_fwd_mma.cuh, Tile)
 CORE_BLOCK_Q = 64     # the CUDA-core loop's query block (flash_common.cuh)
 MMA_DQ_BLOCK_Q = 128  # a dQ block's rows up to D=64, half above (dq Tile)
 MMA_BLOCK_K = 64      # key rows a dK/dV block (flash_dkv_mma.cuh, kBlockK)
+# dynamic shared memory a block may take (flash_common.cuh, kMaxSmem): the
+# H100's 227 KB opt-in limit less room for static arrays
+MAX_SMEM = 232448 - 1024
+# the dK/dV loop's Q/dO ring: one stage up to D=64 (two blocks an SM,
+# kDkvSmallStages), two above where they fit (kDkvStages)
+CORE_DKV_STAGES = 2
+
+
+def core_keys(d: int) -> int:
+    """Keys of a CUDA-core key tile (forward) or dK/dV block: 64 up to
+    D=128, 32 above."""
+    return 64 if int(d) <= 128 else 32
+
+
+def core_ld(d: int) -> int:
+    """Floats of a CUDA-core f32 tile row (flash_common.cuh, `tile_ld`): D
+    rounded up to 8, plus 4, a stride of 4 mod 8 floats."""
+    return -(-int(d) // 8) * 8 + 4
+
+
+def core_fwd_smem(d: int) -> int:
+    """Shared-memory bytes of a CUDA-core forward block (flash_fwd.cu,
+    `core_fwd_smem`): 64 query rows, two ring stages of K and V tiles, and
+    the P tile (rows of keys + 16 floats)."""
+    bk = core_keys(d)
+    return ((CORE_BLOCK_Q + 4 * bk) * core_ld(d)
+            + CORE_BLOCK_Q * (bk + 16)) * 4
+
+
+def core_dkv_layout(d: int) -> tuple[int, int]:
+    """(ring stages, shared-memory bytes) of a CUDA-core dK/dV block
+    (flash_dkv.cu, `core_dkv_layout`): the block's K and V rows, the Q/dO
+    ring (one stage up to D=64, where two blocks share an SM; above,
+    CORE_DKV_STAGES where they fit, else one), P^T and dS^T (rows of 64 +
+    16 floats), and each stage's lse and delta."""
+    bk, ld = core_keys(d), core_ld(d)
+
+    def size(st):
+        return ((2 * bk + 2 * st * CORE_BLOCK_Q) * ld
+                + 2 * bk * (CORE_BLOCK_Q + 16) + 2 * st * CORE_BLOCK_Q) * 4
+    for st in range(1 if int(d) <= 64 else CORE_DKV_STAGES, 1, -1):
+        if size(st) <= MAX_SMEM:
+            return st, size(st)
+    return 1, size(1)
 
 
 def arm(dtype, d: int) -> str:
@@ -57,7 +109,8 @@ def arm(dtype, d: int) -> str:
 def grid(bh: int, sq: int, dtype, d: int) -> tuple[int, int]:
     """The forward's launch grid: (b*h, query tiles) on the tensor-core
     loop, whose blockIdx.y 0 takes the last (heaviest causal) tile of every
-    (b, h); (query blocks, b*h) on the CUDA-core loop."""
+    (b, h); (query blocks of 64, b*h) on the CUDA-core loop, whose linear
+    block index takes every (b, h) of the last query block first."""
     if arm(dtype, d) == "mma_bf16":
         return int(bh), -(-int(sq) // MMA_BLOCK_Q)
     return -(-int(sq) // CORE_BLOCK_Q), int(bh)
@@ -92,10 +145,11 @@ def dkv_grid(bh: int, sk: int, dtype, d: int) -> tuple[int, int]:
     """The dK/dV launch grid: (b*h, key tiles of 64) on the tensor-core
     loop, whose blockIdx.y 0 is key tile 0 (the one that sees the most
     causal query rows) of every (b, h); (key blocks, b*h) on the CUDA-core
-    loop, 64 keys a block up to D=128 and 32 above (`KeyTile`)."""
+    loop, :func:`core_keys` keys a block (64 up to D=128, 32 above), whose
+    linear block index takes every (b, h) of key block 0 first."""
     if dkv_arm(dtype, d) == "mma_bf16":
         return int(bh), -(-int(sk) // MMA_BLOCK_K)
-    return -(-int(sk) // (64 if int(d) <= 128 else 32)), int(bh)
+    return -(-int(sk) // core_keys(d)), int(bh)
 
 
 def _require_aligned(op, tensors):

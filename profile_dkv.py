@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """The tensor-core backward loops of `flash_dkv.cu` and `flash_dq.cu` at
-other block shapes, on one NVIDIA card. Run from the repository root:
+other block shapes, and the stages of the f32 CUDA-core loops of
+`flash_fwd.cu` and `flash_dkv.cu`, on one NVIDIA card. Run from the
+repository root:
 
     python3 profile_dkv.py [flash_dkv | flash_dq ...]
+    python3 profile_dkv.py core [flash_fwd | flash_dkv ...]
 
 For each kernel of LOOPS (all with no names) it compiles the kernel's
 source as `kernels/_build.py` does, once as it is and once for each variant
@@ -13,10 +16,24 @@ bf16 train and incubate shapes (B=8, H=12, S=1024, D=64, causal and not;
 the same timer, the median of 25 launches after an L2 eviction), three
 times in turns, beside SDPA's forward and backward on the same inputs. One
 JSON line per kernel, shape and variant.
+
+``core``: for each kernel of CORE (both with no names) it compiles the
+kernel's source once as it is and once for each of its CORE variants (a
+copy of the source with one stage of its f32 CUDA-core loop taken out: the
+K/V copies (forward) or the Q/dO copies (dK/dV), the S = Q K^T product
+(forward) or the S^T and dP^T products (dK/dV), the P V product (forward)
+or the dV and dK products (dK/dV); or changed: the forward's two products
+in two passes, dV and dK in two passes, the dK/dV ring at two stages with
+one block an SM or at one stage with one block), and times each at the f32 train and
+incubate shapes, three times in turns, with the card's clocks beside each
+line. An ablated kernel computes garbage: the time it saves is what that
+stage costs on the critical path, not a time the kernel could reach
+without it.
 """
 from __future__ import annotations
 
 import ctypes
+import re
 import shutil
 import subprocess
 import sys
@@ -67,26 +84,89 @@ LOOPS = {
     }),
 }
 SHAPES = [case for case in cs.FLASH_CASES if case[0] in ("train", "incubate")]
+# kernel (STEM) -> variant -> [(file, source text, its replacement)] for the
+# f32 CUDA-core loops (``core``)
+NN2 = "tile_nn2<RM, DC>(gv, pt, dot, gk, dst, qt, LDP, ld, kBlockQ, n4);"
+CORE = {
+    "flash_fwd": {
+        "full": [],
+        "no_copies": [("flash_fwd.cu", "  auto load_k = [&](int j) {\n    if (j < nkb)",
+                       "  auto load_k = [&](int j) {\n    if (j < 0)"),
+                      ("flash_fwd.cu", "  auto load_v = [&](int j) {\n    if (j < nkb)",
+                       "  auto load_v = [&](int j) {\n    if (j < 0)")],
+        "no_qk": [("flash_fwd.cu", "tile_nt<RM, KPT>(s, qs, kring, ld, n4);",
+                   "tile_nt<RM, KPT>(s, qs, kring, ld, 0);"),
+                  ("flash_common.cuh",
+                   "".join(f"        s[i][j] = fmaf(xa[i].{c}, yb[j].{c}, "
+                           "s[i][j]);\n" for c in "xyzw"), "")],
+        "no_pv": [("flash_fwd.cu",
+                   "tile_nn<RM, DC>(acc, ps, LDP, vt, ld, BK, n4);",
+                   "tile_nn<RM, DC>(acc, ps, LDP, vt, ld, 0, n4);"),
+                  ("flash_common.cuh",
+                   "    nn_step<RM, DC>(acc, p, x, ld, k, n / 4);\n", "")],
+        "S and P V in two passes": [
+            ("flash_fwd.cu", "const bool fused = DC == 1 && 4 * n4 == BK;",
+             "const bool fused = false;")],
+    },
+    "flash_dkv": {
+        "full": [],
+        "no_copies": [("flash_dkv.cu", "    if (i < ntiles) {\n",
+                       "    if (i < 0) {\n")],
+        "no_st_dpt": [("flash_dkv.cu",
+                       "tile_nt2<RM, CN>(s, ks, qt, dp, vs, dot, ld, n4);",
+                       "tile_nt2<RM, CN>(s, ks, qt, dp, vs, dot, ld, 0);")],
+        "no_dv_dk": [("flash_dkv.cu", NN2, NN2.replace("kBlockQ", "0"))],
+        "dV and dK in two passes": [
+            ("flash_dkv.cu", NN2,
+             "tile_nn<RM, DC>(gv, pt, LDP, dot, ld, kBlockQ, n4); "
+             "tile_nn<RM, DC>(gk, dst, LDP, qt, ld, kBlockQ, n4);")],
+        "2 stages, 1 block an SM": [
+            ("flash_dkv.cu", "constexpr int kDkvSmallStages = 1;",
+             "constexpr int kDkvSmallStages = 2;"),
+            ("flash_dkv.cu", "constexpr int kDkvMinBlocks = 2;",
+             "constexpr int kDkvMinBlocks = 1;")],
+        "1 stage, 1 block an SM": [
+            ("flash_dkv.cu", "constexpr int kDkvMinBlocks = 2;",
+             "constexpr int kDkvMinBlocks = 1;")],
+    },
+}
+ARGTYPES = {   # the C entry points' (pointers, then ints, float, int, stream)
+    "flash_fwd": 5, "flash_dkv": 8, "flash_dq": 7}
 
 
-def build(root: Path, stems) -> dict:
-    """{stem: {variant: library path}}, every variant of every kernel
-    compiled in parallel; raises with nvcc's output on a failed build."""
+def ptxas_summary(log: str) -> dict:
+    """{mangled kernel name: its registers and spills} from nvcc's -Xptxas -v
+    output, for the kernels a variant can change (the tensor-core loops and
+    the CUDA-core loops)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+        elif name and ("mma" in name or "core_kernel" in name) and (
+                "Used" in ln or "spill" in ln):
+            out[name] = (out.get(name, "") + " " + ln.split(":", 1)[-1]
+                         .strip()).strip()
+    return out
+
+
+def build(root: Path, stems, table) -> dict:
+    """{stem: {variant: library path}}, every variant of every kernel of
+    ``table`` ({stem: {variant: [(file, old, new)]}}) compiled in parallel;
+    raises with nvcc's output on a failed build."""
     procs, libs = [], {}
     for stem in stems:
-        loop, variants = LOOPS[stem]
         libs[stem] = {}
-        for i, (variant, edits) in enumerate(variants.items()):
+        for i, (variant, edits) in enumerate(table[stem].items()):
             src = root / f"{stem}_v{i}"
             shutil.rmtree(src, ignore_errors=True)
             shutil.copytree(_build.CSRC, src)
-            text = (src / loop).read_text()
-            for old, new in edits:
+            for name, old, new in edits:
+                text = (src / name).read_text()
                 if text.count(old) != 1:
-                    raise SystemExit(f"{variant}: {old!r} is not in {loop} "
-                                     "exactly once; update VARIANTS")
-                text = text.replace(old, new)
-            (src / loop).write_text(text)
+                    raise SystemExit(f"{variant}: {old!r} is not in {name} "
+                                     "exactly once; update the variants")
+                (src / name).write_text(text.replace(old, new))
             lib = src / f"lib{stem}.so"
             cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(src), "-o",
                    str(lib), str(src / f"{stem}.cu")]
@@ -98,10 +178,17 @@ def build(root: Path, stems) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {stem} {variant}:\n{log}")
-        regs = [ln.strip() for ln in log.splitlines()
-                if "Used" in ln or "spill" in ln]
-        cs.emit({"kernel": stem, "variant": variant, "ptxas": regs})
+        cs.emit({"kernel": stem, "variant": variant,
+                 "ptxas": ptxas_summary(log)})
     return libs
+
+
+def bind(lib, stem):
+    """The C entry point ``stem`` of the library at ``lib``."""
+    fn = getattr(ctypes.CDLL(str(lib)), stem)
+    fn.argtypes = ([ctypes.c_void_p] * ARGTYPES[stem] + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return fn
 
 
 def profile(stem: str, libs: dict, dev, timer, smi):
@@ -129,12 +216,7 @@ def profile(stem: str, libs: dict, dev, timer, smi):
         ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)]
         runs, errs = {}, {}
         for variant, lib in libs.items():
-            fn = getattr(ctypes.CDLL(str(lib)), stem)
-            fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
-                           + [ctypes.c_int] * 5
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-
-            def run(fn=fn):
+            def run(fn=bind(lib, stem)):
                 rc = fn(*ptrs, b * h, sq, sk, d, int(causal), scale,
                         DTYPE_CODES[q.dtype],
                         torch.cuda.current_stream(dev).cuda_stream)
@@ -164,21 +246,79 @@ def profile(stem: str, libs: dict, dev, timer, smi):
                      "ms": ms, "median_ms": float(np.median(ms))})
 
 
+def profile_core(stem: str, libs: dict, dev, timer, smi):
+    """Times every CORE variant of one f32 CUDA-core loop at SHAPES in
+    turns; one line per shape and variant."""
+    for name, b, h, sq, sk, d, causal in SHAPES:
+        rng = np.random.default_rng(cs.SEED + sq + sk)
+
+        def rand(*shape):
+            return torch.from_numpy(rng.standard_normal(
+                shape, dtype=np.float32)).to(dev)
+        q, k, v, do = rand(b * h, sq, d), rand(b * h, sk, d), \
+            rand(b * h, sk, d), rand(b * h, sq, d)
+        scale = 1.0 / float(np.sqrt(d))
+        rout, lse = tfa._plain_flash_fwd(q, k, v, scale, causal)
+        if stem == "flash_fwd":
+            refs = [rout, lse]
+            outs = [torch.empty_like(rout), torch.empty_like(lse)]
+            ptrs = [t.data_ptr() for t in (q, k, v, *outs)]
+        else:
+            delta = (do * rout).sum(-1)
+            refs = list(tfa._plain_flash_dkv(q, k, v, do, lse, delta, scale,
+                                             causal))
+            outs = [torch.empty_like(r) for r in refs]
+            ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)]
+        tol = min(cs.flash_tol(torch.float32, r, 2e-5 if stem == "flash_fwd"
+                               else 1e-4) for r in refs)
+        runs, errs = {}, {}
+        for variant, lib in libs.items():
+            def run(fn=bind(lib, stem)):
+                rc = fn(*ptrs, b * h, sq, sk, d, int(causal), scale,
+                        DTYPE_CODES[torch.float32],
+                        torch.cuda.current_stream(dev).cuda_stream)
+                if rc != 0:
+                    raise SystemExit(f"{stem} {variant}: cudaError {rc}")
+            run()
+            torch.cuda.synchronize()
+            errs[variant] = max((o - r).abs().max().item()
+                                for o, r in zip(outs, refs))
+            runs[variant] = run
+        times = {v: [] for v in runs}
+        for _ in range(3):                  # in turns
+            for variant, run in runs.items():
+                times[variant].append(timer.ms(run))
+        for variant, ms in times.items():
+            cs.emit({"kernel": stem, "loop": "core", "variant": variant,
+                     "card": smi, "clocks": cs.card_clocks(),
+                     "shape": {"case": name, "B": b, "H": h, "Sq": sq,
+                               "Sk": sk, "D": d, "causal": causal},
+                     "dtype": "float32", "max_abs_err": errs[variant],
+                     "tol": tol, "ms": ms, "median_ms": float(np.median(ms))})
+
+
 def main(argv):
-    stems = argv or list(LOOPS)
-    unknown = [s for s in stems if s not in LOOPS]
+    core = argv[:1] == ["core"]
+    table = CORE if core else {k: {v: [(loop, *e) for e in edits]
+                                   for v, edits in variants.items()}
+                               for k, (loop, variants) in LOOPS.items()}
+    stems = argv[1:] if core else argv
+    stems = stems or list(table)
+    unknown = [s for s in stems if s not in table]
     if unknown:
-        raise SystemExit(f"unknown kernels {unknown}; known: {list(LOOPS)}")
+        raise SystemExit(f"unknown kernels {unknown}; known: {list(table)}")
     if not torch.cuda.is_available():
         print("profile_dkv: CUDA is not available", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     smi = cs.nvidia_smi()
     print(smi, flush=True)
-    libs = build(_build.BUILD_DIR / "variants", stems)
+    libs = build(_build.BUILD_DIR / ("core" if core else "variants"), stems,
+                 table)
     timer = cs.Timer(dev)
     for stem in stems:
-        profile(stem, libs[stem], dev, timer, smi)
+        (profile_core if core else profile)(stem, libs[stem], dev, timer,
+                                            smi)
     return 0
 
 

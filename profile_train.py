@@ -2,7 +2,7 @@
 """Where the device time of the port's train step goes, on one NVIDIA card.
 Run from the repository root:
 
-    python3 profile_train.py [--dropout]
+    python3 profile_train.py [--dropout | --f32]
 
 It builds the same bf16 GPT-2 small train run as `chip_smoke.py`'s train
 phase (12 layers, B=16 as 2 microbatches of 8, S=1024, AdamW with float32
@@ -12,7 +12,10 @@ device time of all kernels and its share of the wall, that time split into
 the flash-attention kernels, the dropout kernel, the matrix products and
 the rest, the kernel launches, and the kernels with the most device time.
 ``--dropout`` profiles `chip_smoke.py`'s train_dropout run instead
-(``hidden_dropout=0.1``).
+(``hidden_dropout=0.1``); ``--f32`` its train_f32 run (GPT-2 small in its
+default float32, no cast to bf16: the f32 CUDA-core flash loops and f32
+matrix products). The line carries the card's clocks (`chip_smoke.py::
+card_clocks`), read after the profiled steps.
 """
 from __future__ import annotations
 
@@ -43,11 +46,13 @@ def main(steps=3, top=12):
         print("profile_train: CUDA is not available", file=sys.stderr)
         return 1
     p_drop = cs.DROPOUT_P if "--dropout" in sys.argv[1:] else 0.0
+    dtype = torch.float32 if "--f32" in sys.argv[1:] else torch.bfloat16
     dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.nvidia_smi(), flush=True)
     model = gpt_mod.gpt2_small(
         generator=torch.Generator().manual_seed(cs.SEED),
-        hidden_dropout=p_drop, attention_dropout=0.0).to(torch.bfloat16)
+        hidden_dropout=p_drop, attention_dropout=0.0).to(dtype)
     step = ScanTrainStep(model, AdamW(learning_rate=1e-4, clip_norm=1.0),
                          microbatches=2, device=dev)
     x, y = cs.train_batch(np.random.default_rng(cs.SEED + 4), 16, 1024,
@@ -73,7 +78,8 @@ def main(steps=3, top=12):
         groups[g] += _device_us(e)
     kern.sort(key=_device_us, reverse=True)
     cs.emit({"window": "train_steps", "hidden_dropout": p_drop,
-             "steps": steps, "losses": losses,
+             "dtype": str(dtype).replace("torch.", ""),
+             "clocks": cs.card_clocks(), "steps": steps, "losses": losses,
              "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
              "device_busy_share": busy / wall_us, "kernels": len(kern),
              "kernel_launches": sum(e.count for e in kern),

@@ -973,6 +973,102 @@ def test_flash_dq_tensor_core_arm_refuses_misaligned_do(card):
     assert cfa.dq_grid(96, 1024, torch.bfloat16, 64) == (96, 8)
 
 
+# The register-tiled CUDA-core loops of flash_fwd.cu and flash_dkv.cu: f32
+# at every head-dim class (not a multiple of 4, of 8, of 16; above 128 with
+# 32-key tiles; the one-stage dK/dV ring above D=112), bf16 where it does
+# not take the tensor cores, at a ragged causal, a cross-length causal and
+# a non-causal Sq > Sk shape. (dtype, d) pairs:
+CORE_FLASH_DIMS = [(torch.float32, d) for d in
+                   (16, 33, 40, 64, 72, 80, 128, 200, 256)] + \
+                  [(torch.bfloat16, d) for d in (33, 40, 72, 200, 256)]
+CORE_FLASH_SHAPES = [(2, 200, 200, True), (2, 64, 300, True),
+                     (2, 130, 70, False)]
+
+
+def _core_flash_check(cfa, tfa, q, k, v, do, causal):
+    """Forward (out, lse) and dK/dV of the CUDA-core loops against the
+    plain versions; dQ (the f32 loop this change leaves as it was) on the
+    new forward's lse. Returns the kernels' outputs."""
+    dtype, d = q.dtype, q.shape[-1]
+    scale = 1.0 / np.sqrt(d)
+    assert cfa.arm(dtype, d) == cfa.dkv_arm(dtype, d) == "cuda_core"
+    out, lse = cfa.flash_fwd(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    rout, rlse = tfa._plain_flash_fwd(q, k, v, scale, causal)
+    assert out.dtype == dtype
+    err = (out.float() - rout.float()).abs().max().item()
+    assert err <= _flash_tol(dtype, rout, 2e-5), ("out", err)
+    err = (lse - rlse).abs().max().item()
+    assert err <= 2e-5 * max(1.0, rlse.abs().max().item()), ("lse", err)
+    delta = (do.float() * rout.float()).sum(-1)
+    dk, dv = cfa.flash_dkv(q, k, v, do, rlse, delta, scale, causal)
+    dq = cfa.flash_dq(q, k, v, do, lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    rdk, rdv = tfa._plain_flash_dkv(q, k, v, do, rlse, delta, scale, causal)
+    rdq = tfa._plain_flash_dq(q, k, v, do, rlse, delta, scale, causal)
+    for name, got, ref in (("dk", dk, rdk), ("dv", dv, rdv), ("dq", dq, rdq)):
+        assert got.dtype == dtype
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= _flash_tol(dtype, ref, 1e-4), (name, err)
+    return out, lse, dk, dv, delta
+
+
+@pytest.mark.parametrize("shape", CORE_FLASH_SHAPES)
+@pytest.mark.parametrize("dtype,d", CORE_FLASH_DIMS)
+def test_flash_core_loops_match_plain(card, dtype, d, shape):
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    bh, sq, sk, causal = shape
+    q, k, v, do = _flash_inputs((bh, sq, sk, d, causal), card, dtype,
+                                seed=d + sq)
+    before = (cfa.FWD.launches, cfa.DKV.launches)
+    out, lse, dk, dv, delta = _core_flash_check(cfa, tfa, q, k, v, do,
+                                                causal)
+    assert (cfa.FWD.launches, cfa.DKV.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    # no atomics, one writer a value: runs repeat bit for bit
+    scale = 1.0 / np.sqrt(d)
+    out2, lse2 = cfa.flash_fwd(q, k, v, scale, causal)
+    rlse = tfa._plain_flash_fwd(q, k, v, scale, causal)[1]
+    dk2, dv2 = cfa.flash_dkv(q, k, v, do, rlse, delta, scale, causal)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+@pytest.mark.parametrize("dtype,d,shift", [(torch.float32, 64, 1),
+                                           (torch.float32, 33, 3),
+                                           (torch.float32, 72, 2),
+                                           (torch.bfloat16, 72, 1)])
+def test_flash_core_loops_take_misaligned_tensors(card, dtype, d, shift):
+    """Every input `shift` elements past a 16-byte boundary (4, 12 or 8
+    bytes for f32, 2 for bf16): the copies narrow to what the alignment
+    allows, and nothing is refused."""
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    bh, sq, sk, causal = 3, 150, 150, True
+    q, k, v, do = _flash_inputs((bh, sq, sk, d, causal), card, dtype, seed=9)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + shift, dtype=dtype, device=card)
+        out = buf[shift:].view(t.shape)
+        out.copy_(t)
+        return out
+    q, k, v, do = (shifted(t) for t in (q, k, v, do))
+    assert q.data_ptr() % 16 == shift * q.element_size()
+    _core_flash_check(cfa, tfa, q, k, v, do, causal)
+
+
+def test_flash_core_layouts_match_the_kernels(card):
+    """The card takes the largest CUDA-core block the wrapper's layout
+    mirrors describe (`tests/test_torch_flash_core.py` holds them against
+    the kernels' formulas on the CPU)."""
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    props = torch.cuda.get_device_properties(card)
+    limit = getattr(props, "shared_memory_per_block_optin", cfa.MAX_SMEM)
+    assert max(max(cfa.core_fwd_smem(d), cfa.core_dkv_layout(d)[1])
+               for d in range(1, 257)) <= cfa.MAX_SMEM <= limit
+
+
 def test_flash_op_takes_the_kernels_forward_and_backward(card):
     from paddle_tpu_torch.kernels import flash_attention as tfa
     from paddle_tpu_torch.kernels import registry
