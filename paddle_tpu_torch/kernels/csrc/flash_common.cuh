@@ -7,22 +7,18 @@
 // walks rows, so the 16 threads sharing a ty form one half-warp and a
 // reduction over a row's columns is a shuffle over offsets 8, 4, 2, 1.
 //
-// Two sets of primitives:
-// - The register-tiled f32 loops of flash_fwd.cu and flash_dkv.cu (the
-//   design of the paged prefill's CUDA-core loop, paged_prefill.cuh):
-//   `tile_ld`, `copy_granule`, `load_rows`, `zero_pad`, `tile_nt`,
-//   `tile_nt2`, `tile_nn`, `tile_nn2`, `tile_nt_nn`. f32 tile rows are padded to a stride of 4 mod 8
-//   floats, so the 8 rows a quarter warp reads with one float4 each fall in
-//   distinct banks. Thread (ty, tx) owns rows ty + 16 i and keys (or
-//   columns, or float4 column chunks) tx + 16 j, and forms 4 x 4 register
-//   tiles with exact f32 FMAs (`fmaf`) from float4 reads: 64 FMAs per 8
-//   reads. Rows come in by cp.async of contiguous rows, 16, 8 or 4 bytes a
-//   copy as the row bytes and the pointers' alignment allow, so that a
-//   tensor 4 bytes off a 16-byte boundary or a head dim of 33 is taken
-//   too; bfloat16 rows are widened into the same f32 tiles by plain loads.
-// - PR 2's primitives (`stage`, `tile_dot`, `tile_accumulate`), which the
-//   f32 loop of flash_dq.cu still uses: rows of stride D + 1 floats, one
-//   float a read, thread (ty, tx) owning rows ty * RM + i.
+// The register-tiled f32 loops (the design of the paged prefill's
+// CUDA-core loop, paged_prefill.cuh): `tile_ld`, `copy_granule`,
+// `load_rows`, `zero_pad`, `tile_nt`, `tile_nt2`, `tile_nn`, `tile_nn2`,
+// `tile_nt_nn`. f32 tile rows are padded to a stride of 4 mod 8 floats, so
+// the 8 rows a quarter warp reads with one float4 each fall in distinct
+// banks. Thread (ty, tx) owns rows ty + 16 i and keys (or columns, or
+// float4 column chunks) tx + 16 j, and forms 4 x 4 register tiles with
+// exact f32 FMAs (`fmaf`) from float4 reads: 64 FMAs per 8 reads. Rows come
+// in by cp.async of contiguous rows, 16, 8 or 4 bytes a copy as the row
+// bytes and the pointers' alignment allow, so that a tensor 4 bytes off a
+// 16-byte boundary or a head dim of 33 is taken too; bfloat16 rows are
+// widened into the same f32 tiles by plain loads.
 #pragma once
 
 #include <cstdint>
@@ -52,9 +48,6 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(kFullMask, x, o);
   return x;
 }
-
-// ---------------------------------------------------------------------------
-// The register-tiled f32 loops (flash_fwd.cu, flash_dkv.cu).
 
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -162,7 +155,8 @@ __device__ __forceinline__ void tile_nt(float (&acc)[RM][CN],
 }
 
 // Two products A1 B1^T and A2 B2^T of the same shapes in one pass over the
-// columns (flash_dkv.cu: S^T = K Q^T and dP^T = V dO^T).
+// columns (flash_dkv.cu: S^T = K Q^T and dP^T = V dO^T; flash_dq.cu: S =
+// Q K^T and dP = dO V^T).
 template <int RM, int CN>
 __device__ __forceinline__ void tile_nt2(float (&s)[RM][CN], const float* a1,
                                          const float* b1,
@@ -246,7 +240,8 @@ __device__ __forceinline__ void nn_step(float (&acc)[RM][DC][4],
 
 // acc[i][c][e] += sum_{k < n} w[(ty + 16 i) * ldw + k] * x[k * ld + 4 (tx +
 // 16 c) + e] for the float4 column chunks tx + 16 c < n4 (n a multiple of
-// 4): a [rows, n] weight tile times an [n, 4 n4] tile (P V, P^T dO, dS^T Q).
+// 4): a [rows, n] weight tile times an [n, 4 n4] tile (P V, P^T dO, dS^T Q,
+// dS K).
 template <int RM, int DC>
 __device__ __forceinline__ void tile_nn(float (&acc)[RM][DC][4],
                                         const float* w, int ldw,
@@ -323,75 +318,6 @@ __device__ __forceinline__ void tile_nt_nn(float (&s)[RM][CN], const float* a,
         s[i][j] = fmaf(xa[i].w, yb[j].w, s[i][j]);
       }
     nn_step<RM, DC>(acc, p, x, ld, k, n / 4);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// PR 2's primitives (flash_dq.cu's f32 loop).
-
-// Key tiles per block: 64 for head dims up to 128, 32 above (shared memory).
-template <int DC>
-struct KeyTile {
-  static constexpr int value = DC <= 8 ? 64 : 32;
-};
-
-// Rows [row0, row0 + rows) of a [n, d] matrix into dst (row stride ld) as
-// f32, times `scale`; rows at or past n are written as 0.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
-                                      int row0, int rows, int n, int d,
-                                      float scale) {
-  for (int e = threadIdx.x; e < rows * d; e += kThreads) {
-    const int r = e / d, c = e - r * d;
-    const int g = row0 + r;
-    dst[r * ld + c] = g < n ? to_float(src[(size_t)g * d + c]) * scale : 0.f;
-  }
-}
-
-// acc[i][j] = sum_{kk < d} a[(ty * RM + i) * ld + kk] * b[(tx + 16 j) * ld + kk]
-template <int RM, int CN>
-__device__ __forceinline__ void tile_dot(float (&acc)[RM][CN], const float* a,
-                                         const float* b, int ld, int d) {
-  const int tx = tile_tx(), ty = tile_ty();
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < d; ++kk) {
-    float av[RM], bv[CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) av[i] = a[(ty * RM + i) * ld + kk];
-#pragma unroll
-    for (int j = 0; j < CN; ++j) bv[j] = b[(tx + 16 * j) * ld + kk];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) acc[i][j] += av[i] * bv[j];
-  }
-}
-
-// acc[i][c] += sum_{kk < n} w[(ty * RM + i) * ldw + kk] * x[kk * ld + tx + 16 c]
-// for the columns tx + 16 c < d: a [RM rows] x [n] weight tile of shared
-// memory times a staged [n, d] tile.
-template <int RM, int DC>
-__device__ __forceinline__ void tile_accumulate(float (&acc)[RM][DC],
-                                                const float* w, int ldw,
-                                                const float* x, int ld, int n,
-                                                int d) {
-  const int tx = tile_tx(), ty = tile_ty();
-#pragma unroll 4
-  for (int kk = 0; kk < n; ++kk) {
-    float wv[RM];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) wv[i] = w[(ty * RM + i) * ldw + kk];
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + 16 * c;
-      const float xv = col < d ? x[kk * ld + col] : 0.f;
-#pragma unroll
-      for (int i = 0; i < RM; ++i) acc[i][c] += wv[i] * xv;
-    }
   }
 }
 

@@ -55,9 +55,10 @@
 //   (one stage, two blocks an SM); 176,640 at D=128 and 220,672 at D=256
 //   (one stage, one block).
 // - Measured on an H100 80GB HBM3 at 700 W, 1980 MHz (compare_serve.py
-//   --flash, PR 2's loop in the same call): 0.8217-0.8329 ms at the train
-//   shape, 47% of its 0.3850 ms bound, against 1.4407-1.4622; 1.5620-1.5841
-//   at the incubate shape, 49% of 0.7693, against 2.4583-2.4614. Two
+//   --flash, the loop it replaced in the same call): 0.8217-0.8329 ms at
+//   the train shape, 47% of its 0.3850 ms bound, against 1.4407-1.4622;
+//   1.5620-1.5841 at the incubate shape, 49% of 0.7693, against
+//   2.4583-2.4614. Two
 //   stages with one block an SM: 0.916 / 1.724 ms; one stage, one block:
 //   0.973 / 1.831. Taking out S^T and dP^T saves 0.38 / 0.75 ms, dV and dK
 //   0.35 / 0.68, the copies 0.04 / 0.07 (profile_dkv.py core).

@@ -58,9 +58,10 @@
 //   at D=64, two blocks an SM (128 registers a thread); 189,440 at D=128,
 //   211,968 at D=256, one block.
 // - Measured on an H100 80GB HBM3 at 700 W, 1980 MHz (compare_serve.py
-//   --flash, PR 2's loop in the same call): 0.4405-0.4432 ms at the train
-//   shape, 44% of its 0.1925 ms bound, against 0.9152-0.9156; 0.8269-0.8283
-//   at the incubate shape, 46% of 0.3846, against 1.4851-1.4855. Taking
+//   --flash, the loop it replaced in the same call): 0.4405-0.4432 ms at
+//   the train shape, 44% of its 0.1925 ms bound, against 0.9152-0.9156;
+//   0.8269-0.8283 at the incubate shape, 46% of 0.3846, against
+//   1.4851-1.4855. Taking
 //   out S saves 0.17 / 0.34 ms, P V 0.15 / 0.30, the copies 0.03 / 0.06
 //   (profile_dkv.py core).
 

@@ -15,11 +15,11 @@ bfloat16 with a head dim that is a multiple of 16 up to 128 takes the
 tensor-core loop (``"mma_bf16"``: `csrc/flash_fwd_mma.cuh`,
 `csrc/flash_dq_mma.cuh`, `csrc/flash_dkv_mma.cuh`), everything else the
 CUDA-core loop of `csrc/flash_fwd.cu` / `csrc/flash_dq.cu` /
-`csrc/flash_dkv.cu` (``"cuda_core"``). The forward's and dK/dV's CUDA-core
-loops are register-tiled over f32 tiles in shared memory
-(`csrc/flash_common.cuh`); :func:`core_fwd_smem` and
-:func:`core_dkv_layout` mirror their shared-memory layouts, which fit the
-H100's 227 KB a block at every head dim up to 256. They copy with
+`csrc/flash_dkv.cu` (``"cuda_core"``). The three CUDA-core loops are
+register-tiled exact-f32 products over f32 tiles in shared memory
+(`csrc/flash_common.cuh`); :func:`core_fwd_smem`, :func:`core_dq_layout`
+and :func:`core_dkv_layout` mirror their shared-memory layouts, which fit
+the H100's 227 KB a block at every head dim up to 256. They copy with
 cp.async at whatever alignment the tensors have (16, 8 or 4 bytes a copy),
 so only the tensor-core loops demand 16-byte boundaries.
 """
@@ -34,10 +34,10 @@ from paddle_tpu_torch.kernels.cuda import (DTYPE_CODES, MAX_HEAD_DIM,
                                            require_cuda)
 
 __all__ = ["FWD", "DQ", "DKV", "MMA_BLOCK_Q", "CORE_BLOCK_Q", "MMA_DQ_BLOCK_Q",
-           "MMA_BLOCK_K", "MAX_SMEM", "CORE_DKV_STAGES", "arm", "grid",
-           "dq_arm", "dq_grid", "dkv_arm", "dkv_grid", "core_keys",
-           "core_ld", "core_fwd_smem", "core_dkv_layout", "flash_fwd",
-           "flash_dq", "flash_dkv"]
+           "MMA_BLOCK_K", "MAX_SMEM", "CORE_DKV_STAGES", "CORE_DQ_STAGES",
+           "arm", "grid", "dq_arm", "dq_grid", "dkv_arm", "dkv_grid",
+           "core_keys", "core_ld", "core_fwd_smem", "core_dq_layout",
+           "core_dkv_layout", "flash_fwd", "flash_dq", "flash_dkv"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FWD = CudaKernel("flash_fwd", "flash_fwd", [_P] * 5 + [_I] * 5 + [_F, _I, _P])
@@ -55,10 +55,13 @@ MAX_SMEM = 232448 - 1024
 # the dK/dV loop's Q/dO ring: one stage up to D=64 (two blocks an SM,
 # kDkvSmallStages), two above where they fit (kDkvStages)
 CORE_DKV_STAGES = 2
+# the dQ loop's K ring (two stages where they fit, kDqKStages) and V ring
+# (one, kDqVStages)
+CORE_DQ_STAGES = (2, 1)
 
 
 def core_keys(d: int) -> int:
-    """Keys of a CUDA-core key tile (forward) or dK/dV block: 64 up to
+    """Keys of a CUDA-core key tile (forward, dQ) or dK/dV block: 64 up to
     D=128, 32 above."""
     return 64 if int(d) <= 128 else 32
 
@@ -76,6 +79,26 @@ def core_fwd_smem(d: int) -> int:
     bk = core_keys(d)
     return ((CORE_BLOCK_Q + 4 * bk) * core_ld(d)
             + CORE_BLOCK_Q * (bk + 16)) * 4
+
+
+def core_dq_layout(d: int) -> tuple[int, int, int]:
+    """(K stages, V stages, shared-memory bytes) of a CUDA-core dQ block
+    (flash_dq.cu, `core_dq_layout`): the block's Q and dO rows, the K ring
+    (CORE_DQ_STAGES[0] stages where they fit, else one), the V ring
+    (CORE_DQ_STAGES[1]), and dS (rows of keys + 16 floats); the key tile
+    is :func:`core_keys`."""
+    bk, ld = core_keys(d), core_ld(d)
+
+    def size(kst, vst):
+        return ((2 * CORE_BLOCK_Q + (kst + vst) * bk) * ld
+                + CORE_BLOCK_Q * (bk + 16)) * 4
+    kst, vst = CORE_DQ_STAGES
+    while (kst > 1 or vst > 1) and size(kst, vst) > MAX_SMEM:
+        if vst > 1:
+            vst -= 1
+        else:
+            kst -= 1
+    return kst, vst, size(kst, vst)
 
 
 def core_dkv_layout(d: int) -> tuple[int, int]:
@@ -127,7 +150,8 @@ def dq_grid(bh: int, sq: int, dtype, d: int) -> tuple[int, int]:
     """The dQ launch grid: (b*h, query tiles of 128 rows up to D=64, 64
     above) on the tensor-core loop, whose blockIdx.y 0 takes the last
     (heaviest causal) tile of every (b, h); (query blocks of 64, b*h) on
-    the CUDA-core loop."""
+    the CUDA-core loop, whose linear block index takes every (b, h) of the
+    last query block first, as the forward's (:func:`grid`)."""
     if dq_arm(dtype, d) == "mma_bf16":
         rows = MMA_DQ_BLOCK_Q if int(d) <= 64 else MMA_DQ_BLOCK_Q // 2
         return int(bh), -(-int(sq) // rows)

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """The tensor-core backward loops of `flash_dkv.cu` and `flash_dq.cu` at
 other block shapes, and the stages of the f32 CUDA-core loops of
-`flash_fwd.cu` and `flash_dkv.cu`, on one NVIDIA card. Run from the
-repository root:
+`flash_fwd.cu`, `flash_dq.cu` and `flash_dkv.cu`, on one NVIDIA card. Run
+from the repository root:
 
     python3 profile_dkv.py [flash_dkv | flash_dq ...]
-    python3 profile_dkv.py core [flash_fwd | flash_dkv ...]
+    python3 profile_dkv.py core [flash_fwd | flash_dq | flash_dkv ...]
 
 For each kernel of LOOPS (all with no names) it compiles the kernel's
 source as `kernels/_build.py` does, once as it is and once for each variant
@@ -17,16 +17,16 @@ the same timer, the median of 25 launches after an L2 eviction), three
 times in turns, beside SDPA's forward and backward on the same inputs. One
 JSON line per kernel, shape and variant.
 
-``core``: for each kernel of CORE (both with no names) it compiles the
+``core``: for each kernel of CORE (all with no names) it compiles the
 kernel's source once as it is and once for each of its CORE variants (a
 copy of the source with one stage of its f32 CUDA-core loop taken out: the
-K/V copies (forward) or the Q/dO copies (dK/dV), the S = Q K^T product
-(forward) or the S^T and dP^T products (dK/dV), the P V product (forward)
-or the dV and dK products (dK/dV); or changed: the forward's two products
-in two passes, dV and dK in two passes, the dK/dV ring at two stages with
-one block an SM or at one stage with one block), and times each at the f32 train and
-incubate shapes, three times in turns, with the card's clocks beside each
-line. An ablated kernel computes garbage: the time it saves is what that
+K/V copies (forward, dQ) or the Q/dO copies (dK/dV), the S = Q K^T product
+(forward), the S and dP products (dQ) or the S^T and dP^T products
+(dK/dV), the P V product (forward), dS K (dQ) or the dV and dK products
+(dK/dV); or changed: the forward's two products in two passes, dV and dK
+in two passes, the dQ and dK/dV rings at other stages, key tiles and
+blocks an SM), and times each at the f32 train and incubate shapes, three
+times in turns, with the card's clocks beside each line. An ablated kernel computes garbage: the time it saves is what that
 stage costs on the critical path, not a time the kernel could reach
 without it.
 """
@@ -87,6 +87,8 @@ SHAPES = [case for case in cs.FLASH_CASES if case[0] in ("train", "incubate")]
 # kernel (STEM) -> variant -> [(file, source text, its replacement)] for the
 # f32 CUDA-core loops (``core``)
 NN2 = "tile_nn2<RM, DC>(gv, pt, dot, gk, dst, qt, LDP, ld, kBlockQ, n4);"
+DQ_NT2 = "tile_nt2<RM, KPT>(s, qs, kt, dp, dos, vt, ld, n4);"
+DQ_NN = "tile_nn<RM, DC>(acc, dss, LDP, kt, ld, BK, n4);"
 CORE = {
     "flash_fwd": {
         "full": [],
@@ -128,6 +130,31 @@ CORE = {
         "1 stage, 1 block an SM": [
             ("flash_dkv.cu", "constexpr int kDkvMinBlocks = 2;",
              "constexpr int kDkvMinBlocks = 1;")],
+    },
+    "flash_dq": {
+        "full": [],
+        "no_copies": [("flash_dq.cu", "  auto load_k = [&](int j) {\n    if (j < nkb)",
+                       "  auto load_k = [&](int j) {\n    if (j < 0)"),
+                      ("flash_dq.cu", "  auto load_v = [&](int j) {\n    if (j < nkb)",
+                       "  auto load_v = [&](int j) {\n    if (j < 0)")],
+        "no_s_dp": [("flash_dq.cu", DQ_NT2, DQ_NT2.replace("ld, n4", "ld, 0"))],
+        "no_ds_k": [("flash_dq.cu", DQ_NN, DQ_NN.replace("BK, n4", "0, n4"))],
+        "K and V 2 stages, 1 block an SM": [
+            ("flash_dq.cu", "constexpr int kDqVStages = 1;",
+             "constexpr int kDqVStages = 2;"),
+            ("flash_dq.cu", "constexpr int kDqMinBlocks = 2;",
+             "constexpr int kDqMinBlocks = 1;")],
+        "K and V 1 stage, 2 blocks an SM": [
+            ("flash_dq.cu", "constexpr int kDqKStages = 2;",
+             "constexpr int kDqKStages = 1;")],
+        "K and V 2 stages of 32 keys, 2 blocks an SM": [
+            ("flash_dq.cu", "constexpr int kDqVStages = 1;",
+             "constexpr int kDqVStages = 2;"),
+            ("flash_dq.cu", "constexpr int kDqSmallKpt = 4;",
+             "constexpr int kDqSmallKpt = 2;")],
+        "K 2 stages, V 1, 1 block an SM": [
+            ("flash_dq.cu", "constexpr int kDqMinBlocks = 2;",
+             "constexpr int kDqMinBlocks = 1;")],
     },
 }
 ARGTYPES = {   # the C entry points' (pointers, then ints, float, int, stream)
@@ -265,8 +292,10 @@ def profile_core(stem: str, libs: dict, dev, timer, smi):
             ptrs = [t.data_ptr() for t in (q, k, v, *outs)]
         else:
             delta = (do * rout).sum(-1)
-            refs = list(tfa._plain_flash_dkv(q, k, v, do, lse, delta, scale,
-                                             causal))
+            plain = (tfa._plain_flash_dq if stem == "flash_dq"
+                     else tfa._plain_flash_dkv)
+            refs = plain(q, k, v, do, lse, delta, scale, causal)
+            refs = [refs] if stem == "flash_dq" else list(refs)
             outs = [torch.empty_like(r) for r in refs]
             ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)]
         tol = min(cs.flash_tol(torch.float32, r, 2e-5 if stem == "flash_fwd"

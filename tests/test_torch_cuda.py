@@ -986,9 +986,9 @@ CORE_FLASH_SHAPES = [(2, 200, 200, True), (2, 64, 300, True),
 
 
 def _core_flash_check(cfa, tfa, q, k, v, do, causal):
-    """Forward (out, lse) and dK/dV of the CUDA-core loops against the
-    plain versions; dQ (the f32 loop this change leaves as it was) on the
-    new forward's lse. Returns the kernels' outputs."""
+    """Forward (out, lse), dK/dV and dQ of the CUDA-core loops against the
+    plain versions; dQ on the kernel forward's lse. Returns the kernels'
+    outputs."""
     dtype, d = q.dtype, q.shape[-1]
     scale = 1.0 / np.sqrt(d)
     assert cfa.arm(dtype, d) == cfa.dkv_arm(dtype, d) == "cuda_core"
@@ -1065,8 +1065,62 @@ def test_flash_core_layouts_match_the_kernels(card):
     from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
     props = torch.cuda.get_device_properties(card)
     limit = getattr(props, "shared_memory_per_block_optin", cfa.MAX_SMEM)
-    assert max(max(cfa.core_fwd_smem(d), cfa.core_dkv_layout(d)[1])
+    assert max(max(cfa.core_fwd_smem(d), cfa.core_dkv_layout(d)[1],
+                   cfa.core_dq_layout(d)[2])
                for d in range(1, 257)) <= cfa.MAX_SMEM <= limit
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.float32, 33),
+                                     (torch.bfloat16, 40),
+                                     (torch.bfloat16, 200)])
+def test_flash_dq_core_loop_repeats_bit_for_bit(card, dtype, d):
+    """The CUDA-core dQ loop (f32, and bf16 at head dims the tensor cores
+    refuse): one DQ launch a call, each dq row written by one block, so
+    two calls give the same bits."""
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    bh, sq, sk, causal = 3, 200, 200, True
+    assert cfa.dq_arm(dtype, d) == "cuda_core"
+    q, k, v, do = _flash_inputs((bh, sq, sk, d, causal), card, dtype,
+                                seed=d + 5)
+    scale = 1.0 / np.sqrt(d)
+    rout, rlse = tfa._plain_flash_fwd(q, k, v, scale, causal)
+    delta = (do.float() * rout.float()).sum(-1)
+    before = cfa.DQ.launches
+    dq = cfa.flash_dq(q, k, v, do, rlse, delta, scale, causal)
+    assert cfa.DQ.launches == before + 1
+    dq2 = cfa.flash_dq(q, k, v, do, rlse, delta, scale, causal)
+    assert cfa.DQ.launches == before + 2
+    torch.cuda.synchronize()
+    assert dq.dtype == dtype and torch.equal(dq, dq2)
+    ref = tfa._plain_flash_dq(q, k, v, do, rlse, delta, scale, causal)
+    err = (dq.float() - ref.float()).abs().max().item()
+    assert err <= _flash_tol(dtype, ref, 1e-4), err
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 240),
+                                     (torch.float32, 241),
+                                     (torch.float32, 256),
+                                     (torch.bfloat16, 256)])
+def test_flash_dq_core_loop_cross_length_causal_wide(card, dtype, d):
+    """Cross-length causal (the bottom-right diagonal, Sk - Sq = 203) with
+    ragged query and key tails at the widest head dims: 32-key tiles, the
+    K ring at two stages (D=240) and one (D=241, 256)."""
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    bh, sq, sk, causal = 2, 130, 333, True
+    assert cfa.core_dq_layout(d)[0] == (2 if d <= 240 else 1)
+    q, k, v, do = _flash_inputs((bh, sq, sk, d, causal), card, dtype,
+                                seed=d)
+    scale = 1.0 / np.sqrt(d)
+    rout, rlse = tfa._plain_flash_fwd(q, k, v, scale, causal)
+    delta = (do.float() * rout.float()).sum(-1)
+    dq = cfa.flash_dq(q, k, v, do, rlse, delta, scale, causal)
+    torch.cuda.synchronize()
+    ref = tfa._plain_flash_dq(q, k, v, do, rlse, delta, scale, causal)
+    err = (dq.float() - ref.float()).abs().max().item()
+    assert err <= _flash_tol(dtype, ref, 1e-4), err
 
 
 def test_flash_op_takes_the_kernels_forward_and_backward(card):
