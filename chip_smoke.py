@@ -395,7 +395,7 @@ TRAIN_BF16_GRAD_TOL = 2e-2
 # card vs CPU (and kernel vs plain) for the incubate path, each relative to
 # the largest reference value when that exceeds 1: f32 sums in other
 # orders. Layernorm forward 2e-5 (and the card's rsqrtf); layernorm
-# gradients 1e-4 (the dgamma/dbeta partials add 16- or 256-row blocks);
+# gradients 1e-4 (the dgamma/dbeta partials add 32- or 256-row blocks);
 # the stack 1e-4 (matrix products and layernorms in a row); rope 1e-6 (one
 # f32 rounding of each product and sum on both sides).
 INCUBATE_TOL = {"ln_fwd": 2e-5, "ln_bwd": 1e-4, "stack": 1e-4,
@@ -2737,7 +2737,12 @@ def max_err(got, ref):
 def check_layernorm(dev, timer, dtype, n=8 * 1024, d=D_MODEL):
     """The two fused layernorm kernels against their plain versions at the
     incubate path's rows, timed beside PyTorch's layernorm forward and
-    backward; one ``kernel`` line per kernel."""
+    backward; one ``kernel`` line per kernel. The backward's line also
+    times the op's whole backward (``op_ms``: the kernel, then the sums of
+    its partials and their casts, as `_LayerNorm.backward` runs them), and
+    each line a streaming yardstick of the same bytes (``stream_ms``:
+    ``y.copy_(x)`` for the forward, ``torch.add(x, dy, out=dx)`` for the
+    backward), which nothing on the path calls."""
     rng = np.random.default_rng(SEED + 5)
 
     def rand(*shape, dt=dtype):
@@ -2777,6 +2782,13 @@ def check_layernorm(dev, timer, dtype, n=8 * 1024, d=D_MODEL):
         "fused_layernorm_bwd": (
             lambda: cln.fused_layernorm_bwd(x, gamma, mu, rstd, dy),
             lambda: tfl._plain_ln_bwd(x, gamma, mu, rstd, dy, rpb))}
+
+    def op_bwd():
+        dxo, dgo, dbo = cln.fused_layernorm_bwd(x, gamma, mu, rstd, dy)
+        return dxo, dgo.sum(0).to(gamma.dtype), dbo.sum(0).to(gamma.dtype)
+    ys, dxs = torch.empty_like(x), torch.empty_like(x)
+    stream = {"fused_layernorm_fwd": lambda: ys.copy_(x),
+              "fused_layernorm_bwd": lambda: torch.add(x, dy, out=dxs)}
     # (bytes: inputs read once, outputs written once; operations). The
     # backward's outputs are dx and dgamma, dbeta [d]: the kernel's [nb, d]
     # partials are its own choice, not work the function must do.
@@ -2802,7 +2814,10 @@ def check_layernorm(dev, timer, dtype, n=8 * 1024, d=D_MODEL):
             "library_ms": timer.ms(library[kern]),
             "library": "F.layer_norm" if kern == "fused_layernorm_fwd"
                        else "aten.native_layer_norm_backward",
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops}
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
+            "stream_ms": timer.ms(stream[kern])}
+        if kern == "fused_layernorm_bwd":
+            line["op_ms"] = timer.ms(op_bwd)
         emit(line)
         if not ok:
             raise SystemExit(f"{kern} {dtype}: errors {errs}")

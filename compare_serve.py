@@ -8,6 +8,7 @@ repository, in turns, on one NVIDIA card. Run from the repository root:
     python3 compare_serve.py --prefill parent_check . . parent_check
     python3 compare_serve.py --flash parent_check . . parent_check
     python3 compare_serve.py --train-f32 parent_check . . parent_check
+    python3 compare_serve.py --layernorm parent_check . . parent_check
 
 Each argument is the root of a checkout (this one is ``.``; another is
 unpacked with ``git archive``); each runs in a process of its own, in the
@@ -28,10 +29,19 @@ shape in float32 and bfloat16; with ``--train-f32``, `chip_smoke.py`'s
 ``train_f32`` line (GPT-2 small trained in its default float32, B=16 as 2
 microbatches, S=1024, 2 warm-up and 4 timed steps; the parent has no
 ``train_f32`` phase, so its process runs its own `train_run` with 2
-warm-up and 4 timed steps and the cast to bfloat16 skipped). Every JSON
-line a process prints is printed again with ``checkout``, ``turn`` and
-the ``card_clocks`` read before the process started added; a process
-that fails ends the run with its exit code.
+warm-up and 4 timed steps and the cast to bfloat16 skipped); with
+``--layernorm``, `check_layernorm`'s kernel lines at every LN_CASES shape
+in float32 and bfloat16, and after each case one ``layernorm_op`` line
+computed by the phase script through that checkout's own wrapper, so that
+both checkouts get the same figures: the op's whole backward (the kernel,
+then the sums of its partials and their casts, as `_LayerNorm.backward`
+runs them) and streaming yardsticks of the kernels' bytes (``y.copy_(x)``,
+``torch.add(x, dy, out=dx)``), timed by the same timer; then the kernel
+lines of the other two kernels on `rowwise_common.cuh`, rotary and
+dropout, in each dtype. Every JSON line a process prints is printed
+again with ``checkout``, ``turn`` and the ``card_clocks`` read before the
+process started added; a process that fails ends the run with its exit
+code.
 """
 from __future__ import annotations
 
@@ -136,9 +146,44 @@ else:   # a checkout before train_f32: its train_run, the bf16 cast skipped
     cs.train_run(dev, smi, "train_f32", warmup=2, timed=4)
 """
 
+# the incubate path's rows; a width a team of warps holds; the narrowest
+# such width, odd, on the scalar path
+LN_CASES = [(8192, 768), (2048, 4096), (8192, 1025)]
+
+LAYERNORM_PHASES = """
+import torch
+import chip_smoke as cs
+from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels.cuda import fused_layernorm as cln
+dev = torch.device("cuda", 0)
+_build.build_all()
+timer = cs.Timer(dev)
+for dtype in (torch.float32, torch.bfloat16):
+    for n, d in %r:
+        cs.check_layernorm(dev, timer, dtype, n, d)
+        g = torch.Generator().manual_seed(n + d)
+        x, dy = (torch.randn(n, d, generator=g).to(dev, dtype) for _ in "xd")
+        gamma, beta = (torch.randn(d, generator=g).to(dev) for _ in "gb")
+        _, mu, rstd = cln.fused_layernorm_fwd(x, gamma, beta, 1e-5)
+
+        def op_bwd():
+            dx, dg, db = cln.fused_layernorm_bwd(x, gamma, mu, rstd, dy)
+            return dx, dg.sum(0).to(gamma.dtype), db.sum(0).to(gamma.dtype)
+        ys, dxs = torch.empty_like(x), torch.empty_like(x)
+        cs.emit({"phase": "layernorm_op", "dtype": cs.dtype_name(dtype),
+                 "shape": {"n": n, "d": d},
+                 "rows_per_block": cln.ROWS_PER_BLOCK,
+                 "bwd_op_ms": timer.ms(op_bwd),
+                 "fwd_stream_ms": timer.ms(lambda: ys.copy_(x)),
+                 "bwd_stream_ms": timer.ms(
+                     lambda: torch.add(x, dy, out=dxs))})
+    cs.check_rope(dev, timer, dtype)
+    cs.check_dropout(dev, timer, cs.nvidia_smi(), dtype)
+""" % (LN_CASES,)
+
 PHASES = {"--inflight": INFLIGHT_PHASES, "--f32": F32_PHASES,
           "--prefill": PREFILL_PHASES, "--flash": FLASH_PHASES,
-          "--train-f32": TRAIN_F32_PHASES}
+          "--train-f32": TRAIN_F32_PHASES, "--layernorm": LAYERNORM_PHASES}
 
 
 def main():

@@ -3,10 +3,17 @@
 `paddle_tpu/kernels/pallas/fused_layernorm.py::_fwd_kernel` and `_bwd_kernel`.
 
 Bound on the H100: bytes (see each source's header for the design against
-it). The wrappers take CUDA tensors only and always launch their kernel;
-`kernels/fused_layernorm.py` sends CPU tensors to the plain versions.
-Rows [n, d], contiguous, x in float32 or bfloat16, gamma and beta in
-float32 or x's dtype, 1 <= d <= 8192.
+it). Both kernels hold a row by a team of warps (one warp up to d = 1024,
+or 512 on the scalar path, 2 to 16 warps above; `team_shape` mirrors the
+sources' `rowwise_common.cuh`); each team stages its rows in shared memory
+by cp.async, the next two in flight while it reduces one. The forward's
+teams walk the rows by a grid stride; the backward's block takes
+ROWS_PER_BLOCK contiguous rows and writes one row of dgamma / dbeta
+partials, its teams' sums added in team order. The wrappers take CUDA
+tensors only and always launch their kernel; `kernels/fused_layernorm.py`
+sends CPU tensors to the plain versions. Rows [n, d], contiguous, x in
+float32 or bfloat16, gamma and beta in float32 or x's dtype, 1 <= d <=
+8192.
 """
 from __future__ import annotations
 
@@ -17,11 +24,30 @@ import torch
 from paddle_tpu_torch.kernels._build import CudaKernel
 from paddle_tpu_torch.kernels.cuda import DTYPE_CODES, require_cuda
 
-__all__ = ["FWD", "BWD", "MAX_D", "ROWS_PER_BLOCK", "fused_layernorm_fwd",
-           "fused_layernorm_bwd"]
+__all__ = ["FWD", "BWD", "MAX_D", "ROWS_PER_BLOCK", "FWD_WARPS", "BWD_WARPS",
+           "team_shape", "fused_layernorm_fwd", "fused_layernorm_bwd"]
 
-MAX_D = 8192            # rowwise_common.cuh: 256 threads x 32 elements
-ROWS_PER_BLOCK = 16     # fused_layernorm_bwd.cu's kRowsPerBlock
+MAX_D = 8192            # rowwise_common.cuh's kMaxD
+ROWS_PER_BLOCK = 32     # fused_layernorm_bwd.cu's kRowsPerBlock
+FWD_WARPS, BWD_WARPS = 16, 8   # the sources' kBlockWarps
+_WARP_ROW_ELEMS, _TEAM_ELEMS, _TEAM_WARPS = 32, 16, 16   # rowwise_common.cuh
+
+
+def team_shape(d, vec, block_warps=BWD_WARPS):
+    """(nc, tw, teams) of `rowwise_common.cuh::team_shape` for a row of d
+    elements in chunks of ``vec`` (16 bytes of x's dtype on the vector
+    path, else 1) in blocks of ``block_warps`` warps where a warp holds a
+    row: each team lane holds ``nc`` chunks, a row is held by ``tw`` warps,
+    a block holds ``teams`` teams."""
+    chunks = d // vec
+    if chunks <= 32 * (_TEAM_ELEMS if vec == 1 else _WARP_ROW_ELEMS // vec):
+        nc = -(-chunks // 32)
+        if vec == 1:
+            nc = 1 << (nc - 1).bit_length()
+        return nc, 1, block_warps
+    nc = _TEAM_ELEMS // vec
+    tw = -(-chunks // (32 * nc))
+    return nc, tw, max(1, _TEAM_WARPS // tw)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FWD = CudaKernel("fused_layernorm_fwd", "fused_layernorm_fwd",

@@ -17,8 +17,9 @@ takes the plain PyTorch versions below, a CUDA tensor the hand-written
 kernels `kernels/csrc/fused_layernorm_{fwd,bwd}.cu` through
 `kernels/cuda/fused_layernorm.py`, and never the plain versions. The two
 arms cut the backward's rows into blocks of different sizes (256 here, as
-the Pallas kernel; 16 in the CUDA kernel), which changes only the order
-of the f32 sums of dgamma and dbeta.
+the Pallas kernel; `cuda.fused_layernorm.ROWS_PER_BLOCK` in the CUDA
+kernel), which changes only the order of the f32 sums of dgamma and
+dbeta.
 """
 from __future__ import annotations
 

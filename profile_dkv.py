@@ -159,35 +159,38 @@ CORE = {
 }
 ARGTYPES = {   # the C entry points' (pointers, then ints, float, int, stream)
     "flash_fwd": 5, "flash_dkv": 8, "flash_dq": 7}
+# words of the mangled kernel names whose registers and spills a build
+# reports: the kernels a variant can change
+PTXAS_KERNELS = ("mma", "core_kernel", "ln_fwd_kernel", "ln_bwd_kernel")
 
 
 def ptxas_summary(log: str) -> dict:
     """{mangled kernel name: its registers and spills} from nvcc's -Xptxas -v
-    output, for the kernels a variant can change (the tensor-core loops and
-    the CUDA-core loops)."""
+    output, for the kernels a variant can change (PTXAS_KERNELS)."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             name = m.group(1)
-        elif name and ("mma" in name or "core_kernel" in name) and (
+        elif name and any(k in name for k in PTXAS_KERNELS) and (
                 "Used" in ln or "spill" in ln):
             out[name] = (out.get(name, "") + " " + ln.split(":", 1)[-1]
                          .strip()).strip()
     return out
 
 
-def build(root: Path, stems, table) -> dict:
+def build(root: Path, stems, table, csrc: Path = _build.CSRC) -> dict:
     """{stem: {variant: library path}}, every variant of every kernel of
-    ``table`` ({stem: {variant: [(file, old, new)]}}) compiled in parallel;
-    raises with nvcc's output on a failed build."""
+    ``table`` ({stem: {variant: [(file, old, new)]}}, edits of the sources
+    in ``csrc``) compiled in parallel; raises with nvcc's output on a
+    failed build."""
     procs, libs = [], {}
     for stem in stems:
         libs[stem] = {}
         for i, (variant, edits) in enumerate(table[stem].items()):
             src = root / f"{stem}_v{i}"
             shutil.rmtree(src, ignore_errors=True)
-            shutil.copytree(_build.CSRC, src)
+            shutil.copytree(csrc, src)
             for name, old, new in edits:
                 text = (src / name).read_text()
                 if text.count(old) != 1:

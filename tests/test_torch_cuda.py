@@ -1165,12 +1165,15 @@ def test_fused_ce_on_the_card_matches_the_cpu(card):
         assert (a - b).abs().max().item() <= 2.0 ** -8 * b.abs().max().item()
 
 
-# fused layernorm: d of every width the kernels choose (64: one warp;
-# 1000: not a multiple of the bf16 16-byte chunk; 1001: odd, the scalar
-# path; 4096: several chunks a thread), n of one row, a ragged last
-# backward block (300 = 18 x 16 + 12) and the train shape's 8192 rows
-LN_DS = [64, 768, 1000, 1001, 4096]
-LN_NS = [1, 300, 8192]
+# fused layernorm: d of every width the kernels choose (64: a warp a row,
+# one chunk a lane; 1000: not a multiple of the bf16 16-byte chunk; 1001:
+# odd, the scalar path; 1024: the widest row a warp holds; 1025: the
+# narrowest a team of warps holds, on the scalar path; 4096: a team of 8
+# warps; 8192: of 16), n of one row, fewer rows than a block has warps
+# (5), a ragged last backward block (300 = 9 x 32 + 12) and the train
+# shape's 8192 rows
+LN_DS = [64, 768, 1000, 1001, 1024, 1025, 4096, 8192]
+LN_NS = [1, 5, 300, 8192]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1180,8 +1183,8 @@ def test_fused_layernorm_kernels_match_plain(card, dtype, d, n):
     """Forward: y within 2e-5 (f32) or one bf16 step of the largest value,
     mean and rstd within 2e-5 relative (f32 sums in another order; rstd by
     the card's rsqrtf). Backward, from the same statistics: dx within 1e-4
-    (f32) or one bf16 step, the dgamma/dbeta partials of the same 16-row
-    blocks within 1e-4 relative."""
+    (f32) or one bf16 step, the dgamma/dbeta partials of the same blocks
+    of cln.ROWS_PER_BLOCK rows within 1e-4 relative."""
     from paddle_tpu_torch.kernels import fused_layernorm as fln
     from paddle_tpu_torch.kernels.cuda import fused_layernorm as cln
     rng = np.random.default_rng(d + n)
@@ -1204,7 +1207,8 @@ def test_fused_layernorm_kernels_match_plain(card, dtype, d, n):
     torch.cuda.synchronize()
     rdx, rdg, rdb = fln._plain_ln_bwd(x, gamma, rmu, rrs, dy,
                                       block_rows=cln.ROWS_PER_BLOCK)
-    assert dx.dtype == dtype and dg.shape == rdg.shape == (-(-n // 16), d)
+    assert dx.dtype == dtype and dg.shape == rdg.shape == (
+        -(-n // cln.ROWS_PER_BLOCK), d)
     assert (dx.float() - rdx.float()).abs().max().item() <= _flash_tol(
         dtype, rdx, 1e-4)
     for got, ref in ((dg, rdg), (db, rdb)):
@@ -1229,6 +1233,66 @@ def test_fused_layernorm_kernels_take_bf16_gamma(card):
     assert (dx.float() - rdx.float()).abs().max().item() <= _flash_tol(
         torch.bfloat16, rdx, 1e-4)
     assert (dg - rdg).abs().max().item() <= 1e-4 * rdg.abs().max().item()
+
+
+def _ln_case(card, dtype, n, d, seed, offset_bytes=0):
+    """x, dy [n, d] and f32 gamma, beta [d], each a contiguous view
+    ``offset_bytes`` into a larger buffer of its dtype, whose elements
+    before and after the view (16 bytes' worth after) are NaN: a kernel
+    that used a byte outside its tensor would show it."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, dt=dtype):
+        size, off = int(np.prod(shape)), offset_bytes // dt.itemsize
+        buf = torch.full((off + size + 16 // dt.itemsize,), float("nan"),
+                         dtype=dt, device=card)
+        buf[off:off + size] = torch.from_numpy(rng.standard_normal(
+            size, dtype=np.float32)).to(card, dt)
+        return buf[off:off + size].view(*shape)
+    return t(n, d), t(n, d), t(d, dt=torch.float32), t(d, dt=torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [768, 1001, 1024, 4096])
+def test_fused_layernorm_kernels_take_tensors_off_16_bytes(card, dtype, d):
+    """x, dy, gamma and beta 4 bytes off a 16-byte boundary take the scalar
+    path, within the bounds of test_fused_layernorm_kernels_match_plain;
+    the NaNs around each tensor stay out of every output."""
+    from paddle_tpu_torch.kernels import fused_layernorm as fln
+    from paddle_tpu_torch.kernels.cuda import fused_layernorm as cln
+    x, dy, gamma, beta = _ln_case(card, dtype, 300, d, d, offset_bytes=4)
+    assert all(t.data_ptr() % 16 == 4 for t in (x, dy, gamma, beta))
+    y, mu, rstd = cln.fused_layernorm_fwd(x, gamma, beta, 1e-5)
+    dx, dg, db = cln.fused_layernorm_bwd(x, gamma, mu, rstd, dy)
+    torch.cuda.synchronize()
+    assert all(o.isfinite().all() for o in (y, mu, rstd, dx, dg, db))
+    ry, rmu, rrs = fln._plain_ln_fwd(x, gamma, beta, 1e-5)
+    rdx, rdg, rdb = fln._plain_ln_bwd(x, gamma, mu, rstd, dy,
+                                      block_rows=cln.ROWS_PER_BLOCK)
+    assert (y.float() - ry.float()).abs().max().item() <= _flash_tol(
+        dtype, ry, 2e-5)
+    assert (dx.float() - rdx.float()).abs().max().item() <= _flash_tol(
+        dtype, rdx, 1e-4)
+    for got, ref, tol in ((mu, rmu, 2e-5), (rstd, rrs, 2e-5), (dg, rdg, 1e-4),
+                          (db, rdb, 1e-4)):
+        assert (got - ref).abs().max().item() <= tol * max(
+            1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 768, 1001, 1025, 4096, 8192])
+def test_fused_layernorm_kernels_repeat_bit_for_bit(card, dtype, d):
+    """No atomics and a fixed order of every sum: two calls on the same
+    inputs give the same bits of y, mean, rstd, dx and both partials."""
+    from paddle_tpu_torch.kernels.cuda import fused_layernorm as cln
+    x, dy, gamma, beta = _ln_case(card, dtype, 1000, d, d + 1)
+    def run():
+        y, mu, rstd = cln.fused_layernorm_fwd(x, gamma, beta, 1e-5)
+        return (y, mu, rstd, *cln.fused_layernorm_bwd(x, gamma, mu, rstd, dy))
+    first, again = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 def _rope_tables(s, d, dev, base=10000.0):
