@@ -185,7 +185,27 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    the turns 1, 2, 3, 3, 2, 1, with no synchronization between steps
    (one at the end): per turn decode tokens/s, step ms p50 (the host's
    step intervals), TTFT p50 and exact launches; the tokens identical in
-   every turn and their first 32 equal to `serve`'s. ``serve_lifecycle`` (bf16, ``inflight=2``): engine
+   every turn and their first 32 equal to `serve`'s. ``serve_handoff``
+   (bf16 engines, over bf16 pools and over int8 pools with int8 weights,
+   `serve_engine`'s settings at ``inflight=2``, `serve`'s 8 prompts and a
+   9th): engine A exports and engine B imports, in four arms a dtype:
+   ``one_shot`` (`prefill_export`, `pack`, `unpack`, `import_request`),
+   ``streamed`` (`submit_prefill_stream` with 256-token chunks, the
+   records into a `KVStreamAssembler`, `submit_import`), ``migration``
+   (8 requests decode 5 steps, the 9th queued; `drain(migrate=True)`,
+   `take_migrated`, `pack_migration` / `unpack_migration`, warm items by
+   `submit_import`, the cold one by `submit`) and ``sampled_migration``
+   (the same with SAMPLED_PARAMS). Gates: each request's tokens equal an
+   uninterrupted engine's of A's config (a bf16 streamed request, whose
+   short prompts run a chunk program where the reference runs the
+   one-shot one, may differ only where `serve_bf16_parity`'s margin
+   allows), B captures no prefill graph in the first two arms, every
+   pool ends at its baseline, ``migrations_out`` equals ``migrations_in``
+   plus the cold item, a flipped body byte is refused
+   (``HandoffCorrupt``), and the launches are exact. Each line: export,
+   pack, unpack and import ms (medians over the requests), blob bytes a
+   token, the migration's wall from `drain` to `take_migrated`, the
+   decode side's TTFT. ``serve_lifecycle`` (bf16, ``inflight=2``): engine
    A sheds the 17th of 17 submits (``Overloaded``), cancels two queued
    requests (no prefill for them), a running one that shares prefix
    pages (its slot goes to the next queued request), cuts a request with
@@ -255,7 +275,9 @@ from paddle_tpu_torch.incubate.nn import (FusedLayerNorm,
                                           FusedMultiTransformer,
                                           fused_rotary_position_embedding)
 from paddle_tpu_torch.inference.engine import (DecodeEngine, EngineConfig,
-                                               Overloaded)
+                                               HandoffCorrupt, KVHandoff,
+                                               Overloaded, pack_migration,
+                                               unpack_migration)
 from paddle_tpu_torch.kernels import _build, registry
 from paddle_tpu_torch.kernels import dropout as tdrop
 from paddle_tpu_torch.kernels import flash_attention as tfa
@@ -278,7 +300,8 @@ from paddle_tpu_torch.observability.usage import usage_log
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.quantization.serving import (QUANT_LOGIT_BOUND,
                                                    margin_gated_parity)
-from paddle_tpu_torch.serving.disagg import prompt_page_hashes
+from paddle_tpu_torch.serving.disagg import (KVStreamAssembler,
+                                             prompt_page_hashes)
 from paddle_tpu_torch.testing import faults
 from paddle_tpu_torch.train import H100_BF16_PEAK, ScanTrainStep
 from paddle_tpu_torch.train.scan_step import _leaf_keys
@@ -1814,6 +1837,343 @@ def serve_inflight(model, dev, smi, serve_outs):
     torch.cuda.empty_cache()
 
 
+# serve_handoff: the streamed arm's prefill chunk, the steps engine A
+# decodes before its migrating drain, the 9th request's prompt length
+# (queued behind the 8 slots at the drain, so it leaves cold) and its
+# sampler parameters in the sampled arm
+HANDOFF_CHUNK = 256
+HANDOFF_STEPS = 5
+HANDOFF_QUEUED = 129
+HANDOFF_QUEUED_PARAMS = (0.8, 40, 7)
+HANDOFF_NEW_TOKENS = 32
+HANDOFF_ARMS = ("one_shot", "streamed", "migration", "sampled_migration")
+
+
+def handoff_engine(model, dev, warm_lens=SERVE_LENS, **ecfg):
+    """An engine of `serve_engine`'s settings at ``inflight=2`` (``ecfg``:
+    its pools, weights, sampling, prefill chunk), warmed for ``warm_lens``
+    (none: the decode step's graph alone, a decode-only engine)."""
+    eng = DecodeEngine(model, EngineConfig(**{
+        "page_size": PS, "max_slots": 8, "prefix_cache": False,
+        "inflight": 2, **ecfg}), device=dev)
+    eng.warmup(prompt_lens=warm_lens)
+    torch.cuda.synchronize()
+    return eng
+
+
+def handoff_launches(engines, before, phase):
+    """The kernels' launches since `reset_launches` against what the steps
+    of ``engines`` since ``before`` (their counters then) imply, as
+    `engine_launches` counts one engine's."""
+    expected = {}
+    for eng, c0 in zip(engines, before):
+        ran = {k: eng.counters[k] - c0[k] for k in c0}
+        nl = eng.cfg.num_layers
+        suffix = "_int8" if eng._quant_kv else ""
+        for name, n in (("paged_decode" + suffix,
+                         nl * (ran["steps"] - ran["spec_steps"])),
+                        ("paged_prefill" + suffix,
+                         nl * (ran["prefills"] + ran["prefill_chunks"]))):
+            expected[name] = expected.get(name, 0) + n
+    expected = {k: n for k, n in expected.items() if n}
+    return read_launches(phase, expected), expected
+
+
+def p50(xs):
+    return statistics.median(xs) if xs else None
+
+
+def handoff_tokens(outs, refs, prompts, gated, card_params, cfg, dev):
+    """Each request's tokens against the uninterrupted engine's: equal, or
+    (``gated``: a bf16 arm whose exporter ran other prefill programs than
+    the reference's) a first divergence within `serve_bf16_parity`'s
+    margin (`bf16_gated_tokens`). Returns the record and whether it
+    passes."""
+    eq = [bool(np.array_equal(a, b)) for a, b in zip(outs, refs)]
+    rec = {"tokens_equal": eq}
+    if all(eq) or not gated:
+        return rec, all(eq)
+    rec["vs_ref"], ok = bf16_gated_tokens(outs, refs, prompts, card_params,
+                                          cfg, dev, "ref")
+    return rec, ok
+
+
+def corrupt_refused(blob, unpack):
+    """``unpack`` of ``blob`` with one body byte flipped raises the typed
+    HandoffCorrupt."""
+    bad = bytearray(blob)
+    bad[-3] ^= 0x40
+    try:
+        unpack(bytes(bad))
+    except HandoffCorrupt:
+        return True
+    return False
+
+
+def feed_records(records):
+    """The handoff a `KVStreamAssembler` assembles from ``records``."""
+    asm = KVStreamAssembler()
+    for rec in records:
+        out = asm.feed(rec)
+    return out
+
+
+def stream_records_of(eng, prompt):
+    """One prefill-stream job of ``prompt`` run by ``eng``'s next step:
+    its PTKS1 records."""
+    sink = eng.submit_prefill_stream(prompt)
+    eng.step()
+    items = []
+    while True:
+        kind, val = sink.get_nowait()
+        items.append((kind, val))
+        if kind == "err":
+            raise SystemExit(f"serve_handoff: prefill stream failed: {val}")
+        if kind == "done":
+            break
+    recs = [v for k, v in items if k == "rec"]
+    if items[0] != ("count", len(recs)):
+        raise SystemExit("serve_handoff: the stream's record count is "
+                         "not the one it announced")
+    return recs
+
+
+def migrate_arm(src, dst, prompts, params, n):
+    """Engine ``src`` serves ``prompts`` (``params`` each), HANDOFF_STEPS
+    steps, then a migrating drain; the items go through PTMG1 to ``dst``,
+    warm ones by `submit_import`, cold ones by `submit`. Returns each
+    request's answer from ``dst`` in prompt order, the timings and the
+    item counts."""
+    reqs = [src.submit(p, max_new_tokens=n, temperature=t, top_k=k, seed=s)
+            for p, (t, k, s) in zip(prompts, params)]
+    for _ in range(HANDOFF_STEPS):
+        src.step()
+    t0 = time.perf_counter()
+    src.drain(migrate=True)
+    src.step()
+    items = src.take_migrated(timeout=120)
+    wall = time.perf_counter() - t0
+    times = {"pack": [], "unpack": [], "import": []}
+    blobs, backs = [], []
+    for item in items:
+        t0 = time.perf_counter()
+        blobs.append(pack_migration(item))
+        times["pack"].append((time.perf_counter() - t0) * 1e3)
+    for blob in blobs:
+        t0 = time.perf_counter()
+        backs.append(unpack_migration(blob))
+        times["unpack"].append((time.perf_counter() - t0) * 1e3)
+    warm = [(b, back) for b, back in zip(blobs, backs)
+            if back.handoff is not None]
+    nbytes = sum(len(b) for b, _ in warm)
+    ctx = sum(back.handoff.prompt.size for _, back in warm)
+    answers = {}
+    for item, back in zip(items, backs):
+        idx = next(i for i, r in enumerate(reqs) if r is item.request)
+        if back.handoff is not None:
+            t0 = time.perf_counter()
+            answers[idx] = dst.submit_import(
+                back.handoff, max_new_tokens=back.max_new_tokens)
+            times["import"].append((time.perf_counter() - t0) * 1e3)
+        else:
+            s = back.sample or {}
+            answers[idx] = dst.submit(
+                back.prompt, back.max_new_tokens,
+                temperature=s.get("temperature", 1.0),
+                top_k=s.get("top_k", 0), seed=s.get("seed", 0))
+    t0 = time.perf_counter()
+    dst.step()                           # places the imports
+    torch.cuda.synchronize()
+    place_ms = (time.perf_counter() - t0) * 1e3
+    dst.run_until_idle(max_steps=10_000)
+    torch.cuda.synchronize()
+    out = [answers[i].result(timeout=0) for i in range(len(prompts))]
+    n_cold = sum(1 for i in items if i.handoff is None)
+    return out, {
+        "ttft_ms": [(r.first_token_t - r.submit_t) * 1e3
+                    for r in answers.values()],
+        "migration_wall_ms": wall * 1e3, "place_step_ms": place_ms,
+        "pack_ms_p50": p50(times["pack"]),
+        "unpack_ms_p50": p50(times["unpack"]),
+        "import_ms_p50": p50(times["import"]),
+        "blob_bytes_per_token": nbytes / max(1, ctx),
+        "items": len(items), "warm": len(items) - n_cold,
+        "cold": n_cold, "all_futures_open": not any(r.done for r in reqs),
+        "corrupt_refused": corrupt_refused(warm[0][0], unpack_migration)}
+
+
+def serve_handoff(model, dev, smi):
+    """The KV handoff, the streamed prefill and live migration of the
+    bf16 GPT-2 small engines at full width, over bf16 pools and over int8
+    pools with int8 weights, `serve`'s 8 prompts (and a 9th that is queued
+    at the migration's drain), 32 new tokens each, `serve_engine`'s
+    settings at ``inflight=2``. Four arms a dtype (`handoff_arm`): engine
+    A exports (one-shot `prefill_export` and `pack`; the prefill stream
+    with HANDOFF_CHUNK-token chunks into a `KVStreamAssembler`; a
+    migrating drain after HANDOFF_STEPS steps, greedy, then sampled with
+    SAMPLED_PARAMS) and a decode engine B imports. Each request's tokens
+    must equal an uninterrupted engine's of A's config; B captures no
+    prefill graph in the first two arms; every pool ends at its baseline;
+    ``migrations_out`` equals ``migrations_in`` plus the cold items; a
+    flipped byte is refused. One line an arm and dtype."""
+    rng = np.random.default_rng(SEED + 2)      # serve_engine's prompts
+    prompts = [rng.integers(0, min(VOCAB, model.cfg.vocab_size), n)
+               .astype(np.int32) for n in SERVE_LENS]
+    extra = rng.integers(0, min(VOCAB, model.cfg.vocab_size),
+                         HANDOFF_QUEUED).astype(np.int32)
+    card_params = {k: v.detach().to(dev) for k, v in
+                   model.state_dict().items()}
+    ok = True
+    for q in ({}, {"kv_dtype": "int8", "weight_dtype": "int8"}):
+        ok &= handoff_dtype(model, dev, smi, prompts, extra, q, card_params)
+        torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("serve_handoff: tokens unlike the uninterrupted "
+                         "engine's, a prefill graph on the decode engine, "
+                         "pages not back at baseline, migration counts "
+                         "that do not add up or a corrupt blob accepted")
+
+
+def handoff_dtype(model, dev, smi, prompts, extra, q, card_params):
+    """`serve_handoff`'s four arms over one pool dtype; True if all pass."""
+    n, cfg = HANDOFF_NEW_TOKENS, model.cfg
+    pools = "int8" if q else "bfloat16"
+    greedy = [(1.0, 0, 0)] * (len(prompts) + 1)
+    sampled = list(SAMPLED_PARAMS) + [HANDOFF_QUEUED_PARAMS]
+    everyone = prompts + [extra]
+    # the uninterrupted engines: one of each exporter's config
+    ref_eng = handoff_engine(model, dev, **q)
+    ref = serve(ref_eng, everyone, n)
+    chunked = handoff_engine(model, dev, prefill_chunk_tokens=HANDOFF_CHUNK,
+                             **q)
+    ref_chunked = serve(chunked, prompts, n)
+    sampler = handoff_engine(model, dev, sampling=True, **q)
+    ref_sampled = serve(sampler, everyone, n, sampled)
+    dst = handoff_engine(model, dev, warm_lens=(), **q)
+    # (exporter, importer) an arm: the uninterrupted engines export once
+    # their reference run is done, and the sampled one imports
+    engines = {"one_shot": (ref_eng, dst), "streamed": (chunked, dst),
+               "migration": (ref_eng, dst),
+               "sampled_migration": (handoff_engine(
+                   model, dev, sampling=True, **q), sampler)}
+    ok = True
+    for arm in HANDOFF_ARMS:
+        src, dst_arm = engines[arm]
+        before = [dict(e.counters) for e in (src, dst_arm)]
+        reset_launches()                   # the path's run
+        torch.cuda.synchronize()
+        t_arm = time.perf_counter()
+        if arm in ("one_shot", "streamed"):
+            outs, line = handoff_arm(arm, src, dst_arm, prompts, n)
+            refs = ref if arm == "one_shot" else ref_chunked
+            refs = refs[:len(prompts)]
+            want = prompts
+        else:
+            params = greedy if arm == "migration" else sampled
+            outs, line = migrate_arm(src, dst_arm, everyone, params, n)
+            refs = ref if arm == "migration" else ref_sampled
+            want = everyone
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_arm
+        launches, expected = handoff_launches((src, dst_arm), before,
+                                              f"serve_handoff:{arm}")
+        ran = {e: {k: eng.counters[k] - c0[k] for k in (
+            "kv_exports", "kv_imports", "kv_stream_exports",
+            "migrations_out", "migrations_in", "prefills",
+            "prefill_chunks", "prefill_tokens", "steps")}
+            for e, eng, c0 in (("a", src, before[0]),
+                               ("b", dst_arm, before[1]))}
+        tokens, tok_ok = handoff_tokens(
+            outs, refs, want, not q and arm == "streamed", card_params, cfg,
+            dev)
+        line.update(tokens)
+        ttft = line.pop("ttft_ms")
+        line.update(
+            phase="serve_handoff", arm=arm, pools=pools,
+            model="gpt2-small", dtype="bfloat16",
+            kv_dtype=src.ecfg.kv_dtype, weight_dtype=src.ecfg.weight_dtype,
+            card=smi, clocks=card_clocks(), requests=len(want),
+            prompt_lens=[len(p) for p in want], max_new_tokens=n,
+            wall_s=wall, launches=launches, expected_launches=expected,
+            counters=ran,
+            ttft_decode_side_ms_p50=p50(ttft),
+            pools_at_baseline=all(
+                e.allocator.free_pages == e.allocator.num_pages - 1
+                for e in (src, dst_arm)))
+        arm_ok = tok_ok and line["pools_at_baseline"] \
+            and line["corrupt_refused"]
+        if arm in ("one_shot", "streamed"):
+            line["no_prefill_graph_on_b"] = not any(
+                k[0] in ("prefill", "prefill_chunk") for k in dst._programs)
+            arm_ok &= line["no_prefill_graph_on_b"]
+        else:
+            line["migrations_add_up"] = (
+                ran["a"]["migrations_out"] == line["items"]
+                == ran["b"]["migrations_in"] + line["cold"]
+                and line["cold"] == 1 and line["all_futures_open"])
+            arm_ok &= line["migrations_add_up"]
+        line["ok"] = bool(arm_ok)
+        ok &= line["ok"]
+        emit(line)
+    return ok
+
+
+def handoff_arm(arm, src, dst, prompts, n):
+    """The one-shot or the streamed arm: each prompt exported by ``src``,
+    carried as bytes and imported by ``dst`` (at once by
+    `import_request`, or through the mailbox by `submit_import` and the
+    step that places it), then ``dst`` decodes them to the end. Returns
+    the answers in prompt order and the line's timings."""
+    times = {k: [] for k in ("export", "pack", "unpack", "import", "place",
+                             "ttft")}
+    nbytes = tokens = 0
+    reqs = []
+    for p in prompts:
+        t0 = time.perf_counter()
+        if arm == "one_shot":
+            h = src.prefill_export(p)
+            t1 = time.perf_counter()
+            blob = h.pack()
+            t2 = time.perf_counter()
+            back = KVHandoff.unpack(blob)
+            t3 = time.perf_counter()
+            nbytes += len(blob)
+            times["pack"].append((t2 - t1) * 1e3)
+            r = dst.import_request(back, max_new_tokens=n)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+        else:
+            recs = stream_records_of(src, p)
+            t1 = t2 = time.perf_counter()
+            back = feed_records(recs)
+            t3 = time.perf_counter()
+            nbytes += sum(len(rec) for rec in recs)
+            r = dst.submit_import(back, max_new_tokens=n)
+            t4 = time.perf_counter()
+            dst.step()                       # places it
+            torch.cuda.synchronize()
+            times["place"].append((time.perf_counter() - t4) * 1e3)
+        tokens += p.size
+        times["export"].append((t1 - t0) * 1e3)
+        times["unpack"].append((t3 - t2) * 1e3)
+        times["import"].append((t4 - t3) * 1e3)
+        times["ttft"].append((r.first_token_t - r.submit_t) * 1e3)
+        reqs.append(r)
+    # the last prompt's blob, or its first page record, one byte flipped
+    corrupt = corrupt_refused(blob, KVHandoff.unpack) if arm == "one_shot" \
+        else corrupt_refused(recs[1], lambda bad: feed_records([recs[0],
+                                                                 bad]))
+    dst.run_until_idle(max_steps=10_000)
+    return [r.result(timeout=0) for r in reqs], {
+        "export_ms_p50": p50(times["export"]),
+        "pack_ms_p50": p50(times["pack"]),
+        "unpack_ms_p50": p50(times["unpack"]),
+        "import_ms_p50": p50(times["import"]),
+        "place_step_ms_p50": p50(times["place"]),
+        "blob_bytes_per_token": nbytes / tokens, "ttft_ms": times["ttft"],
+        "corrupt_refused": corrupt}
+
+
 # serve_lifecycle: engine A's two waves (prompt lengths; its request 5 is
 # request 1's first LIFECYCLE_SYSTEM tokens plus a suffix of its own, and
 # is cancelled mid-decode), their new tokens, and engine B's prompts
@@ -3136,6 +3496,7 @@ def main():
                           weight_dtype="int8")[0]["launches"]
     serve_prefix(model, dev, smi)
     serve_inflight(model, dev, smi, greedy_outs)
+    serve_handoff(model, dev, smi)
     serve_lifecycle(model, dev, smi)
     serve_observe(model, dev, smi, greedy_outs)
     launches.update((k, quantized[k]) for k in INT8_KERNELS)

@@ -113,22 +113,38 @@ step runs before anything the new request enqueues.
   engine on a thread of its own under a stall watchdog
   (`start_watchdog`).
 
-Not in this slice (see ROADMAP.md): handoff/migration and streamed
-prefill (``drain(migrate=True)``, the import mailbox), the router's prefix
-directory (A5.5-A5.6), with the export's ``engine.quant_dequant_ms``
-observation (the weight conversion's is in `quantization/serving.py`); a
-float KV pool of another dtype than the weights (A9).
+- **KV handoff and live migration**: `prefill_export` runs a prefill into
+  borrowed pages and returns it as a detached `KVHandoff` (the ``PTKV1``
+  blob of `inference/handoff.py`, an int8 pool's scales with its pages);
+  `import_request` (at once) or `submit_import` (through the import
+  mailbox, placed between steps) resumes decode from one on any engine of
+  the same geometry and pool dtype, token for token what a local prefill
+  gives. `submit_prefill_stream` runs a prefill between steps and streams
+  its pages as ``PTKS1`` records (`serving/disagg.py`) as each chunk
+  completes them. `drain(migrate=True)` exports every live request at the
+  next step: decoding slots warm (their context's pages and the last
+  token as the seed, a sampled slot's advanced key chain with them),
+  queued and chunk-prefilling ones cold; `take_migrated` hands the items
+  over. Slotless prefills write the key buffer's scratch row B; the pages
+  move by `export_pages` / `import_pages` in place, so every captured graph
+  reads them.
 
-Thread model: `submit()`, `cancel()`, `drain()` are safe from any thread
+Not in this slice (see ROADMAP.md): the router, its prefix directory and
+the serve tier (A5.6); a float KV pool of another dtype than the weights
+(A9.1).
+
+Thread model: `submit()`, `cancel()`, `drain()`, `submit_import()`,
+`submit_prefill_stream()` and `take_migrated()` are safe from any thread
 and make no CUDA call; `step()` / `run_until_idle()` / `serve_loop()` /
-`abort()` must all run on ONE thread, the loop's owner (`serve_loop`
-enters the engine's device on it).
+`abort()`, `prefill_export()` and `import_request()` must all run on ONE
+thread, the loop's owner (`serve_loop` enters the engine's device on it).
 """
 from __future__ import annotations
 
 import contextlib
 import functools
 import logging
+import queue as _queue
 import threading
 import time
 import weakref
@@ -139,8 +155,12 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.inference.errors import (Cancelled, DeadlineExceeded,
-                                               Overloaded, from_wire)
+                                               HandoffCorrupt, Overloaded,
+                                               from_wire)
 from paddle_tpu_torch.inference.graphs import StepGraph
+from paddle_tpu_torch.inference.handoff import (MIG_MAGIC, KVHandoff,
+                                                MigrationItem, pack_migration,
+                                                unpack_migration)
 from paddle_tpu_torch.inference.kv_tiers import KVTierStore
 from paddle_tpu_torch.inference.kv_tiers import dtype_name as _dtype_name
 from paddle_tpu_torch.kernels import prng
@@ -153,15 +173,20 @@ from paddle_tpu_torch.observability import metrics
 from paddle_tpu_torch.observability.flight_recorder import (Watchdog,
                                                             default_deadline,
                                                             flight)
-from paddle_tpu_torch.observability.tracing import RequestTrace
+from paddle_tpu_torch.observability.tracing import RequestTrace, new_span_id
 from paddle_tpu_torch.observability.usage import emit_request as _emit_usage
 from paddle_tpu_torch.quantization.serving import (QuantizedLeaf,
                                                    quantize_gpt_params)
-from paddle_tpu_torch.serving.disagg import prompt_page_hashes
+from paddle_tpu_torch.serving.disagg import (pack_stream_final,
+                                             pack_stream_header,
+                                             pack_stream_pages,
+                                             prompt_page_hashes)
 from paddle_tpu_torch.testing import faults
 
 __all__ = ["EngineConfig", "PageAllocator", "GenerateRequest", "DecodeEngine",
-           "DeadlineExceeded", "Cancelled", "Overloaded"]
+           "KVHandoff", "MigrationItem", "MIG_MAGIC", "DeadlineExceeded",
+           "Cancelled", "Overloaded", "HandoffCorrupt", "pack_migration",
+           "unpack_migration"]
 
 _log = logging.getLogger(__name__)
 
@@ -432,7 +457,7 @@ class GenerateRequest:
         # table attaches resubmits of this key to THIS request
         self.request_key = None if request_key is None \
             else bytes(request_key)
-        self.imported = False           # resumed from a KV handoff (A5.5)
+        self.imported = False           # resumed from a KV handoff
         self.tenant = None              # reserved multi-tenant identity
         # usage metering (`observability/usage.py`): per-request mirrors of
         # the engine's token counters, kept at admission, prefill, harvest
@@ -443,7 +468,7 @@ class GenerateRequest:
         self.u_generated = 0            # tokens delivered
         self.u_spec_accepted = 0        # of those, speculation's surplus
         self.u_page_steps = 0           # KV pages held x decode steps held
-        self.u_migrations = 0           # times this request moved (A5.5)
+        self.u_migrations = 0           # times this request moved engines
         self.u_admit_step = None        # step_seq at slot placement
         self._usage_emitted = False
         self.generated: list[int] = []
@@ -613,6 +638,25 @@ class _PrefillEntry:
         return (self.graph or self.body)(eng)
 
 
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A pool gather on the host as the wire blobs carry it: numpy, a
+    bfloat16 tensor as int16 of the same bits."""
+    t = t.cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy()
+
+
+def _pool_tensor(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A handoff's page array as a CPU tensor of the pool's dtype (for a
+    bfloat16 pool the array's 16-bit words, as `_host_array` gives
+    them)."""
+    a = np.ascontiguousarray(a)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def _resolve_device(device) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
@@ -700,10 +744,10 @@ class DecodeEngine:
         self._tok_dev = torch.zeros(B, dtype=torch.int32, device=self.device)
         # fused sampling: per-slot (temperature, top_k) host mirrors ride the
         # packed upload; the key chains stay on the device, threaded through
-        # every step like _tok_dev. Row B is the JAX engine's scratch row
-        # for prefills without a slot (export, streaming: A5); in the port
-        # only the warm-up and capture runs of a prefill graph write it, so
-        # a graph built mid-serving moves no live slot's chain
+        # every step like _tok_dev. Row B is the scratch row of the
+        # prefills without a slot (`prefill_export`, the prefill stream) and
+        # of the warm-up and capture runs of a prefill graph, so neither
+        # moves a live slot's chain
         self._sampling = bool(ecfg.sampling)
         self._temps = np.ones(B, np.float32)
         self._topks = np.zeros(B, np.int32)
@@ -776,6 +820,19 @@ class DecodeEngine:
         # idempotency dedup table: request_key -> GenerateRequest, LRU
         # bounded at ecfg.dedup_capacity (_qlock)
         self._dedup: OrderedDict[bytes, GenerateRequest] = OrderedDict()
+        # live migration: drain(migrate=True) posts a flag, the loop's
+        # thread exports every live request into _migrated at the next
+        # step and sets the event take_migrated() waits on. The inbound
+        # side is a mailbox: submit_import() posts (handoff, request) from
+        # any thread and the loop places it between steps (_apply_imports)
+        self._migrate_requested = False
+        self._migrated: list[MigrationItem] = []
+        self._migrate_done = threading.Event()
+        self._imports: deque = deque()
+        # prefill-stream mailbox: submit_prefill_stream posts (ids, cache,
+        # trace_ctx, sink) from any thread; the loop runs the prefill
+        # between steps and puts the PTKS1 records into the sink
+        self._prefill_jobs: deque = deque()
         self._deg = 0                 # applied degradation level (loop)
         # d2h_transfers: token readbacks, one per decode or verify step and
         # per finished prefill; logits are never read back. The program
@@ -793,15 +850,13 @@ class DecodeEngine:
             "kvtier_hits_host", "kvtier_hits_disk", "kvtier_spills_host",
             "kvtier_spills_disk", "kvtier_refusals", "kvtier_reuploads_host",
             "kvtier_reuploads_disk", "kvtier_spill_fail",
-            "kvtier_reupload_fail"), 0)
-        # the same counts in the metrics registry (`_count` writes both),
-        # and the JAX engine's other series there: the migration counters
-        # (A5.5) stay 0, ``logits_readback`` stays 0 by design (no engine
-        # path reads logits back)
+            "kvtier_reupload_fail", "kv_exports", "kv_imports",
+            "kv_stream_exports", "migrations_out", "migrations_in"), 0)
+        # the same counts in the metrics registry (`_count` writes both);
+        # ``logits_readback`` stays 0 by design (no engine path reads
+        # logits back)
         self._m = {k: metrics.counter(_metric_name(k))
                    for k in self.counters if _metric_name(k)}
-        for name in ("engine.migrations_out", "engine.migrations_in"):
-            metrics.counter(name)
         self._g_prefix_pages = metrics.gauge("engine.prefix_pages")
         self._g_prefix_bytes = metrics.gauge("engine.prefix_store_bytes")
         self._g_spec_rate = metrics.gauge("engine.spec_accept_rate")
@@ -908,8 +963,8 @@ class DecodeEngine:
         if KV_DTYPES[kvd] != self._cdtype:
             raise NotImplementedError(
                 f"kv_dtype={kvd!r} under {self._cdtype} weights is not "
-                "ported (ROADMAP A9: a float KV pool of another dtype than "
-                "the weights); use 'native' or 'int8'")
+                "ported (ROADMAP A9.1: a float KV pool of another dtype "
+                "than the weights); use 'native' or 'int8'")
         return False
 
     def _scales(self) -> dict:
@@ -1272,15 +1327,16 @@ class DecodeEngine:
         if event is not None:
             event.record()
 
-    def _sample_tail(self, slot: int, req, final=None) -> np.ndarray:
+    def _sample_tail(self, slot, req, final=None) -> np.ndarray:
         """The ints that end a sampling engine's prefill upload: [slot,
         key0, key1, temperature bits, top_k], and on a chunk's one more,
         ``final``. The PRNGKey(seed) words are made once per request, on
         the host, and shipped only where they are used: the one-shot
-        upload or the final chunk's (the JAX engine's tail). ``req`` None
-        rides the greedy arm with a zero key."""
+        upload or the final chunk's (the JAX engine's tail). ``slot`` None
+        names the key buffer's scratch row B (a prefill without a slot);
+        ``req`` None rides the greedy arm with a zero key."""
         tail = np.zeros(_SAMPLE_TAIL + (final is not None), np.int32)
-        tail[0] = slot
+        tail[0] = self.ecfg.max_slots if slot is None else slot
         tail[3] = np.float32(1.0).view(np.int32)
         if req is not None:
             if final is None or final:
@@ -1331,24 +1387,31 @@ class DecodeEngine:
         return int(c) if c is not None \
             else self.bucket_for(prompt_len - start)
 
-    def _run_prefill(self, ids: np.ndarray, row: np.ndarray, slot: int,
-                     req: GenerateRequest, start: int = 0) -> int:
+    def _run_prefill(self, ids: np.ndarray, row: np.ndarray, slot=None,
+                     req: GenerateRequest | None = None,
+                     start: int = 0) -> int:
         """Prefill ``ids`` into ``row``'s pages from position ``start`` on
         and return the first token (its one readback): one-shot bucketed
-        from 0, or, after a prefix hit (``start`` cached tokens), ONE
-        chunk-program call over the tail (`_tail_chunk`). The tail's
-        queries attend over the shared pages and their own writes, masked
-        by absolute position."""
-        if start:
-            tok = self._run_chunk(ids, start, row, slot, req,
-                                  self._tail_chunk(ids.size, start))
+        from 0, or chunk-program calls from ``start`` on, back to back (a
+        prefix hit's tail, or a prompt longer than the configured chunk
+        when the caller has no steps to interleave the chunks with), each
+        of the configured chunk size, else of the tail's bucket
+        (`_tail_chunk`). A tail's queries attend over the shared pages and
+        their own writes, masked by absolute position. ``slot`` / ``req``
+        None (`prefill_export`): the key buffer's scratch row B and the
+        greedy first token, as in the JAX engine."""
+        if start or self._use_chunked(ids.size):
+            c = self._tail_chunk(ids.size, start)
+            for done in range(start, ids.size, c):
+                tok = self._run_chunk(ids, done, row, slot, req, c)
         else:
             entry = self._pack_prefill(ids, row, slot, req)
             entry(self)
             tok = entry.tok
             self._count("prefills")
             self._count("prefill_tokens", ids.size)
-            req.u_prefill_computed += int(ids.size)
+            if req is not None:
+                req.u_prefill_computed += int(ids.size)
         tb = time.perf_counter()
         first = int(tok)                        # the prefill's one readback
         self._blocked_s += time.perf_counter() - tb
@@ -1356,7 +1419,8 @@ class DecodeEngine:
         return first
 
     def _run_chunk(self, ids: np.ndarray, done: int, row: np.ndarray,
-                   slot: int, req: GenerateRequest, c: int | None = None):
+                   slot=None, req: GenerateRequest | None = None,
+                   c: int | None = None):
         """Run ONE prefill chunk (``ids[done:done+c]`` against page ``row``;
         ``c`` defaults to the configured chunk size) and return its first
         token on the device when it is the FINAL chunk (no readback here),
@@ -1367,7 +1431,8 @@ class DecodeEngine:
         entry(self)
         self._count("prefill_chunks")
         self._count("prefill_tokens", n)
-        req.u_prefill_computed += n
+        if req is not None:
+            req.u_prefill_computed += n
         return entry.tok if final else None
 
     # ---------------------------------------------------------- requests
@@ -1581,14 +1646,14 @@ class DecodeEngine:
         owes an answer, False for an unknown or finished one (a
         retirement racing the cancel is a no-op). The post is
         unconditional: a request caught mid-admission is in neither the
-        queue nor a slot, and its cancel must still land. (The JAX
-        engine's import mailbox is cancellable too; it comes with
-        migration, ROADMAP A5.5.)"""
+        queue nor a slot, and its cancel must still land. A migration
+        import still in the mailbox (`submit_import`) is cancellable too."""
         with self._work:
             if self._dead is not None:
                 return False
             self._cancels[request_id] = reason
-            known = any(r.request_id == request_id for r in self._queue)
+            known = any(r.request_id == request_id for r in self._queue) \
+                or any(r.request_id == request_id for _, r in self._imports)
             self._work.notify()
         # slot membership is the loop thread's; a stale True only means the
         # reap finds nothing
@@ -1600,9 +1665,10 @@ class DecodeEngine:
         """The loop's enforcement point at each step's start, before
         admission and dispatch: apply posted cancellations and expire
         blown deadlines. A queued request leaves the queue before any
-        prefill (``prefill_tokens`` does not move for it); a slotted one,
-        decoding or still chunk-prefilling, retires between steps and runs
-        no further step or chunk."""
+        prefill (``prefill_tokens`` does not move for it), and a
+        migration import leaves the mailbox before it claims a slot; a
+        slotted one, decoding or still chunk-prefilling, retires between
+        steps and runs no further step or chunk."""
         with self._qlock:
             cancels, self._cancels = self._cancels, {}
             now = time.monotonic()
@@ -1618,10 +1684,25 @@ class DecodeEngine:
                 self._queue_tokens -= int(req.prompt.size)
             if drop:
                 self._g_queue.set(len(self._queue))
+            # filtered by request id, never `deque.remove`: equality of
+            # two (KVHandoff, request) entries would compare page arrays
+            drop_imports = [req for _, req in self._imports
+                            if req.request_id in cancels]
+            if drop_imports:
+                keep = [(h, req) for h, req in self._imports
+                        if req.request_id not in cancels]
+                self._imports.clear()
+                self._imports.extend(keep)
         for req, err in drop:
             self._count_reap(err)
             flight.record("engine.reap", request_id=req.request_id,
                           where="queue", error=err)
+            req._finish(err)
+        for req in drop_imports:
+            err = f"Cancelled: {cancels[req.request_id]}"
+            self._count_reap(err)
+            flight.record("engine.reap", request_id=req.request_id,
+                          where="import_mailbox", error=err)
             req._finish(err)
         now = time.monotonic()
         for slot in range(self.ecfg.max_slots):
@@ -2253,7 +2334,10 @@ class DecodeEngine:
 
     def step(self) -> bool:
         """One step, in the JAX engine's order: the fault sites, `_reap`
-        (cancels, deadlines), `_apply_degradation`, `_admit` (prefills),
+        (cancels, deadlines), a requested migration export
+        (`_do_migrate_out`), the import and prefill-stream mailboxes
+        (`_apply_imports`, `_apply_prefill_jobs`), `_apply_degradation`,
+        `_admit` (prefills),
         the capacity tripwire, ONE batched decode step (a verify step on a
         speculating engine), at most one prefill chunk, then the harvest
         of the steps past the in-flight window (a verify step's at once).
@@ -2268,6 +2352,10 @@ class DecodeEngine:
             faults.fire("engine.step_delay")   # armed: sleeps delay_s
             faults.fire("engine.crash")        # armed with exc=: raises
         self._reap()
+        if self._migrate_requested:
+            self._do_migrate_out()
+        self._apply_imports()
+        self._apply_prefill_jobs()
         self._apply_degradation()
         self._admit()
         # capacity tripwire: a token at pos >= slot_capacity would spill to
@@ -2307,7 +2395,8 @@ class DecodeEngine:
             harvested += self._harvest_one()
         elif not chunked:
             with self._qlock:
-                return bool(self._queue)
+                return bool(self._queue) or bool(self._imports) \
+                    or bool(self._prefill_jobs)
         dt = time.perf_counter() - t_step
         self._h_step.observe(dt)
         self._h_host.observe((dt - self._blocked_s) * 1e3)
@@ -2319,7 +2408,8 @@ class DecodeEngine:
 
     def _has_work(self) -> bool:
         with self._qlock:
-            queued = bool(self._queue)
+            queued = bool(self._queue) or bool(self._imports) \
+                or bool(self._prefill_jobs)
         return queued or bool(self._inflight) or bool(self._prefilling) \
             or self._occupied()
 
@@ -2332,29 +2422,600 @@ class DecodeEngine:
                 raise RuntimeError(
                     f"engine still busy after {max_steps} steps")
 
+    # ---------------------------------------------------------- KV handoff
+
+    def _handoff_ids(self, prompt_ids) -> np.ndarray:
+        """A prompt for a prefill without a slot (export or stream): 1-D
+        int32, non-empty, with room for at least one token after it."""
+        ids = np.ascontiguousarray(np.asarray(prompt_ids)).reshape(-1) \
+            .astype(np.int32)
+        if ids.size == 0:
+            raise ValueError("empty prompt")
+        if ids.size >= self.max_seq_len:
+            raise ValueError(
+                f"prompt {ids.size} leaves no room to decode within "
+                f"max_seq_len={self.max_seq_len}")
+        return ids
+
+    def _borrow_pages(self, ids: np.ndarray, cache: bool, what: str):
+        """Pages for a prefill without a slot, borrowed from the pool: the
+        longest cached prefix attached (the last prompt token's page is
+        always recomputed), fresh pages for the rest, and what the KV tiers
+        hold re-uploaded into the leading fresh ones, counted as
+        admission counts them. Returns ``(hashes, shared, pages,
+        n_up)``: ``pages`` all of them in token order, of which
+        ``len(shared) + n_up`` lead with valid KV. Raises RuntimeError when
+        the pool cannot cover the prompt."""
+        ps = self.ecfg.page_size
+        n_src = -(-ids.size // ps)
+        use_cache = self._prefix_enabled and cache
+        hashes: list[bytes] = []
+        shared: list[int] = []
+        if use_cache:
+            hashes = prompt_page_hashes(ids, ps)
+            shared = self._prefix_lookup(hashes)[:(ids.size - 1) // ps]
+            if shared:
+                self._attach_prefix(shared)
+        pages = self.allocator.alloc(n_src - len(shared))
+        if pages is None:
+            if shared:
+                self.allocator.free(shared)
+            raise RuntimeError(
+                f"{what} needs {n_src} pages ({len(shared)} cached), "
+                f"{self.allocator.free_pages} free")
+        n_up = 0
+        if use_cache:
+            # counted once the prefill can proceed, as `_admit` counts
+            self._count("prefix_hit" if shared else "prefix_miss")
+            self._count("prefix_pages_reused", len(shared))
+            n_up = self._tier_reupload(hashes, ids.size, shared, pages)
+        return hashes, shared, shared + pages, n_up
+
+    def _export_host(self, pages: list[int]):
+        """The listed pages' K and V (and an int8 pool's scales, else None,
+        None) gathered in one `export_pages` call and copied to the host,
+        as numpy arrays in the wire blobs' layout ``[nl, n, page_size, nh,
+        dh]`` (bfloat16 as int16 of the same bits). The copies synchronize
+        with the engine's stream, as the JAX engine's `np.asarray` does."""
+        blobs = [_host_array(b) for b in export_pages(
+            self._kc, self._vc, pages,
+            *((self._ks, self._vs) if self._quant_kv else ()))]
+        return tuple(blobs) + ((None, None) if len(blobs) == 2 else ())
+
+    def prefill_export(self, prompt_ids) -> KVHandoff:
+        """Run this engine's prefill of ``prompt_ids`` and return it as a
+        detached `KVHandoff` instead of entering decode: the prefill half
+        of prefill/decode disaggregation. Pages are borrowed from the pool
+        for the call (a prefix hit attaches cached ones, as `submit` does)
+        and freed before it returns, the freshly prefilled ones staying
+        indexed in the prefix store. The first token is the greedy one (a
+        slotless prefill writes the key buffer's scratch row). On an int8
+        pool the gather of values and scales and their copies to the host
+        are observed as ``engine.quant_dequant_ms``. Loop thread only (it
+        runs the prefill program)."""
+        ids = self._handoff_ids(prompt_ids)
+        ps = self.ecfg.page_size
+        hashes, shared, pages, n_up = self._borrow_pages(
+            ids, True, "prefill_export")
+        row = np.full(self.pages_per_slot, TRASH_PAGE, np.int32)
+        row[:len(pages)] = pages
+        try:
+            first = self._run_prefill(ids, row,
+                                      start=(len(shared) + n_up) * ps)
+            t0 = time.perf_counter()
+            k, v, ks, vs = self._export_host(pages)
+            if self._quant_kv:
+                metrics.histogram("engine.quant_dequant_ms").observe(
+                    (time.perf_counter() - t0) * 1e3)
+            if self._prefix_enabled:
+                # registered before the free, so the retain hook keeps the
+                # pages resident: a local submit of the prompt then hits
+                self._register_prefix(hashes, pages)
+        finally:
+            self.allocator.free(pages)
+        self._count("kv_exports")
+        return KVHandoff(prompt=ids, first_token=first, k_pages=k,
+                         v_pages=v, page_size=int(ps),
+                         cache_dtype=_dtype_name(self._kc.dtype),
+                         k_scales=ks, v_scales=vs)
+
+    # ------------------------------------------------- prefill page stream
+
+    def submit_prefill_stream(self, prompt_ids, cache: bool = True,
+                              trace_ctx=None):
+        """The send side of disaggregated prefill, thread-safe: post one
+        prompt to the prefill-job mailbox and return a `queue.Queue` that
+        the loop fills as its prefill runs: ``("count", n_records)``
+        first, then ``("rec", bytes)`` for each ``PTKS1`` record as its
+        chunk's pages complete (header, page batches, the final record
+        with the first token), then ``("done", None)``; a failure ends
+        the stream with ``("err", "<Type>: <msg>")`` instead. The prefix
+        cache applies as in `prefill_export` (cached leading pages are
+        attached and exported without a prefill); ``cache=False`` keeps
+        the prompt out of the store. ``trace_ctx``, an optional
+        ``(trace_id, parent_span)`` hex pair, rides the header, and the
+        job's wall is then recorded as an ``engine.prefill_stream`` span
+        of that trace."""
+        ids = self._handoff_ids(prompt_ids)
+        sink: _queue.Queue = _queue.Queue()
+        with self._work:
+            self._refuse_not_accepting()
+            self._prefill_jobs.append((ids, bool(cache), trace_ctx, sink))
+            self._work.notify()
+        return sink
+
+    def _apply_prefill_jobs(self):
+        """The loop's drain of the prefill-job mailbox, at each step's
+        start: each posted job runs to its end, its records going into
+        its sink. A job's failure goes to the sink as ``("err", ...)``,
+        never onto the loop."""
+        while True:
+            with self._qlock:
+                if not self._prefill_jobs:
+                    return
+                ids, cache, trace_ctx, sink = self._prefill_jobs.popleft()
+            try:
+                self._run_prefill_stream(ids, cache, sink, trace_ctx)
+                sink.put(("done", None))
+            except Exception as e:  # noqa: BLE001 - surface to the sender
+                sink.put(("err", f"{type(e).__name__}: {e}"))
+
+    def _run_prefill_stream(self, ids: np.ndarray, cache: bool, sink,
+                            trace_ctx=None):
+        """One prefill-stream job: chunk-program calls back to back from
+        the first page without valid KV on, a ``PTKS1`` record put into
+        ``sink`` as each chunk completes at least one page. The record
+        plan is fixed before any device work: the header, one page batch
+        for the cached and re-uploaded prefix, one per chunk that
+        completes a page, and the final record with the first token and
+        the tail. Each batch's pages are read back as its chunk completes
+        them (a synchronization each, as the JAX engine's). Pages are
+        borrowed and freed as in `prefill_export`."""
+        t0 = time.perf_counter()
+        ps = self.ecfg.page_size
+        s0 = int(ids.size)
+        n_src = -(-s0 // ps)
+        hashes, shared, pages, n_up = self._borrow_pages(
+            ids, cache, "prefill stream")
+        n_res = len(shared) + n_up    # resident pages needing no prefill
+        row = np.full(self.pages_per_slot, TRASH_PAGE, np.int32)
+        row[:n_src] = pages
+        start = n_res * ps
+        c = self._tail_chunk(s0, start)
+        chunk_starts = list(range(start, s0, c))
+        batches, cursor = [], n_res
+        for a in chunk_starts:
+            done_pages = min(a + c, s0) // ps
+            batches.append((cursor, done_pages - cursor))
+            cursor = done_pages
+        n_records = 2 + (1 if n_res else 0) \
+            + sum(1 for _, n in batches if n > 0)
+        sink.put(("count", n_records))
+        nh = self.cfg.num_heads
+        geom = [self.cfg.num_layers, ps, nh, self.cfg.hidden_size // nh]
+        try:
+            seq = 0
+            sink.put(("rec", pack_stream_header(
+                seq, ids, ps, _dtype_name(self._kc.dtype), geom, n_src,
+                n_records, self._quant_kv, trace_ctx=trace_ctx)))
+            seq += 1
+            if n_res:
+                sink.put(("rec", pack_stream_pages(
+                    seq, 0, *self._export_host(pages[:n_res]))))
+                seq += 1
+            for a, (p0, n) in zip(chunk_starts, batches):
+                tok = self._run_chunk(ids, a, row, None, None, c)
+                if n > 0:
+                    sink.put(("rec", pack_stream_pages(
+                        seq, p0, *self._export_host(pages[p0:p0 + n]))))
+                    seq += 1
+            tb = time.perf_counter()
+            first = int(tok)          # the stream's one token readback
+            self._blocked_s += time.perf_counter() - tb
+            self._count("d2h_transfers")
+            sink.put(("rec", pack_stream_final(
+                seq, first, cursor, *self._export_host(pages[cursor:]))))
+            if self._prefix_enabled and cache:
+                self._register_prefix(hashes, pages)
+        finally:
+            self.allocator.free(pages)
+        self._count("kv_stream_exports")
+        flight.record("engine.prefill_stream", prompt_len=s0,
+                      records=n_records, cached_pages=len(shared),
+                      reuploaded_pages=n_up)
+        if trace_ctx:
+            tid, parent = trace_ctx
+            metrics.add_span(
+                "engine.prefill_stream", t0, time.perf_counter() - t0,
+                cat="engine", args={"prompt_len": s0, "records": n_records},
+                trace_id=tid, parent=parent, span_id=new_span_id())
+
+    # ------------------------------------------------------------ KV import
+
+    def import_request(self, handoff: KVHandoff, max_new_tokens=32,
+                       trace=None, cache=True,
+                       speculate=True) -> GenerateRequest:
+        """Resume decode from a `KVHandoff` exported on another engine:
+        take a slot and pages here, scatter the handoff's pages in and
+        decode on, token for token what a local prefill gives. Loop thread
+        only, and placed at once: a full engine raises instead of
+        queueing (the handoff path does its own admission upstream). Pass
+        the originating request's ``trace`` to keep the SLO clock across
+        the transfer; a fresh one measures only the import."""
+        req = self._build_import_request(handoff, max_new_tokens,
+                                         trace=trace, cache=cache,
+                                         speculate=speculate)
+        with self._work:
+            self._refuse_not_accepting()
+            req.trace.mark_submit()
+        slots = self._free_slots()
+        if not slots:
+            raise RuntimeError("no free slot for KV import")
+        need = -(-(int(req.prompt.size) + req.max_new_tokens)
+                 // self.ecfg.page_size)
+        pages = self.allocator.alloc(need)
+        if pages is None:
+            raise RuntimeError(
+                f"KV import needs {need} pages, "
+                f"{self.allocator.free_pages} free")
+        self._place_import(req, handoff, slots[0], pages)
+        return req
+
+    def _build_import_request(self, handoff: KVHandoff, max_new_tokens,
+                              deadline_s=None, trace=None, cache=True,
+                              speculate=True,
+                              request_key=None) -> GenerateRequest:
+        """The checks both import paths share, on the calling thread (a
+        refusal goes back to the sender, never onto the loop), and the
+        request future. The caller applies `_refuse_not_accepting` under
+        its own hold of ``_work``."""
+        self._check_handoff(handoff)
+        ids = np.ascontiguousarray(handoff.prompt).reshape(-1) \
+            .astype(np.int32)
+        n = int(max_new_tokens)
+        if n < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {n}")
+        if ids.size + n > self.max_seq_len:
+            raise ValueError(
+                f"prompt {ids.size} + max_new_tokens {n} exceeds engine "
+                f"max_seq_len={self.max_seq_len}")
+        sample = handoff.sample or {}
+        req = GenerateRequest(ids, n, trace=trace, cache=cache,
+                              speculate=speculate, deadline_s=deadline_s,
+                              request_key=self._dedup_key(request_key),
+                              temperature=sample.get("temperature", 1.0),
+                              top_k=sample.get("top_k", 0))
+        req.imported = True
+        if self._prefix_enabled and req.cache:
+            # imported pages are cache-eligible (`_seed_first_token`
+            # indexes them) unless the request opted out, on every engine
+            req.page_hashes = prompt_page_hashes(ids, self.ecfg.page_size)
+        return req
+
+    def _check_handoff(self, handoff: KVHandoff):
+        """The geometry and dtype refusals both import paths share: a
+        mismatched handoff fails loudly on the posting thread, never casts
+        on the loop's."""
+        nh = self.cfg.num_heads
+        nl, dh = self.cfg.num_layers, self.cfg.hidden_size // nh
+        ps = self.ecfg.page_size
+        dtype = _dtype_name(self._kc.dtype)
+        if int(handoff.page_size) != int(ps):
+            raise ValueError(
+                f"page_size mismatch: handoff {handoff.page_size} vs "
+                f"engine {ps}")
+        if handoff.cache_dtype != dtype:
+            raise ValueError(
+                f"cache dtype mismatch: handoff {handoff.cache_dtype} vs "
+                f"engine {dtype} — a silent cast would break bit-identical "
+                f"decode (kv_dtype must match across a handoff)")
+        if handoff.sample is not None and not self._sampling:
+            raise ValueError(
+                "handoff carries fused-sampler state but this engine was "
+                "built without EngineConfig(sampling=True) — a greedy "
+                "resume would silently change the request's distribution")
+        if self._quant_kv and handoff.k_scales is None:
+            raise ValueError(
+                "int8 KV handoff is missing its scale blobs — refusing a "
+                "silently mis-scaled import")
+        if self._quant_kv and \
+                tuple(handoff.k_scales.shape) != tuple(handoff.k_pages
+                                                       .shape[:-1]):
+            raise ValueError(
+                f"KV handoff scales shape {handoff.k_scales.shape} does "
+                f"not match pages shape {handoff.k_pages.shape}")
+        h_nl, n_src, h_ps, h_nh, h_dh = handoff.k_pages.shape
+        if (h_nl, h_ps, h_nh, h_dh) != (nl, ps, nh, dh):
+            raise ValueError(
+                f"cache geometry mismatch: handoff pages "
+                f"{handoff.k_pages.shape} vs engine [nl={nl}, "
+                f"ps={ps}, nh={nh}, dh={dh}]")
+        if n_src != -(-int(handoff.prompt.size) // ps):
+            raise ValueError(
+                f"handoff has {n_src} pages for a {handoff.prompt.size}-"
+                f"token prompt at page_size {ps}")
+
+    def _place_import(self, req: GenerateRequest, handoff: KVHandoff,
+                      slot: int, pages: list[int]):
+        """Place a checked handoff (loop thread): its pages scattered into
+        this pool's ``pages`` by `import_pages`, in place on the engine's
+        stream, so the captured graphs read them; the slot published, a
+        sampled request's advanced key chain written into the slot's row
+        of the key buffer in place, and the first token seeded."""
+        n_src = handoff.k_pages.shape[1]
+        self._count("requests")
+        req.trace.mark_admitted()
+        flight.record("engine.kv_import", request_id=req.request_id,
+                      slot=slot, pages=len(pages),
+                      prompt_len=int(req.prompt.size))
+        blobs = [_pool_tensor(handoff.k_pages, self._kc.dtype),
+                 _pool_tensor(handoff.v_pages, self._kc.dtype)]
+        scales = ()
+        if self._quant_kv:
+            scales = (self._ks, self._vs,
+                      *(torch.from_numpy(np.ascontiguousarray(s, np.float32))
+                        for s in (handoff.k_scales, handoff.v_scales)))
+        import_pages(self._kc, self._vc, *blobs, pages[:n_src], *scales)
+        row = np.full(self.pages_per_slot, TRASH_PAGE, np.int32)
+        row[:len(pages)] = pages
+        self._page_table[slot] = row
+        self._slot_req[slot] = req
+        self._slot_pages[slot] = pages
+        # usage: the whole imported context arrived as resident KV, prefill
+        # work this engine did not run
+        req.u_prefill_saved = int(req.prompt.size)
+        req.u_admit_step = self.step_seq
+        if self._sampling:
+            self._temps[slot] = req.temperature
+            self._topks[slot] = req.top_k
+            if handoff.sample is not None:
+                # the chain as the exporter left it (an admission-rate
+                # host write, never a per-step one)
+                self._keys_dev[slot].copy_(torch.tensor(
+                    [int(w) & prng.M32 for w in handoff.sample["key"]],
+                    dtype=torch.int64))
+        self._count("kv_imports")
+        self._seed_first_token(slot, req, int(handoff.first_token))
+
+    # ------------------------------------------------------ live migration
+
+    def submit_import(self, handoff: KVHandoff, max_new_tokens=32,
+                      deadline_s=None, trace=None, cache=True,
+                      speculate=True, request_key=None) -> GenerateRequest:
+        """The receive side of live migration, thread-safe: check the
+        handoff on the posting thread (a geometry or dtype refusal goes
+        back to the sender), post it to the import mailbox and return the
+        request future at once. The loop places it between steps
+        (`_apply_imports`), so a peer's threads never touch the device and
+        no step program changes. Unlike `import_request` a full engine
+        defers the placement; one that could never fit it answers a typed
+        error. A ``request_key`` registers the resumed request in this
+        engine's dedup table."""
+        # double-checked like submit(): a draining or stopped engine fails
+        # fast, before the O(context) hash pass; the second check, atomic
+        # with the post, is the one that counts
+        with self._work:
+            self._refuse_not_accepting()
+        req = self._build_import_request(handoff, max_new_tokens,
+                                         deadline_s=deadline_s,
+                                         trace=trace, cache=cache,
+                                         speculate=speculate,
+                                         request_key=request_key)
+        with self._work:
+            self._refuse_not_accepting()
+            req.trace.mark_submit()
+            flight.record("engine.migrate_in", request_id=req.request_id,
+                          context_len=int(req.prompt.size),
+                          max_new_tokens=req.max_new_tokens)
+            self._imports.append((handoff, req))
+            # the migration owns the key now: a resubmit after the drain
+            # attaches instead of running the generation again
+            self._register_dedup(req.request_key, req)
+            self._work.notify()
+        return req
+
+    def _apply_imports(self):
+        """The loop's drain of the import mailbox, at each step's start:
+        each posted handoff into a free slot. No slot or pages now is a
+        deferral while the engine has work that will retire; on an idle
+        engine it is a typed failure (nothing will ever free room)."""
+        retry = []
+        while True:
+            with self._qlock:
+                if not self._imports:
+                    break
+                handoff, req = self._imports.popleft()
+            if req.done:
+                continue
+            if req.expired():
+                err = self._deadline_error(req)
+                self._count_reap(err)
+                req._finish(err)
+                continue
+            slots = self._free_slots()
+            need = -(-(req.prompt.size + req.max_new_tokens)
+                     // self.ecfg.page_size)
+            pages = self.allocator.alloc(need) if slots else None
+            if pages is None:
+                if self._occupied() or self._inflight or self._prefilling:
+                    retry.append((handoff, req))  # room will free up
+                    continue
+                req._finish(f"KV import needs a slot and {need} pages; "
+                            f"engine has {len(slots)} free slots, "
+                            f"{self.allocator.free_pages} free pages and "
+                            f"no retiring work")
+                continue
+            self._count("migrations_in")
+            self._place_import(req, handoff, slots[0], pages)
+        if retry:
+            with self._qlock:
+                self._imports.extend(retry)
+
+    @staticmethod
+    def _cold_sample(req: GenerateRequest) -> dict | None:
+        """A cold item's sampler parameters ({"temperature", "top_k",
+        "seed"}): the peer restarts the chain from the seed, and since
+        nothing was drawn yet the sequence is the uninterrupted one. None
+        for a greedy request."""
+        if req.temperature != 1.0 or req.top_k != 0:
+            return {"temperature": float(req.temperature),
+                    "top_k": int(req.top_k), "seed": int(req.seed)}
+        return None
+
+    @staticmethod
+    def _deadline_ms_left(req: GenerateRequest,
+                          now: float | None = None) -> int | None:
+        if req.deadline_t is None:
+            return None
+        now = time.monotonic() if now is None else now
+        return max(1, int((req.deadline_t - now) * 1000))
+
+    def _migration_item(self, req: GenerateRequest, now: float,
+                        handoff: KVHandoff | None = None,
+                        max_new_tokens: int | None = None) -> MigrationItem:
+        """A `MigrationItem` of ``req``: warm with ``handoff``, else cold
+        with its prompt and sampler parameters."""
+        return MigrationItem(
+            max_new_tokens=req.max_new_tokens if max_new_tokens is None
+            else max_new_tokens,
+            handoff=handoff,
+            prompt=req.prompt if handoff is None else None,
+            deadline_ms=self._deadline_ms_left(req, now), request=req,
+            cache=req.cache, speculate=req.speculate,
+            request_key=req.request_key,
+            sample=self._cold_sample(req) if handoff is None else None,
+            trace_id=req.trace.trace_id, parent_span=req.trace.span_id)
+
+    def _do_migrate_out(self):
+        """The loop's migration export (`drain(migrate=True)`): harvest the
+        whole in-flight window, so every token a step drew is delivered,
+        then export each decoding slot as a warm `MigrationItem` (its
+        context, the prompt and ``generated[:-1]``, whose KV is in the
+        pool, with ``generated[-1]`` as the seed, and a sampled request's
+        advanced key chain), detaching slots and pages without finishing
+        the futures. Queued and chunk-prefilling requests leave cold, and
+        imports still in the mailbox leave warm as they came.
+        `take_migrated` hands the items over."""
+        self._migrate_requested = False
+        self._drain_window()
+        items: list[MigrationItem] = []
+        now = time.monotonic()
+        for slot in range(self.ecfg.max_slots):
+            req = self._slot_req[slot]
+            if req is None or req.done:
+                continue
+            if req.expired(now):
+                err = self._deadline_error(req)
+                self._count_reap(err)
+                self._retire(slot, error=err)
+                continue
+            if slot in self._prefilling or not req.generated:
+                # mid chunked prefill: re-prefilling on the peer is cheaper
+                # than shipping a partial page set
+                item = self._migration_item(req, now)
+            else:
+                # the last token's KV is written by the next step, which
+                # now runs on the peer
+                ctx = int(self._lengths[slot])
+                n_src = -(-ctx // self.ecfg.page_size)
+                k, v, ks, vs = self._export_host(
+                    self._slot_pages[slot][:n_src])
+                handoff = KVHandoff(
+                    prompt=np.concatenate([req.prompt, np.asarray(
+                        req.generated[:-1], np.int32)]),
+                    first_token=int(req.generated[-1]), k_pages=k,
+                    v_pages=v, page_size=int(self.ecfg.page_size),
+                    cache_dtype=_dtype_name(self._kc.dtype), k_scales=ks,
+                    v_scales=vs)
+                if self._sampling and (req.temperature != 1.0
+                                       or req.top_k != 0):
+                    key = self._keys_dev[slot].tolist()
+                    handoff.sample = {
+                        "temperature": float(req.temperature),
+                        "top_k": int(req.top_k),
+                        "key": [int(w) & prng.M32 for w in key]}
+                # the seed is the peer's first token: the peer's budget is
+                # what is left plus one
+                item = self._migration_item(
+                    req, now, handoff,
+                    req.max_new_tokens - len(req.generated) + 1)
+            flight.record("engine.migrate_out", request_id=req.request_id,
+                          warm=item.handoff is not None,
+                          delivered=len(req.generated))
+            self._detach_slot(slot)
+            items.append(item)
+        with self._qlock:
+            queued = list(self._queue)
+            self._queue.clear()
+            self._queue_tokens = 0
+            self._g_queue.set(0)
+            imports = list(self._imports)
+            self._imports.clear()
+        for req in queued:
+            if req.done:
+                continue
+            if req.expired(now):
+                err = self._deadline_error(req)
+                self._count_reap(err)
+                req._finish(err)
+                continue
+            items.append(self._migration_item(req, now))
+        for handoff, req in imports:
+            if not req.done:
+                items.append(self._migration_item(req, now, handoff))
+        self._count("migrations_out", len(items))
+        for item in items:
+            item.request.u_migrations += 1
+        self._g_occupancy.set(0)
+        with self._qlock:
+            self._migrated.extend(items)
+        flight.record("engine.migrated", count=len(items))
+        self._migrate_done.set()
+
+    def take_migrated(self, timeout: float | None = None) \
+            -> list[MigrationItem]:
+        """Block until the loop has made the export a `drain(migrate=True)`
+        asked for, then hand the items over (their futures unfinished: the
+        serving layer ships them to peers and answers the futures with the
+        peers' tokens). Raises TimeoutError when the loop did not reach a
+        step inside ``timeout``."""
+        if not self._migrate_done.wait(timeout):
+            raise TimeoutError(
+                "migration export still pending (the loop has not reached "
+                "a step boundary)")
+        with self._qlock:
+            items, self._migrated = self._migrated, []
+        return items
+
     # ------------------------------------------------------ drain / abort
 
     def drain(self, migrate: bool = False):
         """Refuse NEW submits while everything already accepted runs to the
         end, the first half of a graceful shutdown; nothing is failed.
         Callers watch their requests (or `run_until_idle`) to know when the
-        engine is quiet. ``migrate=True`` (export the live requests to a
-        peer) is not ported: NotImplementedError (ROADMAP A5.5)."""
-        if migrate:
-            raise NotImplementedError(
-                "drain(migrate=True) is not ported (ROADMAP A5.5, live "
-                "migration)")
+        engine is quiet. ``migrate=True``: instead of waiting the
+        generations out, the loop exports every live request at its next
+        step (`_do_migrate_out`: decoding slots warm, queued and
+        chunk-prefilling requests cold) without finishing the futures, and
+        `take_migrated` hands the items to the serving layer, which ships
+        them to a peer: scale-down costs a step and the transfer, not the
+        longest generation."""
         with self._work:
             self._draining = True
+            if migrate:
+                self._migrate_requested = True
             self._work.notify()
         self._count("drains")
 
     def abort(self, reason: str):
         """Fail every queued and running request with ``reason``, free
         their pages and refuse later submits; blocked `result()` callers
-        get the error at once. The in-flight window is cleared: its
-        tokens are never delivered, and its ring slots' events are simply
-        recorded anew when the slots are reused."""
+        get the error at once, and so do imports still in the mailbox,
+        prefill-stream jobs not yet run (an ``("err", reason)`` item) and
+        migrated items never taken; a `take_migrated` waiter returns at
+        once. The in-flight window is cleared: its tokens are never
+        delivered, and its ring slots' events are simply recorded anew
+        when the slots are reused."""
         with self._qlock:
             self._dead = reason
             queued = list(self._queue)
@@ -2362,8 +3023,23 @@ class DecodeEngine:
             self._queue_tokens = 0
             self._cancels.clear()
             self._g_queue.set(0)
+            imports = list(self._imports)
+            self._imports.clear()
+            migrated = list(self._migrated)
+            self._migrated.clear()
+            prefill_jobs = list(self._prefill_jobs)
+            self._prefill_jobs.clear()
         for req in queued:
             req._finish(reason)
+        for _, req in imports:
+            req._finish(reason)
+        for *_, sink in prefill_jobs:
+            sink.put(("err", reason))
+        for item in migrated:
+            # exported but never taken: nothing else will answer these
+            if item.request is not None and not item.request.done:
+                item.request._finish(reason)
+        self._migrate_done.set()
         self._inflight.clear()
         self._g_inflight.set(0)
         for slot in range(self.ecfg.max_slots):

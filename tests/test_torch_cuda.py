@@ -1960,3 +1960,107 @@ def test_card_train_step_reports_its_mfu(card):
     assert metrics.counter("train.steps").value - s0 == 3
     assert metrics.gauge("train.mfu").value == ts.records[-1]["mfu"]
     assert 0 < ts.records[-1]["mfu"] <= 1
+
+
+# ----------------------------------------------- KV handoff and migration
+
+HANDOFF_CASES = {"float": {}, "int8": {"kv_dtype": "int8"}}
+
+
+@pytest.mark.parametrize("case", list(HANDOFF_CASES))
+def test_card_handoff_round_trip_reaches_the_captured_graph(card, case):
+    """`prefill_export` on one card engine, the PTKV1 blob's bytes, then
+    `import_request` into a warm decode-only engine: right after the
+    import the captured decode graph and the eager step, run from one
+    state, give the same tokens, logits and pages (the graph reads the
+    pages `import_pages` wrote in place), the tokens equal an
+    uninterrupted card engine's and the CPU engine's, the importer built
+    no prefill program and both pools end at their baseline."""
+    from paddle_tpu_torch.inference.engine import (DecodeEngine, EngineConfig,
+                                                   KVHandoff)
+    model = _small_model()
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, 97, n).astype(np.int32) for n in (5, 16, 41)]
+    ecfg = EngineConfig(page_size=16, max_slots=4, prefix_cache=False,
+                        **HANDOFF_CASES[case])
+    refs = []
+    for dev in ("cpu", card):
+        eng = DecodeEngine(model, ecfg, device=dev)
+        reqs = [eng.submit(p, max_new_tokens=10) for p in prompts]
+        eng.run_until_idle(max_steps=200)
+        refs.append([r.result(timeout=0) for r in reqs])
+    src = DecodeEngine(model, ecfg, device=card)
+    dst = DecodeEngine(model, ecfg, device=card)
+    dst.warmup(prompt_lens=())
+    pools = [t.data_ptr() for t in (dst._kc, dst._vc)]
+    reqs = [dst.import_request(KVHandoff.unpack(src.prefill_export(p).pack()),
+                               max_new_tokens=10) for p in prompts]
+    graph, eager = dst.check_step_graph()
+    for k in ("tokens", "logits"):
+        assert torch.equal(graph[k], eager[k]), k
+    for a, b in zip(graph["pools"], eager["pools"]):
+        assert torch.equal(a[:, 1:], b[:, 1:])
+    dst.run_until_idle(max_steps=200)
+    for r, card_ref, cpu_ref in zip(reqs, *refs):
+        np.testing.assert_array_equal(r.result(timeout=0), card_ref)
+        np.testing.assert_array_equal(r.result(timeout=0), cpu_ref)
+    assert [t.data_ptr() for t in (dst._kc, dst._vc)] == pools
+    assert not any(k[0] in ("prefill", "prefill_chunk")
+                   for k in dst._programs)
+    for eng in (src, dst):
+        assert eng.allocator.free_pages == eng.allocator.num_pages - 1
+
+
+@pytest.mark.parametrize("case", list(HANDOFF_CASES))
+def test_card_sampled_migration_continues_the_chain(card, case):
+    """A sampling card engine migrates mid-decode (two steps in flight at
+    the drain) through PTMG1 into another: the imported slot's key row is
+    the exported chain's two words, and every request's tokens, sampled
+    and greedy, warm and cold, equal an uninterrupted card engine's."""
+    from paddle_tpu_torch.inference.engine import (DecodeEngine, EngineConfig,
+                                                   pack_migration,
+                                                   unpack_migration)
+    model = _small_model()
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, 97, n).astype(np.int32)
+               for n in (7, 19, 30, 12)]
+    params = [dict(temperature=0.8, top_k=5, seed=1), {},
+              dict(temperature=1.2, seed=4), dict(temperature=0.9, seed=6)]
+    ecfg = EngineConfig(page_size=16, max_slots=3, prefix_cache=False,
+                        sampling=True, inflight=3, **HANDOFF_CASES[case])
+    ref = DecodeEngine(model, ecfg, device=card)
+    want = [ref.submit(p, 12, **kw) for p, kw in zip(prompts, params)]
+    ref.run_until_idle(max_steps=200)
+    src = DecodeEngine(model, ecfg, device=card)
+    dst = DecodeEngine(model, ecfg, device=card)
+    reqs = [src.submit(p, 12, **kw) for p, kw in zip(prompts, params)]
+    for _ in range(4):
+        src.step()
+    src.drain(migrate=True)
+    src.step()
+    taken = src.take_migrated(timeout=30)
+    order = [next(j for j, r in enumerate(reqs) if r is i.request)
+             for i in taken]
+    items = [unpack_migration(pack_migration(i)) for i in taken]
+    assert sum(i.handoff is None for i in items) == 1     # the queued one
+    answers = {}
+    for j, item in zip(order, items):
+        if item.handoff is None:
+            answers[j] = dst.submit(item.prompt, item.max_new_tokens,
+                                    **(item.sample or {}))
+        else:
+            answers[j] = dst.submit_import(
+                item.handoff, max_new_tokens=item.max_new_tokens)
+    dst._apply_imports()                     # placed, no step run yet
+    for j, item in zip(order, items):
+        if item.handoff is not None and item.handoff.sample is not None:
+            slot = dst._slot_req.index(answers[j])
+            assert dst._keys_dev[slot].tolist() == \
+                item.handoff.sample["key"]
+    dst.run_until_idle(max_steps=200)
+    for j, w in enumerate(want):
+        np.testing.assert_array_equal(answers[j].result(timeout=0),
+                                      w.result(timeout=0))
+    assert not any(r.done for r in reqs)
+    for eng in (src, dst):
+        assert eng.allocator.free_pages == eng.allocator.num_pages - 1

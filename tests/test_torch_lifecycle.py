@@ -717,8 +717,11 @@ def test_drain_refuses_new_submits_and_finishes_accepted_work(models):
                       "engine draining: not accepting new requests")
     assert rec[1] is True and rec[2][0] == "tokens"
     assert kit.eng.counters["drains"] == 1
-    with pytest.raises(NotImplementedError, match="A5.5"):
-        kit.eng.drain(migrate=True)
+    # a migrating drain of the quiet engine exports nothing
+    # (`tests/test_torch_handoff.py` holds migration against the JAX one)
+    kit.eng.drain(migrate=True)
+    kit.eng.step()
+    assert kit.eng.take_migrated(timeout=5) == []
 
 
 # ------------------------------------------------ the in-flight window
