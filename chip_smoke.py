@@ -205,7 +205,32 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    (``HandoffCorrupt``), and the launches are exact. Each line: export,
    pack, unpack and import ms (medians over the requests), blob bytes a
    token, the migration's wall from `drain` to `take_migrated`, the
-   decode side's TTFT. ``serve_lifecycle`` (bf16, ``inflight=2``): engine
+   decode side's TTFT. ``serve_wire`` (after ``serve_handoff``; the serve
+   tier, `inference/serve.py`, over the wire on this host; `serve`'s 8
+   prompts, 32 new tokens, ``inflight=2``, prefix cache off), one line an
+   arm: ``cli`` (GPT-2 small's float32 weights from the seed written by
+   `framework.io.save`, ``python -m paddle_tpu_torch.inference.serve
+   --gpt-config`` in a process of its own: start to ``LISTENING``, a first
+   request, the 8 at once twice, STATS and PROMETHEUS, a wrong secret
+   dropped, SIGTERM drains it to exit 0; its launches from its STATS'
+   ``kernel.dispatch.*``), ``inproc`` (an `InferenceServer` over a bf16
+   engine here: 8 clients, then a 900-token request cancelled by the
+   CANCEL op and a 511-token one whose client disconnects, both typed),
+   ``migrate`` (8 requests on replica A, after its 5th step
+   ``A.drain(migrate_peers=[B])``: zero client errors, 8 migrations out
+   and in, the drain's wall, pack ms an item) and ``disagg`` (a
+   ``role="prefill"`` replica's OP_PREFILL records relayed by hand to a
+   ``role="decode"`` replica's OP_KV_STREAM: no prefill graph on the
+   decode side; tokens against a 256-token-chunk engine, a bf16
+   difference within ``serve_bf16_parity``'s margin allowed, ROADMAP
+   C11). Every answered request's tokens equal an in-process engine's of
+   the same config and weights, every pool ends at its baseline, the
+   launches are exact; each line has request walls (p50, p90), tokens/s
+   beside the in-process engine's, bytes and the card's clocks. Then
+   ``b14``: each graph capture's seconds on a fresh server's serve thread
+   (8 clients at once, and one at a time) and on the building thread of
+   a warmed engine, three runs each (ROADMAP B14).
+   ``serve_lifecycle`` (bf16, ``inflight=2``): engine
    A sheds the 17th of 17 submits (``Overloaded``), cancels two queued
    requests (no prefill for them), a running one that shares prefix
    pages (its slot goes to the next queued request), cuts a request with
@@ -252,6 +277,7 @@ result.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import glob
 import json
@@ -259,7 +285,10 @@ import math
 import os
 import re
 import shutil
+import signal
+import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -274,10 +303,14 @@ from torch.profiler import ProfilerActivity, profile
 from paddle_tpu_torch.incubate.nn import (FusedLayerNorm,
                                           FusedMultiTransformer,
                                           fused_rotary_position_embedding)
-from paddle_tpu_torch.inference.engine import (DecodeEngine, EngineConfig,
-                                               HandoffCorrupt, KVHandoff,
-                                               Overloaded, pack_migration,
+from paddle_tpu_torch.framework import io as pio
+from paddle_tpu_torch.inference import serve as serve_mod
+from paddle_tpu_torch.inference.engine import (Cancelled, DecodeEngine,
+                                               EngineConfig, HandoffCorrupt,
+                                               KVHandoff, Overloaded,
+                                               pack_migration,
                                                unpack_migration)
+from paddle_tpu_torch.inference.serve import InferenceServer, RemotePredictor
 from paddle_tpu_torch.kernels import _build, registry
 from paddle_tpu_torch.kernels import dropout as tdrop
 from paddle_tpu_torch.kernels import flash_attention as tfa
@@ -2174,6 +2207,656 @@ def handoff_arm(arm, src, dst, prompts, n):
         "corrupt_refused": corrupt}
 
 
+# serve_wire: the serve tier over the wire (`inference/serve.py`), after
+# serve_handoff: `serve`'s 8 prompts, 32 new tokens each, four arms and the
+# B14 measurement
+WIRE_SECRET = "smoke"
+WIRE_ENGINE = {"page_size": PS, "max_slots": 8, "prefix_cache": False,
+               "inflight": 2}
+WIRE_CANCEL_TOKENS = 124      # the 9th request: 900 + 124 fill the table
+WIRE_DISCONNECT_LEN = 511     # the 10th request's prompt
+WIRE_STEP_DELAY_S = 0.01      # pins the cancel, the disconnect and the drain
+WIRE_DRAIN_STEPS = 5
+WIRE_DRAIN_DEADLINE_S = 60
+B14_RUNS = 3
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+class WireWindow:
+    """One arm's window: the port registry's counter deltas and new
+    histogram observations since it opened, and the card's clocks at
+    both ends."""
+
+    HISTS = ("serve.ttft_seconds", "engine.compile_seconds")
+
+    def __init__(self):
+        self.c0 = metrics.snapshot()["counters"]
+        self.h0 = {n: metrics.histogram(n).count for n in self.HISTS}
+        self.clocks = {"before": card_clocks()}
+
+    def delta(self, name):
+        return metrics.snapshot()["counters"].get(name, 0) \
+            - self.c0.get(name, 0)
+
+    def observed(self, name):
+        h = metrics.histogram(name)
+        n = h.count - self.h0[name]
+        return list(h._recent)[-n:] if n > 0 else []
+
+    def close(self):
+        self.clocks["after"] = card_clocks()
+        return self.clocks
+
+
+def wire_replica(model, dev, warm_lens=SERVE_LENS, role="both", **ecfg):
+    """An `InferenceServer` over a new engine of WIRE_ENGINE's settings
+    (``ecfg`` on top), warmed on this thread for ``warm_lens`` (None: not
+    warmed) before its `serve_loop` starts; it accepts on a thread of its
+    own. Returns the server and that thread."""
+    eng = DecodeEngine(model, EngineConfig(**{**WIRE_ENGINE, **ecfg}),
+                       device=dev)
+    if warm_lens is not None:
+        eng.warmup(prompt_lens=warm_lens)
+        torch.cuda.synchronize()
+    srv = InferenceServer(None, engine=eng, auth_name=WIRE_SECRET, role=role)
+    accept = threading.Thread(target=srv.serve_forever, daemon=True)
+    accept.start()
+    return srv, accept
+
+
+def stop_replica(srv, accept):
+    """Stop the engine thread and the accept loop of a replica."""
+    srv._stop.set()
+    if srv._engine_thread is not None:
+        srv._engine_thread.join(timeout=60)
+    srv._sock.close()
+    accept.join(timeout=10)
+    if accept.is_alive() or (srv._engine_thread is not None
+                             and srv._engine_thread.is_alive()):
+        raise SystemExit("serve_wire: a replica's thread did not stop")
+
+
+def at_baseline(eng):
+    return eng.allocator.free_pages == eng.allocator.num_pages - 1
+
+
+def wait_until(pred, what, timeout=120.0):
+    t_end = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > t_end:
+            raise SystemExit(f"serve_wire: timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def wire_generate(port, prompts, n, **kw):
+    """One client a prompt, all at once: each answer (or the exception it
+    raised), each request's wall and the wall of them all."""
+    outs, walls = [None] * len(prompts), [None] * len(prompts)
+
+    def one(i):
+        t0 = time.perf_counter()
+        try:
+            cli = RemotePredictor(port=port, secret=WIRE_SECRET,
+                                  timeout=600.0)
+            outs[i] = cli.generate(prompts[i], max_new_tokens=n, **kw)
+            cli.close()
+        except Exception as e:  # noqa: BLE001 - gated by the caller
+            outs[i] = e
+        walls[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise SystemExit("serve_wire: a client hung")
+    return outs, walls, time.perf_counter() - t0
+
+
+def wall_stats(walls):
+    qs = statistics.quantiles(walls, n=10, method="inclusive")
+    return {"request_wall_ms_p50": statistics.median(walls) * 1e3,
+            "request_wall_ms_p90": qs[8] * 1e3}
+
+
+def timed_reference(eng, prompts, n):
+    """``eng``'s answers for ``prompts`` in process, the generated tokens a
+    second over that run and its steps."""
+    steps = eng.counters["steps"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = serve(eng, prompts, n)
+    torch.cuda.synchronize()
+    return (outs, len(prompts) * n / (time.perf_counter() - t0),
+            eng.counters["steps"] - steps)
+
+
+def exact_tokens(outs, refs):
+    return [isinstance(o, np.ndarray) and bool(np.array_equal(o, r))
+            for o, r in zip(outs, refs)]
+
+
+def read_line(proc, prefix, timeout):
+    """The first stdout line of ``proc`` that starts with ``prefix``."""
+    box = {}
+
+    def reader():
+        for line in proc.stdout:
+            if line.startswith(prefix):
+                box["line"] = line.strip()
+                return
+    t = threading.Thread(target=reader, daemon=True)
+    t.start()
+    t.join(timeout)
+    if "line" not in box:
+        raise SystemExit(f"serve_wire: no {prefix} line from the server "
+                         f"(exit code {proc.poll()})")
+    return box["line"]
+
+
+def wrong_secret_dropped(port):
+    """A connection whose hello carries another secret's digest is dropped
+    before any op is read: the PING after it gets no answer."""
+    sock = socket.create_connection(("127.0.0.1", port), timeout=10)
+    try:
+        sock.sendall(struct.pack("<I", serve_mod.MAGIC)
+                     + serve_mod.auth_token("not-" + WIRE_SECRET))
+        sock.sendall(struct.pack("<III", serve_mod.MAGIC, serve_mod.OP_PING,
+                                 0))
+        sock.settimeout(10)
+        try:
+            return sock.recv(12) == b""
+        except ConnectionResetError:
+            return True
+    finally:
+        sock.close()
+
+
+def cli_launches(stats, nl):
+    """The paged kernels' dispatches in the server process (its STATS
+    ``kernel.dispatch.*``, graph replays counted) against what its engine
+    counters imply, as `engine_launches` holds an in-process engine."""
+    c = stats["counters"]
+    got = {"paged_decode": c.get("kernel.dispatch.paged_attention.cuda", 0),
+           "paged_prefill": c.get(
+               "kernel.dispatch.prefill_attention.cuda", 0)}
+    # prefix cache off, no chunking: one one-shot prefill a request (the
+    # registry keeps no count of prefills, the port's own counter)
+    want = {"paged_decode": nl * (c.get("engine.steps", 0)
+                                  - c.get("engine.spec_steps", 0)),
+            "paged_prefill": nl * (c.get("engine.requests", 0)
+                                   + c.get("engine.prefill_chunks", 0))}
+    return got, want, got == want and all(v > 0 for v in got.values())
+
+
+def wire_cli(dev, smi, prompts, serve_tps, workdir):
+    """The user's path: GPT-2 small's float32 weights from the seed, saved
+    with `framework.io.save`, served by ``python -m
+    paddle_tpu_torch.inference.serve`` in a process of its own; its
+    tokens against an in-process float32 engine of the same config."""
+    n = HANDOFF_NEW_TOKENS
+    f32 = gpt_mod.gpt2_small(generator=torch.Generator().manual_seed(SEED))
+    weights = os.path.join(workdir, "gpt2_small.pdparams")
+    pio.save(f32, weights)
+    cfg_path = os.path.join(workdir, "gpt2_small.json")
+    with open(cfg_path, "w") as f:
+        json.dump({**dataclasses.asdict(f32.cfg), "weights": weights,
+                   "engine": WIRE_ENGINE}, f)
+    ref_eng = DecodeEngine(f32, EngineConfig(**WIRE_ENGINE), device=dev)
+    ref_eng.warmup(prompt_lens=SERVE_LENS)
+    refs, inproc_tps, _ = timed_reference(ref_eng, prompts, n)
+    nl = f32.cfg.num_layers
+    del ref_eng, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    win = WireWindow()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    errlog = os.path.join(workdir, "server.err")
+    t0 = time.perf_counter()
+    with open(errlog, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.inference.serve",
+             "--gpt-config", cfg_path, "--auth-name", WIRE_SECRET,
+             "--port", "0", "--drain-deadline", str(WIRE_DRAIN_DEADLINE_S)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=err,
+            text=True)
+    try:
+        port = int(read_line(proc, "LISTENING", 300).split()[1])
+        start_s = time.perf_counter() - t0
+        first, first_wall, _ = wire_generate(port, prompts[:1], n)
+        # the first round captures the other buckets' graphs on the
+        # server's serve thread, the second finds them all
+        outs, walls, wall = wire_generate(port, prompts, n)
+        warm, warm_walls, warm_wall = wire_generate(port, prompts, n)
+        cli = RemotePredictor(port=port, secret=WIRE_SECRET, timeout=60.0)
+        stats = cli.stats()
+        prom = cli.prometheus()
+        cli.close()
+        dropped = wrong_secret_dropped(port)
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=WIRE_DRAIN_DEADLINE_S + 60)
+        exit_s = time.perf_counter() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    got, want, launches_ok = cli_launches(stats, nl)
+    tokens = exact_tokens(first + outs + warm, refs[:1] + refs + refs)
+    c = stats["counters"]
+    line = {
+        "phase": "serve_wire", "arm": "cli", "model": "gpt2-small",
+        "dtype": "float32", "card": smi, "requests": len(prompts) + 1,
+        "prompt_lens": [len(p) for p in prompts], "max_new_tokens": n,
+        "engine": WIRE_ENGINE, "start_to_listening_s": start_s,
+        "first_request_wall_s": first_wall[0], **wall_stats(walls),
+        "tokens_per_s": len(prompts) * n / wall,
+        "warm_round": {**wall_stats(warm_walls),
+                       "tokens_per_s": len(prompts) * n / warm_wall},
+        "engine_steps": c.get("engine.steps", 0),
+        "graph_captures": c.get("engine.compile_count", 0),
+        "inproc_tokens_per_s": inproc_tps,
+        "serve_decode_tokens_per_s": serve_tps,
+        "request_bytes": c.get("serve.request_bytes", 0),
+        "response_bytes": c.get("serve.response_bytes", 0),
+        "launches": got, "expected_launches": want,
+        "tokens_equal": tokens, "wrong_secret_dropped": dropped,
+        "exposition_ok": exposition_ok(prom),
+        "stats_keys_ok": stats.get("role") == "both"
+        and "node" in stats and stats.get("prefix", {}).get("page_size")
+        == PS, "sigterm_exit_code": code, "sigterm_exit_s": exit_s,
+        "clocks": win.close()}
+    line["ok"] = bool(all(tokens) and launches_ok and dropped
+                      and line["exposition_ok"] and line["stats_keys_ok"]
+                      and code == 0)
+    if not line["ok"]:
+        with open(errlog) as f:
+            line["server_stderr_tail"] = f.read()[-2000:]
+    emit(line)
+    return line["ok"]
+
+
+def wire_inproc(model, dev, smi, prompts, refs, inproc_tps, inproc_steps,
+                serve_tps):
+    """`InferenceServer` over a bf16 engine in this process: 8 concurrent
+    clients; then, under WIRE_STEP_DELAY_S steps, a 9th request (the
+    900-token prompt, WIRE_CANCEL_TOKENS new tokens, a cancel tag)
+    cancelled by the CANCEL op from another connection, and a 10th whose
+    client disconnects mid-decode."""
+    n = HANDOFF_NEW_TOKENS
+    srv, accept = wire_replica(model, dev)
+    eng = srv._engine
+    before = [dict(eng.counters)]
+    win = WireWindow()
+    reset_launches()                       # the path's run
+    outs, walls, wall = wire_generate(srv.port, prompts, n)
+    steps_8 = eng.counters["steps"] - before[0]["steps"]
+    tokens = exact_tokens(outs, refs)
+    long_p = prompts[SERVE_LENS.index(900)]
+    mid_p = prompts[SERVE_LENS.index(WIRE_DISCONNECT_LEN)]
+    res = {}
+    victim = RemotePredictor(port=srv.port, secret=WIRE_SECRET,
+                             timeout=600.0)
+
+    def cancelled():
+        res["cancelled"] = wire_generate(srv.port, [long_p],
+                                         WIRE_CANCEL_TOKENS,
+                                         tag="wire-cancel")[0][0]
+
+    def disconnected():
+        try:
+            res["disconnected"] = victim.generate(
+                mid_p, max_new_tokens=WIRE_CANCEL_TOKENS)
+        except Exception as e:  # noqa: BLE001 - the expected outcome
+            res["disconnected"] = e
+
+    def live(pred):
+        return any(r is not None and len(r.generated) >= 2 and pred(r)
+                   for r in eng._slot_req)
+
+    with faults.scoped("engine.step_delay", times=-1,
+                       delay_s=WIRE_STEP_DELAY_S):
+        ths = [threading.Thread(target=f) for f in (cancelled, disconnected)]
+        for t in ths:
+            t.start()
+        wait_until(lambda: b"wire-cancel" in srv._tags
+                   and live(lambda r: r.request_id
+                            == srv._tags.get(b"wire-cancel")),
+                   "the 9th request mid-decode")
+        ctl = RemotePredictor(port=srv.port, secret=WIRE_SECRET)
+        hit = ctl.cancel("wire-cancel")
+        ctl.close()
+        wait_until(lambda: live(lambda r: r.prompt.size
+                                == WIRE_DISCONNECT_LEN),
+                   "the 10th request mid-decode")
+        victim._sock.shutdown(socket.SHUT_RDWR)
+        victim._sock.close()
+        for t in ths:
+            t.join(timeout=120)
+        wait_until(lambda: not eng._has_work(), "the engine idle")
+    torch.cuda.synchronize()
+    launches, expected = handoff_launches((eng,), before,
+                                          "serve_wire:inproc")
+    line = {
+        "phase": "serve_wire", "arm": "inproc", "model": "gpt2-small",
+        "dtype": "bfloat16", "card": smi, "requests": len(prompts) + 2,
+        "prompt_lens": [len(p) for p in prompts], "max_new_tokens": n,
+        "engine": WIRE_ENGINE, **wall_stats(walls),
+        "tokens_per_s": len(prompts) * n / wall,
+        "engine_steps_8": steps_8, "inproc_engine_steps": inproc_steps,
+        "inproc_tokens_per_s": inproc_tps,
+        "serve_decode_tokens_per_s": serve_tps,
+        "request_bytes": win.delta("serve.request_bytes"),
+        "response_bytes": win.delta("serve.response_bytes"),
+        "ttft_ms_p50": p50([v * 1e3 for v in win.observed(
+            "serve.ttft_seconds")]),
+        "launches": launches, "expected_launches": expected,
+        "tokens_equal": tokens, "cancel_hit": hit,
+        "cancelled_typed": isinstance(res.get("cancelled"), Cancelled),
+        "disconnected_raised": isinstance(res.get("disconnected"),
+                                          Exception),
+        "disconnect_cancels": win.delta("serve.disconnect_cancels"),
+        "cancels": win.delta("serve.cancels"),
+        "pool_at_baseline": at_baseline(eng), "clocks": win.close()}
+    stop_replica(srv, accept)
+    line["ok"] = bool(all(tokens) and hit and line["cancelled_typed"]
+                      and line["disconnected_raised"]
+                      and line["disconnect_cancels"] == 1
+                      and line["pool_at_baseline"])
+    emit(line)
+    return line["ok"]
+
+
+def wire_migrate(model, dev, smi, prompts, refs, serve_tps):
+    """Replicas A and B; 8 clients generate on A; after A's
+    WIRE_DRAIN_STEPS-th step, with every request mid-decode,
+    ``A.drain(migrate_peers=[B])`` ships them over OP_MIGRATE."""
+    n = HANDOFF_NEW_TOKENS
+    a, a_acc = wire_replica(model, dev)
+    b, b_acc = wire_replica(model, dev, warm_lens=())
+    engines = (a._engine, b._engine)
+    before = [dict(e.counters) for e in engines]
+    win = WireWindow()
+    pack_ms = []
+    packer = serve_mod.pack_migration
+
+    def timed_pack(item):
+        t0 = time.perf_counter()
+        blob = packer(item)
+        pack_ms.append((time.perf_counter() - t0) * 1e3)
+        return blob
+
+    reset_launches()                       # the path's run
+    box = {}
+    clients = threading.Thread(target=lambda: box.update(
+        r=wire_generate(a.port, prompts, n)))
+    serve_mod.pack_migration = timed_pack
+    try:
+        with faults.scoped("engine.step_delay", times=-1,
+                           delay_s=WIRE_STEP_DELAY_S):
+            s0 = a._engine.step_seq
+            clients.start()
+            wait_until(lambda: a._engine.step_seq - s0 >= WIRE_DRAIN_STEPS
+                       and sum(r is not None and len(r.generated) >= 2
+                               for r in a._engine._slot_req)
+                       == len(prompts), "8 requests mid-decode on A")
+            drain_step = a._engine.step_seq - s0
+            t0 = time.perf_counter()
+            clean = a.drain(deadline_s=WIRE_DRAIN_DEADLINE_S,
+                            migrate_peers=[f"127.0.0.1:{b.port}"])
+            drain_s = time.perf_counter() - t0
+            clients.join(timeout=600)
+            wait_until(lambda: not b._engine._has_work(), "B idle")
+    finally:
+        serve_mod.pack_migration = packer
+    torch.cuda.synchronize()
+    outs, walls, wall = box["r"]
+    tokens = exact_tokens(outs, refs)
+    errors = [f"{type(o).__name__}: {o}" for o in outs
+              if isinstance(o, Exception)]
+    launches, expected = handoff_launches(engines, before,
+                                          "serve_wire:migrate")
+    moved = {k: win.delta(k) for k in ("serve.migrations_out",
+                                       "serve.migrations_in")}
+    warm = b._engine.counters["migrations_in"] - before[1]["migrations_in"]
+    line = {
+        "phase": "serve_wire", "arm": "migrate", "model": "gpt2-small",
+        "dtype": "bfloat16", "card": smi, "requests": len(prompts),
+        "prompt_lens": [len(p) for p in prompts], "max_new_tokens": n,
+        "engine": WIRE_ENGINE, "step_delay_s": WIRE_STEP_DELAY_S,
+        "drain_after_steps": drain_step, **wall_stats(walls),
+        "tokens_per_s": len(prompts) * n / wall,
+        "serve_decode_tokens_per_s": serve_tps,
+        "drain_wall_ms": drain_s * 1e3, "drain_clean": clean,
+        "pack_ms_per_item": pack_ms, "pack_ms_p50": p50(pack_ms),
+        "request_bytes": win.delta("serve.request_bytes"),
+        "response_bytes": win.delta("serve.response_bytes"),
+        "launches": launches, "expected_launches": expected,
+        "tokens_equal": tokens, "client_errors": errors, **moved,
+        "warm_items": warm,
+        "pools_at_baseline": [at_baseline(e) for e in engines],
+        "clocks": win.close()}
+    stop_replica(b, b_acc)
+    a_acc.join(timeout=10)
+    line["ok"] = bool(all(tokens) and clean and not errors
+                      and moved["serve.migrations_out"]
+                      == moved["serve.migrations_in"] == warm
+                      == len(prompts) and all(line["pools_at_baseline"]))
+    emit(line)
+    return line["ok"]
+
+
+def relay_stream(p_port, d_port, prompt, n):
+    """The router's two-phase flow by hand: OP_PREFILL to the prefill
+    worker, each PTKS1 record relayed to the decode replica's OP_KV_STREAM
+    as it arrives. Returns the decode replica's answer, the stream's wall
+    (request to last record) and the request's wall."""
+    def authed(port):
+        sock = socket.create_connection(("127.0.0.1", port), timeout=600)
+        sock.sendall(struct.pack("<I", serve_mod.MAGIC)
+                     + serve_mod.auth_token(WIRE_SECRET))
+        return sock
+
+    t0 = time.perf_counter()
+    ps, ds = authed(p_port), authed(d_port)
+    try:
+        ps.sendall(struct.pack("<III", serve_mod.MAGIC, serve_mod.OP_PREFILL,
+                               2))
+        serve_mod.send_arrays(ps, [prompt, np.asarray([1], np.int32)])
+        magic, status, n_rec = struct.unpack("<III",
+                                             serve_mod._recv_exact(ps, 12))
+        if status != 0:
+            raise serve_mod.from_wire(
+                serve_mod._recv_exact(ps, n_rec).decode())
+        ds.sendall(struct.pack("<III", serve_mod.MAGIC,
+                               serve_mod.OP_KV_STREAM, 2 + n_rec))
+        serve_mod.send_arrays(ds, [np.asarray([n, 1, 1, 0], np.int32),
+                                   np.zeros(0, np.uint8)])
+        for _ in range(n_rec):
+            serve_mod.send_arrays(ds, serve_mod.recv_arrays(ps, 1))
+        stream_s = time.perf_counter() - t0
+        magic, status, m = struct.unpack("<III",
+                                         serve_mod._recv_exact(ds, 12))
+        if status != 0:
+            raise serve_mod.from_wire(serve_mod._recv_exact(ds, m).decode())
+        (out,) = serve_mod.recv_arrays(ds, m)
+        return out, stream_s, time.perf_counter() - t0
+    finally:
+        ps.close()
+        ds.close()
+
+
+def wire_disagg(model, dev, smi, prompts, card_params, serve_tps):
+    """A ``role="prefill"`` replica (HANDOFF_CHUNK-token chunks) and a
+    ``role="decode"`` one; each prompt's OP_PREFILL records relayed by
+    hand to OP_KV_STREAM, all 8 at once. Tokens against a bf16 engine of
+    the prefill worker's chunking (a bf16 difference within
+    `serve_bf16_parity`'s margin is C11's)."""
+    n = HANDOFF_NEW_TOKENS
+    chunked = handoff_engine(model, dev, prefill_chunk_tokens=HANDOFF_CHUNK)
+    refs = serve(chunked, prompts, n)
+    del chunked
+    torch.cuda.empty_cache()
+    pf, pf_acc = wire_replica(model, dev, warm_lens=(HANDOFF_CHUNK + 1,),
+                              role="prefill",
+                              prefill_chunk_tokens=HANDOFF_CHUNK)
+    dc, dc_acc = wire_replica(model, dev, warm_lens=(), role="decode")
+    engines = (pf._engine, dc._engine)
+    before = [dict(e.counters) for e in engines]
+    win = WireWindow()
+    reset_launches()                       # the path's run
+    outs = [None] * len(prompts)
+    times = [None] * len(prompts)
+
+    def one(i):
+        try:
+            out, stream_s, wall_s = relay_stream(pf.port, dc.port,
+                                                 prompts[i], n)
+            outs[i], times[i] = out, (stream_s, wall_s)
+        except Exception as e:  # noqa: BLE001 - gated below
+            outs[i], times[i] = e, (0.0, 0.0)
+    ths = [threading.Thread(target=one, args=(i,))
+           for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    wait_until(lambda: not dc._engine._has_work(), "the decode side idle")
+    torch.cuda.synchronize()
+    launches, expected = handoff_launches(engines, before,
+                                          "serve_wire:disagg")
+    errors = [f"{type(o).__name__}: {o}" for o in outs
+              if isinstance(o, Exception)]
+    if errors:
+        tokens, tok_ok = {"tokens_equal": exact_tokens(outs, refs)}, False
+    else:
+        tokens, tok_ok = handoff_tokens(outs, refs, prompts, True,
+                                        card_params, model.cfg, dev)
+    line = {
+        "phase": "serve_wire", "arm": "disagg", "model": "gpt2-small",
+        "dtype": "bfloat16", "card": smi, "requests": len(prompts),
+        "prompt_lens": [len(p) for p in prompts], "max_new_tokens": n,
+        "prefill_chunk_tokens": HANDOFF_CHUNK, "engine": WIRE_ENGINE,
+        **wall_stats([t[1] for t in times]),
+        "stream_wall_ms_p50": p50([t[0] * 1e3 for t in times]),
+        "ttft_decode_side_ms_p50": p50([v * 1e3 for v in win.observed(
+            "serve.ttft_seconds")]),
+        "tokens_per_s": len(prompts) * n / wall,
+        "serve_decode_tokens_per_s": serve_tps,
+        "request_bytes": win.delta("serve.request_bytes"),
+        "response_bytes": win.delta("serve.response_bytes"),
+        "launches": launches, "expected_launches": expected, **tokens,
+        "errors": errors,
+        "no_prefill_graph_on_decode": not any(
+            k[0] in ("prefill", "prefill_chunk")
+            for k in dc._engine._programs),
+        "pools_at_baseline": [at_baseline(e) for e in engines],
+        "kv_stream_in": win.delta("serve.kv_stream_in"),
+        "prefill_streams": win.delta("serve.prefill_streams"),
+        "clocks": win.close()}
+    for srv, acc in ((pf, pf_acc), (dc, dc_acc)):
+        stop_replica(srv, acc)
+    line["ok"] = bool(tok_ok and not errors
+                      and line["no_prefill_graph_on_decode"]
+                      and all(line["pools_at_baseline"])
+                      and line["kv_stream_in"] == line["prefill_streams"]
+                      == len(prompts))
+    emit(line)
+    return line["ok"]
+
+
+def capture_seconds(run):
+    """``{program key: seconds}`` of each graph capture ``run`` makes
+    (the ``engine.compile_start`` events in order beside the
+    ``engine.compile_seconds`` observations)."""
+    evs = flight.events()
+    seq0 = evs[-1]["seq"] if evs else 0
+    win = WireWindow()
+    run()
+    torch.cuda.synchronize()
+    keys = [e["program"] for e in flight.events()
+            if e["seq"] > seq0 and e["kind"] == "engine.compile_start"]
+    return dict(zip(keys, win.observed("engine.compile_seconds")))
+
+
+def wire_b14(model, dev, smi, prompts):
+    """ROADMAP B14: each capture's seconds on the serve thread of a fresh
+    `InferenceServer` (no warm-up; 8 clients at once, 2 new tokens each;
+    then the 8 requests one after another, so no other thread of this
+    process is busy during a capture) and on the building thread of an
+    engine warmed for SERVE_LENS before it is served, B14_RUNS times each.
+    A measurement, no gate."""
+    runs = {"serve_thread": [], "serve_thread_one_client": [],
+            "building_thread": []}
+    clocks = {"before": card_clocks()}
+    for _ in range(B14_RUNS):
+        srv, acc = wire_replica(model, dev, warm_lens=None)
+        runs["serve_thread"].append(capture_seconds(
+            lambda: wire_generate(srv.port, prompts, 2)))
+        stop_replica(srv, acc)
+        srv, acc = wire_replica(model, dev, warm_lens=None)
+        runs["serve_thread_one_client"].append(capture_seconds(
+            lambda: [wire_generate(srv.port, [p], 2) for p in prompts]))
+        stop_replica(srv, acc)
+        eng = DecodeEngine(model, EngineConfig(**WIRE_ENGINE), device=dev)
+        runs["building_thread"].append(capture_seconds(
+            lambda: eng.warmup(prompt_lens=SERVE_LENS)))
+        del eng, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    clocks["after"] = card_clocks()
+    emit({"phase": "serve_wire", "arm": "b14", "model": "gpt2-small",
+          "dtype": "bfloat16", "card": smi, "engine": WIRE_ENGINE,
+          **runs, **{f"{k}_total_s": [sum(r.values()) for r in v]
+                     for k, v in runs.items()},
+          "clocks": clocks})
+
+
+def serve_wire(model, dev, smi, serve_line):
+    """The serve tier on the card (`inference/serve.py`): arms ``cli``
+    (float32, the CLI in a process of its own), ``inproc``, ``migrate``
+    and ``disagg`` (bf16 ``model``), then B14's captures. Every answered
+    request's tokens equal an in-process engine's of the same config and
+    weights; see each arm for its other gates."""
+    rng = np.random.default_rng(SEED + 2)          # serve_engine's prompts
+    prompts = [rng.integers(0, min(VOCAB, model.cfg.vocab_size), n)
+               .astype(np.int32) for n in SERVE_LENS]
+    serve_tps = serve_line["decode_tokens_per_s"]
+    card_params = {k: v.detach().to(dev) for k, v in
+                   model.state_dict().items()}
+    ok = True
+    with tempfile.TemporaryDirectory() as workdir:
+        ok &= wire_cli(dev, smi, prompts, serve_tps, workdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_eng = handoff_engine(model, dev)
+    refs, inproc_tps, inproc_steps = timed_reference(ref_eng, prompts,
+                                                     HANDOFF_NEW_TOKENS)
+    del ref_eng
+    torch.cuda.empty_cache()
+    ok &= wire_inproc(model, dev, smi, prompts, refs, inproc_tps,
+                      inproc_steps, serve_tps)
+    ok &= wire_migrate(model, dev, smi, prompts, refs, serve_tps)
+    ok &= wire_disagg(model, dev, smi, prompts, card_params, serve_tps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wire_b14(model, dev, smi, prompts)
+    if not ok:
+        raise SystemExit("serve_wire: tokens unlike the in-process "
+                         "engine's, a request not ended typed, a pool off "
+                         "its baseline, migration counts that do not add "
+                         "up, a prefill graph on the decode replica, a "
+                         "wrong secret answered, bad exposition or STATS, "
+                         "inexact launches or a non-zero exit on SIGTERM")
+
+
 # serve_lifecycle: engine A's two waves (prompt lengths; its request 5 is
 # request 1's first LIFECYCLE_SYSTEM tokens plus a suffix of its own, and
 # is cancelled mid-decode), their new tokens, and engine B's prompts
@@ -3497,6 +4180,7 @@ def main():
     serve_prefix(model, dev, smi)
     serve_inflight(model, dev, smi, greedy_outs)
     serve_handoff(model, dev, smi)
+    serve_wire(model, dev, smi, line)
     serve_lifecycle(model, dev, smi)
     serve_observe(model, dev, smi, greedy_outs)
     launches.update((k, quantized[k]) for k in INT8_KERNELS)

@@ -36,6 +36,21 @@ Sites wired in the port (the JAX package's names and places):
 ========================  ====================================================
 ``engine.step_delay``     `DecodeEngine.step` sleeps ``delay_s`` at its top
                           (a slow device or a long step; deadline tests)
+``serve.slow_read``       serve's client loop stalls ``delay_s`` before
+                          reading a request body (a slow client)
+``serve.socket_drop``     serve's client loop drops the connection before
+                          answering (a network partition mid-request)
+``serve.ack_drop``        a GENERATE ran to the end and its answer is not
+                          sent: the connection drops (the ambiguous window
+                          a keyed resubmit replays from the dedup table)
+``serve.migrate_drop``    a drain's ship of one item to one peer fails (a
+                          peer dying mid-migration; the next peer takes it)
+``serve.blob_corrupt``    a drain flips one byte of a ``PTMG1`` blob before
+                          its first ship: the peer refuses it typed and the
+                          sender re-packs the item and ships it once more
+``serve.stream_drop``     serve's OP_PREFILL record loop drops the
+                          connection mid-stream (a prefill worker's death;
+                          the decode side discards the partial pages)
 ``engine.crash``          `DecodeEngine.step` raises (engine-thread death)
 ``engine.pool_pressure``  `PageAllocator.alloc` reports exhaustion (forced
                           page-pool pressure without a giant workload)

@@ -46,6 +46,8 @@ the largest value in float32 (one bfloat16 step in bfloat16). The
 FusedLayerNorm within 2e-5 (y) and 1e-4 (gradients), rope 1e-6, each
 relative to the largest value when above 1.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -2064,3 +2066,136 @@ def test_card_sampled_migration_continues_the_chain(card, case):
     assert not any(r.done for r in reqs)
     for eng in (src, dst):
         assert eng.allocator.free_pages == eng.allocator.num_pages - 1
+
+
+# ----------------------------------------------------------- the serve tier
+
+def _card_replica(model, card, **ekw):
+    """An `InferenceServer` over a card engine, accepting on a thread."""
+    import threading
+
+    from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    from paddle_tpu_torch.inference.serve import InferenceServer
+    eng = DecodeEngine(model, EngineConfig(
+        page_size=16, max_slots=4, prefix_cache=False, **ekw), device=card)
+    srv = InferenceServer(None, engine=eng, auth_name="card-fleet")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+def _stop(srv):
+    srv._stop.set()
+    srv._engine_thread.join(timeout=60)
+    assert not srv._engine_thread.is_alive()
+    srv._sock.close()
+
+
+def _card_refs(model, card, prompts, n):
+    from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    eng = DecodeEngine(model, EngineConfig(page_size=16, max_slots=4,
+                                           prefix_cache=False), device=card)
+    reqs = [eng.submit(p, max_new_tokens=n) for p in prompts]
+    eng.run_until_idle(max_steps=500)
+    return [r.result(timeout=0).tolist() for r in reqs]
+
+
+def test_card_server_answers_concurrent_clients(card):
+    """A server over a card engine (its `serve_loop` on the server's
+    engine thread, graphs captured there on first use) answers two
+    concurrent clients with the in-process card engine's tokens."""
+    import threading
+
+    from paddle_tpu_torch.inference.serve import RemotePredictor
+    model = _small_model()
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, 97, n).astype(np.int32) for n in (9, 40)]
+    want = _card_refs(model, card, prompts, 12)
+    srv = _card_replica(model, card)
+    outs = [None, None]
+
+    def client(i):
+        cli = RemotePredictor(port=srv.port, secret="card-fleet")
+        outs[i] = cli.generate(prompts[i], max_new_tokens=12).tolist()
+        cli.close()
+    try:
+        ths = [threading.Thread(target=client, args=(i,)) for i in (0, 1)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        assert outs == want
+    finally:
+        _stop(srv)
+
+
+def test_card_wire_migration_resumes_token_identically(card):
+    """A request mid-decode on one card replica is migrated over
+    OP_MIGRATE to another by `drain(migrate_peers=...)`; the client's
+    answer equals the uninterrupted card engine's and both pools end at
+    their baseline."""
+    import threading
+
+    from paddle_tpu_torch.inference.serve import RemotePredictor
+    from paddle_tpu_torch.testing import faults
+    model = _small_model()
+    prompt = np.arange(3, 30, dtype=np.int32)
+    want = _card_refs(model, card, [prompt], 24)[0]
+    a, b = _card_replica(model, card), _card_replica(model, card)
+    out = {}
+
+    def client():
+        cli = RemotePredictor(port=a.port, secret="card-fleet")
+        out["x"] = cli.generate(prompt, max_new_tokens=24).tolist()
+        cli.close()
+    try:
+        t = threading.Thread(target=client)
+        with faults.scoped("engine.step_delay", times=-1, delay_s=0.02):
+            t.start()
+            t_end = time.monotonic() + 60
+            while not any(r is not None and len(r.generated) >= 3
+                          for r in a._engine._slot_req):
+                assert time.monotonic() < t_end, "never mid-decode on A"
+                time.sleep(0.01)
+            assert a.drain(migrate_peers=[f"127.0.0.1:{b.port}"]) is True
+        t.join(timeout=120)
+        assert not t.is_alive()
+        assert out["x"] == want
+        assert b._engine.counters["migrations_in"] == 1
+        for srv in (a, b):
+            assert srv._engine.allocator.free_pages \
+                == srv._engine.allocator.num_pages - 1
+    finally:
+        faults.disarm()
+        _stop(b)
+
+
+def test_card_connection_threads_launch_no_kernel(card):
+    """STATS, PROMETHEUS, PING and DEBUG_DUMP are served on connection
+    threads from host state: a burst of them against an idle card replica
+    launches no kernel and dispatches no kernel op."""
+    from paddle_tpu_torch.inference.serve import RemotePredictor
+    from paddle_tpu_torch.kernels import _build, registry
+    model = _small_model()
+    srv = _card_replica(model, card)
+    try:
+        cli = RemotePredictor(port=srv.port, secret="card-fleet")
+        cli.generate(np.arange(1, 9, dtype=np.int32), max_new_tokens=4)
+        t_end = time.monotonic() + 30
+        while srv._engine._has_work():
+            assert time.monotonic() < t_end
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        launches = {k.source: k.launches for k in _build.kernels()}
+        dispatched = registry.counts()
+        for _ in range(20):
+            assert "kernel_dispatch_" in cli.prometheus()
+            assert cli.stats()["role"] == "both"
+            assert cli.ping()
+            assert set(cli.debug_dump()) == {"node", "events", "metrics"}
+        torch.cuda.synchronize()
+        assert {k.source: k.launches for k in _build.kernels()} == launches
+        assert registry.counts() == dispatched
+        cli.close()
+    finally:
+        _stop(srv)
