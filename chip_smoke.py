@@ -229,7 +229,33 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    beside the in-process engine's, bytes and the card's clocks. Then
    ``b14``: each graph capture's seconds on a fresh server's serve thread
    (8 clients at once, and one at a time) and on the building thread of
-   a warmed engine, three runs each (ROADMAP B14).
+   a warmed engine, three runs each (ROADMAP B14). ``serve_router``
+   (run last, after ``incubate``, on ``serve_wire``'s prompts and
+   references; the port's router, `serving/router.py`, and
+   autoscaler, `serving/autoscale.py`, in front of bf16 replicas of
+   ``serve_wire``'s settings in this process), one line an arm:
+   ``routed`` (two replicas, `serve`'s 8 prompts at once straight to
+   them, then through a router under ``round_robin`` and under
+   ``least_outstanding``: request walls and tokens/s beside
+   ``serve_wire``'s ``inproc`` ones, each replica's share),
+   ``failover`` (two replicas under a 10 ms step delay, one stopped hard
+   with requests mid-decode on it: zero client errors, resubmits, its
+   breaker open; then a replacement registers in a node registry that
+   the router watches and takes a share of the next 8), ``disagg`` (two
+   ``role="prefill"`` replicas with the prefix cache and one
+   ``role="decode"`` replica in a registry; `serve_prefix`'s 8 prompts,
+   the first alone: the 768-token system prompt prefilled once fleet
+   wide, 7 affinity hits, no prefill graph on the decode replica, bf16
+   tokens gated as ``serve_wire``'s ``disagg``), ``cli`` (``python -m
+   paddle_tpu_torch.serving.router`` in a process of its own in front of
+   two replicas: ``LISTENING``, the 8 prompts, STATS and PROMETHEUS,
+   SIGTERM to exit 0) and ``autoscale`` (an `Autoscaler` over a router
+   and one replica, `tick()` by hand: 16 clients of sustained load scale
+   it to 2, spawning a warmed replica; a quiet fleet, one request in
+   flight a replica, scales it back to 1, the spawned replica drained by
+   migration to its peer: the spawn's seconds and the drain's wall).
+   Every arm: tokens equal to the in-process engine's, pools at their
+   baseline, exact launches, the card's clocks.
    ``serve_lifecycle`` (bf16, ``inflight=2``): engine
    A sheds the 17th of 17 submits (``Overloaded``), cancels two queued
    requests (no prefill for them), a running one that shares prefix
@@ -300,6 +326,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from paddle_tpu_torch.distributed.fleet.elastic import NodeRegistry
 from paddle_tpu_torch.incubate.nn import (FusedLayerNorm,
                                           FusedMultiTransformer,
                                           fused_rotary_position_embedding)
@@ -333,8 +360,11 @@ from paddle_tpu_torch.observability.usage import usage_log
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.quantization.serving import (QUANT_LOGIT_BOUND,
                                                    margin_gated_parity)
+from paddle_tpu_torch.serving.autoscale import (Autoscaler, AutoscalePolicy,
+                                                CallbackLauncher)
 from paddle_tpu_torch.serving.disagg import (KVStreamAssembler,
                                              prompt_page_hashes)
+from paddle_tpu_torch.serving.router import Router
 from paddle_tpu_torch.testing import faults
 from paddle_tpu_torch.train import H100_BF16_PEAK, ScanTrainStep
 from paddle_tpu_torch.train.scan_step import _leaf_keys
@@ -1894,10 +1924,9 @@ def handoff_engine(model, dev, warm_lens=SERVE_LENS, **ecfg):
     return eng
 
 
-def handoff_launches(engines, before, phase):
-    """The kernels' launches since `reset_launches` against what the steps
-    of ``engines`` since ``before`` (their counters then) imply, as
-    `engine_launches` counts one engine's."""
+def steps_launches(engines, before):
+    """The launches the steps of ``engines`` since ``before`` (their
+    counters then) imply, as `engine_launches` counts one engine's."""
     expected = {}
     for eng, c0 in zip(engines, before):
         ran = {k: eng.counters[k] - c0[k] for k in c0}
@@ -1908,7 +1937,13 @@ def handoff_launches(engines, before, phase):
                         ("paged_prefill" + suffix,
                          nl * (ran["prefills"] + ran["prefill_chunks"]))):
             expected[name] = expected.get(name, 0) + n
-    expected = {k: n for k, n in expected.items() if n}
+    return {k: n for k, n in expected.items() if n}
+
+
+def handoff_launches(engines, before, phase):
+    """The kernels' launches since `reset_launches` against what the steps
+    of ``engines`` since ``before`` imply (`steps_launches`)."""
+    expected = steps_launches(engines, before)
     return read_launches(phase, expected), expected
 
 
@@ -2264,7 +2299,7 @@ def wire_replica(model, dev, warm_lens=SERVE_LENS, role="both", **ecfg):
     return srv, accept
 
 
-def stop_replica(srv, accept):
+def stop_replica(srv, accept, phase="serve_wire"):
     """Stop the engine thread and the accept loop of a replica."""
     srv._stop.set()
     if srv._engine_thread is not None:
@@ -2273,18 +2308,18 @@ def stop_replica(srv, accept):
     accept.join(timeout=10)
     if accept.is_alive() or (srv._engine_thread is not None
                              and srv._engine_thread.is_alive()):
-        raise SystemExit("serve_wire: a replica's thread did not stop")
+        raise SystemExit(f"{phase}: a replica's thread did not stop")
 
 
 def at_baseline(eng):
     return eng.allocator.free_pages == eng.allocator.num_pages - 1
 
 
-def wait_until(pred, what, timeout=120.0):
+def wait_until(pred, what, timeout=120.0, phase="serve_wire"):
     t_end = time.monotonic() + timeout
     while not pred():
         if time.monotonic() > t_end:
-            raise SystemExit(f"serve_wire: timed out waiting for {what}")
+            raise SystemExit(f"{phase}: timed out waiting for {what}")
         time.sleep(0.002)
 
 
@@ -2339,7 +2374,7 @@ def exact_tokens(outs, refs):
             for o, r in zip(outs, refs)]
 
 
-def read_line(proc, prefix, timeout):
+def read_line(proc, prefix, timeout, phase="serve_wire"):
     """The first stdout line of ``proc`` that starts with ``prefix``."""
     box = {}
 
@@ -2352,7 +2387,7 @@ def read_line(proc, prefix, timeout):
     t.start()
     t.join(timeout)
     if "line" not in box:
-        raise SystemExit(f"serve_wire: no {prefix} line from the server "
+        raise SystemExit(f"{phase}: no {prefix} line from the server "
                          f"(exit code {proc.poll()})")
     return box["line"]
 
@@ -2569,7 +2604,7 @@ def wire_inproc(model, dev, smi, prompts, refs, inproc_tps, inproc_steps,
                       and line["disconnect_cancels"] == 1
                       and line["pool_at_baseline"])
     emit(line)
-    return line["ok"]
+    return line
 
 
 def wire_migrate(model, dev, smi, prompts, refs, serve_tps):
@@ -2841,8 +2876,9 @@ def serve_wire(model, dev, smi, serve_line):
                                                      HANDOFF_NEW_TOKENS)
     del ref_eng
     torch.cuda.empty_cache()
-    ok &= wire_inproc(model, dev, smi, prompts, refs, inproc_tps,
-                      inproc_steps, serve_tps)
+    inproc = wire_inproc(model, dev, smi, prompts, refs, inproc_tps,
+                         inproc_steps, serve_tps)
+    ok &= inproc["ok"]
     ok &= wire_migrate(model, dev, smi, prompts, refs, serve_tps)
     ok &= wire_disagg(model, dev, smi, prompts, card_params, serve_tps)
     gc.collect()
@@ -2855,6 +2891,587 @@ def serve_wire(model, dev, smi, serve_line):
                          "up, a prefill graph on the decode replica, a "
                          "wrong secret answered, bad exposition or STATS, "
                          "inexact launches or a non-zero exit on SIGTERM")
+    return {"prompts": prompts, "refs": refs, "inproc_tps": inproc_tps,
+            "inproc": {k: inproc[k] for k in (
+                "request_wall_ms_p50", "request_wall_ms_p90",
+                "tokens_per_s", "ttft_ms_p50")}}
+
+
+# serve_router: the port's router (`serving/router.py`) and autoscaler
+# (`serving/autoscale.py`) in front of `wire_replica`s on this card
+ROUTER_POLICIES = ("round_robin", "least_outstanding")
+ROUTER_POLL_S = 0.2              # the registry poll of the failover arm
+ROUTER_STEP_DELAY_S = 0.01       # holds requests in flight (every engine)
+AUTOSCALE_CLIENTS = 16
+AUTOSCALE_SHARE = 8              # requests the spawned replica serves first
+AUTOSCALE_LONG = (7, 64)         # in flight at the scale-down (SERVE_LENS)
+AUTOSCALE_LONG_TOKENS = 124
+
+
+def endpoint(srv):
+    return f"127.0.0.1:{srv.port}"
+
+
+def start_router(replicas=None, registry=None, **kw):
+    """A port `Router` in front of static ``replicas`` and / or a
+    ``registry``, accepting on a thread of its own; WIRE_SECRET is both
+    the fleet's secret and its clients'."""
+    router = Router(registry=registry, replicas=replicas,
+                    auth_name=WIRE_SECRET, replica_secret=WIRE_SECRET, **kw)
+    accept = threading.Thread(target=router.serve_forever, daemon=True)
+    accept.start()
+    return router, accept
+
+
+def stop_router(router, accept):
+    """Stop a router and join its accept, poll, probe and stats threads."""
+    router.stop()
+    threads = (accept, router._poll_thread, router._probe_thread,
+               router._stats_thread)
+    for t in threads:
+        t.join(timeout=10)
+    if any(t.is_alive() for t in threads):
+        raise SystemExit("serve_router: a router's thread did not stop")
+
+
+def counter_delta(c0, name):
+    return metrics.snapshot()["counters"].get(name, 0) - c0.get(name, 0)
+
+
+def shares(c0, ids):
+    """Each replica's routed requests since the counters ``c0``."""
+    return {rid: counter_delta(c0, f"router.replica_requests{{replica={rid}}}")
+            for rid in ids}
+
+
+def launch_check(engines, before):
+    """The kernels' launches since `reset_launches`, what the steps of
+    ``engines`` imply (`steps_launches`) and whether they agree exactly.
+    Unlike `read_launches` it does not raise: the arm's line prints
+    first."""
+    want = steps_launches(engines, before)
+    got = {k.source: k.launches for k in _build.kernels()}
+    ok = bool(want) and all(n == want.get(k, 0) for k, n in got.items())
+    return {k: n for k, n in got.items() if n or k in want}, want, ok
+
+
+def token_record(outs, refs):
+    """How many answers equal their reference, the client errors, and
+    each request's equality only when one differs."""
+    eq = exact_tokens(outs, refs)
+    rec = {"tokens_equal": f"{sum(eq)}/{len(eq)}",
+           "client_errors": [f"{type(o).__name__}: {o}" for o in outs
+                             if isinstance(o, Exception)]}
+    if not all(eq):
+        rec["tokens_equal_each"] = eq
+    return rec, all(eq)
+
+
+def wait_idle(engines):
+    wait_until(lambda: not any(e._has_work() for e in engines),
+               "the replicas idle", phase="serve_router")
+    torch.cuda.synchronize()
+
+
+def router_routed(model, dev, smi, wire):
+    """Two replicas behind a router, `serve`'s 8 prompts at once through a
+    `RemotePredictor` on the router, once a policy of ROUTER_POLICIES
+    (a router each); first the same 8 straight to the replicas (``direct``,
+    round_robin's split). Beside them, `serve_wire`'s ``inproc`` figures
+    (one replica)."""
+    prompts, refs, n = wire["prompts"], wire["refs"], HANDOFF_NEW_TOKENS
+    reps = [wire_replica(model, dev) for _ in range(2)]
+    engines = [srv._engine for srv, _ in reps]
+    before = [dict(e.counters) for e in engines]
+    ids = {f"r{i}": endpoint(srv) for i, (srv, _) in enumerate(reps)}
+    win = WireWindow()
+    reset_launches()                       # the path's run
+    # the same split as round_robin's, each client straight to its
+    # replica: what two replicas on one card cost without the router
+    box = {}
+    direct = [threading.Thread(target=lambda i=i, port=srv.port: box.update(
+        {i: wire_generate(port, prompts[i::2], n)}))
+        for i, (srv, _) in enumerate(reps)]
+    t0 = time.perf_counter()
+    for t in direct:
+        t.start()
+    for t in direct:
+        t.join(timeout=600)
+    d_wall = time.perf_counter() - t0
+    d_toks, d_ok = token_record(box[0][0] + box[1][0],
+                                refs[0::2] + refs[1::2])
+    per = {"direct": {**wall_stats(box[0][1] + box[1][1]),
+                      "tokens_per_s": len(prompts) * n / d_wall, **d_toks}}
+    ok = d_ok and not d_toks["client_errors"]
+    for policy in ROUTER_POLICIES:
+        router, acc = start_router(replicas=ids, policy=policy)
+        c0 = metrics.snapshot()["counters"]
+        outs, walls, wall = wire_generate(router.port, prompts, n)
+        stop_router(router, acc)
+        toks, tok_ok = token_record(outs, refs)
+        share = shares(c0, ids)
+        per[policy] = {**wall_stats(walls),
+                       "tokens_per_s": len(prompts) * n / wall, **toks,
+                       "replica_requests": share}
+        ok &= tok_ok and not toks["client_errors"] \
+            and all(v >= 1 for v in share.values())
+    wait_idle(engines)
+    launches, want, l_ok = launch_check(engines, before)
+    inproc = wire["inproc"]
+    line = {"phase": "serve_router", "arm": "routed", "model": "gpt2-small",
+            "dtype": "bfloat16", "card": smi, "requests": len(prompts),
+            "max_new_tokens": n, "engine": WIRE_ENGINE, "replicas": 2,
+            **per, "serve_wire_inproc": inproc,
+            "inproc_tokens_per_s": wire["inproc_tps"],
+            "added_wall_ms_p50": {p: per[p]["request_wall_ms_p50"]
+                                  - inproc["request_wall_ms_p50"]
+                                  for p in per},
+            "router_hop_ms_p50": {p: per[p]["request_wall_ms_p50"]
+                                  - per["direct"]["request_wall_ms_p50"]
+                                  for p in ROUTER_POLICIES},
+            "launches": launches, "expected_launches": want,
+            "pools_at_baseline": [at_baseline(e) for e in engines],
+            "clocks": win.close()}
+    for srv, acc in reps:
+        stop_replica(srv, acc, "serve_router")
+    line["ok"] = bool(ok and l_ok and all(line["pools_at_baseline"]))
+    emit(line)
+    return line["ok"]
+
+
+def router_failover(model, dev, smi, wire, workdir):
+    """Replicas r0 and r1 behind a router that also watches a node
+    registry; the 8 prompts at once under ROUTER_STEP_DELAY_S steps (the
+    fault site is the process's, so both replicas step slowly), r0 stopped
+    hard with requests mid-decode on it. Then r2 registers and the 8
+    prompts go again."""
+    prompts, refs, n = wire["prompts"], wire["refs"], HANDOFF_NEW_TOKENS
+    a, a_acc = wire_replica(model, dev)
+    b, b_acc = wire_replica(model, dev)
+    engines = [a._engine, b._engine]
+    before = [dict(e.counters) for e in engines]
+    reg_dir = os.path.join(workdir, "registry")
+    router, r_acc = start_router(
+        replicas={"r0": endpoint(a), "r1": endpoint(b)},
+        registry=NodeRegistry(reg_dir), poll_interval_s=ROUTER_POLL_S,
+        connect_deadline_s=1.0, evict_cooldown_s=600.0)
+    win = WireWindow()
+    c0 = metrics.snapshot()["counters"]
+    reset_launches()                       # the path's run
+    box = {}
+    clients = threading.Thread(target=lambda: box.update(
+        r=wire_generate(router.port, prompts, n)))
+    with faults.scoped("engine.step_delay", times=-1,
+                       delay_s=ROUTER_STEP_DELAY_S):
+        clients.start()
+        wait_until(lambda: sum(r is not None and len(r.generated) >= 2
+                               for r in a._engine._slot_req) >= 2,
+                   "requests mid-decode on r0", phase="serve_router")
+        in_flight = sum(r is not None for r in a._engine._slot_req)
+        stop_replica(a, a_acc, "serve_router")
+        clients.join(timeout=600)
+    outs, walls, wall = box["r"]
+    toks, tok_ok = token_record(outs, refs)
+    breaker = router._replicas["r0"].breaker
+    resubmits = counter_delta(c0, "router.resubmits")
+    # the replacement: registered in the registry, routed on the next poll
+    c, c_acc = wire_replica(model, dev)
+    engines.append(c._engine)
+    before.append(dict(c._engine.counters))
+    t0 = time.perf_counter()
+    lease = NodeRegistry(reg_dir, "r2", endpoint(c), ttl=30.0,
+                         heartbeat_interval=0.5).register()
+    wait_until(lambda: "r2" in router.replica_ids(healthy_only=True),
+               "r2 in the rotation", phase="serve_router")
+    join_s = time.perf_counter() - t0
+    c1 = metrics.snapshot()["counters"]
+    outs2, walls2, wall2 = wire_generate(router.port, prompts, n)
+    toks2, tok2_ok = token_record(outs2, refs)
+    share2 = shares(c1, ("r1", "r2"))
+    lease.leave()
+    stop_router(router, r_acc)
+    wait_idle(engines[1:])
+    launches, want, l_ok = launch_check(engines, before)
+    line = {"phase": "serve_router", "arm": "failover",
+            "model": "gpt2-small", "dtype": "bfloat16", "card": smi,
+            "requests": len(prompts), "max_new_tokens": n,
+            "step_delay_s": ROUTER_STEP_DELAY_S,
+            "in_flight_on_r0_at_stop": in_flight, **wall_stats(walls),
+            "tokens_per_s": len(prompts) * n / wall, **toks,
+            "resubmits": resubmits, "r0_breaker": breaker,
+            "replica_errors": counter_delta(c0, "router.replica_errors"),
+            "replacement": {"register_to_rotation_s": join_s,
+                            **wall_stats(walls2),
+                            "tokens_per_s": len(prompts) * n / wall2,
+                            **toks2, "replica_requests": share2},
+            "launches": launches, "expected_launches": want,
+            "pools_at_baseline": [at_baseline(e) for e in engines[1:]],
+            "clocks": win.close()}
+    for srv, acc in ((b, b_acc), (c, c_acc)):
+        stop_replica(srv, acc, "serve_router")
+    line["ok"] = bool(tok_ok and tok2_ok and not toks["client_errors"]
+                      and not toks2["client_errors"] and resubmits >= 1
+                      and breaker == "open" and share2["r2"] >= 1
+                      and l_ok and all(line["pools_at_baseline"]))
+    emit(line)
+    return line["ok"]
+
+
+def router_disagg(model, dev, smi, wire, workdir):
+    """Two ``role="prefill"`` replicas (prefix cache on, HANDOFF_CHUNK-token
+    chunks) and one ``role="decode"`` replica, all registered in a node
+    registry that the router watches; `serve_prefix`'s 8 prompts (one
+    PREFIX_SYSTEM-token system prompt), the first alone, then the other 7
+    at once: the router's two-phase flow with prefix affinity."""
+    n = HANDOFF_NEW_TOKENS
+    _, prompts = prefix_prompts(np.random.default_rng(SEED + 6),
+                                model.cfg.vocab_size, PREFIX_SYSTEM,
+                                PREFIX_SUFFIXES)
+    chunked = handoff_engine(model, dev, prefill_chunk_tokens=HANDOFF_CHUNK)
+    refs = serve(chunked, prompts, n)
+    del chunked
+    torch.cuda.empty_cache()
+    pfs = [wire_replica(model, dev, warm_lens=(HANDOFF_CHUNK + 1,),
+                        role="prefill", prefill_chunk_tokens=HANDOFF_CHUNK,
+                        prefix_cache=True) for _ in range(2)]
+    dc, dc_acc = wire_replica(model, dev, warm_lens=(), role="decode")
+    engines = [srv._engine for srv, _ in pfs] + [dc._engine]
+    before = [dict(e.counters) for e in engines]
+    reg_dir = os.path.join(workdir, "disagg_registry")
+    leases = [NodeRegistry(reg_dir, rid, endpoint(srv), ttl=30.0,
+                           heartbeat_interval=0.5).register()
+              for rid, srv in (("prefill:p0", pfs[0][0]),
+                               ("prefill:p1", pfs[1][0]),
+                               ("decode:d0", dc))]
+    # the first STATS pull of every replica (roles, page size, the
+    # workers' empty prefix exports) lands before the first request, the
+    # next ones seconds later: a pull that predates the first request's
+    # prefill cannot land after the router registers its pages
+    router, r_acc = start_router(registry=NodeRegistry(reg_dir),
+                                 page_size=PS)
+    wait_until(lambda: len(router.replica_ids()) == 3 and all(
+        r.stats is not None for r in router._replicas.values()),
+        "the router's first STATS pull", phase="serve_router")
+    win = WireWindow()
+    c0 = metrics.snapshot()["counters"]
+    reset_launches()                       # the path's run
+    first, first_walls, _ = wire_generate(router.port, prompts[:1], n)
+    h_ttft = metrics.histogram("serve.ttft_seconds").count
+    rest, walls, wall = wire_generate(router.port, prompts[1:], n)
+    wait_idle(engines)
+    ttft = win.observed("serve.ttft_seconds")
+    n_aff = metrics.histogram("serve.ttft_seconds").count - h_ttft
+    outs = first + rest
+    launches, want, l_ok = launch_check(engines, before)
+    errors = [f"{type(o).__name__}: {o}" for o in outs
+              if isinstance(o, Exception)]
+    if errors:
+        tokens, tok_ok = {"tokens_equal": exact_tokens(outs, refs)}, False
+    else:
+        tokens, tok_ok = handoff_tokens(outs, refs, prompts, True,
+                                        wire["card_params"], model.cfg, dev)
+        tokens["tokens_equal"] = f"{sum(tokens['tokens_equal'])}/" \
+                                 f"{len(outs)}"
+    computed = [e.counters["prefill_tokens"] - c["prefill_tokens"]
+                for e, c in zip(engines[:2], before[:2])]
+    once = len(prompts[0]) + sum(len(p) - PREFIX_SYSTEM for p in prompts[1:])
+    line = {"phase": "serve_router", "arm": "disagg", "model": "gpt2-small",
+            "dtype": "bfloat16", "card": smi, "requests": len(prompts),
+            "system_len": PREFIX_SYSTEM, "suffixes": list(PREFIX_SUFFIXES),
+            "max_new_tokens": n, "prefill_chunk_tokens": HANDOFF_CHUNK,
+            "first_request_wall_ms": first_walls[0] * 1e3,
+            "affinity_round": {**wall_stats(walls),
+                               "tokens_per_s": len(rest) * n / wall,
+                               "ttft_decode_side_ms_p50": p50(
+                                   [v * 1e3 for v in ttft[-n_aff:]])
+                               if n_aff else None},
+            "prefill_tokens_computed": computed,
+            "prefill_tokens_once_fleet_wide": once,
+            "prefill_tokens_without_affinity": sum(len(p) for p in prompts),
+            **{k.split(".", 1)[1]: counter_delta(c0, k) for k in (
+                "router.affinity_hits", "router.affinity_misses",
+                "router.disagg_requests", "router.disagg_fallbacks",
+                "serve.kv_stream_in", "serve.prefill_streams")},
+            **tokens, "errors": errors,
+            "no_prefill_graph_on_decode": not any(
+                k[0] in ("prefill", "prefill_chunk")
+                for k in dc._engine._programs),
+            "launches": launches, "expected_launches": want,
+            "pools_at_baseline": [at_baseline(e) for e in engines],
+            "clocks": win.close()}
+    stop_router(router, r_acc)
+    for lease in leases:
+        lease.leave()
+    for srv, acc in pfs + [(dc, dc_acc)]:
+        stop_replica(srv, acc, "serve_router")
+    line["ok"] = bool(tok_ok and not errors and l_ok
+                      and sum(computed) == once
+                      and line["affinity_hits"] == len(prompts) - 1
+                      and line["affinity_misses"] == 1
+                      and line["disagg_fallbacks"] == 0
+                      and line["kv_stream_in"] == line["prefill_streams"]
+                      == len(prompts)
+                      and line["no_prefill_graph_on_decode"]
+                      and all(line["pools_at_baseline"]))
+    emit(line)
+    return line["ok"]
+
+
+def router_cli(model, dev, smi, wire, workdir):
+    """``python -m paddle_tpu_torch.serving.router`` in a process of its
+    own (``--replica`` twice, ``--policy least_outstanding``) in front of
+    two replicas here: `serve`'s 8 prompts at once, STATS and PROMETHEUS
+    through it, then SIGTERM."""
+    prompts, refs, n = wire["prompts"], wire["refs"], HANDOFF_NEW_TOKENS
+    reps = [wire_replica(model, dev) for _ in range(2)]
+    engines = [srv._engine for srv, _ in reps]
+    before = [dict(e.counters) for e in engines]
+    argv = [sys.executable, "-m", "paddle_tpu_torch.serving.router",
+            "--port", "0", "--auth-name", WIRE_SECRET, "--replica-secret",
+            WIRE_SECRET, "--policy", "least_outstanding"]
+    for i, (srv, _) in enumerate(reps):
+        argv += ["--replica", f"r{i}={endpoint(srv)}"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    errlog = os.path.join(workdir, "router.err")
+    win = WireWindow()
+    reset_launches()                       # the path's run
+    t0 = time.perf_counter()
+    with open(errlog, "w") as err:
+        proc = subprocess.Popen(argv, cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+    try:
+        port = int(read_line(proc, "LISTENING", 120,
+                             "serve_router").split()[1])
+        start_s = time.perf_counter() - t0
+        outs, walls, wall = wire_generate(port, prompts, n)
+        cli = RemotePredictor(port=port, secret=WIRE_SECRET, timeout=60.0)
+        stats = cli.stats()
+        prom = cli.prometheus()
+        cli.close()
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=60)
+        exit_s = time.perf_counter() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    wait_idle(engines)
+    launches, want, l_ok = launch_check(engines, before)
+    toks, tok_ok = token_record(outs, refs)
+    c = stats.get("counters", {})
+    share = {f"r{i}": c.get(f"router.replica_requests{{replica=r{i}}}", 0)
+             for i in range(len(reps))}
+    line = {"phase": "serve_router", "arm": "cli", "model": "gpt2-small",
+            "dtype": "bfloat16", "card": smi, "requests": len(prompts),
+            "max_new_tokens": n, "policy": "least_outstanding",
+            "start_to_listening_s": start_s, **wall_stats(walls),
+            "tokens_per_s": len(prompts) * n / wall, **toks,
+            "stats_role": stats.get("role"),
+            "router_requests": c.get("router.requests", 0),
+            "replica_requests": share,
+            "exposition_ok": exposition_ok(prom)
+            and "router_requests" in prom,
+            "sigterm_exit_code": code, "sigterm_exit_s": exit_s,
+            "launches": launches, "expected_launches": want,
+            "pools_at_baseline": [at_baseline(e) for e in engines],
+            "clocks": win.close()}
+    for srv, acc in reps:
+        stop_replica(srv, acc, "serve_router")
+    line["ok"] = bool(tok_ok and not toks["client_errors"] and l_ok
+                      and line["stats_role"] == "router"
+                      and line["router_requests"] == len(prompts)
+                      and all(v >= 1 for v in share.values())
+                      and line["exposition_ok"] and code == 0
+                      and all(line["pools_at_baseline"]))
+    if not line["ok"]:
+        with open(errlog) as f:
+            line["router_stderr_tail"] = f.read()[-2000:]
+    emit(line)
+    return line["ok"]
+
+
+def router_autoscale(model, dev, smi, wire):
+    """An `Autoscaler` over a router with one seed replica; its
+    `CallbackLauncher` spawns a warmed replica on this card and drains one
+    by migration to its peer. `tick()` by hand: under AUTOSCALE_CLIENTS
+    clients of sustained load (each `serve`'s prompts in turn) one tick
+    scales 1 -> 2; after the spawned replica served AUTOSCALE_SHARE
+    requests the load stops, one AUTOSCALE_LONG request lands on each
+    replica under ROUTER_STEP_DELAY_S steps, and with both mid-decode a
+    tick scales 2 -> 1 (at most one request a replica counts as quiet)."""
+    prompts, refs, n = wire["prompts"], wire["refs"], HANDOFF_NEW_TOKENS
+    long_p = [prompts[SERVE_LENS.index(k)] for k in AUTOSCALE_LONG]
+    ref_eng = handoff_engine(model, dev)
+    long_refs = serve(ref_eng, long_p, AUTOSCALE_LONG_TOKENS)
+    del ref_eng
+    torch.cuda.empty_cache()
+    seed, seed_acc = wire_replica(model, dev)
+    engines, before = [seed._engine], [dict(seed._engine.counters)]
+    router, r_acc = start_router(replicas={"r0": endpoint(seed)},
+                                 evict_cooldown_s=600.0)
+    servers, spawned, drained = {}, {}, {}
+
+    def spawn():
+        t0 = time.perf_counter()
+        srv, acc = wire_replica(model, dev)
+        rid = scaler.next_replica_id()
+        servers[rid] = (srv, acc)
+        engines.append(srv._engine)
+        before.append(dict(srv._engine.counters))
+        spawned[rid] = (t0, time.perf_counter() - t0)
+        return rid, endpoint(srv)
+
+    def drain(rid, ep, peers):
+        srv, acc = servers.pop(rid)
+        t0 = time.perf_counter()
+        clean = srv.drain(deadline_s=WIRE_DRAIN_DEADLINE_S,
+                          migrate_peers=peers)
+        drained[rid] = (time.perf_counter() - t0, clean)
+        acc.join(timeout=10)
+        return clean
+
+    scaler = Autoscaler(router, CallbackLauncher(spawn, drain),
+                        AutoscalePolicy(min_replicas=1, max_replicas=2,
+                                        hysteresis_ticks=1,
+                                        up_cooldown_s=0.0,
+                                        down_cooldown_s=0.0,
+                                        down_outstanding_per_replica=1.0),
+                        replica_secret=WIRE_SECRET)
+    win = WireWindow()
+    c0 = metrics.snapshot()["counters"]
+    reset_launches()                       # the path's run
+    errs, wrong, served, stop = [], [], [0], threading.Event()
+
+    def loader(i):
+        try:
+            cli = RemotePredictor(port=router.port, secret=WIRE_SECRET,
+                                  timeout=600.0)
+            j = i
+            while not stop.is_set():
+                k = j % len(prompts)
+                out = cli.generate(prompts[k], max_new_tokens=n)
+                if not np.array_equal(out, refs[k]):
+                    wrong.append(k)
+                served[0] += 1
+                j += 1
+            cli.close()
+        except Exception as e:  # noqa: BLE001 - gated below
+            errs.append(f"{type(e).__name__}: {e}")
+
+    loaders = [threading.Thread(target=loader, args=(i,))
+               for i in range(AUTOSCALE_CLIENTS)]
+    t_load = time.perf_counter()
+    for t in loaders:
+        t.start()
+    wait_until(lambda: router.replica_view()[0]["outstanding"]
+               >= AUTOSCALE_CLIENTS // 2, "sustained load on r0",
+               phase="serve_router")
+    actions = [scaler.tick()]
+    rid = next(iter(servers), None)
+    first_routed_s = None
+    if rid is not None:
+        new = servers[rid][0]._engine
+        wait_until(lambda: new.counters["requests"] > 0,
+                   "a request on the spawned replica", phase="serve_router")
+        first_routed_s = time.perf_counter() - spawned[rid][0]
+        wait_until(lambda: counter_delta(
+            c0, f"router.replica_requests{{replica={rid}}}")
+            >= AUTOSCALE_SHARE, "the spawned replica's share",
+            phase="serve_router")
+    stop.set()
+    for t in loaders:
+        t.join(timeout=600)
+    load_s = time.perf_counter() - t_load
+    share = shares(c0, ["r0"] + ([rid] if rid else []))
+    box = {}
+    with faults.scoped("engine.step_delay", times=-1,
+                       delay_s=ROUTER_STEP_DELAY_S):
+        longs = threading.Thread(target=lambda: box.update(
+            r=wire_generate(router.port, long_p, AUTOSCALE_LONG_TOKENS)))
+        longs.start()
+        if rid is not None:
+            wait_until(lambda: all(any(
+                r is not None and len(r.generated) >= 2
+                for r in e._slot_req) for e in engines),
+                "a long request mid-decode on each replica",
+                phase="serve_router")
+        actions.append(scaler.tick())
+        longs.join(timeout=600)
+    wait_idle(engines[:1])
+    long_outs = box["r"][0]
+    long_toks, long_ok = token_record(long_outs, long_refs)
+    launches, want, l_ok = launch_check(engines, before)
+    line = {"phase": "serve_router", "arm": "autoscale",
+            "model": "gpt2-small", "dtype": "bfloat16", "card": smi,
+            "clients": AUTOSCALE_CLIENTS, "max_new_tokens": n,
+            "policy": dataclasses.asdict(scaler.policy), "actions": actions,
+            "spawn_s": spawned[rid][1] if rid else None,
+            "spawn_to_first_routed_request_s": first_routed_s,
+            "load_s": load_s, "load_requests": served[0],
+            "load_tokens_per_s": served[0] * n / load_s,
+            "replica_requests": share, "load_client_errors": errs,
+            "load_wrong_tokens": len(wrong),
+            **({"load_wrong_prompt_lens": sorted({len(prompts[k])
+                                                   for k in wrong})}
+               if wrong else {}),
+            "long_requests": {"max_new_tokens": AUTOSCALE_LONG_TOKENS,
+                              **long_toks},
+            "drain_wall_ms": drained[rid][0] * 1e3 if rid in drained
+            else None, "drain_clean": drained[rid][1] if rid in drained
+            else None,
+            "migrations_out": counter_delta(c0, "serve.migrations_out"),
+            "rotation_after": router.replica_ids(),
+            **{k.split(".", 1)[1]: counter_delta(c0, k) for k in (
+                "autoscaler.scale_ups", "autoscaler.scale_downs",
+                "autoscaler.errors")},
+            "launches": launches, "expected_launches": want,
+            "pool_at_baseline": at_baseline(seed._engine),
+            "clocks": win.close()}
+    stop_router(router, r_acc)
+    scaler.stop()
+    for srv, acc in list(servers.values()) + [(seed, seed_acc)]:
+        stop_replica(srv, acc, "serve_router")
+    line["ok"] = bool(actions == ["up", "down"] and not errs and not wrong
+                      and long_ok and not long_toks["client_errors"]
+                      and line["drain_clean"] and line["migrations_out"] >= 1
+                      and line["rotation_after"] == ["r0"] and not servers
+                      and l_ok and line["pool_at_baseline"])
+    emit(line)
+    return line["ok"]
+
+
+def serve_router(model, dev, smi, wire):
+    """The router tier on the card (`serving/router.py`,
+    `serving/autoscale.py`): arms ``routed``, ``failover``, ``disagg``,
+    ``cli`` and ``autoscale`` over bf16 `wire_replica`s, one line each.
+    ``wire``: `serve_wire`'s prompts, references and ``inproc`` figures.
+    See each arm for its gates; every arm frees its replicas before the
+    next."""
+    wire = dict(wire, card_params={k: v.detach().to(dev) for k, v in
+                                   model.state_dict().items()})
+    ok = True
+    with tempfile.TemporaryDirectory() as workdir:
+        for arm in (router_routed, router_failover, router_disagg,
+                    router_cli, router_autoscale):
+            args = (model, dev, smi, wire)
+            if arm in (router_failover, router_disagg, router_cli):
+                args += (workdir,)
+            ok &= arm(*args)
+            gc.collect()
+            torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("serve_router: tokens unlike the in-process "
+                         "engine's, a client error, a replica without a "
+                         "share, no resubmit or an unopened breaker, the "
+                         "system prompt prefilled more than once, a "
+                         "prefill graph on the decode replica, a pool off "
+                         "its baseline, bad STATS or exposition, a non-zero "
+                         "exit on SIGTERM, scale actions other than up then "
+                         "down, or inexact launches")
 
 
 # serve_lifecycle: engine A's two waves (prompt lengths; its request 5 is
@@ -4180,11 +4797,10 @@ def main():
     serve_prefix(model, dev, smi)
     serve_inflight(model, dev, smi, greedy_outs)
     serve_handoff(model, dev, smi)
-    serve_wire(model, dev, smi, line)
+    wire = serve_wire(model, dev, smi, line)
     serve_lifecycle(model, dev, smi)
     serve_observe(model, dev, smi, greedy_outs)
     launches.update((k, quantized[k]) for k in INT8_KERNELS)
-    del model
     torch.cuda.empty_cache()
     train_parity(dev, smi)
     train_parity(dev, smi, torch.bfloat16)
@@ -4200,6 +4816,11 @@ def main():
     incubate_parity(dev)
     incubated = incubate_run(dev, smi)
     launches.update((k, incubated[k]) for k in (*LN_KERNELS, "rotary"))
+    # last, so that every phase before it runs as it ran before the
+    # router tier came
+    serve_router(model, dev, smi, wire)
+    del model, wire
+    torch.cuda.empty_cache()
 
     # the shapes of the paths' runs: bfloat16, decode at B=8, prefill up to
     # C=1024, flash at the train shape, layernorm and rope at the incubate

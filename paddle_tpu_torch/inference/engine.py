@@ -129,9 +129,9 @@ step runs before anything the new request enqueues.
   move by `export_pages` / `import_pages` in place, so every captured graph
   reads them.
 
-Not in this slice (see ROADMAP.md): the router, its prefix directory and
-the serve tier (A5.6); a float KV pool of another dtype than the weights
-(A9.1).
+Not in this slice (see ROADMAP.md): a float KV pool of another dtype than
+the weights (A9.1). The serve tier, the router and its prefix directory
+are `inference/serve.py` and `serving/`.
 
 Thread model: `submit()`, `cancel()`, `drain()`, `submit_import()`,
 `submit_prefill_stream()` and `take_migrated()` are safe from any thread

@@ -31,45 +31,46 @@ Every graph of a device is captured on ONE side stream,
 :func:`capture_stream`: cuBLAS keeps a 32 MiB workspace for each stream it
 has run on for the life of the process, so a stream per engine would leave
 32 MiB behind per engine (PyTorch's pool of 32 streams a device bounds
-that at 1 GiB). The graphs therefore share that stream's tickets:
-replay them on one stream at a time (the engine replays on the caller's
-current stream, the legacy default stream unless the caller set another).
+that at 1 GiB). The graphs therefore share that stream's cuBLAS
+workspace, which each reads when it replays: replay them on one stream
+at a time (the engine replays on the caller's current stream, the
+legacy default stream unless the caller set another). The engines of
+one process (replicas behind a router, each on a serve thread of its
+own) share it too, and a graph's warm-up runs use it: the warm-up runs
+and capture of a graph, and every replay, take turns
+(`_CAPTURE_LOCK`).
 
 Launch counts. `kernels/_build.py::CudaKernel.launch` and
 `kernels/registry.py::dispatch` count in Python, so a replay would count
 nothing. The capture records each kernel's and each dispatch counter's
 increase while the body is captured, and every replay adds exactly that.
 The warm-up runs and the capture itself leave every count as it was: they
-belong to no step of the engine.
+belong to no step of the engine. They count in the capturing thread's own
+tally (`registry.capturing`), so launches that other threads make
+meanwhile, another engine of the process serving, still count.
 """
 from __future__ import annotations
 
 import functools
+import threading
 
 import torch
 
-from paddle_tpu_torch.kernels import _build, registry
+from paddle_tpu_torch.kernels import registry
 
 __all__ = ["StepGraph", "WARMUP_RUNS", "capture_stream"]
 
 WARMUP_RUNS = 2
+# one graph's warm-up runs and capture, or one replay, at a time in the
+# process: the warm-up runs use the capture stream's cuBLAS workspace,
+# which the graphs captured on that stream use again when they replay
+_CAPTURE_LOCK = threading.RLock()
 
 
 @functools.lru_cache(maxsize=None)
 def capture_stream(device) -> torch.cuda.Stream:
     """The one side stream every step graph of ``device`` is captured on."""
     return torch.cuda.Stream(device)
-
-
-def _counts():
-    return {k: k.launches for k in _build.kernels()}, registry.counts()
-
-
-def _restore(snap):
-    launches, dispatches = snap
-    for k in _build.kernels():
-        k.launches = launches.get(k, 0)
-    registry.restore_counts(dispatches)
 
 
 class StepGraph:
@@ -90,37 +91,32 @@ class StepGraph:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         stream = capture_stream(device)
-        before = _counts()
-        try:
-            # the warm-up runs and the capture count into the launch and
-            # dispatch counts only, never the metrics registry, and are
-            # taken back after
-            with registry.capturing():
-                stream.wait_stream(torch.cuda.current_stream(device))
-                with torch.cuda.stream(stream):
-                    for _ in range(WARMUP_RUNS):
-                        body()
-                start = _counts()
-                self.graph = torch.cuda.CUDAGraph()
-                # synchronizes the device before capture begins; a CUDA
-                # call of another thread (a server's, while its engine
-                # loop captures) cannot invalidate this capture
-                with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                                      capture_error_mode="thread_local"):
-                    self.outputs = body()
-                end = _counts()
-        finally:
-            _restore(before)
-        self.kernel_launches = {k: n - start[0].get(k, 0)
-                                for k, n in end[0].items()
-                                if n != start[0].get(k, 0)}
-        self.dispatches = {k: n - start[1].get(k, 0)
-                           for k, n in end[1].items()
-                           if n != start[1].get(k, 0)}
+        # the warm-up runs and the capture count in this thread's tally
+        # only, never the shared counts or the metrics registry; the
+        # capture's share of it is what a replay adds
+        with _CAPTURE_LOCK, registry.capturing() as cap:
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                for _ in range(WARMUP_RUNS):
+                    body()
+            start = {k: dict(v) for k, v in cap.tally.items()}
+            self.graph = torch.cuda.CUDAGraph()
+            # synchronizes the device before capture begins; a CUDA call
+            # of another thread (a server's, while its engine loop
+            # captures) cannot invalidate this capture
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.outputs = body()
+        self.kernel_launches, self.dispatches = (
+            {k: n - start[part].get(k, 0)
+             for k, n in cap.tally[part].items()
+             if n != start[part].get(k, 0)}
+            for part in ("launches", "dispatches"))
         self.replays = 0
 
     def __call__(self, *_):
-        self.graph.replay()
+        with _CAPTURE_LOCK:
+            self.graph.replay()
         for k, n in self.kernel_launches.items():
             k.launches += n
         registry.add_counts(self.dispatches)

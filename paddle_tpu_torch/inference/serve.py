@@ -60,8 +60,9 @@ host-side entry points (`submit`, `cancel`, `submit_import`,
 `submit_prefill_stream`, `prefix_hashes`, `tier_hashes`, `take_migrated`).
 
 Not here: the ``--model`` / ``model_prefix`` path, which serves a saved
-model through a ``Predictor`` (ROADMAP A7); the router, autoscaler and
-soak harness (A5.6.3-A5.6.5).
+model through a ``Predictor`` (ROADMAP A7); the soak harness (A5.6.5).
+The router and the autoscaler that front several replicas are
+`serving/router.py` and `serving/autoscale.py`.
 """
 from __future__ import annotations
 
@@ -98,7 +99,6 @@ from paddle_tpu_torch.observability.tracing import (RequestTrace,
                                                     new_span_id,
                                                     trace_to_words,
                                                     words_to_trace)
-from paddle_tpu_torch.serving.disagg import KVStreamAssembler
 from paddle_tpu_torch.testing import faults
 
 MAGIC = 0x50445250
@@ -818,6 +818,9 @@ class InferenceServer:
             tid, parent = words_to_trace([int(w) for w in opts[8:14]])
             trace.attach_context(tid, parent)
         tag = np.ascontiguousarray(arrays[1], np.uint8).tobytes() or None
+        # imported here: `serving/__init__.py` loads the router, which
+        # imports this module
+        from paddle_tpu_torch.serving.disagg import KVStreamAssembler
         asm = KVStreamAssembler()
         handoff = None
         try:

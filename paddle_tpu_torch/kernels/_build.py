@@ -25,6 +25,8 @@ import threading
 import time
 from pathlib import Path
 
+from paddle_tpu_torch.kernels import registry
+
 __all__ = ["CudaKernel", "nvcc", "build_all", "kernels", "CSRC", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -146,7 +148,11 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.symbol} failed to launch: "
                                f"cudaError {rc}")
-        self.launches += 1
+        own = registry.tally()
+        if own is not None:       # a graph's warm-up or capture run
+            own["launches"][self] = own["launches"].get(self, 0) + 1
+        else:
+            self.launches += 1
 
 
 def kernels() -> list[CudaKernel]:

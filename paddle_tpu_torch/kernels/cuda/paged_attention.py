@@ -21,6 +21,7 @@ import functools
 
 import torch
 
+from paddle_tpu_torch.kernels import registry
 from paddle_tpu_torch.kernels._build import CudaKernel
 from paddle_tpu_torch.kernels.cuda import (DTYPE_CODES, check_attention_args,
                                            require_cuda)
@@ -83,8 +84,7 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-@functools.lru_cache(maxsize=None)
-def _tickets(device, rows, stream):
+def _tickets(device, rows, stream, owner=None):
     """The split loop's tickets for ``rows`` (b, h) pairs on ``device``,
     for the launches on ``stream`` (a CUDA stream handle): zeroed once and
     kept, since every launch leaves them zero again (so a decode call is
@@ -93,7 +93,18 @@ def _tickets(device, rows, stream):
     after another: each stream has its own. The float and int8 kernels
     share them, and so do the CUDA-core prefill loop's launches
     (`kernels/cuda/prefill_attention.py`, one ticket a query tile and
-    head), since a launch of any of them leaves them zero."""
+    head), since a launch of any of them leaves them zero.
+
+    ``owner``: the `registry.capture_id` of a CUDA graph's warm-up and
+    capture runs (`inference/graphs.py`), which take tickets of their own,
+    kept for the graph's replays. A graph replays on another stream than
+    the one it was captured on, and another engine of the process may be
+    warming up its own graphs on that capture stream meanwhile."""
+    return _ticket_buffer(device, rows, stream, owner)
+
+
+@functools.lru_cache(maxsize=None)
+def _ticket_buffer(device, rows, stream, owner):
     return torch.zeros(rows, dtype=torch.int32, device=device)
 
 
@@ -125,7 +136,8 @@ def _split_args(op, q, k_pages, v_pages, maxp):
     part = torch.empty(b * nh * n * (dh + 2), dtype=torch.float32,
                        device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    return part, _tickets(q.device, b * nh, stream), n
+    return part, _tickets(q.device, b * nh, stream,
+                          registry.capture_id()), n
 
 
 def _launch(op, kernel, q, k_pages, v_pages, scales, page_table, pos,

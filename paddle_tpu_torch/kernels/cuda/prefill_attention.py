@@ -33,6 +33,7 @@ import functools
 
 import torch
 
+from paddle_tpu_torch.kernels import registry
 from paddle_tpu_torch.kernels._build import CudaKernel
 from paddle_tpu_torch.kernels.cuda import (DTYPE_CODES, check_attention_args,
                                            require_cuda)
@@ -237,7 +238,8 @@ def _launch(op, kernel, q, k_pages, v_pages, scales, page_table, start,
                                * (-(-dh // 4) * 4 + 2),
                                dtype=torch.float32, device=q.device)
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            tickets = _tickets(q.device, nq * nh, stream)
+            tickets = _tickets(q.device, nq * nh, stream,
+                               registry.capture_id())
     out = torch.empty_like(q)
     visits = torch.empty((nq, nh, n), dtype=torch.int32, device=q.device) \
         if return_visits else None

@@ -16,12 +16,15 @@ JAX counter is) and in this module's own counts, which `counts` reads
 and `reset_counts` sets to 0 (`chip_smoke.py` zeroes them around a
 path's run). PyTorch runs eagerly, so this counts calls, where the JAX
 counter counts program builds. The warm-up and capture runs of a CUDA
-graph count in neither (`inference/graphs.py`: `capturing`, then
-`restore_counts`); each replay adds the capture's counts to both
-(`add_counts`).
+graph count in neither: inside `capturing` a thread counts its kernel
+launches and dispatches in a tally of its own (`tally`), so another
+thread's launches meanwhile (a second engine of the process serving
+while this one captures) still count. Each replay adds the capture's
+counts to both (`add_counts`; `inference/graphs.py`).
 """
 from __future__ import annotations
 
+import itertools
 import threading
 
 import torch
@@ -29,7 +32,7 @@ import torch
 from paddle_tpu_torch.observability import metrics
 
 __all__ = ["OPS", "dispatch", "counts", "reset_counts", "add_counts",
-           "capturing", "restore_counts"]
+           "capturing", "tally", "capture_id"]
 
 OPS = {
     "paged_attention": ("plain", "cuda"),
@@ -42,9 +45,22 @@ OPS = {
 }
 
 _COUNTS: dict[str, int] = {}
-# a thread inside `capturing` counts into _COUNTS only: the graph's
-# capture reads its dispatches from there and then restores them
+# a thread inside `capturing` counts into its own tally only
 _LOCAL = threading.local()
+_CAPTURE_IDS = itertools.count(1)
+
+
+def tally() -> dict | None:
+    """This thread's tally while it is inside `capturing`: ``{"launches":
+    {kernel: n}, "dispatches": {name: n}}``; else None."""
+    return getattr(_LOCAL, "tally", None)
+
+
+def capture_id() -> int | None:
+    """The number of this thread's `capturing` context, unique in the
+    process (a graph's own kernel buffers key on it,
+    `kernels/cuda/paged_attention.py::_tickets`); else None."""
+    return getattr(_LOCAL, "capture_id", None)
 
 
 def dispatch(op: str, tensor: torch.Tensor) -> str:
@@ -59,8 +75,11 @@ def dispatch(op: str, tensor: torch.Tensor) -> str:
     else:
         impl = "plain" if tensor.device.type == "cpu" else "cuda"
     name = f"kernel.dispatch.{op}.{impl}"
-    _COUNTS[name] = _COUNTS.get(name, 0) + 1
-    if not getattr(_LOCAL, "capturing", False):
+    own = tally()
+    if own is not None:
+        own["dispatches"][name] = own["dispatches"].get(name, 0) + 1
+    else:
+        _COUNTS[name] = _COUNTS.get(name, 0) + 1
         metrics.counter(name).inc()
     return impl
 
@@ -84,22 +103,19 @@ def add_counts(deltas: dict[str, int]):
 
 
 class capturing:
-    """Context: this thread's dispatches count in `counts` only, not in
-    the metrics registry (a graph's warm-up and capture runs, whose counts
-    `restore_counts` then takes back)."""
+    """Context: this thread's kernel launches (`_build.CudaKernel.launch`)
+    and dispatches count in a fresh tally of its own (`tally`, also the
+    context's ``tally`` attribute), never in the shared counts or the
+    metrics registry: a graph's warm-up and capture runs. `capture_id`
+    numbers the context."""
 
     def __enter__(self):
-        self._was = getattr(_LOCAL, "capturing", False)
-        _LOCAL.capturing = True
+        self._was = tally(), capture_id()
+        self.tally = {"launches": {}, "dispatches": {}}
+        self.capture_id = next(_CAPTURE_IDS)
+        _LOCAL.tally, _LOCAL.capture_id = self.tally, self.capture_id
         return self
 
     def __exit__(self, *exc):
-        _LOCAL.capturing = self._was
+        _LOCAL.tally, _LOCAL.capture_id = self._was
         return False
-
-
-def restore_counts(snapshot: dict[str, int]):
-    """Set `counts` back to ``snapshot`` (a `counts()` taken earlier),
-    leaving the metrics registry as it is."""
-    _COUNTS.clear()
-    _COUNTS.update(snapshot)

@@ -17,11 +17,12 @@ views into fleet-level ones (docs/OBSERVABILITY.md "Fleet tracing" and
   (microsecond-level NTP skew shifts lanes, never reorders a process's
   own spans).
 - :class:`FleetMetrics` ingests per-member STATS snapshots — fed by the
-  router's poll loop (`Router.attach_fleet`; the JAX package's router
-  only, until ROADMAP A5.6.3) or this module's own scrape loop — and exposes: an exact counter-sum rollup, merged
-  histograms (counts/totals exact, quantiles count-weighted estimates),
-  per-replica operational gauges (pages in use, degradation level), one
-  re-labeled ``{role,replica}`` Prometheus exposition, and a JSON
+  router's poll loop (`Router.attach_fleet`, `serving/router.py`) or
+  this module's own scrape loop — and exposes: an exact counter-sum
+  rollup, merged histograms (counts/totals exact, quantiles
+  count-weighted estimates), per-replica operational gauges (pages in
+  use, degradation level), one re-labeled ``{role,replica}`` Prometheus
+  exposition, and a JSON
   snapshot API (`snapshot_for`) shaped exactly like a direct STATS pull
   so the autoscaler's ``stats_fn`` can ride the shared scrape instead of
   opening its own per-replica connections.

@@ -1,5 +1,4 @@
-"""Disaggregated serving, the pieces the port's engine uses (counterpart of
-`paddle_tpu/serving/disagg.py`, without the router's `PrefixDirectory`):
+"""Disaggregated serving (counterpart of `paddle_tpu/serving/disagg.py`):
 
 - **`prompt_page_hashes`**: the rolling page-chain hash of a prompt, which
   an engine's prefix store, its KV tiers and a fleet's prefix directory
@@ -19,12 +18,17 @@
   only: no engine page is allocated until the complete, verified handoff
   goes through ``submit_import``, so a partial stream leaves the decode
   pool as it was. A one-shot ``PTKV1`` blob is a complete stream of one.
+- **`PrefixDirectory`**: the router's fleet-wide map from a page hash to
+  the prefill worker whose store holds that page, so a shared prefix is
+  prefilled once per fleet (`serving/router.py`).
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import struct
+import threading
+from collections import OrderedDict
 
 import numpy as np
 
@@ -35,7 +39,7 @@ from paddle_tpu_torch.inference.handoff import (KVHandoff, _blob_digest,
 
 __all__ = ["STREAM_MAGIC", "pack_stream_header", "pack_stream_pages",
            "pack_stream_final", "stream_records", "KVStreamAssembler",
-           "prompt_page_hashes"]
+           "PrefixDirectory", "prompt_page_hashes"]
 
 STREAM_MAGIC = b"PTKS1\n"
 
@@ -311,3 +315,120 @@ class KVStreamAssembler:
             self._ks[:, p0:p0 + n] = ks
             self._vs[:, p0:p0 + n] = vs
         self._covered[p0:p0 + n] = True
+
+
+# -------------------------------------------------------- fleet directory
+
+
+class PrefixDirectory:
+    """The router's fleet-wide prefix map: rolling page hash -> the
+    prefill replica whose engine store holds that page. Bounded LRU
+    (``capacity`` hashes), thread-safe; entries leave on replica
+    departure (`invalidate`), on the replica's own store shrinking
+    (`replace`, driven by the STATS prefix export: evictions and
+    weight-refresh flushes propagate here), and by LRU pressure.
+
+    Lookups walk the prompt's hashes LONGEST-first: the hashes are
+    chained (`prompt_page_hashes`), so a replica holding page i holds
+    every page before it, and the first hit names both the replica and the
+    cached depth.
+
+    KV tiering: replicas advertise their SPILLED pages (host/disk tiers)
+    beside the resident ones, so a directory hit on a spilled prefix still
+    routes to the one replica that can re-upload it instead of
+    re-prefilling anywhere. The directory tracks which hashes are spilled
+    per replica; `is_spilled` / `spilled_depth` let the router meter how
+    much of its affinity traffic rides the spill tiers."""
+
+    def __init__(self, capacity: int = 4096):
+        self._cap = max(1, int(capacity))
+        self._lock = threading.Lock()
+        self._map: OrderedDict[bytes, str] = OrderedDict()
+        self._by_replica: dict[str, set[bytes]] = {}
+        self._spilled: dict[str, set[bytes]] = {}
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._map)
+
+    def _drop(self, h: bytes):
+        rid = self._map.pop(h, None)
+        if rid is not None:
+            s = self._by_replica.get(rid)
+            if s is not None:
+                s.discard(h)
+                if not s:
+                    del self._by_replica[rid]
+            sp = self._spilled.get(rid)
+            if sp is not None:
+                sp.discard(h)
+                if not sp:
+                    del self._spilled[rid]
+
+    def register(self, hashes, replica_id: str):
+        """Record that ``replica_id``'s store holds these pages (the
+        router just routed the prompt there, or STATS said so). Last
+        writer wins: the directory is best-effort routing state, not
+        ownership."""
+        rid = str(replica_id)
+        with self._lock:
+            for h in hashes:
+                h = bytes(h)
+                self._drop(h)
+                self._map[h] = rid
+                self._by_replica.setdefault(rid, set()).add(h)
+            while len(self._map) > self._cap:
+                self._drop(next(iter(self._map)))
+
+    def replace(self, replica_id: str, hashes, spilled=()):
+        """Reconcile with the replica's OWN prefix export (STATS): drop
+        directory entries the replica no longer holds (evicted past its
+        tiers, flushed on a weight refresh), add the ones it does.
+        ``spilled`` marks the subset that lives in the replica's host/disk
+        spill tiers rather than device memory: routable all the same (the
+        replica re-uploads on a hit), but metered separately."""
+        rid = str(replica_id)
+        keep = {bytes(h) for h in hashes}
+        with self._lock:
+            stale = [h for h in self._by_replica.get(rid, ())
+                     if h not in keep]
+            for h in stale:
+                self._drop(h)
+            sp = {bytes(h) for h in spilled} & keep
+            if sp:
+                self._spilled[rid] = sp
+            else:
+                self._spilled.pop(rid, None)
+        self.register(keep, rid)
+
+    def invalidate(self, replica_id: str):
+        """Membership churn: the replica left the rotation, so every
+        entry pointing at it is dead weight."""
+        rid = str(replica_id)
+        with self._lock:
+            for h in list(self._by_replica.get(rid, ())):
+                self._drop(h)
+            self._spilled.pop(rid, None)
+
+    def is_spilled(self, h, replica_id: str) -> bool:
+        """True when the replica advertised this hash from a SPILL tier:
+        an affinity route to it re-uploads instead of reading the pool."""
+        with self._lock:
+            return bytes(h) in self._spilled.get(str(replica_id), ())
+
+    def spilled_depth(self, replica_id: str) -> int:
+        """How many of the replica's advertised pages are spilled."""
+        with self._lock:
+            return len(self._spilled.get(str(replica_id), ()))
+
+    def lookup(self, hashes) -> tuple[str | None, int]:
+        """``(replica_id, cached_pages)`` for the LONGEST prefix any
+        replica holds, or ``(None, 0)``. The caller re-validates the
+        replica against live membership and breaker state: the directory
+        never blocks a route, it only biases one."""
+        with self._lock:
+            for i in range(len(hashes) - 1, -1, -1):
+                rid = self._map.get(bytes(hashes[i]))
+                if rid is not None:
+                    return rid, i + 1
+        return None, 0

@@ -51,6 +51,14 @@ Sites wired in the port (the JAX package's names and places):
 ``serve.stream_drop``     serve's OP_PREFILL record loop drops the
                           connection mid-stream (a prefill worker's death;
                           the decode side discards the partial pages)
+``router.crash``          `Router._client_loop` stops the router hard as it
+                          accepts a GENERATE: the listener and every live
+                          client connection close and the request is never
+                          forwarded (clients fail over to another router)
+``router.stale_directory``  the router's prefill pick routes on a stale
+                          prefix-directory entry (the last prefill worker,
+                          ``router.stale_affinity``): the worker prefills
+                          the whole prompt, the answer is unchanged
 ``engine.crash``          `DecodeEngine.step` raises (engine-thread death)
 ``engine.pool_pressure``  `PageAllocator.alloc` reports exhaustion (forced
                           page-pool pressure without a giant workload)

@@ -2170,6 +2170,120 @@ def test_card_wire_migration_resumes_token_identically(card):
         _stop(b)
 
 
+def test_card_router_fronts_two_card_replicas(card):
+    """A port `Router` in front of two card replicas answers four
+    concurrent clients with the in-process card engine's tokens; each
+    replica serves a share, and the paged kernels dispatch their cuda arm
+    (never the plain one)."""
+    import threading
+
+    from paddle_tpu_torch.inference.serve import RemotePredictor
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.serving import Router
+    model = _small_model()
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, 97, n).astype(np.int32) for n in (9, 40, 17,
+                                                                  64)]
+    want = _card_refs(model, card, prompts, 12)
+    reps = [_card_replica(model, card) for _ in range(2)]
+    router = Router(replicas={f"r{i}": f"127.0.0.1:{s.port}"
+                              for i, s in enumerate(reps)},
+                    replica_secret="card-fleet", auth_name="card-front")
+    accept = threading.Thread(target=router.serve_forever, daemon=True)
+    accept.start()
+    before = registry.counts()
+    outs = [None] * len(prompts)
+
+    def client(i):
+        cli = RemotePredictor(port=router.port, secret="card-front")
+        outs[i] = cli.generate(prompts[i], max_new_tokens=12).tolist()
+        cli.close()
+    try:
+        ths = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        assert outs == want
+        served = [s._engine.counters["requests"] for s in reps]
+        assert min(served) >= 1 and sum(served) == len(prompts)
+        after = registry.counts()
+        for op in ("paged_attention", "prefill_attention"):
+            key = f"kernel.dispatch.{op}."
+            assert after.get(key + "cuda", 0) > before.get(key + "cuda", 0)
+            assert after.get(key + "plain", 0) == before.get(key + "plain",
+                                                             0)
+    finally:
+        router.stop()
+        accept.join(timeout=10)
+        for s in reps:
+            _stop(s)
+
+
+def test_card_engine_warmed_while_another_serves(card):
+    """Engines warmed up (their graphs captured on the capture stream) on
+    this thread while another engine serves on a thread of its own (its
+    graphs replayed on the default stream), at GPT-2 small's width: every
+    graph has its own split-loop tickets, and warm-ups, captures and
+    replays take turns on the capture stream's cuBLAS workspace, so both
+    engines' tokens stay the in-process engine's, and the launch counts
+    stay exact."""
+    import threading
+
+    from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    model = GPTForCausalLM(GPTConfig(
+        vocab_size=97, hidden_size=768, num_layers=2, num_heads=12,
+        intermediate_size=3072, max_position_embeddings=128),
+        generator=torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, 97, n).astype(np.int32)
+               for n in (9, 40, 17, 64)]
+    want = _card_refs(model, card, prompts, 24)
+    cfg = EngineConfig(page_size=16, max_slots=4, prefix_cache=False)
+    serving = DecodeEngine(model, cfg, device=card)
+    serving.warmup(prompt_lens=[len(p) for p in prompts])
+    torch.cuda.synchronize()
+    rounds, stop = [], threading.Event()
+
+    def serve_rounds():
+        while not stop.is_set():
+            reqs = [serving.submit(p, max_new_tokens=24) for p in prompts]
+            serving.run_until_idle(max_steps=500)
+            rounds.append([r.result(timeout=0).tolist() for r in reqs])
+
+    t = threading.Thread(target=serve_rounds)
+    for k in _build.kernels():
+        k.launches = 0
+    c0 = dict(serving.counters)
+    t.start()
+    built = []
+    try:
+        for _ in range(3):
+            eng = DecodeEngine(model, cfg, device=card)
+            eng.warmup(prompt_lens=[len(p) for p in prompts])
+            built.append(eng)
+    finally:
+        stop.set()
+        t.join(timeout=120)
+    assert not t.is_alive() and len(rounds) >= 1
+    assert all(r == want for r in rounds), [r == want for r in rounds]
+    torch.cuda.synchronize()
+    nl = model.cfg.num_layers
+    ran = {k: serving.counters[k] - c0[k] for k in c0}
+    launches = {k.source: k.launches for k in _build.kernels()}
+    assert launches["paged_decode"] == nl * ran["steps"]
+    assert launches["paged_prefill"] == nl * (ran["prefills"]
+                                              + ran["prefill_chunks"])
+    last = built[-1]
+    reqs = [last.submit(p, max_new_tokens=24) for p in prompts]
+    last.run_until_idle(max_steps=500)
+    assert [r.result(timeout=0).tolist() for r in reqs] == want
+
+
 def test_card_connection_threads_launch_no_kernel(card):
     """STATS, PROMETHEUS, PING and DEBUG_DUMP are served on connection
     threads from host state: a burst of them against an idle card replica

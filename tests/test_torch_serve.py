@@ -506,6 +506,11 @@ def sc_ack_drop(s, keyed):
     cli.close()
     if not keyed:     # the server side of a dropped ack: the answer ran
         out = out[:2]
+    else:
+        # both packages' servers count a request after sending its
+        # answer: wait for the replayed one's count before reading
+        _wait_for(lambda: s.delta(("serve.requests",))["serve.requests"]
+                  >= 1, timeout=10, msg="the replayed request's count")
     return {"out": out, "counters": s.delta()}
 
 
