@@ -279,11 +279,43 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    did work, the Prometheus text within the exposition grammar, no
    watchdog dump from the healthy loop and exactly one from a loop whose
    step sleeps 2 s past a 0.5 s deadline (``engine.step_delay``).
+   ``train_ckpt`` and ``train_elastic`` (run after ``serve_router``):
+   GPT-2 small in bf16 on f32 masters, S=1024, AdamW over an
+   `optimizer/lr.py` schedule (a warm-up into a cosine decay) that the
+   checkpoints carry, the checkpoints under a temporary directory removed
+   at the end. ``train_ckpt``, one process, B=16 as 2 microbatches,
+   `CheckpointManager(every=2, keep=2)` with async saves, one line an
+   arm: ``resume`` (6 steps; a fresh step restored from step 4 runs steps
+   5-6: losses and every leaf equal to the uninterrupted run's; the host
+   snapshot's blocking ms, the background write's s, the restore's s, the
+   checkpoint's bytes and GB/s, iteration ms with saves beside ``train``'s
+   p50), ``corrupt`` (a flipped byte in the newest checkpoint: `restore`
+   falls back to the previous one and counts
+   ``train.resume_corrupt_skipped``), ``bad_steps`` (``train.step_nan``:
+   the update and the clock skipped; two in a row roll back to the last
+   checkpoint and raise `TooManyBadSteps`), ``sigterm`` (a worker process
+   of this script, ``--ckpt-worker``, gets SIGTERM as its third step
+   starts, finishes it, checkpoints synchronously and exits 0; a resume
+   from that checkpoint equals the uninterrupted run). ``train_elastic``:
+   rank processes of this script (``--elastic-worker``, each its own
+   CUDA context on the card; `run_elastic_worker` over the fleet's
+   TCPStore), 8 of the 16 rows a rank at world 2: ``world2`` (5 steps;
+   losses against one process with 2 microbatches on the same global
+   batches, gate 2e-3, exactness reported; a second run from the step-2
+   checkpoint equal to the first; step ms, the reducer's ms by piece and
+   bytes, each rank's peak memory), ``stop_vote`` (SIGTERM to rank 1:
+   both ranks stop at one step boundary after a fleet-complete
+   checkpoint and exit 0), ``peer_dead`` (``PADDLE_FAULTS=
+   train.peer_dead`` on rank 1: rank 0 raises `PeerLost` within the
+   deadline and exits 23, `ElasticController` reforms the fleet at world
+   1, which resumes from the step-2 checkpoint equal to one process
+   restored from it; kill to `PeerLost`, reform to first step).
 12. ``kernels``: per kernel, its source, the TPU kernel it replaces, its
    launches in the run of the path that uses it (serve for the float paged
-   kernels, serve_int8 for the int8 ones, train for the flash kernels,
-   incubate for the layernorm and rotary kernels, train_dropout for the
-   dropout kernel) and its numbers at that run's shapes.
+   kernels, serve_int8 for the int8 ones, train, train_ckpt and
+   train_elastic (every rank's) for the flash kernels, incubate for the
+   layernorm and rotary kernels, train_dropout for the dropout kernel) and
+   its numbers at that run's shapes.
 13. The last line: ``{"ok": true, "device": {...}}``.
 
 The card runs (4 to 11) are the paths of the main path: every
@@ -358,6 +390,8 @@ from paddle_tpu_torch.observability.flight_recorder import flight
 from paddle_tpu_torch.observability.tracing import RequestTrace
 from paddle_tpu_torch.observability.usage import usage_log
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                           LinearWarmup)
 from paddle_tpu_torch.quantization.serving import (QUANT_LOGIT_BOUND,
                                                    margin_gated_parity)
 from paddle_tpu_torch.serving.autoscale import (Autoscaler, AutoscalePolicy,
@@ -366,7 +400,12 @@ from paddle_tpu_torch.serving.disagg import (KVStreamAssembler,
                                              prompt_page_hashes)
 from paddle_tpu_torch.serving.router import Router
 from paddle_tpu_torch.testing import faults
-from paddle_tpu_torch.train import H100_BF16_PEAK, ScanTrainStep
+from paddle_tpu_torch.train import (EXIT_PEER_LOST, H100_BF16_PEAK,
+                                    CheckpointManager,
+                                    ElasticController, PeerLost,
+                                    ScanTrainStep, TooManyBadSteps,
+                                    run_elastic_worker)
+from paddle_tpu_torch.train import elastic as elastic_mod
 from paddle_tpu_torch.train.scan_step import _leaf_keys
 
 SEED = 0
@@ -4687,6 +4726,655 @@ def incubate_run(dev, smi, reps=3, b=8, s=1024, nl=12):
     return launches
 
 
+# ------------------------------------- fault-tolerant and elastic training
+
+CKPT_LR = 1e-4
+CKPT_ROWS = 16                  # the global batch: 2 microbatches of 8
+CKPT_SEQ = 1024
+ELASTIC_DEADLINE_S = 20.0       # train_elastic's liveness deadline
+ELASTIC_STEPS = 5               # step 1 warms, steps 2-5 are timed
+FLEET_TIMEOUT_S = 420           # one fleet launch's bound
+
+
+def ft_step(dev, microbatches=2, reducer=None, seed=SEED):
+    """GPT-2 small in bf16 on f32 masters, AdamW (clip 1.0) over an
+    `optimizer/lr.py` schedule (a 2-step linear warm-up into a cosine
+    decay), which the checkpoints carry."""
+    model = gpt_mod.gpt2_small(generator=torch.Generator().manual_seed(seed),
+                               hidden_dropout=0.0, attention_dropout=0.0)
+    sched = LinearWarmup(CosineAnnealingDecay(CKPT_LR, 20), 2, 1e-5, CKPT_LR)
+    return ScanTrainStep(model.to(torch.bfloat16),
+                         AdamW(learning_rate=sched, clip_norm=1.0),
+                         microbatches=microbatches, device=dev,
+                         grad_reducer=reducer)
+
+
+def ft_batch(cursor, rank=0, world=1):
+    """Rank ``rank``'s rows of global batch ``cursor`` (16 x 1024 tokens
+    from the cursor's own seed): any world size sees one data stream."""
+    x, y = train_batch(np.random.default_rng(SEED + 200 + int(cursor)),
+                       CKPT_ROWS, CKPT_SEQ, VOCAB)
+    lo, hi = rank * CKPT_ROWS // world, (rank + 1) * CKPT_ROWS // world
+    return x[lo:hi], y[lo:hi]
+
+
+def ft_iterate(step, mgr, cursor):
+    """One managed iteration: the step, the schedule's step where the
+    step was taken, the manager's ladder and periodic save. Returns the
+    loss and the iteration's wall seconds."""
+    t0 = time.perf_counter()
+    loss = step.step(*ft_batch(cursor))
+    if step.last_step_ok:
+        step.opt.learning_rate.step()
+    if mgr is not None:
+        mgr.after_step(data_cursor=cursor + 1)
+    torch.cuda.synchronize()
+    return loss, time.perf_counter() - t0
+
+
+def same_state(a, b):
+    """Every parameter and optimizer leaf, the key chain, the clock and
+    the schedule of two steps equal bit for bit."""
+    for grp in ("blocks", "top"):
+        for k, p in a._params[grp].items():
+            if not torch.equal(p, b._params[grp][k]):
+                return False
+            for n, v in a._opt_state[grp][k].items():
+                if not torch.equal(v, b._opt_state[grp][k][n]):
+                    return False
+    return torch.equal(a._key, b._key) \
+        and a.opt.global_step == b.opt.global_step \
+        and a.opt.learning_rate.state_dict() \
+        == b.opt.learning_rate.state_dict()
+
+
+def worst(diffs):
+    """The largest difference, infinity where there is none to read."""
+    return max(diffs) if diffs else math.inf
+
+
+def flight_seq():
+    events = flight.events()
+    return events[-1]["seq"] if events else 0
+
+
+def flight_since(seq, kind):
+    return [e for e in flight.events() if e["seq"] > seq
+            and e["kind"] == kind]
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def flip_byte(ckpt_dir):
+    shard = next(f for f in sorted(os.listdir(ckpt_dir))
+                 if f.startswith("params") and f.endswith(".npy"))
+    p = os.path.join(ckpt_dir, shard)
+    blob = bytearray(open(p, "rb").read())
+    blob[-1] ^= 0xFF
+    open(p, "wb").write(bytes(blob))
+    return shard
+
+
+def ft_launches(calls, microbatches=2, nl=12):
+    """A bf16 GPT-2 small step without dropout launches each flash kernel
+    once per layer per microbatch, bad steps included."""
+    return {k: nl * microbatches * calls for k in FLASH_KERNELS}
+
+
+def read_log(path):
+    """A worker's ``KIND {json}`` lines, by kind."""
+    out = {}
+    for line in open(path, errors="replace"):
+        kind, _, rest = line.strip().partition(" ")
+        if kind in ("BEGIN", "STEP", "DONE", "PEERLOST"):
+            out.setdefault(kind, []).append(json.loads(rest))
+    return out
+
+
+def wait_procs(procs, phase, timeout=FLEET_TIMEOUT_S):
+    t_end = time.time() + timeout
+    rcs = []
+    for p in procs:
+        try:
+            rcs.append(p.wait(timeout=max(1.0, t_end - time.time())))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise SystemExit(f"{phase}: a worker ran past {timeout} s")
+    return rcs
+
+
+def train_ckpt(dev, smi, train_line):
+    """`CheckpointManager` over GPT-2 small on the card, one process: B=16
+    as 2 microbatches, S=1024, bf16 on f32 masters, AdamW over the lr
+    schedule, ``every=2``, ``keep=2``, async saves. Arms ``resume``,
+    ``bad_steps``, ``sigterm`` (a worker process of this script) and
+    ``corrupt``, one line each, then the phase's line."""
+    phase = "train_ckpt"
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="train_ckpt_")
+    calls = 0
+    reset_launches()
+    try:
+        # resume: 6 steps with saves, then a fresh step restored from step 4
+        root = os.path.join(work, "run")
+        step = ft_step(dev)
+        mgr = CheckpointManager(root, step, every=2, keep=2, use_async=True)
+        seq0 = flight_seq()
+        losses, walls, writers = [], [], []
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in range(6):
+            loss, wall = ft_iterate(step, mgr, c)
+            calls += 1
+            losses.append(loss)
+            walls.append(wall * 1e3)
+            if mgr._pending is not None and mgr._pending[0] not in writers:
+                writers.append(mgr._pending[0])
+        mgr.wait()
+        peak = torch.cuda.max_memory_allocated(dev)
+        stalls = [e["stall_ms"] for e in flight_since(seq0,
+                                                      "train.checkpoint")]
+        complete = [n for n, _ in mgr.complete_checkpoints()]
+        ck_dir = os.path.join(root, "step-00000004")
+        ck_bytes = dir_bytes(ck_dir)
+        root4 = os.path.join(work, "from4")
+        shutil.copytree(ck_dir, os.path.join(root4, "step-00000004"))
+        with open(os.path.join(root4, "LATEST"), "w") as f:
+            f.write("step-00000004\n")
+        fresh = ft_step(dev, seed=SEED + 1)
+        mgr4 = CheckpointManager(root4, fresh, every=2, keep=2)
+        t0 = time.perf_counter()
+        info = mgr4.restore(require=True)
+        restore_s = time.perf_counter() - t0
+        resumed = []
+        for c in (4, 5):
+            resumed.append(ft_iterate(fresh, mgr4, c)[0])
+            calls += 1
+        mgr4.wait()
+        resume_ok = info["step"] == 4 and info["data_cursor"] == 4 \
+            and resumed == losses[4:] and same_state(fresh, step)
+        write_s = [w.seconds for w in writers]
+        save_walls = [walls[i] for i in (1, 3, 5)]
+        resume_line = {
+            "phase": phase, "arm": "resume", "card": smi,
+            "model": "gpt2-small", "dtype": "bfloat16",
+            "master_weights": "float32", "batch": CKPT_ROWS,
+            "microbatches": 2, "seq": CKPT_SEQ,
+            "lr_schedule": "LinearWarmup(CosineAnnealingDecay)",
+            "losses": losses, "resumed_losses": resumed,
+            "complete_checkpoints": complete,
+            "restored_from": info["step"],
+            "losses_equal": resumed == losses[4:],
+            "state_equal": same_state(fresh, step),
+            "snapshot_blocking_ms": stalls,
+            "background_write_s": write_s,
+            "restore_s": restore_s, "checkpoint_bytes": ck_bytes,
+            "write_gb_per_s": [ck_bytes / s / 1e9 for s in write_s if s],
+            "iteration_ms": walls,
+            "step_ms_p50_with_saves": p50(walls),
+            "saving_iteration_ms_p50": p50(save_walls),
+            "step_ms_p50_without_saves": p50(
+                [r["step_ms"] for r in step.records[1:]]),
+            "train_step_ms_p50": train_line["step_ms_p50"],
+            "peak_memory_bytes": peak, "clocks": card_clocks(),
+            "ok": resume_ok}
+        emit(resume_line)
+
+        # corrupt: a flipped byte in the newest checkpoint's shard
+        skipped0 = metrics.counter("train.resume_corrupt_skipped").value
+        shard = flip_byte(os.path.join(root, "step-00000006"))
+        info_c = CheckpointManager(root, fresh).restore(require=True)
+        skipped = metrics.counter("train.resume_corrupt_skipped").value - skipped0
+        corrupt_ok = info_c["step"] == 4 and skipped == 1
+        emit({"phase": phase, "arm": "corrupt", "flipped_shard": shard,
+              "restored_from": info_c["step"], "corrupt_skipped": skipped,
+              "ok": corrupt_ok})
+        del fresh, mgr4
+
+        # bad_steps: the run's step goes on under a ladder of 2
+        mgr_b = CheckpointManager(os.path.join(work, "bad"), step, every=2,
+                                  keep=2, max_consecutive_bad=2)
+        ft_iterate(step, mgr_b, 6)          # step 7, saved
+        ref7 = step._params["top"]["gpt.wte.weight"].detach().clone()
+        ft_iterate(step, mgr_b, 7)          # step 8
+        calls += 2
+        ref8 = step._params["top"]["gpt.wte.weight"].detach().clone()
+        bad0 = metrics.counter("train.bad_steps").value
+        rb0 = metrics.counter("train.rollbacks").value
+        with faults.scoped("train.step_nan", times=1):
+            nan_loss, _ = ft_iterate(step, mgr_b, 8)
+        calls += 1
+        skipped_ok = not math.isfinite(nan_loss) \
+            and step.opt.global_step == 8 and step.consecutive_bad_steps == 1 \
+            and torch.equal(step._params["top"]["gpt.wte.weight"], ref8)
+        raised = None
+        with faults.scoped("train.step_nan", times=1):
+            try:
+                ft_iterate(step, mgr_b, 9)
+            except TooManyBadSteps as e:
+                raised = str(e)
+        calls += 1
+        mgr_b.wait()
+        bad_ok = skipped_ok and raised is not None \
+            and "rolled back to step 7" in raised \
+            and step.opt.global_step == 7 \
+            and step.opt.learning_rate.last_epoch == 7 \
+            and torch.equal(step._params["top"]["gpt.wte.weight"], ref7) \
+            and metrics.counter("train.bad_steps").value - bad0 == 2 \
+            and metrics.counter("train.rollbacks").value - rb0 == 1
+        emit({"phase": phase, "arm": "bad_steps", "nan_loss": repr(nan_loss),
+              "skip_kept_state_and_clock": skipped_ok, "raised": raised,
+              "clock_after_rollback": step.opt.global_step,
+              "ok": bad_ok})
+        del step, mgr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # sigterm: a worker process gets SIGTERM at the start of its 3rd
+        # step, finishes it, checkpoints synchronously and exits 0
+        root_s = os.path.join(work, "sigterm")
+        log_path = os.path.join(work, "sigterm.log")
+        with open(log_path, "wb") as log:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ckpt-worker",
+                 "--root", root_s], stdout=log, stderr=subprocess.STDOUT,
+                env=worker_env())
+        try:
+            t_end = time.time() + FLEET_TIMEOUT_S
+            sent = None
+            while time.time() < t_end and proc.poll() is None:
+                begins = read_log(log_path).get("BEGIN", [])
+                if any(b["cursor"] == 2 for b in begins):
+                    proc.send_signal(signal.SIGTERM)
+                    sent = time.time()
+                    break
+                time.sleep(0.02)
+            rc = wait_procs([proc], phase)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        wlog = read_log(log_path)
+        done = (wlog.get("DONE") or [{}])[-1]
+        latest = open(os.path.join(root_s, "LATEST")).read().strip() \
+            if os.path.exists(os.path.join(root_s, "LATEST")) else None
+        worker_losses = [s["loss"] for s in wlog.get("STEP", [])]
+        resumed_s = []
+        if latest:
+            st = ft_step(dev, seed=SEED + 2)
+            CheckpointManager(root_s, st).restore(require=True)
+            for c in (3, 4):
+                resumed_s.append(ft_iterate(st, None, c)[0])
+                calls += 1
+            del st
+        sig_ok = rc == 0 and sent is not None and latest == "step-00000003" \
+            and os.path.exists(os.path.join(root_s, latest, "COMPLETE")) \
+            and worker_losses == losses[:3] and resumed_s == losses[3:5] \
+            and done.get("global_step") == 3
+        emit({"phase": phase, "arm": "sigterm", "rc": rc, "latest": latest,
+              "worker_losses": worker_losses, "resumed_losses": resumed_s,
+              "sigterm_to_exit_s": (done.get("t", sent) - sent)
+              if sent else None,
+              "worker_launches": done.get("launches"),
+              "worker_peak_memory_bytes": done.get("peak_memory_bytes"),
+              "ok": sig_ok})
+        expected = ft_launches(calls)
+        launches = read_launches(phase, expected)
+        for k, n in (done.get("launches") or {}).items():
+            launches[k] += n
+        ok = resume_ok and corrupt_ok and bad_ok and sig_ok
+        emit({"phase": phase, "arms": {"resume": resume_ok,
+                                       "corrupt": corrupt_ok,
+                                       "bad_steps": bad_ok,
+                                       "sigterm": sig_ok},
+              "step_calls": calls, "launches": launches,
+              "expected_in_process": expected, "ok": ok})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if not ok:
+        raise SystemExit(f"{phase}: an arm failed")
+    return launches
+
+
+def worker_env(**extra):
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("PADDLE_FAULTS", None)
+    env.update(extra)
+    return env
+
+
+def ckpt_worker(argv):
+    """``--ckpt-worker --root DIR``: `CheckpointManager.run` over
+    `ft_step` with SIGTERM installed, one ``BEGIN``/``STEP`` line a step
+    and a ``DONE`` line at the end."""
+    root = argv[argv.index("--root") + 1]
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    step = ft_step(dev)
+    mgr = CheckpointManager(root, step, every=2, keep=2)
+    reset_launches()
+
+    def batch_fn(cursor):
+        print("BEGIN " + json.dumps({"cursor": cursor, "t": time.time()}),
+              flush=True)
+        return ft_batch(cursor)
+
+    def on_step(n, loss, ok):
+        if ok:
+            step.opt.learning_rate.step()
+        print("STEP " + json.dumps({"n": n, "loss": loss,
+                                    "t": time.time()}), flush=True)
+
+    mgr.run(batch_fn, until_step=10_000, on_step=on_step,
+            install_sigterm=True)
+    print("DONE " + json.dumps({
+        "global_step": step.opt.global_step, "t": time.time(),
+        "launches": {k.source: k.launches for k in _build.kernels()},
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}),
+        flush=True)
+    return 0
+
+
+def elastic_worker(argv):
+    """``--elastic-worker --root DIR --until-step N --deadline-s S
+    --hb-dir DIR``: one rank of `run_elastic_worker` over `ft_step`
+    (rank and world from the launch env; each rank takes 16 / world rows
+    of every global batch, as 2 / world microbatches of 8). Prints a
+    ``STEP`` line a step (loss, step ms, the reducer's seconds by piece,
+    peak memory), ``DONE`` at the end, ``PEERLOST`` and exit 23 on a
+    dead peer."""
+    opt = {a: argv[argv.index(a) + 1] for a in
+           ("--root", "--until-step", "--deadline-s", "--hb-dir")}
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
+    box = {}
+    reset_launches()
+
+    def make_step(reducer):
+        box["reducer"] = reducer
+        box["step"] = ft_step(dev, microbatches=2 // world, reducer=reducer)
+        return box["step"]
+
+    def on_step(n, loss, ok):
+        st, red = box["step"], box["reducer"]
+        if ok:
+            st.opt.learning_rate.step()
+        print("STEP " + json.dumps({
+            "n": n, "loss": loss, "t": time.time(),
+            "step_ms": st.records[-1]["step_ms"] if ok else None,
+            "reduce": dict(red.timings) if red is not None else None,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}),
+            flush=True)
+
+    try:
+        out = run_elastic_worker(
+            make_step, ft_batch, root=opt["--root"],
+            until_step=int(opt["--until-step"]), every=2,
+            deadline_s=float(opt["--deadline-s"]), hb_dir=opt["--hb-dir"],
+            on_step=on_step)
+    except PeerLost as e:
+        print("PEERLOST " + json.dumps({"t": time.time(), "error": str(e)}),
+              flush=True)
+        os._exit(EXIT_PEER_LOST)
+    st = box["step"]
+    print("DONE " + json.dumps({
+        "rank": out["rank"], "world": out["world"],
+        "resumed_step": out["resumed_step"], "stopped": out["stopped"],
+        "global_step": st.opt.global_step, "calls": len(out["losses"]),
+        "launches": {k.source: k.launches for k in _build.kernels()},
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}),
+        flush=True)
+    return 0
+
+
+def spawn_ranks(world, root, until, logs, attempt, env_for_rank=None):
+    """``world`` rank processes of `elastic_worker` on this card, the
+    launch env wired as `train/elastic.py::spawn_local_fleet` wires it
+    (a fresh store port each call, per-attempt heartbeat dirs)."""
+    port = elastic_mod._free_port()
+    procs = []
+    for rank in range(world):
+        env = worker_env(PADDLE_TRAINER_ID=str(rank),
+                         PADDLE_TRAINERS_NUM=str(world),
+                         PADDLE_MASTER=f"127.0.0.1:{port}",
+                         PADDLE_WATCHDOG_DIR=os.path.join(logs, "dumps"))
+        env.update((env_for_rank or (lambda r: {}))(rank))
+        path = os.path.join(logs, f"rank{rank}.a{attempt}.log")
+        with open(path, "ab") as log:
+            p = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--elastic-worker", "--root", root, "--until-step",
+                 str(until), "--deadline-s", str(ELASTIC_DEADLINE_S),
+                 "--hb-dir", os.path.join(root, f"hb-a{attempt}")],
+                env=env, stdout=log, stderr=subprocess.STDOUT)
+        p.log_path = path
+        procs.append(p)
+    return procs
+
+
+def fleet_record(procs):
+    return [read_log(p.log_path) for p in procs]
+
+
+def rank_losses(rec):
+    return [s["loss"] for s in rec.get("STEP", [])]
+
+
+def reduce_pieces(recs):
+    """Median seconds of each reducer piece over the timed steps (2 on)
+    of every rank, and the bytes a rank publishes and reads a step."""
+    steps = [s for r in recs for s in r.get("STEP", [])[1:] if s["reduce"]]
+    out = {k: p50([s["reduce"][k] * 1e3 for s in steps])
+           for k in ("pack", "publish", "read", "barrier", "unpack")}
+    return {"ms": out, "stored_bytes_a_step": steps[0]["reduce"]["bytes"]
+            if steps else None}
+
+
+def one_process(dev, cursors, root=None):
+    """The one-process reference: `ft_step` with the global batch as 2
+    microbatches, optionally restored from ``root``; returns its losses
+    and the number of step calls."""
+    st = ft_step(dev)
+    if root is not None:
+        CheckpointManager(root, st).restore(require=True)
+    out = [ft_iterate(st, None, c)[0] for c in cursors]
+    del st
+    return out
+
+
+def copy_checkpoint(root, name, dst):
+    shutil.copytree(os.path.join(root, name), os.path.join(dst, name))
+    with open(os.path.join(dst, "LATEST"), "w") as f:
+        f.write(name + "\n")
+
+
+def train_elastic(dev, smi):
+    """Elastic training on one card: rank processes of this script
+    (`elastic_worker`), each its own CUDA context, GPT-2 small as
+    `train_ckpt`'s, batch 8 a rank of the global 16. Arms ``world2``,
+    ``stop_vote`` and ``peer_dead``, one line each, then the phase's
+    line."""
+    phase = "train_elastic"
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="train_elastic_")
+    logs = os.path.join(work, "logs")
+    os.makedirs(logs)
+    calls, worker_launches, live = 0, [], []
+    ok = False
+    reset_launches()
+    try:
+        # world2: 2 ranks, ELASTIC_STEPS steps, against one process
+        root = os.path.join(work, "w2")
+        procs = spawn_ranks(2, root, ELASTIC_STEPS, logs, 0)
+        live += procs
+        rcs = wait_procs(procs, phase)
+        if rcs != [0, 0]:
+            raise SystemExit(f"{phase}: the world-2 ranks exited {rcs}")
+        recs = fleet_record(procs)
+        l0, l1 = rank_losses(recs[0]), rank_losses(recs[1])
+        ref = one_process(dev, range(ELASTIC_STEPS))
+        calls += ELASTIC_STEPS
+        diffs = [abs(a - b) for a, b in zip(l0, ref)]
+        # a second world-2 run from the step-2 checkpoint, to step 4
+        root_b = os.path.join(work, "w2b")
+        copy_checkpoint(root, "step-00000002", root_b)
+        procs_b = spawn_ranks(2, root_b, 4, logs, 1)
+        live += procs_b
+        rcs_b = wait_procs(procs_b, phase)
+        recs_b = fleet_record(procs_b)
+        again = rank_losses(recs_b[0])
+        run_to_run = [abs(a - b) for a, b in zip(again, l0[2:])]
+        w2_steps = [s["step_ms"] for r in recs for s in r["STEP"][1:]
+                    if s["step_ms"] is not None]
+        for r in recs + recs_b:
+            worker_launches.append((r.get("DONE") or [{}])[-1].get(
+                "launches"))
+        w2_ok = rcs == [0, 0] and rcs_b == [0, 0] \
+            and len(l0) == ELASTIC_STEPS and l0 == l1 \
+            and worst(diffs) <= TRAIN_BF16_LOSS_TOL \
+            and len(again) == 2 \
+            and again == rank_losses(recs_b[1]) and worst(run_to_run) == 0.0
+        emit({"phase": phase, "arm": "world2", "card": smi, "world": 2,
+              "model": "gpt2-small", "dtype": "bfloat16",
+              "rows_a_rank": CKPT_ROWS // 2, "seq": CKPT_SEQ, "rcs": rcs,
+              "losses": l0, "one_process_losses": ref,
+              "loss_abs_diff": diffs, "tol": TRAIN_BF16_LOSS_TOL,
+              "exact": l0 == ref,
+              "resumed_from_step2": again, "run_to_run_abs_diff": run_to_run,
+              "step_ms_p50": p50(w2_steps), "step_ms": w2_steps,
+              "reducer": reduce_pieces(recs),
+              "peak_memory_bytes": [max(s["peak_memory_bytes"]
+                                        for s in r["STEP"]) for r in recs],
+              "clocks": card_clocks(), "ok": w2_ok})
+        tol = worst(run_to_run)
+
+        # stop_vote: SIGTERM to rank 1 once it has taken a step
+        root_v = os.path.join(work, "vote")
+        procs_v = spawn_ranks(2, root_v, 10_000, logs, 2)
+        live += procs_v
+        t_end = time.time() + FLEET_TIMEOUT_S
+        sent = False
+        while time.time() < t_end and all(p.poll() is None
+                                          for p in procs_v):
+            if read_log(procs_v[1].log_path).get("STEP"):
+                procs_v[1].send_signal(signal.SIGTERM)
+                sent = True
+                break
+            time.sleep(0.05)
+        rcs_v = wait_procs(procs_v, phase)
+        recs_v = fleet_record(procs_v)
+        dones = [(r.get("DONE") or [{}])[-1] for r in recs_v]
+        latest = open(os.path.join(root_v, "LATEST")).read().strip() \
+            if os.path.exists(os.path.join(root_v, "LATEST")) else None
+        stop_steps = [d.get("global_step") for d in dones]
+        worker_launches += [d.get("launches") for d in dones]
+        vote_ok = sent and rcs_v == [0, 0] \
+            and all(d.get("stopped") for d in dones) \
+            and stop_steps[0] == stop_steps[1] and latest is not None \
+            and latest == f"step-{stop_steps[0]:08d}" \
+            and os.path.exists(os.path.join(root_v, latest, "COMPLETE"))
+        emit({"phase": phase, "arm": "stop_vote", "rcs": rcs_v,
+              "stopped_at": stop_steps, "latest": latest,
+              "ok": bool(vote_ok)})
+
+        # peer_dead: rank 1 SIGKILLs itself at its 3rd step boundary, past
+        # the fleet-complete checkpoint of step 2
+        root_d = os.path.join(work, "dead")
+        ref_d = os.path.join(work, "dead_ref")
+        spawned = {}
+
+        def spawn(world, attempt):
+            if attempt == 1:
+                copy_checkpoint(root_d, open(os.path.join(
+                    root_d, "LATEST")).read().strip(), ref_d)
+            env = (lambda r: {"PADDLE_FAULTS": "train.peer_dead:times=3"}
+                   if (attempt == 0 and r == 1) else {})
+            spawned[attempt] = time.time()
+            ps = spawn_ranks(world, root_d, ELASTIC_STEPS, logs,
+                             10 + attempt, env)
+            live.extend(ps)
+            spawned[f"procs{attempt}"] = ps
+            return ps
+
+        ctl = ElasticController(spawn, world_size=2, settle_s=60,
+                                max_restarts=1)
+        ctl_rc = ctl.run()
+        a0 = fleet_record(spawned["procs0"])
+        a1 = fleet_record(spawned.get("procs1", []))
+        lost = (a0[0].get("PEERLOST") or [{}])[-1]
+        # the victim's last heartbeat: its last sign of life before the
+        # kill (it beats per shard and barrier poll while it saves)
+        hb = os.path.join(root_d, "hb-a10", "hb-1.json")
+        t_kill = json.load(open(hb))["t"] if os.path.exists(hb) else None
+        kill_to_lost = lost.get("t", 0) - t_kill if t_kill else None
+        resumed_d = rank_losses(a1[0]) if a1 else []
+        done_d = (a1[0].get("DONE") or [{}])[-1] if a1 else {}
+        ref_losses = one_process(dev, range(2, ELASTIC_STEPS), ref_d) \
+            if os.path.isdir(ref_d) else []
+        calls += len(ref_losses)
+        diff_d = [abs(a - b) for a, b in zip(resumed_d, ref_losses)]
+        w1_steps = [s["step_ms"] for s in (a1[0].get("STEP") or [])[1:]
+                    if s["step_ms"] is not None] if a1 else []
+        worker_launches += [(r.get("DONE") or [{}])[-1].get("launches")
+                            for r in a0 + a1]
+        dead_ok = ctl_rc == 0 and [a[1] for a in ctl.attempts] == [
+            [EXIT_PEER_LOST, -signal.SIGKILL], [0]] \
+            and kill_to_lost is not None \
+            and kill_to_lost <= ELASTIC_DEADLINE_S + 1.0 \
+            and done_d.get("resumed_step") == 2 \
+            and len(resumed_d) == ELASTIC_STEPS - 2 \
+            and len(ref_losses) == len(resumed_d) and worst(diff_d) <= tol
+        emit({"phase": phase, "arm": "peer_dead", "attempts": ctl.attempts,
+              "deadline_s": ELASTIC_DEADLINE_S,
+              "kill_to_peer_lost_s": kill_to_lost,
+              "peer_lost": lost.get("error"),
+              "reform_to_first_step_s": (a1[0]["STEP"][0]["t"] - spawned[1])
+              if a1 and a1[0].get("STEP") else None,
+              "resumed_step": done_d.get("resumed_step"),
+              "resumed_losses": resumed_d, "one_process_losses": ref_losses,
+              "abs_diff": diff_d, "tol": tol,
+              "world1_step_ms_p50": p50(w1_steps),
+              "peak_memory_bytes": {
+                  f"a{i}.rank{r}": max((s["peak_memory_bytes"]
+                                        for s in rec.get("STEP", [])),
+                                       default=None)
+                  for i, att in enumerate((a0, a1)) for r, rec in
+                  enumerate(att)},
+              "ok": bool(dead_ok)})
+        expected = ft_launches(calls)
+        launches = read_launches(phase, expected)
+        for wl in worker_launches:
+            for k, n in (wl or {}).items():
+                launches[k] += n
+        ok = bool(w2_ok and vote_ok and dead_ok)
+        emit({"phase": phase, "arms": {"world2": w2_ok,
+                                       "stop_vote": bool(vote_ok),
+                                       "peer_dead": bool(dead_ok)},
+              "step_calls_in_process": calls, "launches": launches,
+              "expected_in_process": expected, "ok": ok})
+    finally:
+        for p in live:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            if not ok:             # the ranks' own account of a failure
+                sys.stderr.write(f"--- {phase} {p.log_path} (rc "
+                                 f"{p.returncode}):\n" + open(
+                                     p.log_path, errors="replace").read()[
+                                         -3000:] + "\n")
+        shutil.rmtree(work, ignore_errors=True)
+    if not ok:
+        raise SystemExit(f"{phase}: an arm failed")
+    return launches
+
+
 def nvidia_smi():
     """Card 0's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -4806,7 +5494,8 @@ def main():
     train_parity(dev, smi, torch.bfloat16)
     train_parity(dev, smi, hidden_dropout=DROPOUT_P)
     train_parity(dev, smi, torch.bfloat16, hidden_dropout=DROPOUT_P)
-    trained = train_run(dev, smi)["launches"]
+    trained_line = train_run(dev, smi)
+    trained = trained_line["launches"]
     launches.update((k, trained[k]) for k in FLASH_KERNELS)
     dropped = train_run(dev, smi, "train_dropout", hidden_dropout=DROPOUT_P)
     launches["dropout"] = dropped["launches"]["dropout"]
@@ -4821,6 +5510,11 @@ def main():
     serve_router(model, dev, smi, wire)
     del model, wire
     torch.cuda.empty_cache()
+    # after the router tier: fault-tolerant and elastic training
+    for phase_launches in (train_ckpt(dev, smi, trained_line),
+                           train_elastic(dev, smi)):
+        for k in FLASH_KERNELS:
+            launches[k] += phase_launches[k]
 
     # the shapes of the paths' runs: bfloat16, decode at B=8, prefill up to
     # C=1024, flash at the train shape, layernorm and rope at the incubate
@@ -4850,4 +5544,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ckpt-worker"]:
+        sys.exit(ckpt_worker(sys.argv))
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        sys.exit(elastic_worker(sys.argv))
     sys.exit(main())

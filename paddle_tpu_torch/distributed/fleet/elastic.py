@@ -6,10 +6,13 @@ shared-directory `NodeRegistry` (``node_<id>.json`` files) and the TCP
 a 32-byte sha256 hello of ``PADDLE_ELASTIC_TOKEN``). The files and the
 lines are the JAX package's, so JAX and port processes share one registry.
 `inference/serve.py` registers replicas here and discovers migration
-peers and routers.
+peers and routers; the elastic trainer (`train/elastic.py`) holds a
+``trainer``-role lease.
 
-Training's half (``start_heartbeat``, ``ElasticJobManager``,
-``ElasticManager``) is ROADMAP A6.
+Training's half: ``start_heartbeat(path)`` (a worker's file heartbeat,
+started by `parallel.init_parallel_env` when ``PADDLE_HEARTBEAT_FILE`` is
+set), `ElasticJobManager` (np-range membership decisions over a registry)
+and `ElasticManager` (the controller's stale-heartbeat watcher).
 """
 from __future__ import annotations
 
@@ -76,6 +79,24 @@ def node_role(node_id) -> str:
     if sep and _ROLE_RE.match(head):
         return head
     return "replica"
+
+
+def start_heartbeat(path, interval=2.0):
+    """Touch `path` every `interval` seconds from a daemon thread."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+    def beat():
+        while True:
+            try:
+                with open(path, "w") as f:
+                    f.write(str(time.time()))
+            except OSError:
+                pass
+            time.sleep(interval)
+
+    t = threading.Thread(target=beat, daemon=True, name="paddle-heartbeat")
+    t.start()
+    return t
 
 
 class NodeRegistry:
@@ -170,6 +191,93 @@ class NodeRegistry:
                 continue
             out[name[len("node_"):-len(".json")]] = info["endpoint"]
         return out
+
+
+class ElasticJobManager:
+    """np-range elasticity (ref ``--np 2:4`` + `manager.py` scale
+    detection): watches the registry and tells the launch controller what
+    to do — WAIT below np_min, RESCALE when the committed member set
+    changed within [np_min, np_max] (rebuild PADDLE_TRAINER_ENDPOINTS and
+    restart from the latest checkpoint — `train/fault_tolerance.py`
+    resumes it), STEADY otherwise."""
+
+    WAIT, STEADY, RESCALE = "wait", "steady", "rescale"
+
+    def __init__(self, registry, np_min, np_max=None):
+        self.registry = registry
+        self.np_min = int(np_min)
+        self.np_max = int(np_max or np_min)
+        self._committed = None
+
+    def endpoints(self, alive):
+        return [alive[k] for k in sorted(alive)]
+
+    def poll(self):
+        alive = self.registry.alive_nodes()
+        n = len(alive)
+        if n < self.np_min:
+            # forget the committed set: when quorum returns — even with the
+            # IDENTICAL members — the stopped job must be relaunched
+            # (RESCALE), not reported STEADY
+            self._committed = None
+            return self.WAIT, self.endpoints(alive)
+        members = tuple(sorted(alive))[: self.np_max]
+        eps = [alive[k] for k in members]
+        if self._committed is None:
+            self._committed = members
+            return self.RESCALE, eps          # first commit = initial launch
+        if members != self._committed:
+            self._committed = members
+            return self.RESCALE, eps
+        return self.STEADY, eps
+
+
+class ElasticManager:
+    """Controller-side staleness watcher (ref `manager.py:126` liveness
+    role) — single-pod fault detection; multi-node membership lives in
+    :class:`NodeRegistry` + :class:`ElasticJobManager`."""
+
+    def __init__(self, heartbeat_dir, world_size, timeout=30.0,
+                 grace_period=60.0):
+        self.dir = heartbeat_dir
+        self.world_size = world_size
+        self.timeout = timeout
+        self._start = time.time()
+        self.grace = grace_period
+
+    def path_for(self, rank):
+        return os.path.join(self.dir, f"heartbeat.{rank}")
+
+    def reset(self):
+        """Called by the controller before a pod restart: old heartbeat files
+        must not instantly re-flag the fresh workers as stale, and the grace
+        window restarts (new workers need import/init time)."""
+        for rank in range(self.world_size):
+            try:
+                os.remove(self.path_for(rank))
+            except OSError:
+                pass
+        self._start = time.time()
+
+    def dead_workers(self):
+        """Ranks whose heartbeat is stale. Within the startup grace period a
+        missing file is not a death (workers may still be starting)."""
+        now = time.time()
+        dead = []
+        for rank in range(self.world_size):
+            p = self.path_for(rank)
+            try:
+                age = now - os.path.getmtime(p)
+            except OSError:
+                if now - self._start > self.grace:
+                    dead.append(rank)
+                continue
+            if age > self.timeout:
+                dead.append(rank)
+        return dead
+
+    def healthy(self):
+        return not self.dead_workers()
 
 
 # --------------------------------------------------------------- TCP backend

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.optimizer.lr import LRScheduler
+
 __all__ = ["AdamW"]
 
 
@@ -46,13 +48,15 @@ class AdamW:
     step (`train/scan_step.py`) seeds its state from here and writes it back
     with ``sync_to_model``. Weight decay applies to every parameter, as the
     JAX AdamW does without ``apply_decay_param_fun``; ``clip_norm`` is the
-    global-norm clip (the JAX ``ClipGradByGlobalNorm``), None for none."""
+    global-norm clip (the JAX ``ClipGradByGlobalNorm``), None for none.
+    ``learning_rate`` is a float or an `lr.LRScheduler`."""
 
     state_names = ("moment1", "moment2")
 
     def __init__(self, learning_rate=1e-3, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, weight_decay=0.01, clip_norm=None):
-        self.learning_rate = float(learning_rate)
+        self.learning_rate = learning_rate \
+            if isinstance(learning_rate, LRScheduler) else float(learning_rate)
         self.beta1, self.beta2 = float(beta1), float(beta2)
         self.epsilon = float(epsilon)
         self.weight_decay = float(weight_decay)
@@ -61,6 +65,10 @@ class AdamW:
         self.state: dict[str, dict[str, torch.Tensor]] = {}
 
     def get_lr(self) -> float:
+        """The rate of the next update: the schedule's current value where
+        ``learning_rate`` is an `lr.LRScheduler`."""
+        if isinstance(self.learning_rate, LRScheduler):
+            return float(self.learning_rate())
         return self.learning_rate
 
     def update(self, p32, g32, states, t):

@@ -1,4 +1,5 @@
-"""Deterministic fault injection for the port's serving stack (a copy of
+"""Deterministic fault injection for the port's serving and training
+stacks (a copy of
 `paddle_tpu/testing/faults.py`, kept identical in behaviour; the port
 imports nothing from the JAX package).
 
@@ -74,6 +75,28 @@ Sites wired in the port (the JAX package's names and places):
                           fails (`DecodeEngine._tier_reupload`): the request
                           keeps its fresh pages and prefills the whole
                           prompt (``kvtier_reupload_fail``)
+``train.step_nan``        `ScanTrainStep.step` adds NaN to the loss before
+                          the finite check (in split mode before the
+                          reduce): the bad-step skip path runs
+``ckpt.write_truncate``   `save_sharded` truncates the shard file it just
+                          wrote (torn-write simulation; load must refuse by
+                          checksum with `CheckpointCorrupt`)
+``ckpt.crash_between_shards``  `save_sharded` dies between shard files (the
+                          checkpoint must stay INVISIBLE: no index, no
+                          COMPLETE, LATEST untouched)
+``ckpt.barrier_timeout``  the multi-host checkpoint publication barrier
+                          times out (a peer died between its shard writes
+                          and COMPLETE): every survivor raises typed
+                          `PeerLost`, the checkpoint stays invisible
+                          fleet-wide (`train/fault_tolerance.py`)
+``train.peer_dead``       the armed elastic-training rank SIGKILLs itself
+                          at the ``times``-th step boundary (deterministic
+                          spot reclaim; survivors must detect via
+                          heartbeats — `train/elastic.py`)
+``train.collective_stall``  a rank stalls ``delay_s`` INSIDE the KV
+                          allgather before publishing its contribution
+                          (wedged-peer simulation: its heartbeat goes
+                          stale and survivors raise typed `PeerLost`)
 ========================  ====================================================
 """
 from __future__ import annotations

@@ -25,6 +25,20 @@ per-step table `chip_smoke.py` reads). MFU is ``analytic_flops_per_token *
 tokens / (seconds * peak)`` with the H100 SXM bf16 dense peak from
 NVIDIA's data sheet; a CPU step's record holds no MFU.
 
+With ``grad_reducer`` (cross-process data parallelism, the JAX step's
+split mode: `train/elastic.py::FleetReducer`) the step hands the loss and
+the float32 gradients, before the clip, to the reducer on the host and
+runs the finite check, the clip and the update over the values it returns,
+so every rank of a fleet skips or applies identically. Without one the
+step is what it was. The ``train.step_nan`` fault site (`testing/faults.py`)
+poisons the loss as ``inject_nan`` does; in reducer mode the NaN travels
+through the reduce, so one rank's injected NaN skips the step on every rank.
+
+`CheckpointManager` (`train/fault_tolerance.py`) reads the state under the
+JAX manager's names: `state_trees` gives the parameter and optimizer
+trees in the order the JAX step holds them, `key_data` / `set_key_data`
+the key chain's two uint32 words (``meta/rng``).
+
 The step also reports to the port's metrics registry and flight recorder
 under the JAX step's names (`observability/`): a ``train.dispatch`` event
 before any work, ``train.steps`` / ``train.microbatches`` on every step,
@@ -38,14 +52,14 @@ and observes ``train.step_seconds``. ``train.mfu`` divides by
 ``H100_BF16_PEAK`` on the card and by the JAX package's nominal 1e12
 FLOP/s on the CPU. `start_watchdog` arms a stall watchdog over the loop.
 
-Not ported yet (ROADMAP A8): ZeRO-1 and the cross-process grad reducer
-(A8.3), the CUDA graph of the whole step (A8.4), the other arms of the
-flash op (A8.5).
+Not ported yet (ROADMAP A8): ZeRO-1 (A8.3), the CUDA graph of the whole
+step (A8.4), the other arms of the flash op (A8.5).
 """
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 from paddle_tpu_torch.kernels import prng
@@ -56,6 +70,7 @@ from paddle_tpu_torch.observability.flight_recorder import (Watchdog,
 from paddle_tpu_torch.models.gpt import (analytic_flops_per_token,
                                          check_trainable, scan_loss,
                                          stack_gpt_params, unstack_gpt_params)
+from paddle_tpu_torch.testing import faults
 
 __all__ = ["H100_BF16_PEAK", "ScanTrainStep"]
 
@@ -90,10 +105,14 @@ class ScanTrainStep:
     back. It holds the dropout key chain ``PRNGKey(seed)`` on ``device``
     too. With ``use_loss_mask`` every step needs a ``loss_mask``.
     ``device=None`` means ``cuda`` and raises where CUDA is absent.
+    ``grad_reducer``: optional ``(loss, grads) -> (loss, grads)`` host
+    hook over the pre-clip float32 values (``grads`` the
+    ``{"blocks", "top"}`` tree), as the JAX step's.
     """
 
     def __init__(self, model, optimizer, *, microbatches=1,
-                 use_loss_mask=False, seed=0, device=None):
+                 use_loss_mask=False, seed=0, device=None,
+                 grad_reducer=None):
         self.device = _resolve_device(device)
         check_trainable(model.cfg)
         self.model, self.opt, self.cfg = model, optimizer, model.cfg
@@ -105,7 +124,40 @@ class ScanTrainStep:
         self.last_step_ok = True
         self.records: list[dict] = []
         self._seen_sigs: set = set()
+        self._compiles = 0
+        self._ran = False          # any step taken: JAX holds sorted trees
+        self._grad_reducer = grad_reducer
         self._load_state()
+
+    @property
+    def compile_count(self) -> int:
+        """Compile steps counted (one per input signature)."""
+        return self._compiles
+
+    def key_data(self) -> np.ndarray:
+        """The key chain's two words as uint32, ``jax.random.key_data``
+        of the JAX step's key."""
+        return self._key.cpu().numpy().astype(np.uint32)
+
+    def set_key_data(self, words):
+        """Set the key chain from two uint32 words (a checkpoint's
+        ``meta/rng``)."""
+        w = np.asarray(words.cpu() if isinstance(words, torch.Tensor)
+                       else words).astype(np.int64)
+        self._key = torch.from_numpy(w).to(self.device)
+
+    def state_trees(self):
+        """(params, optimizer state): the step's trees keyed as the JAX
+        step's, in its order — the stacking order before the first step,
+        sorted keys after it (a jitted step returns sorted pytrees), so a
+        checkpoint's index lists the leaves as the JAX manager's does."""
+        if not self._ran:
+            return self._params, self._opt_state
+
+        def srt(d):
+            return {k: srt(d[k]) for k in sorted(d)} \
+                if isinstance(d, dict) else d
+        return srt(self._params), srt(self._opt_state)
 
     def _peak(self) -> float:
         """The MFU denominator of the ``train.mfu`` gauge."""
@@ -196,6 +248,22 @@ class ScanTrainStep:
         inv = 1.0 / xs.shape[0]
         return lsum * inv, [a * inv for a in gsum]
 
+    def _reduce(self, loss, grads):
+        """The split mode's host leg: the reducer over the loss and the
+        ``{"blocks", "top"}`` tree of float32 gradients, its answer back on
+        the device in `_leaf_keys` order."""
+        keys = list(_leaf_keys(self._params))
+        tree = {"blocks": {}, "top": {}}
+        for (grp, k), g in zip(keys, grads):
+            tree[grp][k] = g
+        rloss, rtree = self._grad_reducer(loss, tree)
+
+        def dev(a):
+            if isinstance(a, torch.Tensor):
+                return a.to(self.device, torch.float32)
+            return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
+        return dev(rloss), [dev(rtree[grp][k]) for grp, k in keys]
+
     @torch.no_grad()
     def _apply(self, grads, t):
         """Global-norm clip, then the AdamW update of every leaf in place."""
@@ -224,9 +292,9 @@ class ScanTrainStep:
         loss_mask: [B, S] (tensors or arrays; the mask is required with
         ``use_loss_mask`` and ignored without); B must divide by the
         microbatch count (``microbatches``, else the step's own).
-        ``inject_nan`` adds NaN to the loss, the counterpart of the JAX
-        step's ``train.step_nan`` fault, to drive the skip. Returns the mean
-        f32 loss as a Python float."""
+        ``inject_nan`` adds NaN to the loss, as the armed
+        ``train.step_nan`` fault site does, to drive the skip. Returns the
+        mean f32 loss as a Python float."""
         x = torch.as_tensor(x).to(self.device)
         y = torch.as_tensor(y).to(self.device)
         m = self.microbatches if microbatches is None else int(microbatches)
@@ -247,10 +315,17 @@ class ScanTrainStep:
         # watchdog dump's last event shows where
         flight.record("train.dispatch", step=self.opt.global_step + 1,
                       shape=str(tuple(xs.shape)))
+        # train.step_nan chaos site: a NaN rides the loss into the finite
+        # check (and, in reducer mode, through the reduce)
+        injected = bool(inject_nan) or (faults.ENABLED
+                                        and faults.fire("train.step_nan"))
+        self._ran = True
         t0 = time.perf_counter()
         loss, grads = self._grads(xs, ys, ms, prng.split(sub, m))
-        if inject_nan:
+        if injected:
             loss = loss + float("nan")
+        if self._grad_reducer is not None:
+            loss, grads = self._reduce(loss, grads)
         with torch.no_grad():
             ok = torch.stack([torch.isfinite(loss)]
                              + [torch.isfinite(g).all() for g in grads]).all()
@@ -270,6 +345,7 @@ class ScanTrainStep:
         compiled = sig not in self._seen_sigs
         self._seen_sigs.add(sig)
         if compiled:
+            self._compiles += 1
             metrics.counter("train.compile_count").inc()
             metrics.gauge("train.compile_ms").set(dt * 1e3)
             metrics.add_span("train.compile", t0, dt, cat="compile")
@@ -290,7 +366,7 @@ class ScanTrainStep:
             metrics.counter("train.bad_steps").inc()
             flight.record("train.bad_step", step=self.opt.global_step + 1,
                           loss=lossf, consecutive=self.consecutive_bad_steps,
-                          injected=bool(inject_nan))
+                          injected=injected)
             return lossf
         self.records.append({
             "step": self.opt.global_step + 1, "loss": lossf,
