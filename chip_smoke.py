@@ -135,6 +135,26 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    24 times a step (held exact, ``flash_launches_per_step``), with the
    step's share of the H100's 67 TFLOP/s f32 rate (``f32_peak_share``)
    beside its MFU. Every train line carries the card's clocks.
+   ``train_eager``: GPT-2 small as a Paddle program trains it (the
+   Layers of `models/gpt.py`, built after ``paddle.seed(SEED)`` on the
+   card, float32, hidden dropout 0.1, fused CE,
+   ``paddle.optimizer.AdamW(parameters=model.parameters())``), B=8,
+   S=1024, 6 steps of ``loss.backward(); opt.step(); opt.clear_grad()``:
+   step ms p50, tokens/s, MFU and f32 share, peak memory, launches a step
+   (12 of each flash kernel, 50 ``dropout``, exact); the losses fall, and
+   with dropout off each of the 6 steps' losses equals the port's
+   `ScanTrainStep`'s on the same weights (TRAIN_LOSS_TOL), and the
+   parameters after them (within 2 x lr, all but 0.1% within 1e-5).
+   ``generate_eager``: the same Layer with `serve`'s f32 weights decodes
+   `serve`'s 8 prompts with its eager ``generate``, 32 greedy tokens each
+   (flash at Sq = 1 against the growing cache, held as the ``decode``
+   flash case): tokens equal to an f32 `DecodeEngine`'s where the CPU's
+   top-2 margin exceeds MARGIN, ms a token; then two of the decodes
+   (prompts of 250 and 380 tokens) once more under `torch.profiler`: the
+   card's busy ms a token (all kernels, and flash's share), kernels a
+   token, and the unprofiled wall's ratio to the busy time.
+   ``phase_seconds``: each group of phases' seconds, before the
+   ``kernels`` line.
 8. ``incubate_parity``: the `incubate.nn` fused layers in float32 on the
    card against the port's CPU layers on the same weights:
    `FusedMultiTransformer` at GPT-2 small's width (768, 12 heads, FFN
@@ -358,6 +378,9 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch import device as tdevice
+from paddle_tpu_torch.core.tensor import Tensor as PTensor, torch_state
 from paddle_tpu_torch.distributed.fleet.elastic import NodeRegistry
 from paddle_tpu_torch.incubate.nn import (FusedLayerNorm,
                                           FusedMultiTransformer,
@@ -489,11 +512,13 @@ PREFILL_CASES = ((16, 0, 7), (512, 0, 300), (1024, 0, 1024),
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 INT8_KERNELS = ("paged_decode_int8", "paged_prefill_int8")
 # (name, B, H, Sq, Sk, D, causal) of the flash kernel checks; "train" and
-# "incubate" are the shapes the train and incubate runs give the kernels
+# "incubate" are the shapes the train and incubate runs give the kernels,
+# "decode" one token against a cache of 900 + 32 (`generate_eager`)
 FLASH_CASES = (("train", 8, 12, 1024, 1024, 64, True),
                ("incubate", 8, 12, 1024, 1024, 64, False),
                ("ragged", 1, 12, 200, 200, 64, True),
                ("cross", 1, 12, 64, 300, 64, True),
+               ("decode", 1, 12, 1, 932, 64, True),
                ("noncausal", 2, 12, 256, 256, 64, False))
 # card vs CPU float32 train steps: both sum in other orders, and the fused
 # cross-entropy rounds h, w and dlogits to bf16, where a value one f32 bit
@@ -547,6 +572,13 @@ SAMPLED_PARAMS = ((0.8, 40, 1), (1.0, 0, 0), (0.7, 0, 2), (1.2, 50, 3),
 SPEC_K = 4
 SPEC_PATTERN = 32                 # the speculative runs' prompts repeat this
 D_MODEL, FFN = 768, 3072                       # GPT-2 small's widths
+
+
+def host_gpt2_small(**kw):
+    """`models/gpt.py::gpt2_small` built on the host, as every phase's model
+    is: the engines and train steps copy its weights to their devices."""
+    with tdevice.device_scope("cpu"):
+        return gpt_mod.gpt2_small(**kw)
 
 
 def emit(obj):
@@ -1045,7 +1077,7 @@ def serve_parity(model, dev, kv_dtype="native"):
     cpu = serve(DecodeEngine(model, ecfg, device="cpu"), prompts, 16)
     t_cpu = time.perf_counter() - t0
 
-    cpu_params = {k: v.detach() for k, v in model.state_dict().items()}
+    cpu_params = torch_state(model)
     card_params = {k: v.to(dev) for k, v in cpu_params.items()}
     runs = [[prefill_logits(params, p, where, cfg, quant) for p in prompts]
             for params, where in ((cpu_params, "cpu"), (card_params, dev))]
@@ -1226,7 +1258,7 @@ def serve_sampled_parity(model, dev):
     card = serve(eng, prompts, 16, params)
     launches, expected, ran = engine_launches(eng, counters0, phase)
     cpu = serve(DecodeEngine(model, ecfg, device="cpu"), prompts, 16, params)
-    cpu_params = {k: v.detach() for k, v in model.state_dict().items()}
+    cpu_params = torch_state(model)
     reqs = compare_tokens(card, cpu, prompts, params, cfg, cpu_params)
     ok = all(r["tokens_equal"] for r in reqs)
     emit({"phase": phase, "model": "gpt2-small", "dtype": "float32",
@@ -1262,7 +1294,7 @@ def serve_spec_parity(model, dev):
     card_plain = serve(DecodeEngine(model, plain, device=dev), prompts, 16,
                        params)
     cpu = serve(DecodeEngine(model, spec, device="cpu"), prompts, 16, params)
-    cpu_params = {k: v.detach() for k, v in model.state_dict().items()}
+    cpu_params = torch_state(model)
     vs_plain = compare_tokens(card, card_plain, prompts, params, cfg,
                               cpu_params)
     vs_cpu = compare_tokens(card, cpu, prompts, params, cfg, cpu_params)
@@ -1481,7 +1513,7 @@ def serve_run(model, dev, smi, phase="serve", params=None, greedy_ref=None,
     step_tokens = line.pop("step_tokens")
     ok = line["outputs_ok"]
     line = {"phase": phase, "model": "gpt2-small",
-            "dtype": dtype_name(next(model.parameters()).dtype),
+            "dtype": dtype_name(model.parameters()[0].dtype),
             "kv_dtype": eng.ecfg.kv_dtype,
             "weight_dtype": eng.ecfg.weight_dtype,
             "card": smi, "requests": len(prompts), "prompt_lens": list(lens),
@@ -1510,7 +1542,7 @@ def serve_run(model, dev, smi, phase="serve", params=None, greedy_ref=None,
     line.update(launches_per_step(eng, prompts, params))
     if eng._quant_kv or eng.ecfg.weight_dtype != "native":
         # each prompt's first-token logits against the native bf16 ones
-        native = {k: v.detach().to(dev) for k, v in model.state_dict().items()}
+        native = {k: v.to(dev) for k, v in torch_state(model).items()}
         lg_q = torch.stack([prefill_logits(eng._params, p, dev, cfg,
                                            eng._quant_kv)[0]
                             for p in prompts])
@@ -1659,7 +1691,7 @@ def serve_prefix_parity(model, dev, kv_dtype="native"):
 
     cached = [min((len(p) - 1) // PS, PREFIX_PARITY_SYSTEM // PS) * PS
               for p in prompts]
-    cpu_params = {k: v.detach() for k, v in model.state_dict().items()}
+    cpu_params = torch_state(model)
     card_params = {k: v.to(dev) for k, v in cpu_params.items()}
     lg = [torch.stack([tail_logits(params, p, c, where, cfg, quant)
                        for p, c in zip(prompts, cached)])
@@ -1781,8 +1813,7 @@ def serve_prefix(model, dev, smi):
     run's top-2 margin is within `bf16_logit_bound`."""
     lines, outs = {}, {}
     params = [(1.0, 0, 0)] * len(PREFIX_SUFFIXES)
-    card_params = {k: v.detach().to(dev) for k, v in
-                   model.state_dict().items()}
+    card_params = {k: v.to(dev) for k, v in torch_state(model).items()}
     for arm in PREFIX_ARMS:
         eng, system, prompts, spill, warmed = prefix_engine(model, dev, arm)
         line, outs[arm], ran = timed_serve(eng, prompts, params, dev,
@@ -2128,8 +2159,7 @@ def serve_handoff(model, dev, smi):
                .astype(np.int32) for n in SERVE_LENS]
     extra = rng.integers(0, min(VOCAB, model.cfg.vocab_size),
                          HANDOFF_QUEUED).astype(np.int32)
-    card_params = {k: v.detach().to(dev) for k, v in
-                   model.state_dict().items()}
+    card_params = {k: v.to(dev) for k, v in torch_state(model).items()}
     ok = True
     for q in ({}, {"kv_dtype": "int8", "weight_dtype": "int8"}):
         ok &= handoff_dtype(model, dev, smi, prompts, extra, q, card_params)
@@ -2472,7 +2502,7 @@ def wire_cli(dev, smi, prompts, serve_tps, workdir):
     paddle_tpu_torch.inference.serve`` in a process of its own; its
     tokens against an in-process float32 engine of the same config."""
     n = HANDOFF_NEW_TOKENS
-    f32 = gpt_mod.gpt2_small(generator=torch.Generator().manual_seed(SEED))
+    f32 = host_gpt2_small(generator=torch.Generator().manual_seed(SEED))
     weights = os.path.join(workdir, "gpt2_small.pdparams")
     pio.save(f32, weights)
     cfg_path = os.path.join(workdir, "gpt2_small.json")
@@ -2903,8 +2933,7 @@ def serve_wire(model, dev, smi, serve_line):
     prompts = [rng.integers(0, min(VOCAB, model.cfg.vocab_size), n)
                .astype(np.int32) for n in SERVE_LENS]
     serve_tps = serve_line["decode_tokens_per_s"]
-    card_params = {k: v.detach().to(dev) for k, v in
-                   model.state_dict().items()}
+    card_params = {k: v.to(dev) for k, v in torch_state(model).items()}
     ok = True
     with tempfile.TemporaryDirectory() as workdir:
         ok &= wire_cli(dev, smi, prompts, serve_tps, workdir)
@@ -3490,8 +3519,7 @@ def serve_router(model, dev, smi, wire):
     ``wire``: `serve_wire`'s prompts, references and ``inproc`` figures.
     See each arm for its gates; every arm frees its replicas before the
     next."""
-    wire = dict(wire, card_params={k: v.detach().to(dev) for k, v in
-                                   model.state_dict().items()})
+    wire = dict(wire, card_params={k: v.to(dev) for k, v in torch_state(model).items()})
     ok = True
     with tempfile.TemporaryDirectory() as workdir:
         for arm in (router_routed, router_failover, router_disagg,
@@ -3717,8 +3745,7 @@ def serve_lifecycle(model, dev, smi):
     a host tier; a queue at 6/8 puts the ladder at level 2, which drops
     the idle primed prefix pages into the host tier, drafting stops from
     level 1 on, and the level falls back to 0 as the queue drains."""
-    card_params = {k: v.detach().to(dev) for k, v in
-                   model.state_dict().items()}
+    card_params = {k: v.to(dev) for k, v in torch_state(model).items()}
     admission, ok_a = lifecycle_admission(model, dev, card_params)
     ladder, ok_b = lifecycle_ladder(model, dev)
     emit({"phase": "serve_lifecycle", "model": "gpt2-small",
@@ -4189,7 +4216,7 @@ def train_parity(dev, smi, dtype=torch.float32, hidden_dropout=0.0):
     x, y = train_batch(np.random.default_rng(SEED + 3), 4, 256, VOCAB)
     losses, grads, launches = {}, {}, None
     for where in (dev, "cpu"):
-        model = gpt_mod.gpt2_small(
+        model = host_gpt2_small(
             generator=torch.Generator().manual_seed(SEED), **cfg).to(dtype)
         step = ScanTrainStep(model, AdamW(learning_rate=1e-3, clip_norm=1.0),
                              microbatches=2, device=where)
@@ -4243,7 +4270,7 @@ def train_run(dev, smi, phase="train", warmup=2, timed=8,
     gc.collect()
     torch.cuda.empty_cache()
     cfg = dict(dict(hidden_dropout=0.0, attention_dropout=0.0), **over)
-    model = gpt_mod.gpt2_small(generator=torch.Generator().manual_seed(SEED),
+    model = host_gpt2_small(generator=torch.Generator().manual_seed(SEED),
                                **cfg)
     model = model.to(dtype)
     step = ScanTrainStep(model, AdamW(learning_rate=1e-4, clip_norm=1.0),
@@ -4280,7 +4307,7 @@ def train_run(dev, smi, phase="train", warmup=2, timed=8,
         and observed["train_steps_counted"] == warmup + timed \
         and observed["watchdog_dumps"] == 0
     line = {"phase": phase, "model": "gpt2-small",
-            "dtype": dtype_name(next(model.parameters()).dtype),
+            "dtype": dtype_name(model.parameters()[0].dtype),
             "master_weights": "float32" if dtype != torch.float32 else None,
             "card": smi,
             "hidden_dropout": model.cfg.hidden_dropout,
@@ -4318,6 +4345,232 @@ def train_f32(dev, smi):
     a step (12 layers x 2 microbatches), held exact."""
     return train_run(dev, smi, "train_f32", warmup=2, timed=4,
                      dtype=torch.float32)
+
+
+EAGER_STEPS = 6                 # train_eager's steps (the first warms)
+EAGER_LR = 1e-3                 # paddle.optimizer.AdamW's default rate
+GENERATE_TOKENS = 32
+PROFILED_PROMPTS = (3, 4)       # generate_eager's prompts run profiled:
+                                # 250 and 380 tokens, near their mean
+
+
+def eager_batch(dev, b, s):
+    x, y = train_batch(np.random.default_rng(SEED + 4), b, s, VOCAB)
+    return x, y, (PTensor(torch.from_numpy(a).long().to(dev)) for a in (x, y))
+
+
+def eager_step(model, opt, xt, yt):
+    """One step of a Paddle program's own loop; the loss as a float."""
+    _, loss = model(xt, labels=yt)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return float(loss)
+
+
+def eager_vs_scan(dev, b, s):
+    """EAGER_STEPS steps of the eager loop against as many of the port's
+    ScanTrainStep on the same weights and batch, hidden dropout off, AdamW
+    at EAGER_LR with no clip on both sides: (each step's eager loss, the
+    scan step's, the largest parameter difference after the last step, its
+    99.9th percentile)."""
+    cfg = dict(hidden_dropout=0.0, attention_dropout=0.0)
+    x, y, (xt, yt) = eager_batch(dev, b, s)
+    paddle.seed(SEED)
+    with tdevice.device_scope(dev):
+        model = gpt_mod.gpt2_small(**cfg)
+    w0 = {k: v.to("cpu", copy=True) for k, v in torch_state(model).items()}
+    opt = paddle.optimizer.AdamW(parameters=model.parameters())
+    eager_losses = [eager_step(model, opt, xt, yt)
+                    for _ in range(EAGER_STEPS)]
+    eager = {k: v.to("cpu", copy=True)
+             for k, v in torch_state(model).items()}
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = host_gpt2_small(**cfg)
+    ref.set_state_dict(w0)
+    step = ScanTrainStep(ref, AdamW(learning_rate=EAGER_LR),
+                         microbatches=1, device=dev)
+    scan_losses = [step.step(x, y) for _ in range(EAGER_STEPS)]
+    step.sync_to_model()
+    diff = torch.cat([(eager[k] - v).abs().reshape(-1)
+                      for k, v in torch_state(ref).items()])
+    del step, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    q999 = float(diff.topk(max(1, diff.numel() // 1000)).values[-1])
+    return eager_losses, scan_losses, float(diff.max()), q999
+
+
+def train_eager(dev, smi, b=8, s=1024):
+    """GPT-2 small as a Paddle program trains it: built after
+    ``paddle.seed(SEED)`` on the card in its default float32, hidden
+    dropout 0.1, attention dropout 0 (the flash kernels), fused CE,
+    ``paddle.optimizer.AdamW(parameters=model.parameters())``, B=8, S=1024,
+    EAGER_STEPS steps of ``loss.backward(); opt.step(); opt.clear_grad()``.
+    Gates: the losses fall; with dropout off, every one of EAGER_STEPS
+    steps' losses equals the port's ScanTrainStep's on the same weights
+    within TRAIN_LOSS_TOL, and the parameters after the last step too
+    (every one within AdamW's two steps of the rate, all but 0.1% within
+    1e-5); every attention call on the flash kernels
+    (``kernel.dispatch.flash_attention.cuda``, no plain arm), exact
+    launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager_losses, scan_losses, param_max, param_q999 = \
+        eager_vs_scan(dev, b, s)
+    loss_diffs = [abs(a - c) for a, c in zip(eager_losses, scan_losses)]
+    x, _, (xt, yt) = eager_batch(dev, b, s)
+    paddle.seed(SEED)
+    with tdevice.device_scope(dev):
+        model = gpt_mod.gpt2_small(hidden_dropout=DROPOUT_P,
+                                   attention_dropout=0.0)
+    opt = paddle.optimizer.AdamW(parameters=model.parameters())
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()                       # the eager path's run
+    registry.reset_counts()
+    losses, ms = [], []
+    for _ in range(EAGER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(eager_step(model, opt, xt, yt))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    expected = train_launches(model.cfg, 1, EAGER_STEPS)
+    launches = read_launches("train_eager", expected)
+    dispatch = registry.counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = statistics.median(ms[1:])
+    tokens = x.size
+    flops = gpt_mod.analytic_flops_per_token(model.cfg, s) * tokens
+    nl = model.cfg.num_layers
+    ok = (bool(np.isfinite(losses).all()) and losses[-1] < losses[0]
+          and bool(np.isfinite(scan_losses).all())
+          and max(loss_diffs) <= TRAIN_LOSS_TOL and param_max <= 2 * EAGER_LR
+          and param_q999 <= 1e-5
+          and dispatch.get("kernel.dispatch.flash_attention.cuda")
+          == nl * EAGER_STEPS
+          and "kernel.dispatch.flash_attention.plain" not in dispatch)
+    line = {"phase": "train_eager", "model": "gpt2-small",
+            "dtype": "float32", "card": smi, "batch": b, "seq": s,
+            "hidden_dropout": DROPOUT_P, "optimizer": "AdamW",
+            "learning_rate": EAGER_LR, "steps": EAGER_STEPS,
+            "step_ms": ms, "step_ms_p50": step_ms,
+            "tokens_per_s": tokens / (step_ms / 1e3),
+            "mfu": flops / (step_ms / 1e3 * H100_BF16_PEAK),
+            "f32_peak_share": flops / (step_ms / 1e3
+                                       * PEAK_OPS[torch.float32]),
+            "flops_per_step": flops, "peak_memory_bytes": peak,
+            "losses": losses, "launches": launches,
+            "launches_per_step": {k: n / EAGER_STEPS
+                                  for k, n in launches.items() if n},
+            "dispatch": dispatch, "vs_scan_step": {
+                "hidden_dropout": 0.0, "eager_losses": eager_losses,
+                "scan_losses": scan_losses, "loss_abs_diff": loss_diffs,
+                "loss_tol": TRAIN_LOSS_TOL,
+                "param_max_abs_diff": param_max,
+                "param_abs_diff_q999": param_q999},
+            "clocks": card_clocks(), "ok": ok}
+    emit(line)
+    if not ok:
+        raise SystemExit(f"train_eager: losses {losses}, against the scan "
+                         f"step {line['vs_scan_step']}, dispatch {dispatch}")
+    return launches
+
+
+def eager_decode_profile(model, prompts, n, dev, wall_ms_per_token):
+    """The eager decode of ``prompts`` (``n`` greedy tokens each) once
+    more under `torch.profiler`: the card's busy milliseconds a token
+    (every kernel's device time summed, the port's and PyTorch's; and the
+    flash kernels' part of it), kernels a token, the profiled run's wall,
+    and ``wall_ms_per_token`` (the unprofiled run's mean) over the busy
+    time: how many times its device work the host's eager decode takes."""
+    ids = [PTensor(torch.from_numpy(p[None].astype(np.int64)).to(dev))
+           for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x in ids:
+            model.generate(x, max_new_tokens=n)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    tokens = n * len(prompts)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(map(device_us, kern)) / 1e3
+    flash = sum(device_us(e) for e in kern if "flash" in e.key) / 1e3
+    top = sorted(kern, key=device_us, reverse=True)[:8]
+    return {"tokens": tokens,
+            "device_ms_per_token": busy / tokens,
+            "flash_device_ms_per_token": flash / tokens,
+            "kernels_per_token": sum(e.count for e in kern) / tokens,
+            "profiled_wall_ms_per_token": wall / tokens,
+            "wall_ms_per_token": wall_ms_per_token,
+            "wall_over_device": wall_ms_per_token / (busy / tokens),
+            "top_kernels_device_ms": {e.key[:80]: device_us(e) / 1e3
+                                      for e in top}}
+
+
+def generate_eager(dev, smi):
+    """GPT-2 small (float32, `serve`'s weights from the seed) as a Paddle
+    Layer on the card decodes `serve`'s 8 prompts one at a time with its
+    eager ``generate``, GENERATE_TOKENS greedy tokens each: the prompt's
+    forward, then one forward a token over the growing caches (flash at
+    Sq = 1). The tokens must equal a float32 DecodeEngine's on the same
+    weights wherever the CPU's top-2 margin exceeds MARGIN. After the
+    counts are read, two of the decodes run once more under
+    `torch.profiler` (`eager_decode_profile`, PROFILED_PROMPTS)."""
+    with tdevice.device_scope(dev):
+        model = gpt_mod.gpt2_small(
+            generator=torch.Generator().manual_seed(SEED),
+            hidden_dropout=0.0, attention_dropout=0.0)
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, min(VOCAB, model.cfg.vocab_size), n)
+               .astype(np.int32) for n in SERVE_LENS]
+    n = GENERATE_TOKENS
+    reset_launches()                       # the eager decode's run
+    registry.reset_counts()
+    outs, ms = [], []
+    for p in prompts:
+        ids = PTensor(torch.from_numpy(p[None].astype(np.int64)).to(dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=n)
+        outs.append(out.numpy()[0])
+        ms.append((time.perf_counter() - t0) * 1e3 / n)
+    nl = model.cfg.num_layers
+    launches = read_launches("generate_eager",
+                             {"flash_fwd": nl * n * len(prompts)})
+    dispatch = registry.counts()
+    prof = eager_decode_profile(
+        model, [prompts[i] for i in PROFILED_PROMPTS], n, dev,
+        statistics.mean(ms[i] for i in PROFILED_PROMPTS))
+    eng = DecodeEngine(model, EngineConfig(page_size=PS, max_slots=8,
+                                           prefix_cache=False, inflight=1),
+                       device=dev)
+    refs = serve(eng, prompts, n)
+    del eng
+    cpu_params = {k: v.cpu() for k, v in torch_state(model).items()}
+    reqs = compare_tokens(outs, refs, prompts, [(1.0, 0, 0)] * len(prompts),
+                          model.cfg, cpu_params)
+    ok = all(r["tokens_equal"] or r["first_divergence"]["cpu_margin"]
+             <= MARGIN for r in reqs) \
+        and dispatch.get("kernel.dispatch.flash_attention.cuda") \
+        == nl * n * len(prompts)
+    emit({"phase": "generate_eager", "model": "gpt2-small",
+          "dtype": "float32", "card": smi, "prompt_lens": list(SERVE_LENS),
+          "new_tokens": n, "ms_per_token": ms,
+          "ms_per_token_p50": statistics.median(ms), "requests": reqs,
+          "margin_gate": MARGIN, "launches": launches, "dispatch": dispatch,
+          "profile": prof, "clocks": card_clocks(), "ok": ok})
+    if not ok:
+        raise SystemExit(f"generate_eager: tokens off the engine's: {reqs}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def fc_out_product_ms(dev, timer, b=8, s=1024):
@@ -4575,23 +4828,23 @@ def incubate_parity(dev):
     def rand(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
     results, launches = {}, {}
-    gen = torch.Generator().manual_seed(SEED)
-    cpu = FusedMultiTransformer(D_MODEL, NH, FFN, num_layers=2,
-                                device="cpu", generator=gen).eval()
-    card = FusedMultiTransformer(D_MODEL, NH, FFN, num_layers=2,
-                                 device=dev).eval()
-    card.load_state_dict(cpu.state_dict())
+    paddle.seed(SEED)
+    with tdevice.device_scope("cpu"):
+        cpu = FusedMultiTransformer(D_MODEL, NH, FFN, num_layers=2).eval()
+    with tdevice.device_scope(dev):
+        card = FusedMultiTransformer(D_MODEL, NH, FFN, num_layers=2).eval()
+    card.set_state_dict(cpu.state_dict())
     x, mask = rand(2, 256, D_MODEL), rand(2, 1, 256, 256)
     for name, m in (("stack_masked", mask), ("stack_no_mask", None)):
         reset_launches()                 # the stack's run on the card
         with torch.no_grad():
             got = card(x.to(dev), attn_mask=None if m is None
-                       else m.to(dev)).cpu()
+                       else m.to(dev))._data.cpu()
         launches[name] = read_launches(
             f"incubate_parity {name}",
             {} if m is not None else {"flash_fwd": 2})
         with torch.no_grad():
-            ref = cpu(x, attn_mask=m)
+            ref = cpu(x, attn_mask=m)._data
         results[name] = (max_err(got, ref),
                          rel_tol(ref, INCUBATE_TOL["stack"]))
 
@@ -4599,17 +4852,18 @@ def incubate_parity(dev):
     x, w = rand(2, 256, D_MODEL) * 2 + 0.5, rand(2, 256, D_MODEL)
     grads = {}
     for where in ("cpu", dev):
-        ln = FusedLayerNorm(D_MODEL, device=where)
-        ln.load_state_dict(state)
-        xx = x.to(where).detach().requires_grad_(True)
+        with tdevice.device_scope(where):
+            ln = FusedLayerNorm(D_MODEL)
+        ln.set_state_dict(state)
+        xx = PTensor(x.to(where), stop_gradient=False)
         if where == dev:
             reset_launches()             # the layernorm's run on the card
         y = ln(xx)
-        (y * w.to(where)).sum().backward()
+        (y * PTensor(w.to(where))).sum().backward()
         if where == dev:
             launches["layernorm"] = read_launches(
                 "incubate_parity layernorm", dict.fromkeys(LN_KERNELS, 1))
-        grads[str(where)] = [t.detach().cpu() for t in
+        grads[str(where)] = [t._data.detach().cpu() for t in
                              (y, xx.grad, ln.weight.grad, ln.bias.grad)]
     for i, name in enumerate(("ln_y", "ln_dx", "ln_dweight", "ln_dbias")):
         ref = grads["cpu"][i]
@@ -4619,10 +4873,10 @@ def incubate_parity(dev):
     q, k = rand(2, NH, 256, DH), rand(2, NH, 256, DH)
     cos, sin = rope_tables(256, DH, "cpu")
     reset_launches()                     # the rope's run on the card
-    got = fused_rotary_position_embedding(q.to(dev), k.to(dev), cos.to(dev),
-                                          sin.to(dev))
+    got = [t._data for t in fused_rotary_position_embedding(
+        q.to(dev), k.to(dev), cos.to(dev), sin.to(dev))]
     launches["rope"] = read_launches("incubate_parity rope", {"rotary": 1})
-    ref = fused_rotary_position_embedding(q, k, cos, sin)
+    ref = [t._data for t in fused_rotary_position_embedding(q, k, cos, sin)]
     for name, g, r in (("rope_q", got[0], ref[0]), ("rope_k", got[1],
                                                     ref[1])):
         results[name] = (max_err(g.cpu(), r), INCUBATE_TOL["rope"] * max(
@@ -4647,30 +4901,31 @@ def incubate_run(dev, smi, reps=3, b=8, s=1024, nl=12):
     def rand(*shape, dt=torch.bfloat16):
         return torch.from_numpy(rng.standard_normal(
             shape, dtype=np.float32)).to(dev, dt)
-    stack = FusedMultiTransformer(
-        D_MODEL, NH, FFN, num_layers=nl, device=dev,
-        generator=torch.Generator().manual_seed(SEED)).to(
+    paddle.seed(SEED)
+    with tdevice.device_scope(dev):
+        stack = FusedMultiTransformer(D_MODEL, NH, FFN, num_layers=nl).to(
             torch.bfloat16).eval()
-    ln = FusedLayerNorm(D_MODEL, device=dev)
+        ln = FusedLayerNorm(D_MODEL)
     x, dy = rand(b, s, D_MODEL), rand(b, s, D_MODEL)
     q, k = rand(b, NH, s, DH), rand(b, NH, s, DH)
     cos, sin = rope_tables(s, DH, dev)
-    xg = x.detach().requires_grad_(True)
+    xg = PTensor(x, stop_gradient=False)
 
     def run_stack():
         with torch.no_grad():
-            return stack(x)
+            return stack(x)._data
 
     def run_ln():
         y = ln(xg)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        y.backward(dy)
+        y.backward(PTensor(dy))
         torch.cuda.synchronize()
-        return y, (time.perf_counter() - t0) * 1e3
+        return y._data, (time.perf_counter() - t0) * 1e3
 
     def run_rope():
-        return fused_rotary_position_embedding(q, k, cos, sin)
+        return [t._data for t in fused_rotary_position_embedding(
+            q, k, cos, sin)]
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -4701,13 +4956,14 @@ def incubate_run(dev, smi, reps=3, b=8, s=1024, nl=12):
     # what came out: finite, of the expected shapes, the layernorm and the
     # rope as their plain versions compute them on the card
     with torch.no_grad():
-        ry, _, _ = tfl._plain_ln_fwd(x.reshape(-1, D_MODEL), ln.weight,
-                                     ln.bias, ln.epsilon)
+        ry, _, _ = tfl._plain_ln_fwd(x.reshape(-1, D_MODEL),
+                                     ln.weight._data, ln.bias._data,
+                                     ln.epsilon)
         rq, _ = trot._plain_rope(q, k, cos, sin)
         y = y.detach()
     ok = (tuple(out.shape) == (b, s, D_MODEL) and bool(out.isfinite().all())
           and tuple(xg.grad.shape) == (b, s, D_MODEL)
-          and bool(xg.grad.isfinite().all())
+          and bool(xg.grad._data.isfinite().all())
           and max_err(y.reshape(-1, D_MODEL), ry) <= flash_tol(
               torch.bfloat16, ry, INCUBATE_TOL["ln_fwd"])
           and max_err(qo, rq) <= 2.0 ** -7 * rq.float().abs().max().item())
@@ -4740,7 +4996,7 @@ def ft_step(dev, microbatches=2, reducer=None, seed=SEED):
     """GPT-2 small in bf16 on f32 masters, AdamW (clip 1.0) over an
     `optimizer/lr.py` schedule (a 2-step linear warm-up into a cosine
     decay), which the checkpoints carry."""
-    model = gpt_mod.gpt2_small(generator=torch.Generator().manual_seed(seed),
+    model = host_gpt2_small(generator=torch.Generator().manual_seed(seed),
                                hidden_dropout=0.0, attention_dropout=0.0)
     sched = LinearWarmup(CosineAnnealingDecay(CKPT_LR, 20), 2, 1e-5, CKPT_LR)
     return ScanTrainStep(model.to(torch.bfloat16),
@@ -5459,20 +5715,31 @@ def main():
     del timer
     torch.cuda.empty_cache()
 
+    seconds = {"kernels": time.perf_counter() - t0}
+    clock = [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        seconds[name] = seconds.get(name, 0.0) + now - clock[0]
+        clock[0] = now
+
     sampler_phase(dev, smi)
-    model = gpt_mod.gpt2_small(generator=torch.Generator().manual_seed(SEED))
+    mark("sampler")
+    model = host_gpt2_small(generator=torch.Generator().manual_seed(SEED))
     serve_parity(model, dev)
     serve_parity(model, dev, kv_dtype="int8")
     serve_sampled_parity(model, dev)
     serve_spec_parity(model, dev)
     serve_prefix_parity(model, dev)
     serve_prefix_parity(model, dev, kv_dtype="int8")
-    other = gpt_mod.gpt2_small(
+    mark("serve_parity")
+    other = host_gpt2_small(
         generator=torch.Generator().manual_seed(SEED + 9))
     serve_graph(model, other, dev)
     model = model.to(torch.bfloat16)
     serve_graph(model, other.to(torch.bfloat16), dev)
     del other
+    mark("serve_graph")
     serve_parity(model, dev)
     line, greedy_outs = serve_run(model, dev, smi)
     launches = line["launches"]
@@ -5482,18 +5749,23 @@ def main():
     serve_run(model, dev, smi, "serve_spec", speculate_k=SPEC_K)
     quantized = serve_run(model, dev, smi, "serve_int8", kv_dtype="int8",
                           weight_dtype="int8")[0]["launches"]
+    mark("serve")
     serve_prefix(model, dev, smi)
     serve_inflight(model, dev, smi, greedy_outs)
     serve_handoff(model, dev, smi)
+    mark("serve_prefix_inflight_handoff")
     wire = serve_wire(model, dev, smi, line)
+    mark("serve_wire")
     serve_lifecycle(model, dev, smi)
     serve_observe(model, dev, smi, greedy_outs)
     launches.update((k, quantized[k]) for k in INT8_KERNELS)
     torch.cuda.empty_cache()
+    mark("serve_lifecycle_observe")
     train_parity(dev, smi)
     train_parity(dev, smi, torch.bfloat16)
     train_parity(dev, smi, hidden_dropout=DROPOUT_P)
     train_parity(dev, smi, torch.bfloat16, hidden_dropout=DROPOUT_P)
+    mark("train_parity")
     trained_line = train_run(dev, smi)
     trained = trained_line["launches"]
     launches.update((k, trained[k]) for k in FLASH_KERNELS)
@@ -5501,20 +5773,33 @@ def main():
     launches["dropout"] = dropped["launches"]["dropout"]
     train_recompute(dev, smi, dropped)
     train_f32(dev, smi)
+    mark("train")
+    # the Paddle front end: a user's own eager loop and eager decode
+    for phase_launches in (train_eager(dev, smi), generate_eager(dev, smi)):
+        for k in (*FLASH_KERNELS, "dropout"):
+            launches[k] += phase_launches[k]
+    mark("train_eager_generate_eager")
     torch.cuda.empty_cache()
     incubate_parity(dev)
     incubated = incubate_run(dev, smi)
     launches.update((k, incubated[k]) for k in (*LN_KERNELS, "rotary"))
+    mark("incubate")
     # last, so that every phase before it runs as it ran before the
     # router tier came
     serve_router(model, dev, smi, wire)
     del model, wire
     torch.cuda.empty_cache()
+    mark("serve_router")
     # after the router tier: fault-tolerant and elastic training
-    for phase_launches in (train_ckpt(dev, smi, trained_line),
-                           train_elastic(dev, smi)):
+    for name, run in (("train_ckpt", lambda: train_ckpt(dev, smi,
+                                                        trained_line)),
+                      ("train_elastic", lambda: train_elastic(dev, smi))):
+        phase_launches = run()
         for k in FLASH_KERNELS:
             launches[k] += phase_launches[k]
+        mark(name)
+    emit({"phase": "phase_seconds", "seconds": seconds,
+          "total": sum(seconds.values())})
 
     # the shapes of the paths' runs: bfloat16, decode at B=8, prefill up to
     # C=1024, flash at the train shape, layernorm and rope at the incubate

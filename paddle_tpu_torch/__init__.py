@@ -3,13 +3,33 @@
 The JAX package `paddle_tpu` stays the reference; this package imports
 nothing from it and nothing of JAX. Each Pallas kernel of the JAX package
 becomes a kernel written by hand for Hopper (`kernels/csrc/`), beside a
-plain PyTorch version that runs on the CPU. Ported so far: GPT-2 serving
-(`inference/engine.py::DecodeEngine` over `models/gpt.py`'s paged decode
-and prefill steps, with the JAX engine's request lifecycle and in-flight
-readback window; `testing/faults.py` holds its fault sites), native or
-quantized (int8 KV pages, weight-only int8:
-`quantization/`), GPT-2 training (`train/scan_step.py`), and the
-`incubate.nn` fused layers (`incubate/nn/`: the fused layernorm and rotary
-kernels, over the Paddle nn layers of `nn/`). With them every Pallas
-kernel of the JAX package has its Hopper counterpart: ten kernels.
+plain PyTorch version that runs on the CPU.
+
+The Paddle eager front end is this package's top level, as the JAX
+package's is (`_paddle.py`): dtypes, `Tensor` (a wrapper over a torch
+tensor), autograd on torch's engine, the ops, `nn`, `optimizer`,
+`autograd` and the device functions. New tensors go to the card unless
+`set_device("cpu")` says otherwise. The names load on first use, so a
+stdlib-only subpackage (`observability`) imports without torch. ROADMAP.md
+lists what of the JAX package is ported and what waits.
 """
+import importlib as _importlib
+
+
+_SUBPACKAGES = ("device", "nn", "optimizer", "autograd")
+
+
+def __getattr__(name):
+    if name in _SUBPACKAGES:
+        return _importlib.import_module(f"paddle_tpu_torch.{name}")
+    api = _importlib.import_module("paddle_tpu_torch._paddle")
+    if name in api.__all__:
+        globals().update({n: getattr(api, n) for n in api.__all__})
+        return globals()[name]
+    raise AttributeError(f"module 'paddle_tpu_torch' has no attribute "
+                         f"{name!r}")
+
+
+def __dir__():
+    api = _importlib.import_module("paddle_tpu_torch._paddle")
+    return sorted(set(globals()) | set(api.__all__))

@@ -28,6 +28,8 @@ import struct
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core.tensor import Parameter, Tensor
+
 __all__ = ["save", "load"]
 
 _MAGIC = b"PDTPU001"
@@ -95,6 +97,10 @@ def _pack(obj):
     tensors = []
 
     def convert(o):
+        if isinstance(o, Tensor):
+            tensors.append(_to_numpy(o._data))
+            return _TensorRef(len(tensors) - 1, isinstance(o, Parameter),
+                              bool(o.stop_gradient), o.name or "")
         if isinstance(o, torch.Tensor):
             tensors.append(_to_numpy(o))
             return _TensorRef(len(tensors) - 1,
@@ -133,9 +139,10 @@ def _unpack(obj, tensors, return_numpy=False):
 
 
 def save(obj, path, protocol=4):
-    """Write a nested structure of tensors (or a module's ``state_dict()``)
-    to one ``PDTPU001`` file."""
-    if isinstance(obj, torch.nn.Module):
+    """Write a nested structure of tensors (torch tensors or Paddle
+    Tensors; or a Layer or module, as its ``state_dict()``) to one
+    ``PDTPU001`` file."""
+    if hasattr(obj, "state_dict") and callable(obj.state_dict):
         obj = obj.state_dict()
     tree, tensors = _pack(obj)
     buf = _io.BytesIO()

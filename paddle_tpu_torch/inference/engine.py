@@ -154,6 +154,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core.tensor import torch_state
 from paddle_tpu_torch.inference.errors import (Cancelled, DeadlineExceeded,
                                                HandoffCorrupt, Overloaded,
                                                from_wire)
@@ -916,7 +917,7 @@ class DecodeEngine:
         then moved: the card and the CPU engines hold the same int8 values
         and scales). The engine owns its copies: `refresh_params` writes
         into them, never into the model's tensors."""
-        params = {k: v.detach() for k, v in model.state_dict().items()}
+        params = torch_state(model)
         if self.ecfg.weight_dtype not in ("native", None):
             params = quantize_gpt_params(params, self.ecfg.weight_dtype)
         return {k: v.to(self.device) if isinstance(v, QuantizedLeaf)

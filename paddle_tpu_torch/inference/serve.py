@@ -1814,28 +1814,6 @@ def _gpt_config(spec: dict):
     return GPTConfig(**spec)
 
 
-def set_state_dict(model: torch.nn.Module, state: dict):
-    """Copy ``state``'s values into ``model``'s parameters of the same
-    names, each cast to its parameter's dtype and shape-checked, as the JAX
-    ``Layer.set_state_dict`` does; returns ``(missing, unexpected)``."""
-    own = model.state_dict()
-    missing = [k for k in own if k not in state]
-    unexpected = [k for k in state if k not in own]
-    with torch.no_grad():
-        for key, target in own.items():
-            if key not in state:
-                continue
-            v = state[key]
-            v = v if isinstance(v, torch.Tensor) \
-                else torch.from_numpy(np.array(v))
-            if tuple(v.shape) != tuple(target.shape):
-                raise ValueError(
-                    f"shape mismatch for {key}: checkpoint "
-                    f"{tuple(v.shape)} vs parameter {tuple(target.shape)}")
-            target.copy_(v.to(target.dtype))
-    return missing, unexpected
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser("paddle_tpu_torch.inference.serve")
     ap.add_argument("--model", default=None,
@@ -1949,9 +1927,11 @@ def main(argv=None):
         if args.weight_dtype is not None:
             espec["weight_dtype"] = args.weight_dtype
         ecfg = EngineConfig(**espec)
-        model = GPTForCausalLM(_gpt_config(spec))
+        from paddle_tpu_torch import device as device_mod
+        with device_mod.device_scope(args.device):
+            model = GPTForCausalLM(_gpt_config(spec))
         if weights:
-            set_state_dict(model, pio.load(weights))
+            model.set_state_dict(pio.load(weights))
         engine = DecodeEngine(model, ecfg, device=args.device)
     srv = InferenceServer(None, args.host, args.port, engine=engine,
                           auth_name=args.auth_name, role=args.role)

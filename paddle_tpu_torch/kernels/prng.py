@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 __all__ = ["threefry2x32", "seed_words", "prng_key", "split", "random_bits",
-           "uniform", "bernoulli", "gumbel", "categorical"]
+           "uniform", "bernoulli", "gumbel", "categorical", "normal",
+           "truncated_normal", "randint", "permutation", "exponential"]
 
 M32 = 0xFFFFFFFF
 # the two rotation schedules, alternating every 4 rounds (prng.py:893)
@@ -103,44 +104,201 @@ def split(key: torch.Tensor, num=2) -> torch.Tensor:
     return torch.stack([b0, b1], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.bits`` at 32 bits: key ``[..., 2]`` -> ``[..., *shape]``
-    int64 holding uint32 values, the two hash words xored."""
+def random_bits(key: torch.Tensor, shape, width: int = 32) -> torch.Tensor:
+    """``jax.random.bits``: key ``[..., 2]`` -> ``[..., *shape]`` int64.
+    At 32 bits (the default) the uint32 values, the two hash words xored;
+    at 8 and 16 the low bits of that xor; at 64 the first word above the
+    second, as a two's-complement int64."""
     b0, b1 = _hash(key, tuple(shape))
-    return b0 ^ b1
+    if width == 64:
+        return (b0 << 32) | b1
+    x = b0 ^ b1
+    return x if width == 32 else x & ((1 << width) - 1)
+
+
+# (bits, mantissa bits, int dtype of the same width, the bits of 1.0) per
+# float dtype
+_FLOAT_LAYOUT = {torch.float16: (16, 10, torch.int16, 0x3C00),
+                 torch.bfloat16: (16, 7, torch.int16, 0x3F80),
+                 torch.float32: (32, 23, torch.int32, _F32_ONE_BITS),
+                 torch.float64: (64, 52, torch.int64, 0x3FF0000000000000)}
+
+
+def _unit_floats(key, shape, dtype):
+    """The floats in [0, 1) of ``jax.random.uniform`` before its scaling:
+    the top mantissa bits of the random bits under the exponent of 1.0,
+    minus 1. Dtypes with fewer than 8 mantissa bits draw 8 bits."""
+    nbits, nmant, idt, one = _FLOAT_LAYOUT[dtype]
+    rng_bits = 8 if nmant < 8 else nbits
+    bits = random_bits(key, shape, rng_bits)
+    if nbits == 64:
+        # a logical right shift of the int64 pattern
+        mant = (bits >> 12) & ((1 << 52) - 1)
+    else:
+        mant = bits >> (rng_bits - nmant)
+    return (mant | one).to(idt).view(dtype) - 1.0
+
+
+_NP_FLOAT = {torch.float16: np.float16, torch.float32: np.float32,
+             torch.float64: np.float64}
+
+
+def _round_to(x, dtype) -> float:
+    """``x`` rounded to ``dtype``, on the host (numpy; bfloat16 through a
+    host tensor), as a Python float."""
+    if dtype in _NP_FLOAT:
+        return float(_NP_FLOAT[dtype](x))
+    return float(torch.tensor(float(x), dtype=dtype).float())
 
 
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` in float32: the top 23 bits as the mantissa of
-    a float in [1, 2), minus 1, scaled to [minval, maxval) and floored at
-    minval (random.py:435).
+            maxval: float = 1.0, dtype: torch.dtype = torch.float32
+            ) -> torch.Tensor:
+    """``jax.random.uniform``: the top mantissa bits as the mantissa of a
+    float in [1, 2), minus 1, scaled to [minval, maxval) and floored at
+    minval (random.py:435). The bounds round to ``dtype`` first.
 
     XLA fuses the scale and shift into one multiply-add rounded once, so
-    they run in float64 here (the product of two float32 values is exact
-    there) and round to float32 at the end. For the sampler's [tiny, 1)
-    nothing rounds at all. The bounds stay Python scalars: a tensor copied
-    to the card would wait for its stream."""
-    bits = random_bits(key, shape)
-    f = ((bits >> 9) | _F32_ONE_BITS).to(torch.int32).view(torch.float32)
-    f = f - 1.0
-    lo = np.float32(minval)
-    span = np.float32(maxval) - lo
-    y = (f.double() * float(span) + float(lo)).float()
-    return y.clamp_min(float(lo))
+    below float64 they run in float64 here (the product of two float32
+    values is exact there) and round to ``dtype`` at the end. For the
+    sampler's [tiny, 1) nothing rounds at all. The bounds stay Python
+    scalars: a tensor copied to the card would wait for its stream."""
+    f = _unit_floats(key, tuple(shape), dtype)
+    lo = _round_to(minval, dtype)
+    span = _round_to(_round_to(maxval, dtype) - lo, dtype)
+    if dtype == torch.float64:
+        y = f * span + lo
+    else:
+        y = (f.double() * span + lo).to(dtype)
+    return y.clamp_min(lo)
 
 
-def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
-    """``jax.random.bernoulli`` in mode "low" with a float32 ``p`` (64-bit
-    types off, as the JAX train step traces): ``uniform(key, shape) <
-    float32(p)``, a bool tensor ``[..., *shape]``."""
-    return uniform(key, shape) < float(np.float32(p))
+def normal(key: torch.Tensor, shape, dtype: torch.dtype = torch.float32
+           ) -> torch.Tensor:
+    """``jax.random.normal``: ``sqrt(2) * erfinv(u)`` with ``u`` uniform on
+    [nextafter(-1, 0), 1) in ``dtype``."""
+    lo = -1.0 + torch.finfo(dtype).eps / 2       # nextafter(-1, 0)
+    u = uniform(key, shape, lo, 1.0, dtype)
+    return erfinv(u) * _sqrt2(dtype)
 
 
-def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.gumbel`` in float32, mode "low": ``-log(-log(u))`` with
-    ``u`` uniform on [tiny, 1)."""
-    u = uniform(key, shape, minval=_F32_TINY, maxval=1.0)
+# Giles' single-precision erfinv, the polynomial XLA evaluates for float32
+# (torch's own erfinv differs by up to 1.5e-5 near +-1)
+_ERFINV_W5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+              -4.39150654e-06, 0.00021858087, -0.00125372503,
+              -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GT5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """``lax.erf_inv``: XLA's polynomial in float32 (float16 and bfloat16
+    computed in float32), torch's erfinv in float64."""
+    if x.dtype == torch.float64:
+        return torch.special.erfinv(x)
+    t = x.float()
+    w = -torch.log1p(-t * t)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = None
+    for a, b in zip(_ERFINV_W5, _ERFINV_W_GT5):
+        c = torch.where(lt, torch.full((), a, device=x.device),
+                        torch.full((), b, device=x.device))
+        p = c if p is None else c + p * w
+    out = torch.where(t.abs() == 1.0, t * float("inf"), p * t)
+    return out.to(x.dtype)
+
+
+def _sqrt2(dtype):
+    return torch.tensor(math.sqrt(2.0), dtype=dtype).item()
+
+
+def truncated_normal(key: torch.Tensor, lower: float, upper: float, shape,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.truncated_normal``: ``sqrt(2) * erfinv(u)`` with ``u``
+    uniform between ``erf(lower / sqrt(2))`` and ``erf(upper / sqrt(2))``,
+    clipped just inside (lower, upper)."""
+    s2 = torch.tensor(math.sqrt(2.0), dtype=dtype)
+    lo = torch.tensor(float(lower), dtype=dtype)
+    hi = torch.tensor(float(upper), dtype=dtype)
+    a = torch.special.erf(lo / s2).item()
+    b = torch.special.erf(hi / s2).item()
+    u = uniform(key, shape, a, b, dtype)
+    out = erfinv(u) * s2.item()
+    inf = torch.tensor(float("inf"), dtype=dtype)
+    return out.clamp(torch.nextafter(lo, inf).item(),
+                     torch.nextafter(hi, -inf).item())
+
+
+def _rem_u64(bits, span):
+    """``uint64(bits) % span`` for an int64 bit pattern and 0 < span <
+    2**31, from its two 32-bit halves."""
+    hi = (bits >> 32) & M32
+    lo = bits & M32
+    return ((hi % span) * ((1 << 32) % span) + lo % span) % span
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int,
+            width: int = 64) -> torch.Tensor:
+    """``jax.random.randint`` for a ``width``-bit signed integer dtype (64:
+    int64, as the JAX package draws with 64-bit types on): two draws of
+    random bits from the key's split, folded into [minval, maxval) with
+    the multiplier ``2**width % span``, as random.py's ``_randint``.
+    Returns int64; spans of 2**31 or more raise NotImplementedError."""
+    span = int(maxval) - int(minval)
+    if span <= 0:
+        span = 1
+    if span >= 1 << 31:
+        raise NotImplementedError(
+            f"randint over a span of {span} (>= 2**31) is not ported")
+    k = split(key)
+    hb = random_bits(k[..., 0, :], shape, width)
+    lb = random_bits(k[..., 1, :], shape, width)
+    mult = pow(2, width // 2, span)
+    mult = (mult * mult) % span
+    if width == 64:
+        hr, lr = _rem_u64(hb, span), _rem_u64(lb, span)
+    else:
+        hr, lr = hb % span, lb % span
+    off = (hr * mult + lr) % span
+    return int(minval) + off
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: ``arange(n)`` sorted (stably) by
+    fresh 32-bit random keys, in as many rounds as its heuristic asks."""
+    x = torch.arange(n, device=key.device)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(M32)))
+    for _ in range(rounds):
+        k = split(key)
+        key, sub = k[0], k[1]
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x
+
+
+def exponential(key: torch.Tensor, shape, dtype: torch.dtype = torch.float32
+                ) -> torch.Tensor:
+    """``jax.random.exponential``: ``-log1p(-u)``."""
+    return -torch.log1p(-uniform(key, shape, dtype=dtype))
+
+
+def bernoulli(key: torch.Tensor, p: float, shape,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.bernoulli`` in mode "low" with ``p`` of ``dtype``
+    (float32 unless asked: a Python ``p`` with 64-bit types off, as the JAX
+    train step traces): ``uniform(key, shape) < p`` in that dtype, a bool
+    tensor ``[..., *shape]``."""
+    return uniform(key, shape, dtype=dtype) < _round_to(p, dtype)
+
+
+def gumbel(key: torch.Tensor, shape, dtype: torch.dtype = torch.float32
+           ) -> torch.Tensor:
+    """``jax.random.gumbel``, mode "low": ``-log(-log(u))`` with ``u``
+    uniform on [tiny, 1) (float32 unless ``dtype``)."""
+    tiny = _F32_TINY if dtype == torch.float32 else torch.finfo(dtype).tiny
+    u = uniform(key, shape, minval=tiny, maxval=1.0, dtype=dtype)
     return -torch.log(-torch.log(u))
 
 

@@ -4,8 +4,9 @@ the port's tensors. The layouts are the same, so this is a copy. A
 weight-only int8 leaf (anything with ``.q``, ``.scale`` and
 ``.dtype_name``, such as the JAX package's ``QuantizedLeaf``) becomes the
 port's `QuantizedLeaf` with the same int8 values and scales, bit for bit.
-A JAX ``Layer.state_dict()`` loads into the port's layer of the same class
-by key (`layer_state_from_numpy`)."""
+A JAX ``Layer.state_dict()`` loads into the port's Layer of the same class
+by key (`layer_state_from_numpy`), a JAX ``Optimizer.state_dict()`` into
+the port's optimizer of the same class (`optimizer_state_from_numpy`)."""
 from __future__ import annotations
 
 import numpy as np
@@ -14,7 +15,7 @@ import torch
 from paddle_tpu_torch.quantization.serving import QuantizedLeaf
 
 __all__ = ["params_from_numpy", "train_state_from_numpy",
-           "layer_state_from_numpy"]
+           "layer_state_from_numpy", "optimizer_state_from_numpy"]
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -38,7 +39,7 @@ def params_from_numpy(state: dict, device,
     when given, else in each array's own dtype. A quantized leaf keeps its
     int8 values and f32 scales as they are (``dtype`` does not apply) and
     comes out as a `QuantizedLeaf`. Feed the result to
-    ``GPTForCausalLM.load_state_dict`` (float leaves only) or straight to
+    ``GPTForCausalLM.set_state_dict`` (float leaves only) or straight to
     the step functions."""
     return {k: _leaf(v, device, dtype) for k, v in state.items()}
 
@@ -58,7 +59,7 @@ def train_state_from_numpy(params, opt_state, device,
     """A JAX ``ScanTrainStep``'s ``_params`` and ``_opt_state`` (stacked
     trees of numpy arrays; each optimizer leaf a dict {"moment1",
     "moment2"[, "master"]}) -> (per-layer params {name: tensor} for
-    ``GPTForCausalLM.load_state_dict``, per-layer AdamW state {name:
+    ``GPTForCausalLM.set_state_dict``, per-layer AdamW state {name:
     {state name: float32 tensor}} for ``AdamW.state``), on ``device``; the
     params in ``dtype`` when given, else in their own dtype."""
     out_params = {n: _to_tensor(a).to(device=device, dtype=dtype)
@@ -75,18 +76,30 @@ def train_state_from_numpy(params, opt_state, device,
     return out_params, per_state
 
 
-def layer_state_from_numpy(module: torch.nn.Module, state: dict):
+def layer_state_from_numpy(layer, state: dict):
     """Load ``{key: array}`` (a JAX ``Layer.state_dict()`` read out with
-    ``np.asarray``) into ``module`` by key, strictly: each tensor keeps its
-    array's dtype and lands on the device of the parameter it replaces. A
-    missing or extra key raises KeyError naming both key lists. Returns
-    ``module``."""
-    own = module.state_dict(keep_vars=True)
+    ``np.asarray``) into the port's Layer of the same class by key,
+    strictly: each parameter keeps its array's dtype and stays on its
+    device. A missing or extra key raises KeyError naming both key lists.
+    Returns ``layer``."""
+    own = layer.state_dict()
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
     if missing or extra:
         raise KeyError(f"layer_state_from_numpy: keys differ; missing "
                        f"{missing}, unexpected {extra}")
     for name, t in own.items():
-        t.data = _to_tensor(np.asarray(state[name])).to(t.device)
-    return module
+        t._write(_to_tensor(np.asarray(state[name])).to(t._data.device))
+    return layer
+
+
+def optimizer_state_from_numpy(optimizer, state: dict):
+    """Load a JAX ``Optimizer.state_dict()`` (its Tensors read out with
+    ``np.asarray``; ``global_step``, ``__param_keys__`` and
+    ``LR_Scheduler`` as they are) into the port's optimizer of the same
+    class: its accumulators by parameter name, or by position where the
+    names differ (`Optimizer.set_state_dict`). Returns ``optimizer``."""
+    optimizer.set_state_dict({
+        k: (v if k in ("global_step", "__param_keys__", "LR_Scheduler")
+            else _to_tensor(np.asarray(v))) for k, v in state.items()})
+    return optimizer

@@ -1,6 +1,7 @@
-"""GPT-2 for serving over a paged KV cache and for training (counterpart of
-`paddle_tpu/models/gpt.py`: its serving step functions and its scanned
-training forward, `scan_hidden` / `scan_logits` / `scan_loss`).
+"""GPT-2 (counterpart of `paddle_tpu/models/gpt.py`): the model as Paddle
+Layers that train and generate eagerly (`GPTForCausalLM`), its serving
+step functions over a paged KV cache and its scanned training forward,
+`scan_hidden` / `scan_logits` / `scan_loss`.
 
 The weights keep the JAX package's layout and names, so carrying a JAX
 state_dict across is a copy (`models/convert.py`): ``x @ W`` with ``W``
@@ -31,9 +32,15 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from paddle_tpu_torch import nn as pnn
+from paddle_tpu_torch import ops
+from paddle_tpu_torch.core.autograd import apply
+from paddle_tpu_torch.core.tensor import Tensor
+from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+from paddle_tpu_torch.framework.param_attr import ParamAttr
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.kernels import prng
 from paddle_tpu_torch.kernels import sampling as smp
@@ -41,8 +48,11 @@ from paddle_tpu_torch.kernels.dropout import hidden_dropout
 from paddle_tpu_torch.kernels.flash_attention import (NEG_INF,
                                                       flash_attention_fn)
 from paddle_tpu_torch.kernels.fused_ce import fused_linear_cross_entropy
+from paddle_tpu_torch.nn import functional as PF
+from paddle_tpu_torch.nn import initializer as I
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "gpt2_small", "decode_step",
+__all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
+           "GPTForCausalLM", "gpt2_small", "INIT_CACHE", "decode_step",
            "prefill_step", "prefill_chunk_step", "verify_step",
            "BLOCK_SUFFIXES",
            "analytic_param_count", "analytic_flops_per_token",
@@ -69,87 +79,234 @@ class GPTConfig:
     fused_ce: bool = True            # chunked LM-head CE, no [N, V] logits
 
 
-class _Table(nn.Module):
-    def __init__(self, rows, width):
+INIT_CACHE = "init"     # generate()'s first step: attention returns the
+                        # fresh K/V as the cache
+
+
+def _winit(cfg):
+    return ParamAttr(initializer=I.Normal(0.0, cfg.initializer_range))
+
+
+class GPTAttention(pnn.Layer):
+    def __init__(self, cfg: GPTConfig):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(rows, width))
+        self.cfg = cfg
+        self.num_heads = cfg.num_heads
+        self.head_dim = cfg.hidden_size // cfg.num_heads
+        self.qkv_proj = ColumnParallelLinear(
+            cfg.hidden_size, 3 * cfg.hidden_size, weight_attr=_winit(cfg),
+            gather_output=False)
+        self.out_proj = RowParallelLinear(
+            cfg.hidden_size, cfg.hidden_size, weight_attr=_winit(cfg),
+            input_is_parallel=True)
+        self.attn_drop_p = cfg.attention_dropout
+        self.resid_drop = pnn.Dropout(cfg.hidden_dropout)
+
+    def forward(self, x, cache=None):
+        b, s = x.shape[0], x.shape[1]
+        qkv = self.qkv_proj(x).reshape([b, s, 3, self.num_heads,
+                                        self.head_dim])
+        q, k, v = qkv.unbind(axis=2)
+        if cache == INIT_CACHE:
+            cache = (k, v)
+        elif cache is not None:
+            k = ops.concat([cache[0], k], axis=1)
+            v = ops.concat([cache[1], v], axis=1)
+            cache = (k, v)
+        drop = self.attn_drop_p if self.training else 0.0
+        out = PF.scaled_dot_product_attention(q, k, v, dropout_p=drop,
+                                              is_causal=True,
+                                              training=self.training)
+        out = self.resid_drop(self.out_proj(out.reshape([b, s, -1])))
+        return out if cache is None else (out, cache)
 
 
-class _Linear(nn.Module):
-    """``x @ weight + bias`` with ``weight`` stored [in, out]."""
-
-    def __init__(self, n_in, n_out):
+class GPTMLP(pnn.Layer):
+    def __init__(self, cfg: GPTConfig):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(n_in, n_out))
-        self.bias = nn.Parameter(torch.empty(n_out))
+        self.fc_in = ColumnParallelLinear(
+            cfg.hidden_size, cfg.intermediate_size, weight_attr=_winit(cfg),
+            gather_output=False)
+        self.fc_out = RowParallelLinear(
+            cfg.intermediate_size, cfg.hidden_size, weight_attr=_winit(cfg),
+            input_is_parallel=True)
+        self.drop = pnn.Dropout(cfg.hidden_dropout)
+
+    def forward(self, x):
+        return self.drop(self.fc_out(PF.gelu(self.fc_in(x),
+                                             approximate=True)))
 
 
-class _LayerNorm(nn.Module):
-    def __init__(self, width):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(width))
-        self.bias = nn.Parameter(torch.empty(width))
+def _no_eager_recompute(cfg):
+    raise NotImplementedError(
+        f"eager training with recompute={cfg.recompute}, "
+        f"recompute_granularity={cfg.recompute_granularity!r} needs "
+        "fleet/recompute.py, which is not ported (ROADMAP A7.3); the "
+        "ScanTrainStep recomputes (train/scan_step.py)")
 
 
-class _Attention(nn.Module):
-    def __init__(self, cfg):
-        super().__init__()
-        self.qkv_proj = _Linear(cfg.hidden_size, 3 * cfg.hidden_size)
-        self.out_proj = _Linear(cfg.hidden_size, cfg.hidden_size)
-
-
-class _MLP(nn.Module):
-    def __init__(self, cfg):
-        super().__init__()
-        self.fc_in = _Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.fc_out = _Linear(cfg.intermediate_size, cfg.hidden_size)
-
-
-class _Block(nn.Module):
-    def __init__(self, cfg):
+class GPTBlock(pnn.Layer):
+    def __init__(self, cfg: GPTConfig):
         super().__init__()
         if cfg.recompute_granularity not in ("full", "mlp", "mlp_up"):
             raise ValueError(
                 f"recompute_granularity={cfg.recompute_granularity!r}: "
                 "expected 'full', 'mlp', or 'mlp_up'")
-        self.ln_1 = _LayerNorm(cfg.hidden_size)
-        self.attn = _Attention(cfg)
-        self.ln_2 = _LayerNorm(cfg.hidden_size)
-        self.mlp = _MLP(cfg)
+        self.cfg = cfg
+        self.ln_1 = pnn.LayerNorm(cfg.hidden_size)
+        self.attn = GPTAttention(cfg)
+        self.ln_2 = pnn.LayerNorm(cfg.hidden_size)
+        self.mlp = GPTMLP(cfg)
+
+    def forward(self, x, cache=None):
+        if cache is None:
+            x = x + self.attn(self.ln_1(x))
+        else:
+            a, cache = self.attn(self.ln_1(x), cache)
+            x = x + a
+        if self.cfg.recompute_granularity in ("mlp", "mlp_up") and \
+                self.training and cache is None and not self.cfg.recompute:
+            _no_eager_recompute(self.cfg)
+        x = x + self.mlp(self.ln_2(x))
+        return x if cache is None else (x, cache)
 
 
-class _GPTModel(nn.Module):
-    def __init__(self, cfg):
+class GPTModel(pnn.Layer):
+    def __init__(self, cfg: GPTConfig):
         super().__init__()
-        self.wte = _Table(cfg.vocab_size, cfg.hidden_size)
-        self.wpe = _Table(cfg.max_position_embeddings, cfg.hidden_size)
-        self.h = nn.ModuleList([_Block(cfg) for _ in range(cfg.num_layers)])
-        self.ln_f = _LayerNorm(cfg.hidden_size)
+        self.cfg = cfg
+        self.wte = VocabParallelEmbedding(cfg.vocab_size, cfg.hidden_size,
+                                          weight_attr=_winit(cfg))
+        self.wpe = pnn.Embedding(cfg.max_position_embeddings, cfg.hidden_size,
+                                 weight_attr=_winit(cfg))
+        self.drop = pnn.Dropout(cfg.hidden_dropout)
+        self.h = pnn.LayerList([GPTBlock(cfg) for _ in range(cfg.num_layers)])
+        self.ln_f = pnn.LayerNorm(cfg.hidden_size)
+
+    def forward(self, input_ids, position_ids=None, caches=None):
+        input_ids = ops.ensure_tensor(input_ids)
+        s = input_ids.shape[1]
+        if position_ids is None:
+            past = (0 if caches is None or caches == INIT_CACHE
+                    else caches[0][0].shape[1])
+            position_ids = Tensor(torch.arange(
+                past, past + s, device=input_ids._data.device)[None],
+                _internal=True)
+        x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
+        if caches == INIT_CACHE:
+            caches = [INIT_CACHE] * len(self.h)
+        new_caches = [] if caches is not None else None
+        if self.cfg.recompute and self.training and caches is None:
+            _no_eager_recompute(self.cfg)
+        for i, block in enumerate(self.h):
+            if caches is None:
+                x = block(x)
+            else:
+                x, c = block(x, caches[i])
+                new_caches.append(c)
+        x = self.ln_f(x)
+        return x if caches is None else (x, new_caches)
 
 
-class GPTForCausalLM(nn.Module):
-    """Holds the GPT-2 parameters under the JAX package's state_dict keys.
-    Serving runs the step functions below over ``state_dict()``. Fresh
-    weights are drawn N(0, initializer_range) from ``generator`` (matrices
-    and tables; biases 0, layernorm scales 1); `models/convert.py` carries
-    trained ones across."""
+class GPTForCausalLM(pnn.Layer):
+    """GPT-2 as a Paddle Layer (the JAX package's Layers of the same names),
+    with the JAX state_dict keys (``gpt.wte.weight``, ``gpt.h.{i}.…``).
+
+    Built after ``paddle.seed(s)`` it draws the JAX package's weights:
+    N(0, initializer_range) matrices and tables from the global stream in
+    the JAX creation order, zero biases, unit layernorm scales. With
+    ``generator`` (a ``torch.Generator``, the port's extra) the matrices
+    and tables are redrawn N(0, initializer_range) from it on the host in
+    ``named_parameters`` order instead (the stream is left alone), the
+    weights the serving and training phases of `chip_smoke.py` use.
+
+    ``forward(input_ids, labels=None, loss_mask=None)`` gives the [B, S, V]
+    logits (tied LM head), or ``(None, loss)`` with labels: the fused
+    LM-head cross entropy (`kernels/fused_ce.py`, ``cfg.fused_ce``), else
+    ``(logits, loss)``, the mean over tokens or over ``loss_mask``.
+    ``generate`` decodes eagerly with growing KV caches. The serving and
+    scanned-training paths run the step functions below over
+    `core.tensor.torch_state` of this Layer."""
 
     def __init__(self, cfg: GPTConfig, generator: torch.Generator | None = None):
         super().__init__()
         self.cfg = cfg
-        self.gpt = _GPTModel(cfg)
-        self.reset_parameters(generator)
+        if generator is None:
+            self.gpt = GPTModel(cfg)
+        else:
+            with I.skip_draws():
+                self.gpt = GPTModel(cfg)
+            self.reset_parameters(generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
+        """Biases 0, layernorm scales 1, the rest N(0, initializer_range)
+        drawn on the host from ``generator``, in ``named_parameters``
+        order."""
         for name, p in self.named_parameters():
+            d = p._data
             if name.endswith("bias"):
-                p.zero_()
-            elif p.dim() == 1:           # layernorm scale
-                p.fill_(1.0)
+                d.zero_()
+            elif d.dim() == 1:
+                d.fill_(1.0)
             else:
-                p.normal_(0.0, self.cfg.initializer_range,
-                          generator=generator)
+                w = torch.empty(d.shape, dtype=d.dtype).normal_(
+                    0.0, self.cfg.initializer_range, generator=generator)
+                d.copy_(w)
+
+    def forward(self, input_ids, labels=None, loss_mask=None):
+        h = self.gpt(input_ids)
+        wte = self.gpt.wte.weight
+        if labels is not None and self.cfg.fused_ce:
+            n = h.shape[0] * h.shape[1]
+            loss = apply(lambda hh, ww, ll: fused_linear_cross_entropy(
+                hh.reshape(n, -1), ww, ll.reshape(-1).long()),
+                h, wte, ops.ensure_tensor(labels),
+                op_name="fused_linear_cross_entropy")
+            logits = None
+        else:
+            logits = ops.matmul(h, wte, transpose_y=True)
+        if labels is None:
+            return logits
+        if logits is not None:
+            loss = PF.cross_entropy(
+                logits.reshape([-1, self.cfg.vocab_size]).astype("float32"),
+                ops.ensure_tensor(labels).reshape([-1]), reduction="none")
+        if loss_mask is not None:
+            m = ops.ensure_tensor(loss_mask).reshape([-1]).astype("float32")
+            loss = (loss * m).sum() / m.sum()
+        else:
+            loss = loss.mean()
+        return logits, loss
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
+                 top_k=0, seed=0):
+        """Greedy or sampled decode with KV caches, eagerly (one forward
+        per token, caches growing): the JAX `generate`. Sampling is
+        `_make_sampler`'s: temperature before the top-k mask, one key split
+        per token from ``PRNGKey(seed)``. Returns [B, S + max_new_tokens]
+        ids."""
+        self.eval()
+        x = ops.ensure_tensor(input_ids)
+        wte = self.gpt.wte.weight
+        sample = _make_sampler(float(temperature), int(top_k))
+        key = prng.prng_key(seed, wte._data.device)
+        caches, out_ids, cur = None, [x], x
+        for _ in range(max_new_tokens):
+            h, caches = self.gpt(cur, caches=INIT_CACHE if caches is None
+                                 else caches)
+            logits = ops.matmul(h[:, -1], wte, transpose_y=True)
+            nxt, key = sample(logits._data.float(), key)
+            cur = Tensor(nxt[:, None].to(x.dtype), _internal=True)
+            out_ids.append(cur)
+        return ops.concat(out_ids, axis=1)
+
+    def fast_generate(self, *args, **kwargs):
+        raise NotImplementedError(
+            "fast_generate (decode as one compiled program) is not ported "
+            "(ROADMAP A7.4); serve through inference/engine.py::DecodeEngine "
+            "or decode eagerly with generate()")
 
 
 def gpt2_small(generator: torch.Generator | None = None, **kwargs):

@@ -1,13 +1,28 @@
-"""Paddle nn layers of the port (counterpart of `paddle_tpu/nn/`), reduced
-to what the `incubate.nn` fused layers stand on: `Linear`, `Dropout`,
-`LayerNorm`, `MultiHeadAttention` and the functionals under
-`nn.functional`. They are `torch.nn.Module`s with the JAX package's
-attribute names, parameter shapes (``Linear.weight`` is [in, out]) and
-state_dict keys, so a JAX ``Layer.state_dict()`` loads by key
-(`models/convert.py::layer_state_from_numpy`). The rest of the Paddle nn
-surface waits for ROADMAP A7."""
+"""paddle.nn of the port (counterpart of `paddle_tpu/nn/`): `Layer` and
+its containers, initializers, activations, the common, norm, loss and
+transformer layers, and `functional`. Convolution, pooling, the other
+norms, recurrent layers, ``utils`` and gradient clipping wait for ROADMAP
+A7.2."""
 from paddle_tpu_torch.nn import functional  # noqa: F401
-from paddle_tpu_torch.nn.layers.common import Dropout, Linear  # noqa: F401
+from paddle_tpu_torch.nn import initializer  # noqa: F401
+from paddle_tpu_torch.nn.layer import Layer  # noqa: F401
+from paddle_tpu_torch.nn.layers.activation import (  # noqa: F401
+    CELU, ELU, GELU, GLU, Hardshrink, Hardsigmoid, Hardswish, Hardtanh,
+    LeakyReLU, LogSigmoid, LogSoftmax, Maxout, Mish, PReLU, ReLU, ReLU6,
+    RReLU, SELU, Sigmoid, Silu, Softmax, Softplus, Softshrink, Softsign,
+    Swish, Tanh, Tanhshrink, ThresholdedReLU)
+from paddle_tpu_torch.nn.layers.common import (  # noqa: F401
+    AlphaDropout, Bilinear, ChannelShuffle, CosineSimilarity, Dropout,
+    Dropout2D, Dropout3D, Embedding, Flatten, Identity, Linear, Pad1D, Pad2D,
+    Pad3D, PairwiseDistance, PixelShuffle, PixelUnshuffle, Unflatten,
+    ZeroPad2D)
+from paddle_tpu_torch.nn.layers.container import (  # noqa: F401
+    LayerDict, LayerList, ParameterList, Sequential)
+from paddle_tpu_torch.nn.layers.loss import (  # noqa: F401
+    BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss, CrossEntropyLoss,
+    CTCLoss, HingeEmbeddingLoss, KLDivLoss, L1Loss, MarginRankingLoss,
+    MSELoss, NLLLoss, SmoothL1Loss, TripletMarginLoss)
 from paddle_tpu_torch.nn.layers.norm import LayerNorm  # noqa: F401
 from paddle_tpu_torch.nn.layers.transformer import (  # noqa: F401
-    MultiHeadAttention)
+    MultiHeadAttention, Transformer, TransformerDecoder,
+    TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer)

@@ -1,34 +1,41 @@
-"""`MultiHeadAttention` (counterpart of `paddle_tpu/nn/layers/transformer.py:19-91`).
-The encoder and decoder stacks of that module wait for ROADMAP A7."""
+"""Transformer layers (counterpart of `paddle_tpu/nn/layers/transformer.py`):
+MultiHeadAttention, TransformerEncoderLayer / Encoder, TransformerDecoderLayer
+/ Decoder and Transformer. Attention is `F.scaled_dot_product_attention`
+on [B, S, H, D]: the flash op with no mask and no dropout."""
 from __future__ import annotations
 
 import collections
+import copy
 
 import torch
-from torch import nn
 
+from paddle_tpu_torch.core.tensor import Parameter, Tensor
 from paddle_tpu_torch.nn import functional as F
-from paddle_tpu_torch.nn.layers.common import Linear, resolve_device
+from paddle_tpu_torch.nn.layer import Layer
+from paddle_tpu_torch.nn.layers.common import Dropout, Linear
+from paddle_tpu_torch.nn.layers.container import LayerList
+from paddle_tpu_torch.nn.layers.norm import LayerNorm
+from paddle_tpu_torch.ops.common import ensure_tensor
+from paddle_tpu_torch.ops.manipulation import concat
 
-__all__ = ["MultiHeadAttention"]
+__all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
+           "TransformerEncoder", "TransformerDecoderLayer",
+           "TransformerDecoder", "Transformer"]
 
 
-class MultiHeadAttention(nn.Module):
-    """Multi-head attention on [B, S, embed_dim] through
-    `nn.functional.scaled_dot_product_attention` ([B, S, H, D]; the flash op
-    with no mask and no dropout). A ``Cache`` (from ``gen_cache``) is
-    extended by this call's keys and values along the sequence and returned
-    beside the output; a ``StaticCache`` is returned as given. Attention
-    dropout applies in training only."""
+class MultiHeadAttention(Layer):
+    """Multi-head attention on [B, S, embed_dim]. A ``Cache`` (from
+    ``gen_cache``) is extended by this call's keys and values along the
+    sequence and returned beside the output; a ``StaticCache`` is returned
+    as given. Attention dropout applies in training only."""
 
     Cache = collections.namedtuple("Cache", ["k", "v"])
     StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
                  vdim=None, need_weights=False, weight_attr=None,
-                 bias_attr=None, *, device=None, generator=None):
+                 bias_attr=None):
         super().__init__()
-        dev = resolve_device(device, "MultiHeadAttention")
         self.embed_dim = embed_dim
         self.kdim = kdim or embed_dim
         self.vdim = vdim or embed_dim
@@ -36,26 +43,23 @@ class MultiHeadAttention(nn.Module):
         self.head_dim = embed_dim // num_heads
         self.dropout = dropout
         self.need_weights = need_weights
-        kw = dict(device=dev, generator=generator)
-        self.q_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr,
-                             **kw)
-        self.k_proj = Linear(self.kdim, embed_dim, weight_attr, bias_attr,
-                             **kw)
-        self.v_proj = Linear(self.vdim, embed_dim, weight_attr, bias_attr,
-                             **kw)
-        self.out_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr,
-                               **kw)
-
-    def _split_heads(self, t):
-        return t.reshape(t.shape[0], -1, self.num_heads, self.head_dim)
+        self.q_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr)
+        self.k_proj = Linear(self.kdim, embed_dim, weight_attr, bias_attr)
+        self.v_proj = Linear(self.vdim, embed_dim, weight_attr, bias_attr)
+        self.out_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr)
 
     def _prepare_qkv(self, query, key, value, cache=None):
-        q = self._split_heads(self.q_proj(query))
-        k = self._split_heads(self.k_proj(key))
-        v = self._split_heads(self.v_proj(value))
+        b = query.shape[0]
+
+        def split_heads(t):
+            return t.reshape([b, -1, self.num_heads, self.head_dim])
+
+        q = split_heads(self.q_proj(query))
+        k = split_heads(self.k_proj(key))
+        v = split_heads(self.v_proj(value))
         if cache is not None and isinstance(cache, self.Cache):
-            k = torch.cat([cache.k, k], dim=1)
-            v = torch.cat([cache.v, v], dim=1)
+            k = concat([cache.k, k], axis=1)
+            v = concat([cache.v, v], axis=1)
             cache = self.Cache(k, v)
         return q, k, v, cache
 
@@ -74,8 +78,11 @@ class MultiHeadAttention(nn.Module):
                     "truth value (ROADMAP C6)")
             q, k, _, _ = self._prepare_qkv(key, key, key)
             return self.StaticCache(q, k)
-        empty = key.new_zeros(key.shape[0], 0, self.num_heads, self.head_dim)
-        return self.Cache(empty, empty.clone())
+        key = ensure_tensor(key)
+        empty = torch.zeros(key.shape[0], 0, self.num_heads, self.head_dim,
+                            dtype=key.dtype, device=key._data.device)
+        return self.Cache(Tensor(empty, _internal=True),
+                          Tensor(empty.clone(), _internal=True))
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
@@ -86,10 +93,227 @@ class MultiHeadAttention(nn.Module):
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
                                              dropout_p=dropout_p,
                                              training=self.training)
-        out = self.out_proj(out.reshape(out.shape[0], -1, self.embed_dim))
+        out = self.out_proj(out.reshape([out.shape[0], -1, self.embed_dim]))
         outs = [out]
         if self.need_weights:
             outs.append(None)
         if cache is not None:
             outs.append(cache)
         return out if len(outs) == 1 else tuple(outs)
+
+
+class TransformerEncoderLayer(Layer):
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 layer_norm_eps=1e-5):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout=attn_dropout,
+                                            weight_attr=weight_attr,
+                                            bias_attr=bias_attr)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr, bias_attr)
+        self.dropout = Dropout(act_dropout, mode="upscale_in_train")
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr, bias_attr)
+        self.norm1 = LayerNorm(d_model, epsilon=layer_norm_eps)
+        self.norm2 = LayerNorm(d_model, epsilon=layer_norm_eps)
+        self.dropout1 = Dropout(dropout, mode="upscale_in_train")
+        self.dropout2 = Dropout(dropout, mode="upscale_in_train")
+        self.activation = getattr(F, activation)
+
+    def forward(self, src, src_mask=None, cache=None):
+        residual = src
+        if self.normalize_before:
+            src = self.norm1(src)
+        if cache is None:
+            src = self.self_attn(src, src, src, src_mask)
+        else:
+            src, cache = self.self_attn(src, src, src, src_mask, cache)
+        src = residual + self.dropout1(src)
+        if not self.normalize_before:
+            src = self.norm1(src)
+        residual = src
+        if self.normalize_before:
+            src = self.norm2(src)
+        src = self.linear2(self.dropout(self.activation(self.linear1(src))))
+        src = residual + self.dropout2(src)
+        if not self.normalize_before:
+            src = self.norm2(src)
+        return src if cache is None else (src, cache)
+
+    def gen_cache(self, src):
+        return self.self_attn.gen_cache(src)
+
+
+class TransformerEncoder(Layer):
+    def __init__(self, encoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = LayerList([encoder_layer] + [
+            _clone_layer(encoder_layer) for _ in range(num_layers - 1)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, src, src_mask=None, cache=None):
+        output = src
+        new_caches = []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, src_mask)
+            else:
+                output, new_cache = mod(output, src_mask, cache[i])
+                new_caches.append(new_cache)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, src):
+        return [layer.gen_cache(src) for layer in self.layers]
+
+
+class TransformerDecoderLayer(Layer):
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 layer_norm_eps=1e-5):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout=attn_dropout,
+                                            weight_attr=weight_attr,
+                                            bias_attr=bias_attr)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, dropout=attn_dropout,
+                                             weight_attr=weight_attr,
+                                             bias_attr=bias_attr)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr, bias_attr)
+        self.dropout = Dropout(act_dropout, mode="upscale_in_train")
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr, bias_attr)
+        self.norm1 = LayerNorm(d_model, epsilon=layer_norm_eps)
+        self.norm2 = LayerNorm(d_model, epsilon=layer_norm_eps)
+        self.norm3 = LayerNorm(d_model, epsilon=layer_norm_eps)
+        self.dropout1 = Dropout(dropout, mode="upscale_in_train")
+        self.dropout2 = Dropout(dropout, mode="upscale_in_train")
+        self.dropout3 = Dropout(dropout, mode="upscale_in_train")
+        self.activation = getattr(F, activation)
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None, cache=None):
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm1(tgt)
+        if cache is None:
+            tgt = self.self_attn(tgt, tgt, tgt, tgt_mask)
+            incremental_cache = None
+        else:
+            tgt, incremental_cache = self.self_attn(tgt, tgt, tgt, tgt_mask,
+                                                    cache[0])
+        tgt = residual + self.dropout1(tgt)
+        if not self.normalize_before:
+            tgt = self.norm1(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm2(tgt)
+        tgt = self.cross_attn(tgt, memory, memory, memory_mask)
+        tgt = residual + self.dropout2(tgt)
+        if not self.normalize_before:
+            tgt = self.norm2(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm3(tgt)
+        tgt = self.linear2(self.dropout(self.activation(self.linear1(tgt))))
+        tgt = residual + self.dropout3(tgt)
+        if not self.normalize_before:
+            tgt = self.norm3(tgt)
+        return tgt if cache is None else (tgt, (incremental_cache,))
+
+    def gen_cache(self, memory):
+        return (self.self_attn.gen_cache(memory),)
+
+
+class TransformerDecoder(Layer):
+    def __init__(self, decoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = LayerList([decoder_layer] + [
+            _clone_layer(decoder_layer) for _ in range(num_layers - 1)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None, cache=None):
+        output = tgt
+        new_caches = []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, memory, tgt_mask, memory_mask)
+            else:
+                output, new_cache = mod(output, memory, tgt_mask, memory_mask,
+                                        cache[i])
+                new_caches.append(new_cache)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, memory, do_zip=False):
+        return [layer.gen_cache(memory) for layer in self.layers]
+
+
+def _clone_layer(layer):
+    """A copy of ``layer`` with parameters and buffers of its own, holding
+    the same values (the reference deep-copies the layer)."""
+    new = copy.copy(layer)
+    new.__dict__ = dict(layer.__dict__)
+    new._parameters = collections.OrderedDict()
+    new._buffers = collections.OrderedDict()
+    new._sub_layers = collections.OrderedDict()
+    for k, p in layer._parameters.items():
+        new._parameters[k] = Parameter(p._data.detach().clone(),
+                                       trainable=not p.stop_gradient)
+    for k, b in layer._buffers.items():
+        new._buffers[k] = None if b is None else \
+            Tensor(b._data.detach().clone(), _internal=True)
+    for k, sub in layer._sub_layers.items():
+        new._sub_layers[k] = _clone_layer(sub)
+    return new
+
+
+class Transformer(Layer):
+    def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
+                 num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None):
+        super().__init__()
+        if custom_encoder is not None:
+            self.encoder = custom_encoder
+        else:
+            enc_layer = TransformerEncoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr)
+            enc_norm = LayerNorm(d_model) if normalize_before else None
+            self.encoder = TransformerEncoder(enc_layer, num_encoder_layers,
+                                              enc_norm)
+        if custom_decoder is not None:
+            self.decoder = custom_decoder
+        else:
+            dec_layer = TransformerDecoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr)
+            dec_norm = LayerNorm(d_model) if normalize_before else None
+            self.decoder = TransformerDecoder(dec_layer, num_decoder_layers,
+                                              dec_norm)
+        self.d_model = d_model
+        self.nhead = nhead
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None, memory_mask=None):
+        memory = self.encoder(src, src_mask)
+        return self.decoder(tgt, memory, tgt_mask, memory_mask)
+
+    @staticmethod
+    def generate_square_subsequent_mask(length):
+        from paddle_tpu_torch import device as device_mod
+        ones = torch.ones(length, length, dtype=torch.bool,
+                          device=device_mod.current_device())
+        m = torch.where(ones.tril(), 0.0, float("-inf"))
+        return Tensor(m.to(torch.float32), _internal=True)

@@ -221,12 +221,14 @@ def run_micro(iterations: int = 2, model=None, out_dir: str = ".",
     from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
 
     if model is None:
+        from paddle_tpu_torch import device as device_mod
         from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
-        model = GPTForCausalLM(GPTConfig(
-            vocab_size=64, hidden_size=32, num_layers=2, num_heads=2,
-            intermediate_size=64, max_position_embeddings=32,
-            hidden_dropout=0.0, attention_dropout=0.0),
-            generator=torch.Generator().manual_seed(17))
+        with device_mod.device_scope(device):
+            model = GPTForCausalLM(GPTConfig(
+                vocab_size=64, hidden_size=32, num_layers=2, num_heads=2,
+                intermediate_size=64, max_position_embeddings=32,
+                hidden_dropout=0.0, attention_dropout=0.0),
+                generator=torch.Generator().manual_seed(17))
     scenarios = _micro_scenarios()
     for i in range(int(iterations)):
         eng = DecodeEngine(model, EngineConfig(page_size=4, max_slots=2,

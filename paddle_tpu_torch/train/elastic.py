@@ -477,6 +477,7 @@ def _drill_main(argv=None) -> int:
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    from paddle_tpu_torch import device as device_mod
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.train.scan_step import ScanTrainStep
@@ -487,8 +488,9 @@ def _drill_main(argv=None) -> int:
                         intermediate_size=2 * args.hidden,
                         max_position_embeddings=args.seq,
                         hidden_dropout=0.0, attention_dropout=0.0)
-        model = GPTForCausalLM(
-            cfg, generator=torch.Generator().manual_seed(args.seed))
+        with device_mod.device_scope(args.device):
+            model = GPTForCausalLM(
+                cfg, generator=torch.Generator().manual_seed(args.seed))
         return ScanTrainStep(model, AdamW(learning_rate=1e-3),
                              microbatches=1, grad_reducer=reducer,
                              device=args.device)

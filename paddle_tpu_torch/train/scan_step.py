@@ -62,6 +62,7 @@ import time
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core.tensor import torch_state
 from paddle_tpu_torch.kernels import prng
 from paddle_tpu_torch.observability import metrics
 from paddle_tpu_torch.observability.flight_recorder import (Watchdog,
@@ -70,6 +71,7 @@ from paddle_tpu_torch.observability.flight_recorder import (Watchdog,
 from paddle_tpu_torch.models.gpt import (analytic_flops_per_token,
                                          check_trainable, scan_loss,
                                          stack_gpt_params, unstack_gpt_params)
+from paddle_tpu_torch.optimizer.optimizer import f32
 from paddle_tpu_torch.testing import faults
 
 __all__ = ["H100_BF16_PEAK", "ScanTrainStep"]
@@ -96,8 +98,9 @@ def _leaf_keys(tree):
 
 
 class ScanTrainStep:
-    """Train step for a `models/gpt.py::GPTForCausalLM` with an
-    `optimizer.AdamW`.
+    """Train step for a `models/gpt.py::GPTForCausalLM` (a Paddle Layer,
+    whose weights it reads through `core.tensor.torch_state`) with an
+    `optimizer.AdamW` (its functional form: no ``parameters`` needed).
 
     The step holds a copy of the parameters stacked, as leaves on
     ``device``, and the optimizer state beside them, both seeded from the
@@ -116,6 +119,7 @@ class ScanTrainStep:
         self.device = _resolve_device(device)
         check_trainable(model.cfg)
         self.model, self.opt, self.cfg = model, optimizer, model.cfg
+        self._state_names, self._update = optimizer.functional_update()
         self.microbatches = max(1, int(microbatches))
         self.use_loss_mask = bool(use_loss_mask)
         self._key = prng.prng_key(seed, self.device)
@@ -178,9 +182,9 @@ class ScanTrainStep:
         zero moments where a name has none, and float32 masters (the
         parameters' values where a name has none) unless every parameter
         is float32."""
-        params = {n: t.detach().to(self.device, copy=True)
-                  for n, t in self.model.state_dict().items()}
-        names = list(self.opt.state_names)
+        params = {n: t.to(self.device, copy=True)
+                  for n, t in torch_state(self.model).items()}
+        names = list(self._state_names)
         if any(p.dtype != torch.float32 for p in params.values()):
             names.append("master")
         per_state = {s: {} for s in names}
@@ -206,7 +210,7 @@ class ScanTrainStep:
         into ``optimizer.state``, per state_dict name."""
         params = unstack_gpt_params(self._params)
         with torch.no_grad():
-            for name, t in self.model.state_dict().items():
+            for name, t in torch_state(self.model).items():
                 t.copy_(params[name])
         nl = self.cfg.num_layers
         for grp, key in _leaf_keys(self._opt_state):
@@ -275,12 +279,14 @@ class ScanTrainStep:
                 sq = sq + torch.sum(g ** 2)
             scale = clip / torch.clamp(torch.sqrt(sq), min=clip)
             grads = [g * scale for g in grads]
-        names = list(self.opt.state_names)
+        names = self._state_names
+        lr, wd = f32(self.opt.get_lr()), f32(self.opt._weight_decay)
+        t = f32(t)
         for (grp, k), g in zip(keys, grads):
             p, st = self._params[grp][k], self._opt_state[grp][k]
             p32 = st["master"] if "master" in st else p
-            new_p32, new_st = self.opt.update(p32, g,
-                                              [st[n] for n in names], t)
+            new_p32, new_st = self._update(p32, g, [st[n] for n in names],
+                                           lr, wd, t)
             st.update(zip(names, new_st))
             if "master" in st:
                 st["master"] = new_p32

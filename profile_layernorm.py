@@ -205,13 +205,16 @@ def profile(stem, libs, dev, timer, smi):
 def host_split(dev, smi, roots=(), b=8, s=1024, d=cs.D_MODEL):
     """The host side of one FusedLayerNorm forward and backward, by part;
     then each of ``roots``' C entry points called straight, in turns."""
+    from paddle_tpu_torch import device as tdevice
+    from paddle_tpu_torch.core.tensor import Tensor
     from paddle_tpu_torch.incubate.nn import FusedLayerNorm
-    ln = FusedLayerNorm(d, device=dev)
+    with tdevice.device_scope(dev):
+        ln = FusedLayerNorm(d)
     g = torch.Generator().manual_seed(cs.SEED)
     x = torch.randn(b, s, d, generator=g).to(dev, torch.bfloat16)
     dy = torch.randn(b, s, d, generator=g).to(dev, torch.bfloat16)
-    xg = x.detach().requires_grad_(True)
-    gamma, beta = ln.weight.detach(), ln.bias.detach()
+    xg = Tensor(x, stop_gradient=False)
+    gamma, beta = ln.weight._data.detach(), ln.bias._data.detach()
     x2, dy2 = x.reshape(-1, d), dy.reshape(-1, d)
     n = x2.shape[0]
     nb = -(-n // cln.ROWS_PER_BLOCK)
@@ -271,7 +274,8 @@ def host_split(dev, smi, roots=(), b=8, s=1024, d=cs.D_MODEL):
         forward()
 
     wholes = {"forward": (forward, None, fwd),
-              "backward": (lambda: state["y"].backward(dy), fresh, bwd)}
+              "backward": (lambda: state["y"].backward(Tensor(dy)), fresh,
+                           bwd)}
     for direction, (fn, prepare, parts) in wholes.items():
         for _ in range(3):                      # warm-up
             (prepare or (lambda: None))()

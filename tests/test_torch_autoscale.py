@@ -24,6 +24,16 @@ import paddle_tpu_torch.serving.autoscale as tauto
 from tests.test_torch_router import models  # noqa: F401 - the fixture
 from tests.test_torch_router import (FLEET, FRONT, PKGS, Side, _ref, both,
                                      ep)
+from paddle_tpu_torch import device as tdevice
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 pytestmark = pytest.mark.chaos
 

@@ -52,6 +52,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.core.tensor import torch_state
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.kernels.cuda import paged_attention as cdec
 from paddle_tpu_torch.kernels.cuda import prefill_attention as cpre
@@ -1342,20 +1343,20 @@ def test_card_fused_multi_transformer_matches_cpu(card, masked):
     value (matrix products and layernorms summed in other orders)."""
     from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
     from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
-    gen = torch.Generator().manual_seed(0)
-    cpu = FusedMultiTransformer(64, 4, 128, num_layers=2, device="cpu",
-                                generator=gen).eval()
-    dev = FusedMultiTransformer(64, 4, 128, num_layers=2,
-                                device=card).eval()
-    dev.load_state_dict(cpu.state_dict())
+    from paddle_tpu_torch import device as tdevice
+    with tdevice.device_scope("cpu"):
+        cpu = FusedMultiTransformer(64, 4, 128, num_layers=2).eval()
+    with tdevice.device_scope(card):
+        dev = FusedMultiTransformer(64, 4, 128, num_layers=2).eval()
+    dev.set_state_dict(cpu.state_dict())
     g = torch.Generator().manual_seed(1)
     x = torch.randn(2, 40, 64, generator=g)
     mask = torch.randn(2, 1, 40, 40, generator=g) if masked else None
     before = cfa.FWD.launches
     with torch.no_grad():
         got = dev(x.to(card), attn_mask=None if mask is None
-                  else mask.to(card)).cpu()
-        ref = cpu(x, attn_mask=mask)
+                  else mask.to(card))._data.cpu()
+        ref = cpu(x, attn_mask=mask)._data
     assert cfa.FWD.launches - before == (0 if masked else 2)
     assert (got - ref).abs().max().item() <= 1e-4 * max(
         1.0, ref.abs().max().item())
@@ -1375,13 +1376,16 @@ def test_card_fused_layer_norm_and_rope_match_cpu(card):
              "bias": torch.randn(96, generator=g)}
     outs = {}
     registry.reset_counts()
+    from paddle_tpu_torch import device as tdevice
+    from paddle_tpu_torch.core.tensor import Tensor
     for where in ("cpu", card):
-        ln = FusedLayerNorm(96, device=where)
-        ln.load_state_dict(state)
-        xx = x.to(where).detach().requires_grad_(True)
+        with tdevice.device_scope(where):
+            ln = FusedLayerNorm(96)
+        ln.set_state_dict(state)
+        xx = Tensor(x.to(where), stop_gradient=False)
         y = ln(xx)
-        (y * w.to(where)).sum().backward()
-        outs[str(where)] = [t.detach().cpu() for t in
+        (y * Tensor(w.to(where))).sum().backward()
+        outs[str(where)] = [t._data.detach().cpu() for t in
                             (y, xx.grad, ln.weight.grad, ln.bias.grad)]
     for i, (got, ref) in enumerate(zip(outs[str(card)], outs["cpu"])):
         tol = 2e-5 if i == 0 else 1e-4
@@ -1390,9 +1394,9 @@ def test_card_fused_layer_norm_and_rope_match_cpu(card):
     q, k = torch.randn(2, 4, 33, 64, generator=g), torch.randn(
         2, 4, 33, 64, generator=g)
     cos, sin = _rope_tables(33, 64, "cpu")
-    ref = fused_rotary_position_embedding(q, k, cos, sin)
-    got = fused_rotary_position_embedding(q.to(card), k.to(card),
-                                          cos.to(card), sin.to(card))
+    ref = [t._data for t in fused_rotary_position_embedding(q, k, cos, sin)]
+    got = [t._data for t in fused_rotary_position_embedding(
+        q.to(card), k.to(card), cos.to(card), sin.to(card))]
     for a, b in zip(got, ref):
         assert (a.cpu() - b).abs().max().item() <= 1e-6 * max(
             1.0, b.abs().max().item())
@@ -1753,8 +1757,8 @@ def test_card_train_forward_with_dropout_matches_cpu(card, over):
     x, y = ids[:, :-1], ids[:, 1:]
 
     def run(dev, c):
-        stacked = tgpt.stack_gpt_params({k: v.detach().to(dev).clone()
-                                         for k, v in model.state_dict().items()})
+        stacked = tgpt.stack_gpt_params({
+            k: v.to(dev).clone() for k, v in torch_state(model).items()})
         leaves = [stacked[g][k] for g in ("blocks", "top") for k in stacked[g]]
         for t in leaves:
             t.requires_grad_(True)
@@ -2390,3 +2394,72 @@ def test_card_split_step_equals_fused(card):
     for grp in ("blocks", "top"):
         for k, p in fused._params[grp].items():
             assert torch.equal(split._params[grp][k], p), k
+
+
+# --- the Paddle front end on the card ---------------------------------------
+
+def _eager_pair(card, **over):
+    """Two copies of a small GPT Layer, one on the card, one on the CPU,
+    with the same weights."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device as tdevice
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(**dict(dict(vocab_size=256, hidden_size=128,
+                                num_layers=2, num_heads=2,
+                                intermediate_size=256,
+                                max_position_embeddings=128,
+                                hidden_dropout=0.0, attention_dropout=0.0),
+                           **over))
+    paddle.seed(0)
+    with tdevice.device_scope(card):
+        dev = GPTForCausalLM(cfg)
+    with tdevice.device_scope("cpu"):
+        cpu = GPTForCausalLM(cfg)
+    cpu.set_state_dict(dev.state_dict())
+    return dev, cpu
+
+
+def test_card_eager_train_step_matches_cpu(card):
+    """Two eager AdamW steps of the Paddle GPT Layer on the card (flash
+    forward, dQ and dK/dV kernels) against the CPU: losses within 1e-4;
+    all but 0.1% of the parameters' elements within 1e-5, and none beyond
+    AdamW's two steps of the rate (an element whose gradient is at
+    rounding level may take the other sign's step)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    dev, cpu = _eager_pair(card)
+    ids = np.random.default_rng(1).integers(0, 256, (2, 65))
+    losses = {}
+    before = (cfa.FWD.launches, cfa.DQ.launches, cfa.DKV.launches)
+    for where, m in ((card, dev), ("cpu", cpu)):
+        opt = paddle.optimizer.AdamW(parameters=m.parameters())
+        x = paddle.to_tensor(ids[:, :-1], place=where)
+        y = paddle.to_tensor(ids[:, 1:], place=where)
+        out = []
+        for _ in range(2):
+            _, loss = m(x, labels=y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            out.append(float(loss))
+        losses[str(where)] = out
+    assert (cfa.FWD.launches - before[0], cfa.DQ.launches - before[1],
+            cfa.DKV.launches - before[2]) == (4, 4, 4)
+    assert np.allclose(losses[str(card)], losses["cpu"], atol=1e-4)
+    diff = torch.cat([(a._data.cpu() - b._data).abs().reshape(-1)
+                      for a, b in zip(dev.parameters(), cpu.parameters())])
+    assert diff.max().item() <= 2e-3
+    assert diff.topk(max(1, diff.numel() // 1000)).values[-1].item() <= 1e-5
+
+
+def test_card_eager_generate_matches_cpu(card):
+    """The Layer's eager generate on the card (flash at Sq = 1 against the
+    growing cache) gives the CPU's greedy tokens."""
+    import paddle_tpu_torch as paddle
+    dev, cpu = _eager_pair(card)
+    prompt = np.random.default_rng(2).integers(0, 256, (2, 9))
+    got = dev.generate(paddle.to_tensor(prompt, place=card),
+                       max_new_tokens=8).numpy()
+    want = cpu.generate(paddle.to_tensor(prompt, place="cpu"),
+                        max_new_tokens=8).numpy()
+    assert np.array_equal(got, want)

@@ -36,6 +36,16 @@ from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.train import ScanTrainStep
 from tests.test_torch_train import (_maxabs, _np, _weights,  # noqa: F401
                                     authored_flash)
+from paddle_tpu_torch import device as tdevice
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 SMALL = dict(vocab_size=512, hidden_size=32, num_layers=2, num_heads=2,
              intermediate_size=64, max_position_embeddings=32,
@@ -334,7 +344,7 @@ def test_train_steps_with_dropout_match_jax_step_program(authored_flash):
     params, opt_state = train_state_from_numpy(tree(js._params),
                                                tree(js._opt_state), "cpu")
     model = tgpt.GPTForCausalLM(tgpt.GPTConfig(**cfg))
-    model.load_state_dict(params)
+    model.set_state_dict(params)
     opt = AdamW(learning_rate=lr, clip_norm=clip)
     opt.state = opt_state
     ts = ScanTrainStep(model, opt, microbatches=2, use_loss_mask=True,

@@ -43,6 +43,16 @@ from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.train import ScanTrainStep
 from paddle_tpu_torch.train import elastic as tel
 from tests.test_torch_fault_tolerance import SIDES, _batch
+from paddle_tpu_torch import device as tdevice
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 pytestmark = pytest.mark.chaos
 

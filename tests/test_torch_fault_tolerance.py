@@ -46,6 +46,16 @@ from paddle_tpu_torch.testing import faults as tfaults
 from paddle_tpu_torch.train import CheckpointManager as TManager
 from paddle_tpu_torch.train import ScanTrainStep as TStep
 from paddle_tpu_torch.train import TooManyBadSteps as TTooMany
+from paddle_tpu_torch import device as tdevice
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 pytestmark = pytest.mark.chaos
 
@@ -96,7 +106,7 @@ def _torch_step(seed, sched=False):
     params, opt_state = train_state_from_numpy(tree(js._params),
                                                tree(js._opt_state), "cpu")
     m = tgpt.GPTForCausalLM(tgpt.GPTConfig(**TINY))
-    m.load_state_dict(params)
+    m.set_state_dict(params)
     opt = AdamW(learning_rate=_sched(tlr, sched) if sched else 1e-3)
     opt.state = opt_state
     return TStep(m, opt, microbatches=1, device="cpu")

@@ -25,6 +25,17 @@ from paddle_tpu_torch.train import CheckpointManager as TManager
 from tests.test_torch_fault_tolerance import (SIDES, _batch, _index_layout,
                                               _jax_step, _outcome,
                                               _torch_step, _tree, both)
+from paddle_tpu_torch import device as tdevice
+from paddle_tpu_torch.core.tensor import torch_state
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 pytestmark = pytest.mark.chaos
 
@@ -242,7 +253,7 @@ def test_port_restore_is_exact_from_a_jax_checkpoint(tmp_path):
     assert np.array_equal(ts.key_data(),
                           np.asarray(jax.random.key_data(js._key)))
     assert ts.opt.global_step == 1
-    assert ts.model.state_dict()["gpt.wte.weight"].equal(
+    assert torch_state(ts.model)["gpt.wte.weight"].equal(
         ts._params["top"]["gpt.wte.weight"].detach())
 
 

@@ -48,6 +48,17 @@ from paddle_tpu.observability.tracing import mint_trace
 from paddle_tpu_torch.framework import io as tio
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.observability import MetricsRegistry as TRegistry
+from paddle_tpu_torch import device as tdevice
+from paddle_tpu_torch.core.tensor import torch_state
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 REPO = Path(__file__).resolve().parents[1]
 TINY = dict(vocab_size=97, hidden_size=32, num_layers=2, num_heads=2,
@@ -213,17 +224,17 @@ def test_jax_saved_gpt_state_loads_into_the_port_model(tmp_path):
     path = tmp_path / "gpt.pdparams"
     paddle.save(jm.state_dict(), str(path))
     tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**TINY))
-    missing, unexpected = tserve.set_state_dict(tm, tio.load(str(path)))
+    missing, unexpected = tm.set_state_dict(tio.load(str(path)))
     assert missing == [] and unexpected == []
     for k, v in jm.state_dict().items():
-        assert np.array_equal(tm.state_dict()[k].numpy(),
+        assert np.array_equal(torch_state(tm)[k].numpy(),
                               np.asarray(v._data)), k
     with pytest.raises(ValueError, match="shape mismatch"):
-        tserve.set_state_dict(tm, {"gpt.wte.weight": torch.zeros(3, 3)})
+        tm.set_state_dict({"gpt.wte.weight": torch.zeros(3, 3)})
     # a bf16 file casts into the float32 model as the JAX load would
-    tio.save({k: v.to(torch.bfloat16) for k, v in tm.state_dict().items()},
+    tio.save({k: v.to(torch.bfloat16) for k, v in torch_state(tm).items()},
              str(path))
-    tserve.set_state_dict(tm, tio.load(str(path)))
+    tm.set_state_dict(tio.load(str(path)))
     assert tm.gpt.wte.weight.dtype == torch.float32
 
 
@@ -324,7 +335,7 @@ def _pair_models():
     jm = jgpt.GPTForCausalLM(jgpt.GPTConfig(**TINY, hidden_dropout=0.0,
                                             attention_dropout=0.0))
     tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**TINY))
-    tserve.set_state_dict(tm, {k: np.asarray(v._data)
+    tm.set_state_dict({k: np.asarray(v._data)
                                for k, v in jm.state_dict().items()})
     return jm, tm
 

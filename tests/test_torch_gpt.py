@@ -19,6 +19,17 @@ import jax.numpy as jnp
 from paddle_tpu.models import gpt as jgpt
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models.convert import params_from_numpy
+from paddle_tpu_torch import device as tdevice
+from paddle_tpu_torch.core.tensor import torch_state
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 TOL = 1e-5
 SMALL = dict(vocab_size=97, hidden_size=32, num_layers=2, num_heads=2,
@@ -148,11 +159,11 @@ def test_state_dict_layout_matches_jax_and_loads_as_a_copy():
     jstate = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
     tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**SMALL),
                              generator=torch.Generator().manual_seed(0))
-    tstate = tm.state_dict()
+    tstate = torch_state(tm)
     assert list(tstate) == list(jstate)
     assert all(tuple(tstate[k].shape) == jstate[k].shape for k in jstate)
-    tm.load_state_dict(params_from_numpy(jstate, "cpu"))
-    for k, v in tm.state_dict().items():
+    tm.set_state_dict(params_from_numpy(jstate, "cpu"))
+    for k, v in torch_state(tm).items():
         np.testing.assert_array_equal(v.numpy(), jstate[k])
     # bf16 arrays (ml_dtypes) carry across bit for bit
     b16 = np.asarray(jnp.asarray(jstate["gpt.wte.weight"], jnp.bfloat16))

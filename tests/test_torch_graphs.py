@@ -32,6 +32,17 @@ from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models.convert import params_from_numpy
 from paddle_tpu_torch.quantization.serving import QuantizedLeaf
+from paddle_tpu_torch import device as tdevice
+from paddle_tpu_torch.core.tensor import torch_state
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 TINY = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=2,
             intermediate_size=64, max_position_embeddings=64)
@@ -57,7 +68,7 @@ def _pair(seed):
     jm.set_state_dict(w)
     jm.eval()
     tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**TINY))
-    tm.load_state_dict(params_from_numpy(w, "cpu"))
+    tm.set_state_dict(params_from_numpy(w, "cpu"))
     return jm, tm
 
 
@@ -241,7 +252,7 @@ def test_int8_engine_keeps_the_float_engines_program_count(models):
 def test_refresh_params_copies_in_place_and_follows_new_weights(
         models, weight_dtype):
     (jm, tm), (jm2, tm2) = models[11], models[12]
-    model_before = {k: v.clone() for k, v in tm.state_dict().items()}
+    model_before = {k: v.clone() for k, v in torch_state(tm).items()}
     ptrs = {}
 
     def tensors(eng):
@@ -271,7 +282,7 @@ def test_refresh_params_copies_in_place_and_follows_new_weights(
     eng, _ = both(models, scenario, page_size=4, max_slots=3, min_bucket=8,
                   weight_dtype=weight_dtype)
     assert ptrs["after"] == ptrs["before"]
-    for k, v in tm.state_dict().items():          # the first model untouched
+    for k, v in torch_state(tm).items():          # the first model untouched
         assert torch.equal(v, model_before[k]), k
     # the new weights are the second model's (its re-quantization under
     # int8 weights)

@@ -40,6 +40,16 @@ from paddle_tpu_torch.observability import metrics as tmetrics
 from paddle_tpu_torch.observability import usage as tusage
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models.convert import params_from_numpy
+from paddle_tpu_torch import device as tdevice
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 TINY = dict(vocab_size=97, hidden_size=32, num_layers=2, num_heads=2,
             intermediate_size=64, max_position_embeddings=64)
@@ -68,7 +78,7 @@ def _pair(seed, **cfg):
     jm.set_state_dict(w)
     jm.eval()
     tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**cfg))
-    tm.load_state_dict(params_from_numpy(w, "cpu"))
+    tm.set_state_dict(params_from_numpy(w, "cpu"))
     return jm, tm
 
 

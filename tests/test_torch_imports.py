@@ -18,6 +18,16 @@ from paddle_tpu_torch.kernels.cuda import fused_layernorm as cln
 from paddle_tpu_torch.kernels.cuda import paged_attention as cdec
 from paddle_tpu_torch.kernels.cuda import prefill_attention as cpre
 from paddle_tpu_torch.kernels.cuda import rotary as crot
+from paddle_tpu_torch import device as tdevice
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 REPO = Path(__file__).resolve().parents[1]
 

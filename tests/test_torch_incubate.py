@@ -4,7 +4,8 @@ JAX package on the same inputs and, for the layers, the same weights
 (carried over with `models/convert.py::layer_state_from_numpy`).
 
 The port runs its plain PyTorch versions here, which is what a CPU tensor
-takes. The JAX side runs its Pallas kernels in interpret mode, as the JAX
+takes; its layers are Paddle Layers on Paddle Tensors (a torch tensor
+passed in is wrapped). The JAX side runs its Pallas kernels in interpret mode, as the JAX
 package's own tests run them on the CPU. Tolerances (float32): the plain
 layernorm's y, mean and rstd within 1e-5 of the interpret-mode forward
 kernel, dx, dgamma and dbeta within 1e-4 of the backward kernel and of
@@ -19,6 +20,8 @@ removed `jax.experimental.disable_x64` (ROADMAP C1), so the layers are
 compared with a mask, and the no-mask (flash) arm of the port's SDPA
 against the JAX ``_sdpa_xla`` called directly.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -37,6 +40,7 @@ from paddle_tpu.nn.layers.norm import LayerNorm as JLayerNorm
 from paddle_tpu.nn.layers.transformer import \
     MultiHeadAttention as JMultiHeadAttention
 
+import paddle_tpu_torch as tp
 from paddle_tpu_torch import incubate as tinc
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.kernels import fused_layernorm as tfl
@@ -44,8 +48,15 @@ from paddle_tpu_torch.kernels import registry
 from paddle_tpu_torch.kernels import rotary as trot
 from paddle_tpu_torch.models.convert import layer_state_from_numpy
 from paddle_tpu_torch.nn import functional as TF
+from paddle_tpu_torch import device as tdevice
 
-CPU = dict(device="cpu")
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
 
 
 def _np(a):
@@ -195,13 +206,13 @@ def test_rope_has_no_gradient_in_either_package():
         jinc.nn.fused_rotary_position_embedding(
             jq, paddle.to_tensor(k), paddle.to_tensor(cos),
             paddle.to_tensor(sin))
-    tq = torch.from_numpy(q).requires_grad_(True)
-    tk, tc, ts = map(torch.from_numpy, (k, cos, sin))
+    tq = tp.to_tensor(q, stop_gradient=False)
+    tk, tc, ts = map(tp.to_tensor, (k, cos, sin))
     with pytest.raises(NotImplementedError, match="ROADMAP C4"):
         tinc.nn.fused_rotary_position_embedding(tq, tk, tc, ts)
     jo = jinc.nn.fused_rotary_position_embedding(
         *(paddle.to_tensor(a) for a in (q, k, cos, sin)))
-    with torch.no_grad():
+    with tp.no_grad():
         to = tinc.nn.fused_rotary_position_embedding(tq, tk, tc, ts)
     for got, ref in zip(to, jo):
         assert _err(got, ref) <= 1e-6
@@ -270,15 +281,36 @@ def test_dropout_deterministic_arms_match_jax(p):
                     JF.dropout(ja, p, training=True)) == 0.0
 
 
-def test_dropout_in_training_raises():
-    x = torch.ones(4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        TF.dropout(x, 0.3, training=True)
+@contextlib.contextmanager
+def _x64_off():
+    """JAX with 64-bit types off, as its train step traces: its dropout
+    then draws float32 uniforms, the port's mask (ROADMAP C16)."""
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", prev)
+
+
+def test_dropout_in_training_draws_the_seed_stream():
+    """Dropout in training takes its key from the global generator: after
+    one seed the port's F.dropout and nn.Dropout equal the JAX package's
+    (64-bit types off) bit for bit; in eval the layer is the identity."""
+    a = _rand(np.random.default_rng(8), 4, 16)
+    with _x64_off():
+        paddle.seed(3)
+        jo = [JF.dropout(paddle.to_tensor(a), 0.3, training=True),
+              paddle.nn.Dropout(0.5)(paddle.to_tensor(a))]
+    tp.seed(3)
     layer = tnn.Dropout(0.5)
     assert layer.training
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        layer(x)
-    assert torch.equal(layer.eval()(x), x)
+    to = [TF.dropout(tp.to_tensor(a), 0.3, training=True),
+          layer(tp.to_tensor(a))]
+    for t, j in zip(to, jo):
+        assert np.array_equal(t.numpy(), j.numpy())
+    x = tp.to_tensor(a)
+    assert layer.eval()(x) is x
 
 
 def _qkv(seed, b=2, sq=6, sk=6, h=2, d=8):
@@ -314,9 +346,16 @@ def test_sdpa_with_mask_matches_jax(kind):
     out = TF.scaled_dot_product_attention(*ts[:3], attn_mask=ts[3])
     assert registry.counts() == {}
     assert _err(out, ref) <= 1e-5
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        TF.scaled_dot_product_attention(*ts[:3], attn_mask=ts[3],
-                                        dropout_p=0.1)
+    # attention dropout in training: the probabilities' mask from the
+    # global seed stream, the JAX package's with 64-bit types off
+    with _x64_off():
+        paddle.seed(4)
+        ref = JF.scaled_dot_product_attention(*js[:3], attn_mask=js[3],
+                                              dropout_p=0.1)
+    tp.seed(4)
+    out = TF.scaled_dot_product_attention(*ts[:3], attn_mask=ts[3],
+                                          dropout_p=0.1)
+    assert _err(out, ref) <= 1e-5
 
 
 # --- layers on the same weights --------------------------------------------
@@ -324,7 +363,7 @@ def test_sdpa_with_mask_matches_jax(kind):
 @pytest.mark.parametrize("bias_attr", [None, False])
 def test_linear_matches_jax(bias_attr):
     jl = JLinear(8, 6, bias_attr=bias_attr)
-    tl = _carry(jl, tnn.Linear(8, 6, bias_attr=bias_attr, **CPU))
+    tl = _carry(jl, tnn.Linear(8, 6, bias_attr=bias_attr))
     assert tuple(tl.weight.shape) == (8, 6)
     jx, tx = _pair(_rand(np.random.default_rng(11), 2, 5, 8))
     assert _err(tl(tx), jl(jx)) <= 1e-5
@@ -332,7 +371,7 @@ def test_linear_matches_jax(bias_attr):
 
 def test_layer_norm_layer_matches_jax():
     jl = JLayerNorm(16, epsilon=1e-6)
-    tl = tnn.LayerNorm(16, epsilon=1e-6, **CPU)
+    tl = tnn.LayerNorm(16, epsilon=1e-6)
     rng = np.random.default_rng(12)
     state = {"weight": _rand(rng, 16), "bias": _rand(rng, 16)}
     jl.set_state_dict({k: paddle.to_tensor(v) for k, v in state.items()})
@@ -347,7 +386,7 @@ def _mask(rng, b, sq, sk):
 
 def test_multi_head_attention_with_mask_matches_jax():
     jm = JMultiHeadAttention(16, 4)
-    tm = _carry(jm, tnn.MultiHeadAttention(16, 4, **CPU))
+    tm = _carry(jm, tnn.MultiHeadAttention(16, 4))
     rng = np.random.default_rng(13)
     (jq, tq), (jk, tk) = _pair(_rand(rng, 2, 5, 16)), _pair(
         _rand(rng, 2, 7, 16))
@@ -364,7 +403,7 @@ def test_multi_head_attention_with_cache_matches_jax():
     """A Cache grows by this call's keys and values; a StaticCache holds
     what the JAX package's gen_cache puts there (ROADMAP C6)."""
     jm = JMultiHeadAttention(16, 4)
-    tm = _carry(jm, tnn.MultiHeadAttention(16, 4, **CPU))
+    tm = _carry(jm, tnn.MultiHeadAttention(16, 4))
     rng = np.random.default_rng(14)
     (jx, tx), (jy, ty) = _pair(_rand(rng, 2, 3, 16)), _pair(
         _rand(rng, 2, 4, 16))
@@ -393,24 +432,24 @@ def test_multi_head_attention_with_cache_matches_jax():
 
 def test_fused_layer_norm_layer_matches_jax_forward_and_grads():
     jl = jinc.nn.FusedLayerNorm(48)
-    tl = tinc.nn.FusedLayerNorm([48], **CPU)
+    tl = tinc.nn.FusedLayerNorm([48])
     assert tl.weight.dtype == tl.bias.dtype == torch.float32
     rng = np.random.default_rng(15)
     state = {"weight": _rand(rng, 48), "bias": _rand(rng, 48)}
     jl.set_state_dict({k: paddle.to_tensor(v) for k, v in state.items()})
     layer_state_from_numpy(tl, state)
     x, w = _rand(rng, 3, 70, 48, scale=2.0), _rand(rng, 3, 70, 48)
-    jx, tx = _pair(x, stop_gradient=False)
-    tx.requires_grad_(True)
+    jx = paddle.to_tensor(x, stop_gradient=False)
+    tx = tp.to_tensor(x, stop_gradient=False)
     jy, ty = jl(jx), tl(tx)
     assert _err(ty, jy) <= 1e-5
     (jy * paddle.to_tensor(w)).sum().backward()
-    (ty * torch.from_numpy(w)).sum().backward()
+    (ty * tp.to_tensor(w)).sum().backward()
     for got, ref in ((tx.grad, jx.grad), (tl.weight.grad, jl.weight.grad),
                      (tl.bias.grad, jl.bias.grad)):
         assert _err(got, ref) <= 1e-4
     with pytest.raises(ValueError, match="last axis only"):
-        tinc.nn.FusedLayerNorm([4, 48], **CPU)
+        tinc.nn.FusedLayerNorm([4, 48])
 
 
 @pytest.mark.parametrize("normalize_before", [False, True])
@@ -419,7 +458,7 @@ def test_fused_multi_head_attention_matches_jax(normalize_before):
     jm = jinc.nn.FusedMultiHeadAttention(
         16, 4, normalize_before=normalize_before)
     tm = _carry(jm, tinc.nn.FusedMultiHeadAttention(
-        16, 4, normalize_before=normalize_before, **CPU))
+        16, 4, normalize_before=normalize_before))
     jm.eval()
     tm.eval()
     rng = np.random.default_rng(16)
@@ -436,7 +475,7 @@ def test_fused_feed_forward_matches_jax(activation, normalize_before):
                                   normalize_before=normalize_before)
     tm = _carry(jm, tinc.nn.FusedFeedForward(
         16, 40, activation=activation, normalize_before=normalize_before,
-        **CPU))
+        ))
     jm.eval()
     tm.eval()
     jx, tx = _pair(_rand(np.random.default_rng(17), 2, 6, 16))
@@ -446,7 +485,7 @@ def test_fused_feed_forward_matches_jax(activation, normalize_before):
 def test_fused_transformer_encoder_layer_matches_jax():
     jm = jinc.nn.FusedTransformerEncoderLayer(16, 4, 40, activation="gelu")
     tm = _carry(jm, tinc.nn.FusedTransformerEncoderLayer(
-        16, 4, 40, activation="gelu", **CPU))
+        16, 4, 40, activation="gelu"))
     jm.eval()
     tm.eval()
     rng = np.random.default_rng(18)
@@ -457,8 +496,7 @@ def test_fused_transformer_encoder_layer_matches_jax():
 
 def _transformers(num_layers=2):
     jm = jinc.nn.FusedMultiTransformer(32, 4, 64, num_layers=num_layers)
-    tm = tinc.nn.FusedMultiTransformer(32, 4, 64, num_layers=num_layers,
-                                       **CPU)
+    tm = tinc.nn.FusedMultiTransformer(32, 4, 64, num_layers=num_layers)
     assert list(tm.state_dict()) == list(jm.state_dict())
     return jm, _carry(jm, tm)
 
@@ -494,8 +532,7 @@ def test_fused_multi_transformer_drops_its_caches_as_the_reference():
 
 def test_fused_multi_transformer_is_pre_ln_only():
     with pytest.raises(NotImplementedError, match="pre-LN"):
-        tinc.nn.FusedMultiTransformer(32, 4, 64, normalize_before=False,
-                                      **CPU)
+        tinc.nn.FusedMultiTransformer(32, 4, 64, normalize_before=False)
 
 
 def test_fused_multi_transformer_no_mask_takes_flash_once_per_layer():
@@ -517,7 +554,7 @@ def test_fused_multi_transformer_no_mask_takes_flash_once_per_layer():
 # --- carry-over and the device rule ----------------------------------------
 
 def test_layer_state_from_numpy_is_strict_and_keeps_dtypes():
-    tl = tnn.Linear(4, 3, **CPU)
+    tl = tnn.Linear(4, 3)
     w = np.ones((4, 3), jnp.bfloat16)
     layer_state_from_numpy(tl, {"weight": w, "bias": np.zeros(3, np.float32)})
     assert tl.weight.dtype == torch.bfloat16 and tl.bias.dtype == torch.float32
@@ -538,21 +575,28 @@ def test_layer_state_from_numpy_is_strict_and_keeps_dtypes():
     ids=["Linear", "LayerNorm", "MultiHeadAttention", "FusedLayerNorm",
          "FusedMultiHeadAttention", "FusedFeedForward",
          "FusedTransformerEncoderLayer", "FusedMultiTransformer"])
-def test_layers_default_to_the_card(make):
+def test_layers_default_to_the_card(make, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
-    with pytest.raises(RuntimeError, match='device="cpu"'):
-        make({})
-    layer = make(CPU)
-    assert all(p.device.type == "cpu" for p in layer.parameters())
+    with monkeypatch.context() as m:
+        m.setattr(tdevice, "_current", None)      # no set_device yet
+        with pytest.raises(RuntimeError, match='set_device\\("cpu"\\)'):
+            make({})
+    layer = make({})
+    assert all(p.place.is_cpu_place() for p in layer.parameters())
 
 
 def test_fresh_weights_follow_the_generator():
+    """Fresh weights come from the global generator: one seed, one set of
+    weights, and the JAX package's under the same seed."""
     def make(seed):
-        return tinc.nn.FusedMultiTransformer(
-            8, 2, 16, num_layers=2, generator=torch.Generator().manual_seed(
-                seed), **CPU).state_dict()
+        tp.seed(seed)
+        return tinc.nn.FusedMultiTransformer(8, 2, 16, num_layers=2
+                                             ).state_dict()
     a, b, c = make(0), make(0), make(1)
-    assert all(torch.equal(a[k], b[k]) for k in a)
-    assert not torch.equal(a["layer_1.ffn.linear1.weight"],
-                           c["layer_1.ffn.linear1.weight"])
+    assert all(np.array_equal(a[k].numpy(), b[k].numpy()) for k in a)
+    assert not np.array_equal(a["layer_1.ffn.linear1.weight"].numpy(),
+                              c["layer_1.ffn.linear1.weight"].numpy())
+    paddle.seed(0)
+    j = jinc.nn.FusedMultiTransformer(8, 2, 16, num_layers=2).state_dict()
+    assert all(_err(a[k], j[k]) <= 1e-6 for k in j)

@@ -19,6 +19,16 @@ from paddle_tpu_torch.inference.kv_tiers import KVTierStore
 from paddle_tpu_torch.kernels.paged_attention import export_pages
 from tests.test_torch_prefix import (PREFIX_KEYS, TIER_KEYS, _ids,  # noqa: F401
                                      _wave, both, models)
+from paddle_tpu_torch import device as tdevice
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 SHAPE = (2, 4, 2, 8)                     # (nl, ps, nh, dh)
 KEYS = PREFIX_KEYS + TIER_KEYS

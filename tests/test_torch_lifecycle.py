@@ -29,6 +29,16 @@ from paddle_tpu.testing import faults as jfaults
 from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
 from paddle_tpu_torch.testing import faults as tfaults
 from tests.test_torch_graphs import TINY, _pair
+from paddle_tpu_torch import device as tdevice
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 V = TINY["vocab_size"]
 # the counters both engines keep: the port's name, the JAX metric's is

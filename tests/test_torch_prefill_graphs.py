@@ -34,6 +34,17 @@ from paddle_tpu_torch.kernels.cuda import prefill_attention as cpre
 from paddle_tpu_torch.models import gpt as tgpt
 from tests.test_torch_graphs import (TINY, _ids, _programs, _results,  # noqa
                                      both, models)
+from paddle_tpu_torch import device as tdevice
+from paddle_tpu_torch.core.tensor import torch_state
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 ECFG = dict(page_size=4, max_slots=3, min_bucket=8)
 SAMPLED = [dict(temperature=0.8, top_k=5, seed=1), {},
@@ -238,7 +249,7 @@ def test_gpt_prefill_steps_take_device_scalars(quant):
     """The one-shot step with a 0-d ``length`` and the chunk step with 0-d
     ``start`` / ``valid`` equal their int form exactly: logits and pools."""
     model = _tiny_model()
-    params = {k: v.detach() for k, v in model.state_dict().items()}
+    params = {k: v.detach() for k, v in torch_state(model).items()}
     cfg = model.cfg
     nh = cfg.num_heads
     shape = (cfg.num_layers, 9, 4, nh, cfg.hidden_size // nh)

@@ -23,6 +23,16 @@ from paddle_tpu_torch.inference.engine import (DecodeEngine, EngineConfig,
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models.convert import params_from_numpy
 from paddle_tpu_torch.serving.disagg import prompt_page_hashes
+from paddle_tpu_torch import device as tdevice
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 SMALL = dict(vocab_size=97, hidden_size=32, num_layers=2, num_heads=2,
              intermediate_size=64, max_position_embeddings=64)
@@ -57,7 +67,7 @@ def _pair(seed):
     jm.set_state_dict(w)
     jm.eval()
     tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**SMALL))
-    tm.load_state_dict(params_from_numpy(w, "cpu"))
+    tm.set_state_dict(params_from_numpy(w, "cpu"))
     return jm, tm
 
 

@@ -59,6 +59,17 @@ from paddle_tpu_torch.quantization.serving import (QUANT_LOGIT_BOUND,
                                                    QuantizedLeaf,
                                                    margin_gated_parity,
                                                    quantize_gpt_params)
+from paddle_tpu_torch import device as tdevice
+from paddle_tpu_torch.core.tensor import torch_state
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 SMALL = dict(vocab_size=97, hidden_size=32, num_layers=2, num_heads=2,
              intermediate_size=64, max_position_embeddings=64)
@@ -672,7 +683,7 @@ def models():
     jm.set_state_dict(w)
     jm.eval()
     tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**SMALL))
-    tm.load_state_dict(params_from_numpy(w, "cpu"))
+    tm.set_state_dict(params_from_numpy(w, "cpu"))
     return jm, tm, w
 
 
@@ -758,7 +769,7 @@ def test_jax_quantized_params_carry_across(models):
                                        for k, v in w.items()})
     carried = params_from_numpy(jq, "cpu")
     own = quantize_gpt_params({k: v.detach()
-                               for k, v in tm.state_dict().items()})
+                               for k, v in torch_state(tm).items()})
     _check_quantized(carried, jq)
     for k, leaf in own.items():
         if isinstance(leaf, QuantizedLeaf):

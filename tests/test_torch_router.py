@@ -55,6 +55,16 @@ from paddle_tpu_torch.observability import metrics as tmetrics
 from paddle_tpu_torch.testing import faults as tfaults
 from tests.test_torch_serve import (_norm, _pair, _read_line, _ref, _spawn,
                                     _stop_server)
+from paddle_tpu_torch import device as tdevice
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 FLEET = "router-fleet"
 FRONT = "router-front"

@@ -41,6 +41,16 @@ from tests.test_torch_router import models  # noqa: F401 - the fixture
 from tests.test_torch_router import (FLEET, FRONT, PKGS, Side, _baseline,
                                      _dead_port, _outcome, _ref, _wait_for,
                                      both, ep, stop_router)
+from paddle_tpu_torch import device as tdevice
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 KEY_A = bytes(range(16))
 KEY_B = bytes(range(16, 32))

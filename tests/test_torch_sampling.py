@@ -29,6 +29,16 @@ from paddle_tpu_torch.kernels import prng, registry
 from paddle_tpu_torch.kernels import sampling as tsmp
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models.convert import params_from_numpy
+from paddle_tpu_torch import device as tdevice
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 SEEDS = (0, 1, 42, 2 ** 40 + 5, -3)
 SHAPES = ((3,), (4, 7), (1, 50257))
@@ -220,7 +230,7 @@ def models():
     jm.set_state_dict(w)
     jm.eval()
     tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**SMALL))
-    tm.load_state_dict(params_from_numpy(w, "cpu"))
+    tm.set_state_dict(params_from_numpy(w, "cpu"))
     return jm, tm
 
 

@@ -59,6 +59,16 @@ from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models.convert import params_from_numpy
 from paddle_tpu_torch.observability import metrics as tmetrics
 from paddle_tpu_torch.testing import faults as tfaults
+from paddle_tpu_torch import device as tdevice
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 REPO = Path(__file__).resolve().parents[1]
 TINY = dict(vocab_size=97, hidden_size=32, num_layers=2, num_heads=2,
@@ -90,7 +100,7 @@ def _pair(seed):
     jm.set_state_dict(w)
     jm.eval()
     tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**TINY))
-    tm.load_state_dict(params_from_numpy(w, "cpu"))
+    tm.set_state_dict(params_from_numpy(w, "cpu"))
     return jm, tm, w
 
 

@@ -30,6 +30,16 @@ from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
 from paddle_tpu_torch.kernels import paged_attention as tpa
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models.convert import params_from_numpy
+from paddle_tpu_torch import device as tdevice
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 TOL = 1e-5
 SMALL = dict(vocab_size=97, hidden_size=32, num_layers=2, num_heads=2,
@@ -236,7 +246,7 @@ def models():
     jm.set_state_dict(w)
     jm.eval()
     tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**SMALL))
-    tm.load_state_dict(params_from_numpy(w, "cpu"))
+    tm.set_state_dict(params_from_numpy(w, "cpu"))
     return jm, tm
 
 

@@ -66,6 +66,16 @@ from paddle_tpu_torch.testing import faults as tfaults
 from paddle_tpu_torch.train import ScanTrainStep
 from tests import test_torch_lifecycle as life
 from tests.test_torch_graphs import TINY, _pair
+from paddle_tpu_torch import device as tdevice
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 JENGINE_DIR = Path(sys.modules[JEngine.__module__].__file__).parent
 
@@ -593,7 +603,7 @@ def test_train_step_series_and_events_match_jax(tmp_path, monkeypatch):
     params, opt_state = train_state_from_numpy(tree(js._params),
                                                tree(js._opt_state), "cpu")
     tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**SMALL))
-    tm.load_state_dict(params)
+    tm.set_state_dict(params)
     topt = AdamW(learning_rate=lr, clip_norm=clip)
     topt.state = opt_state
     ts = ScanTrainStep(tm, topt, microbatches=2, device="cpu")

@@ -45,6 +45,17 @@ from paddle_tpu_torch.models.convert import (params_from_numpy,
                                              train_state_from_numpy)
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.train import ScanTrainStep
+from paddle_tpu_torch import device as tdevice
+from paddle_tpu_torch.core.tensor import torch_state
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port's new tensors and Layers go to the CPU here (its default
+    is the card)."""
+    with tdevice.device_scope("cpu"):
+        yield
+
 
 SMALL = dict(vocab_size=8192, hidden_size=32, num_layers=2, num_heads=2,
              intermediate_size=64, max_position_embeddings=32,
@@ -268,7 +279,7 @@ def test_train_steps_match_jax_step_program(authored_flash):
     params, opt_state = train_state_from_numpy(tree(js._params),
                                                tree(js._opt_state), "cpu")
     model = tgpt.GPTForCausalLM(tgpt.GPTConfig(**cfg))
-    model.load_state_dict(params)
+    model.set_state_dict(params)
     opt = AdamW(learning_rate=lr, clip_norm=clip)
     opt.state = opt_state
     ts = ScanTrainStep(model, opt, microbatches=2, device="cpu")
@@ -307,7 +318,7 @@ def test_train_steps_match_jax_step_program(authored_flash):
     # it, and all but 0.1% within 1e-5 (a wrong update moves most of them);
     # written back into the model and into the optimizer's state
     ts.sync_to_model()
-    got = model.state_dict()
+    got = torch_state(model)
     jp = jgpt.unstack_gpt_params(js._params)
     diff = np.concatenate([np.abs(_np(got[n]) - _np(ref)).ravel()
                            for n, ref in jp.items()])
@@ -320,7 +331,7 @@ def test_train_steps_match_jax_step_program(authored_flash):
 def test_bf16_params_train_on_float32_masters():
     cfg = tgpt.GPTConfig(**dict(SMALL, vocab_size=256))
     model = tgpt.GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(0))
-    master0 = {k: v.clone() for k, v in model.state_dict().items()}
+    master0 = {k: v.clone() for k, v in torch_state(model).items()}
     model = model.to(torch.bfloat16)
     ts = ScanTrainStep(model, AdamW(learning_rate=1e-3, clip_norm=1.0),
                        microbatches=2, device="cpu")
@@ -331,10 +342,10 @@ def test_bf16_params_train_on_float32_masters():
     losses = [ts.step(x, y) for _ in range(3)]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
     ts.sync_to_model()
-    for name, p in model.state_dict().items():
+    for name, p in torch_state(model).items():
         assert p.dtype == torch.bfloat16
         # the bf16 weights are the rounded masters
-        assert torch.equal(p, ts.model.state_dict()[name])
+        assert torch.equal(p, torch_state(ts.model)[name])
     leaf = ts._opt_state["blocks"]["mlp.fc_in.weight"]["master"]
     assert torch.equal(leaf.to(torch.bfloat16),
                        ts._params["blocks"]["mlp.fc_in.weight"].detach())
