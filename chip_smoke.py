@@ -153,6 +153,26 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    (prompts of 250 and 380 tokens) once more under `torch.profiler`: the
    card's busy ms a token (all kernels, and flash's share), kernels a
    token, and the unprofiled wall's ratio to the busy time.
+   ``train_static``: the JAX bench's GPT-2 program (`bench.py:155-196`)
+   on the port: GPT-2 small from ``paddle.seed(SEED)`` on the card,
+   AdamW 1e-4, ``paddle.amp.decorate(O2, bfloat16)``, the step under
+   ``auto_cast(O2)`` decorated with ``paddle.jit.to_static`` and driven
+   by ``multi_steps(32)`` on one batch of B=16, S=1024: 2 warm-up calls
+   (the step's first 2 runs eager, then one CUDA graph captured and
+   replayed), 3 timed calls; step ms, tokens/s, MFU (6N over 989
+   TFLOP/s), peak memory, the capture's seconds, the launches of each
+   flash kernel a step read through the replays (12, exact), the first
+   loss (near ln 50304) and the last, and the same step eagerly (2 + 3
+   steps) beside it. Then 4 to_static calls against 4 eager steps from
+   the same seed (B=8): losses, parameters and the key chain bit for
+   bit, and one more call at a rate set to 0 between calls must leave
+   the parameters as they were; the same with hidden dropout 0.1; and a
+   to_static dropout's replays draw new masks, equal to the eager
+   draws. ``train_bert_static``: the bench's BERT-base program
+   (`bench.py:264-295`, `models/bert.py`) the same way: B=128, S=128,
+   AdamW 2e-5, ``multi_steps(16)``, sequences/s, and 4 calls against 4
+   eager steps bit for bit; its attention is the non-causal flash op
+   (the ``bert`` flash case's shape).
    ``phase_seconds``: each group of phases' seconds, before the
    ``kernels`` line.
 8. ``incubate_parity``: the `incubate.nn` fused layers in float32 on the
@@ -513,13 +533,15 @@ FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 INT8_KERNELS = ("paged_decode_int8", "paged_prefill_int8")
 # (name, B, H, Sq, Sk, D, causal) of the flash kernel checks; "train" and
 # "incubate" are the shapes the train and incubate runs give the kernels,
-# "decode" one token against a cache of 900 + 32 (`generate_eager`)
+# "decode" one token against a cache of 900 + 32 (`generate_eager`),
+# "bert" BERT-base's training shape (`train_bert_static`)
 FLASH_CASES = (("train", 8, 12, 1024, 1024, 64, True),
                ("incubate", 8, 12, 1024, 1024, 64, False),
                ("ragged", 1, 12, 200, 200, 64, True),
                ("cross", 1, 12, 64, 300, 64, True),
                ("decode", 1, 12, 1, 932, 64, True),
-               ("noncausal", 2, 12, 256, 256, 64, False))
+               ("noncausal", 2, 12, 256, 256, 64, False),
+               ("bert", 128, 12, 128, 128, 64, False))
 # card vs CPU float32 train steps: both sum in other orders, and the fused
 # cross-entropy rounds h, w and dlogits to bf16, where a value one f32 bit
 # from a rounding boundary can round one bf16 step apart; Adam then moves
@@ -4573,6 +4595,325 @@ def generate_eager(dev, smi):
     return launches
 
 
+STATIC_BATCH, STATIC_SEQ, STATIC_K = 16, 1024, 32   # bench_gpt2's program
+STATIC_LR = 1e-4
+STATIC_CALLS = (2, 3)            # warm-up calls, timed calls (bench's)
+STATIC_EAGER_STEPS = (2, 3)      # the same step without to_static
+PARITY_STEPS = 4                 # to_static against eager, bit for bit
+PARITY_BATCH = 8
+BERT_BATCH, BERT_SEQ, BERT_K = 128, 128, 16       # bench_bert's program
+BERT_LR = 2e-5
+
+
+def static_program(model, lr, amp_loss=None):
+    """`bench.py`'s training program over a Paddle Layer: AdamW at ``lr``,
+    ``amp.decorate(O2, bfloat16)``, and the step (the forward under
+    ``auto_cast(O2)``, ``backward``, ``step``, ``clear_grad``), not yet
+    decorated. ``amp_loss(model, x, y)`` gives the loss (GPT's own by
+    default). Returns (model, optimizer, step)."""
+    opt = paddle.optimizer.AdamW(learning_rate=lr,
+                                 parameters=model.parameters())
+    model, opt = paddle.amp.decorate(model, opt, level="O2",
+                                     dtype="bfloat16")
+    loss_of = amp_loss or (lambda m, x, y: m(x, labels=y)[1])
+
+    def step(x, y):
+        with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = loss_of(model, x, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return model, opt, step
+
+
+def bert_loss(model, x, y):
+    """`bench_bert`'s loss: the logits cast to float32, cross-entropy."""
+    return paddle.nn.functional.cross_entropy(
+        model(x).astype("float32"), y)
+
+
+def static_gpt(dev, **over):
+    paddle.seed(SEED)
+    with tdevice.device_scope(dev):
+        return gpt_mod.gpt2_small(**dict(dict(hidden_dropout=0.0,
+                                              attention_dropout=0.0),
+                                         **over))
+
+
+def static_bert(dev):
+    from paddle_tpu_torch.models.bert import (BertConfig,
+                                              BertForSequenceClassification)
+    paddle.seed(SEED)
+    with tdevice.device_scope(dev):
+        return BertForSequenceClassification(
+            BertConfig(hidden_dropout=0.0, attention_dropout=0.0),
+            num_classes=2)
+
+
+def static_batches(dev, vocab, b, s, k, labels=None):
+    """`bench.py`'s batch: RandomState(0) ids, the same batch every step;
+    one step's (x, y) and the k-step stack of it, on the card."""
+    rng = np.random.RandomState(0)
+    if labels is None:
+        ids = rng.randint(0, vocab, (b, s + 1))
+        x, y = ids[:, :-1].astype(np.int32), ids[:, 1:].astype(np.int64)
+    else:
+        x = rng.randint(0, vocab, (b, s)).astype(np.int32)
+        y = rng.randint(0, labels, b).astype(np.int64)
+    one = [paddle.to_tensor(a, place=dev) for a in (x, y)]
+    stacked = [paddle.to_tensor(np.broadcast_to(a, (k,) + a.shape).copy(),
+                                place=dev) for a in (x, y)]
+    return one, stacked
+
+
+def sync_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def static_vs_eager(dev, make, lr, batch, steps=PARITY_STEPS, loss=None,
+                    change_lr=False):
+    """``steps`` calls of the to_static step (`EAGER_RUNS` eager, the
+    capture, replays) against ``steps`` eager steps of the same program
+    from the same seed (``make()`` builds the model): the losses and then
+    every parameter bit for bit, the key chain where the eager run leaves
+    it, and the graph's replays. With ``change_lr`` one more call at a
+    rate of 0 must leave every parameter as it was."""
+    x, y = batch
+    out = {}
+    for static in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, opt, step = static_program(make(), lr, loss)
+        fn = paddle.jit.to_static(step) if static else step
+        losses = [fn(x, y).numpy() for _ in range(steps)]
+        out[static] = (losses, {k: v.numpy() for k, v in
+                                model.state_dict().items()},
+                       paddle.get_rng_state()[0].numpy())
+        if static:
+            prog = fn.concrete_program(x, y)
+            replays = prog.graph.replays
+            held = True
+            if change_lr:
+                opt.set_lr(0.0)
+                fn(x, y)
+                held = all(np.array_equal(v.numpy(), out[True][1][k])
+                           for k, v in model.state_dict().items())
+        del model, opt, step, fn
+    (el, ep, ek), (sl, sp, sk) = out[False], out[True]
+    return {"steps": steps, "eager_losses": [float(a) for a in el],
+            "static_losses": [float(a) for a in sl],
+            "losses_bit_equal": [a.tobytes() for a in el]
+            == [a.tobytes() for a in sl],
+            "params_bit_equal": all(np.array_equal(ep[k], sp[k])
+                                    for k in ep),
+            "param_max_abs_diff": max(float(np.abs(
+                ep[k].astype(np.float64) - sp[k]).max()) for k in ep),
+            "key_chain_equal": bool(np.array_equal(ek, sk)),
+            "replays": replays, "zero_lr_held_params": held}
+
+
+def dropout_replays(dev, calls=5):
+    """A to_static hidden dropout (the ``dropout`` kernel) over ones of
+    DROPOUT_SHAPE in bfloat16: the masks of ``calls`` calls, the last
+    ``calls - EAGER_RUNS`` of them graph replays, against the same draws
+    made eagerly from the same seed; each replay's mask must differ from
+    the one before."""
+    from paddle_tpu_torch.jit.static_function import EAGER_RUNS
+    ones = paddle.to_tensor(torch.ones(DROPOUT_SHAPE, dtype=torch.bfloat16,
+                                       device=dev))
+    drop = paddle.jit.to_static(
+        lambda a: paddle.nn.functional.dropout(a, p=DROPOUT_P))
+    paddle.seed(SEED)
+    masks = [drop(ones)._data != 0 for _ in range(calls)]
+    paddle.seed(SEED)
+    eager = [paddle.nn.functional.dropout(ones, p=DROPOUT_P)._data != 0
+             for _ in range(calls)]
+    return {"calls": calls, "replays": calls - EAGER_RUNS,
+            "masks_equal_eager": all(torch.equal(a, b)
+                                     for a, b in zip(masks, eager)),
+            "consecutive_masks_differ": all(
+                not torch.equal(a, b) for a, b in zip(masks, masks[1:])),
+            "keep_share": float(masks[-1].float().mean())}
+
+
+def static_launches(nl, steps, phase):
+    """Each flash kernel once a layer a step (no dropout), through the
+    graph's replays as through the eager runs."""
+    return read_launches(phase, {k: nl * steps for k in FLASH_KERNELS})
+
+
+def timed_static(step_k, xk, yk, k, calls):
+    """`bench.py::_timed_steps_k`: warm-up calls, then timed calls of the
+    k-step program, the card synchronized around the timed ones. Returns
+    (ms a step of each timed call, every call's losses)."""
+    warm, timed = calls
+    losses = [step_k(xk, yk).numpy() for _ in range(warm)]
+    reset_launches()                       # the timed calls' run
+    ms = []
+    for _ in range(timed):
+        out, t = sync_ms(lambda: step_k(xk, yk))
+        ms.append(t / k)
+        losses.append(out.numpy())
+    return ms, losses
+
+
+def timed_eager(step, x, y, calls):
+    """The same step without to_static: ms a step of the timed steps."""
+    warm, timed = calls
+    for _ in range(warm):
+        step(x, y)
+    return [sync_ms(lambda: step(x, y))[1] for _ in range(timed)]
+
+
+def train_static(dev, smi):
+    """`bench_gpt2`'s program on the port: GPT-2 small from
+    ``paddle.seed(SEED)`` on the card, AdamW 1e-4, ``amp.decorate(O2,
+    bfloat16)``, the step under ``auto_cast(O2)`` decorated with
+    ``jit.to_static`` and driven by ``multi_steps(32)`` on one batch of
+    B=16, S=1024: 2 warm-up calls, then 3 timed calls (96 steps); the
+    same step eagerly (2 + 3 steps) beside it. Then the graph held
+    against the eager steps (`static_vs_eager`, with dropout 0.1 too, and
+    a rate changed between calls) and the dropout's replays. Gates: the
+    first loss near ln(50304), the losses falling and finite, graph and
+    eager bit for bit, launches exact."""
+    from paddle_tpu_torch.jit.static_function import EAGER_RUNS
+    gc.collect()
+    torch.cuda.empty_cache()
+    (x, y), (xk, yk) = static_batches(dev, 50304, STATIC_BATCH, STATIC_SEQ,
+                                      STATIC_K)
+    model, opt, step = static_program(static_gpt(dev), STATIC_LR)
+    nl = model.cfg.num_layers
+    n_params = sum(int(np.prod(p.shape)) for p in model.parameters())
+    static = paddle.jit.to_static(step)
+    step_k = static.multi_steps(STATIC_K)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms, losses = timed_static(step_k, xk, yk, STATIC_K, STATIC_CALLS)
+    launches = static_launches(nl, STATIC_CALLS[1] * STATIC_K,
+                               "train_static")
+    prog = static.concrete_program(x, y)
+    peak = torch.cuda.max_memory_allocated(dev)
+    graph_launches = {k.source: n for k, n in
+                      prog.graph.kernel_launches.items()}
+    capture_s = prog.graph_seconds
+    eager_ms = timed_eager(step, x, y, STATIC_EAGER_STEPS)
+    del model, opt, step, static, step_k, prog
+    step_ms = statistics.median(ms)
+    tokens = STATIC_BATCH * STATIC_SEQ
+    tps = tokens / (step_ms / 1e3)
+    flat = np.concatenate(losses).astype(np.float64)
+    parity = static_vs_eager(dev, lambda: static_gpt(dev), STATIC_LR,
+                             static_batches(dev, 50304, PARITY_BATCH,
+                                            STATIC_SEQ, 1)[0],
+                             change_lr=True)
+    parity_drop = static_vs_eager(
+        dev, lambda: static_gpt(dev, hidden_dropout=DROPOUT_P), STATIC_LR,
+        static_batches(dev, 50304, PARITY_BATCH, STATIC_SEQ, 1)[0])
+    drop = dropout_replays(dev)
+    ok = (bool(np.isfinite(flat).all()) and abs(flat[0] - math.log(50304))
+          < 0.5 and flat[-1] < flat[0]
+          and all(p["losses_bit_equal"] and p["params_bit_equal"]
+                  and p["key_chain_equal"]
+                  and p["replays"] == PARITY_STEPS - EAGER_RUNS
+                  for p in (parity, parity_drop))
+          and parity["zero_lr_held_params"]
+          and drop["masks_equal_eager"] and drop["consecutive_masks_differ"]
+          and graph_launches == {k: nl for k in FLASH_KERNELS})
+    line = {"phase": "train_static", "model": "gpt2-small",
+            "program": "bench_gpt2: amp O2 bf16, to_static, multi_steps",
+            "card": smi, "batch": STATIC_BATCH, "seq": STATIC_SEQ,
+            "multi_steps": STATIC_K, "calls": list(STATIC_CALLS),
+            "optimizer": "AdamW", "learning_rate": STATIC_LR,
+            "params": n_params, "step_ms": ms, "step_ms_p50": step_ms,
+            "tokens_per_s": tps, "mfu": tps * 6.0 * n_params
+            / H100_BF16_PEAK, "peak_memory_bytes": peak,
+            "capture_seconds": capture_s,
+            "graph_launches_per_step": graph_launches,
+            "launches": launches,
+            "launches_per_step": {k: n / (STATIC_CALLS[1] * STATIC_K)
+                                  for k, n in launches.items() if n},
+            "first_loss": float(flat[0]), "last_loss": float(flat[-1]),
+            "ln_vocab": math.log(50304),
+            "eager_step_ms": eager_ms,
+            "eager_step_ms_p50": statistics.median(eager_ms),
+            "eager_over_graph": statistics.median(eager_ms) / step_ms,
+            "vs_eager": parity, "vs_eager_dropout": parity_drop,
+            "dropout_replays": drop, "clocks": card_clocks(), "ok": ok}
+    emit(line)
+    if not ok:
+        raise SystemExit(f"train_static: {line}")
+    return launches
+
+
+def train_bert_static(dev, smi):
+    """`bench_bert`'s program on the port: BERT-base
+    (`models/bert.py::BertForSequenceClassification`, 2 classes) from
+    ``paddle.seed(SEED)`` on the card, dropout 0, AdamW 2e-5, amp O2
+    bfloat16, the loss over the logits cast to float32, ``to_static`` and
+    ``multi_steps(16)`` on one batch of B=128, S=128: 2 warm-up and 3
+    timed calls, the same step eagerly beside it, then the graph held
+    against the eager steps bit for bit. Attention is the non-causal
+    flash op (each kernel once a layer a step, the ``bert`` flash case's
+    shape)."""
+    from paddle_tpu_torch.jit.static_function import EAGER_RUNS
+    gc.collect()
+    torch.cuda.empty_cache()
+    (x, y), (xk, yk) = static_batches(dev, 30522, BERT_BATCH, BERT_SEQ,
+                                      BERT_K, labels=2)
+    model, opt, step = static_program(static_bert(dev), BERT_LR, bert_loss)
+    nl = model.bert.cfg.num_layers
+    n_params = sum(int(np.prod(p.shape)) for p in model.parameters())
+    static = paddle.jit.to_static(step)
+    step_k = static.multi_steps(BERT_K)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms, losses = timed_static(step_k, xk, yk, BERT_K, STATIC_CALLS)
+    launches = static_launches(nl, STATIC_CALLS[1] * BERT_K,
+                               "train_bert_static")
+    prog = static.concrete_program(x, y)
+    peak = torch.cuda.max_memory_allocated(dev)
+    capture_s = prog.graph_seconds
+    graph_launches = {k.source: n for k, n in
+                      prog.graph.kernel_launches.items()}
+    eager_ms = timed_eager(step, x, y, STATIC_EAGER_STEPS)
+    del model, opt, step, static, step_k, prog
+    step_ms = statistics.median(ms)
+    flat = np.concatenate(losses).astype(np.float64)
+    parity = static_vs_eager(dev, lambda: static_bert(dev), BERT_LR,
+                             (x, y), loss=bert_loss)
+    ok = (bool(np.isfinite(flat).all()) and flat[-1] < flat[0]
+          and parity["losses_bit_equal"] and parity["params_bit_equal"]
+          and parity["replays"] == PARITY_STEPS - EAGER_RUNS
+          and graph_launches == {k: nl for k in FLASH_KERNELS})
+    line = {"phase": "train_bert_static", "model": "bert-base",
+            "program": "bench_bert: amp O2 bf16, to_static, multi_steps",
+            "card": smi, "batch": BERT_BATCH, "seq": BERT_SEQ,
+            "multi_steps": BERT_K, "calls": list(STATIC_CALLS),
+            "optimizer": "AdamW", "learning_rate": BERT_LR,
+            "params": n_params, "step_ms": ms, "step_ms_p50": step_ms,
+            "sequences_per_s": BERT_BATCH / (step_ms / 1e3),
+            "mfu": BERT_BATCH * BERT_SEQ / (step_ms / 1e3) * 6.0 * n_params
+            / H100_BF16_PEAK, "peak_memory_bytes": peak,
+            "capture_seconds": capture_s,
+            "graph_launches_per_step": graph_launches,
+            "launches": launches,
+            "launches_per_step": {k: n / (STATIC_CALLS[1] * BERT_K)
+                                  for k, n in launches.items() if n},
+            "first_loss": float(flat[0]), "last_loss": float(flat[-1]),
+            "eager_step_ms": eager_ms,
+            "eager_step_ms_p50": statistics.median(eager_ms),
+            "eager_over_graph": statistics.median(eager_ms) / step_ms,
+            "vs_eager": parity, "clocks": card_clocks(), "ok": ok}
+    emit(line)
+    if not ok:
+        raise SystemExit(f"train_bert_static: {line}")
+    return launches
+
+
 def fc_out_product_ms(dev, timer, b=8, s=1024):
     """One microbatch's fc_out product, ``up @ W + b`` at [8, 1024, 3072] x
     [3072, 768] in bf16: what the "mlp" and "mlp_up" recompute settings
@@ -5779,6 +6120,12 @@ def main():
         for k in (*FLASH_KERNELS, "dropout"):
             launches[k] += phase_launches[k]
     mark("train_eager_generate_eager")
+    # the bench's programs: amp O2 and to_static, each step one graph
+    for phase_launches in (train_static(dev, smi),
+                           train_bert_static(dev, smi)):
+        for k in FLASH_KERNELS:
+            launches[k] += phase_launches[k]
+    mark("train_static")
     torch.cuda.empty_cache()
     incubate_parity(dev)
     incubated = incubate_run(dev, smi)

@@ -16,7 +16,7 @@ lists what of the JAX package is ported and what waits.
 import importlib as _importlib
 
 
-_SUBPACKAGES = ("device", "nn", "optimizer", "autograd")
+_SUBPACKAGES = ("device", "nn", "optimizer", "autograd", "amp", "jit")
 
 
 def __getattr__(name):

@@ -22,6 +22,8 @@ from paddle_tpu_torch import nn  # noqa: F401
 from paddle_tpu_torch import optimizer  # noqa: F401
 from paddle_tpu_torch import autograd  # noqa: F401
 from paddle_tpu_torch.autograd import PyLayer  # noqa: F401
+from paddle_tpu_torch import amp  # noqa: F401
+from paddle_tpu_torch import jit  # noqa: F401
 
 __all__ = (["bool", "uint8", "int8", "int16", "int32", "int64", "float16",
             "bfloat16", "float32", "float64", "complex64", "complex128",
@@ -31,6 +33,6 @@ __all__ = (["bool", "uint8", "int8", "int16", "int32", "int64", "float16",
             "get_rng_state", "set_rng_state", "device", "CPUPlace",
             "CUDAPlace", "TPUPlace", "CUDAPinnedPlace", "set_device",
             "get_device", "is_compiled_with_cuda", "is_compiled_with_rocm",
-            "is_compiled_with_xpu", "nn", "optimizer", "autograd", "PyLayer"]
+            "is_compiled_with_xpu", "nn", "optimizer", "autograd", "PyLayer", "amp", "jit"]
            + [n for n in _ops_all if n not in ("seed", "get_rng_state",
                                                "set_rng_state")])

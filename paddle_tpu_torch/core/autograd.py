@@ -37,9 +37,15 @@ class enable_grad(torch.enable_grad):
     """Context manager / decorator enabling gradient recording."""
 
 
+_T = None
+
+
 def _tensor_mod():
-    from paddle_tpu_torch.core import tensor as T
-    return T
+    global _T
+    if _T is None:
+        from paddle_tpu_torch.core import tensor as T
+        _T = T
+    return _T
 
 
 def needs_grad(t) -> bool:
@@ -53,6 +59,10 @@ def apply(prim: Callable, *inputs, op_name: str = "", **static_kwargs):
     a gradient. Returns a Tensor or a tuple of Tensors; their
     ``stop_gradient`` is False exactly when the op recorded, as in the JAX
     package."""
+    T = _tensor_mod()
+    if T._read_hook is not None:
+        for t in inputs:
+            T._read_hook(t, "_data")
     arrays = [t._data for t in inputs]
     record = torch.is_grad_enabled() and any(needs_grad(t) for t in inputs)
     fn = functools.partial(prim, **static_kwargs) if static_kwargs else prim

@@ -32,9 +32,71 @@ from paddle_tpu_torch import device as device_mod
 from paddle_tpu_torch.core import autograd
 from paddle_tpu_torch.core import dtype as dtype_mod
 
-__all__ = ["Tensor", "Parameter", "to_tensor", "unwrap", "torch_state"]
+__all__ = ["Tensor", "Parameter", "to_tensor", "unwrap", "torch_state",
+           "set_capture_hooks", "set_capture_active", "in_capture",
+           "current_stamp", "note_read", "note_write"]
 
 _ops_cache = None
+
+# The tensor-creation clock: `jit.to_static` tells the tensors that existed
+# before a step ran (parameters, optimizer state, the key chain) from the
+# step's temporaries by their stamp.
+_creation_clock = 0
+
+
+def current_stamp() -> int:
+    return _creation_clock
+
+
+# Read and write hooks of `jit.to_static` (the JAX package's
+# `set_capture_hooks`, `core/tensor.py:43-67`). A hook takes ``(holder,
+# key)``: a Tensor and ``"_data"``, or a dict or an object holding a torch
+# tensor under ``key`` (an optimizer's accumulator or master copy, the
+# generator's key). The write hook fires BEFORE the value is rebound.
+_read_hook = None
+_write_hook = None
+# True while a `to_static` step runs (eagerly, captured or replayed):
+# stateful code keeps host values out of it (the optimizer's lr and step).
+_capture_active = False
+
+
+def set_capture_hooks(read_hook, write_hook):
+    global _read_hook, _write_hook
+    prev = (_read_hook, _write_hook)
+    _read_hook, _write_hook = read_hook, write_hook
+    return prev
+
+
+def set_capture_active(v: bool) -> bool:
+    global _capture_active
+    prev = _capture_active
+    _capture_active = bool(v)
+    return prev
+
+
+def in_capture() -> bool:
+    return _capture_active
+
+
+def note_read(holder, key="_data"):
+    if _read_hook is not None:
+        _read_hook(holder, key)
+
+
+def note_write(holder, key="_data"):
+    if _write_hook is not None:
+        _write_hook(holder, key)
+
+
+def _host_read(t):
+    """A Tensor's value is about to be read on the host: inside a
+    `to_static` step that is data-dependent control flow, which a captured
+    graph cannot replay (the JAX package converts such a step with
+    dy2static, which is not ported: ROADMAP A10)."""
+    if _capture_active:
+        from paddle_tpu_torch.jit.static_function import (
+            DataDependentControlFlowError, HINT)
+        raise DataDependentControlFlowError(HINT)
 
 
 def _ops():
@@ -56,10 +118,13 @@ def _differentiable(a: torch.Tensor) -> bool:
 
 class Tensor:
     __slots__ = ("_data", "_sg", "_hooks", "_hook_counter", "_hooked",
-                 "name", "persistable", "__weakref__", "__dict__")
+                 "name", "persistable", "_stamp", "__weakref__", "__dict__")
 
     def __init__(self, data, dtype=None, place=None, stop_gradient=True,
                  _internal=False):
+        global _creation_clock
+        _creation_clock += 1
+        self._stamp = _creation_clock
         if _internal:
             self._data = data
         elif isinstance(data, Tensor):
@@ -188,6 +253,8 @@ class Tensor:
         that requires grad takes the value by an in-place copy under
         ``no_grad``, keeping its identity, ``.grad`` and hooks; where the
         shape, dtype or device changes it becomes a new leaf."""
+        if _write_hook is not None:
+            _write_hook(self, "_data")
         d = self._data
         if d.requires_grad and d.grad_fn is None:
             with torch.no_grad():
@@ -262,6 +329,7 @@ class Tensor:
     def numpy(self):
         """A numpy copy; bfloat16 comes out as float32 (numpy has no
         bfloat16)."""
+        _host_read(self)
         d = self._data.detach()
         if d.dtype == torch.bfloat16:
             d = d.float()
@@ -274,6 +342,7 @@ class Tensor:
     def item(self, *args):
         if args:
             return self.numpy().item(*args)
+        _host_read(self)
         return self._data.detach().item()
 
     def tolist(self):
@@ -355,15 +424,22 @@ class Tensor:
             yield self[i]
 
     def __bool__(self):
+        _host_read(self)
         return bool(self._data.detach())
 
     def __int__(self):
+        _host_read(self)
         return int(self._data.detach())
 
     def __float__(self):
+        _host_read(self)
         return float(self._data.detach())
 
     def __index__(self):
+        if _capture_active:
+            from paddle_tpu_torch.jit.static_function import (
+                DataDependentIndexError, HINT)
+            raise DataDependentIndexError(HINT)
         return self._data.__index__()
 
     def __hash__(self):
@@ -375,8 +451,11 @@ class Tensor:
         return object.__format__(self, spec)
 
     def __deepcopy__(self, memo):
+        global _creation_clock
         new = type(self).__new__(type(self))
         memo[id(self)] = new
+        _creation_clock += 1
+        new._stamp = _creation_clock
         d = self._data
         new._data = d.detach().clone().requires_grad_(d.requires_grad) \
             if d.grad_fn is None or not d.requires_grad else d.clone()

@@ -47,7 +47,9 @@ increase while the body is captured, and every replay adds exactly that.
 The warm-up runs and the capture itself leave every count as it was: they
 belong to no step of the engine. They count in the capturing thread's own
 tally (`registry.capturing`), so launches that other threads make
-meanwhile, another engine of the process serving, still count.
+meanwhile, another engine of the process serving, still count; so does
+what the autograd engine's thread launches on the capture stream for a
+captured backward (`jit.to_static`'s train steps).
 """
 from __future__ import annotations
 
@@ -82,9 +84,11 @@ class StepGraph:
     ignored, since the graph's inputs are the tensors it was captured
     over. The body itself is not kept. ``pool``: a memory pool shared with
     other graphs (`torch.cuda.graph_pool_handle`), or None for a private
-    one."""
+    one. ``warmup_runs``: the eager runs before the capture; a caller whose
+    body's earlier runs were real steps on the capture stream already
+    (`jit.to_static`'s) passes 0."""
 
-    def __init__(self, body, device, pool=None):
+    def __init__(self, body, device, pool=None, warmup_runs=WARMUP_RUNS):
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
@@ -94,10 +98,10 @@ class StepGraph:
         # the warm-up runs and the capture count in this thread's tally
         # only, never the shared counts or the metrics registry; the
         # capture's share of it is what a replay adds
-        with _CAPTURE_LOCK, registry.capturing() as cap:
+        with _CAPTURE_LOCK, registry.capturing(stream) as cap:
             stream.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(stream):
-                for _ in range(WARMUP_RUNS):
+                for _ in range(warmup_runs):
                     body()
             start = {k: dict(v) for k, v in cap.tally.items()}
             self.graph = torch.cuda.CUDAGraph()

@@ -150,6 +150,11 @@ def flash_attention(q, k, v, *, causal=False, sm_scale=None):
         raise NotImplementedError(
             "causal flash_attention requires seq_q <= seq_k "
             f"(got {sq} > {sk})")
+    if q.is_cuda and q.dtype == torch.float16:
+        raise NotImplementedError(
+            "flash_attention: float16 on the card is not ported; the flash "
+            "kernels take float32 and bfloat16 (their float16 arms are "
+            "ROADMAP A10): autocast to bfloat16 instead")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     out = _Flash.apply(q.reshape(b * h, sq, d), k.reshape(b * h, sk, d),

@@ -19,8 +19,11 @@ counter counts program builds. The warm-up and capture runs of a CUDA
 graph count in neither: inside `capturing` a thread counts its kernel
 launches and dispatches in a tally of its own (`tally`), so another
 thread's launches meanwhile (a second engine of the process serving
-while this one captures) still count. Each replay adds the capture's
-counts to both (`add_counts`; `inference/graphs.py`).
+while this one captures) still count. A capture of a training step also
+counts what the autograd engine launches for it on its own device thread:
+that thread runs the backward on the stream being captured, whose tally
+it takes (`capturing(stream)`). Each replay adds the capture's counts to
+both (`add_counts`; `inference/graphs.py`).
 """
 from __future__ import annotations
 
@@ -48,12 +51,19 @@ _COUNTS: dict[str, int] = {}
 # a thread inside `capturing` counts into its own tally only
 _LOCAL = threading.local()
 _CAPTURE_IDS = itertools.count(1)
+# the tallies of the captures in progress, by the stream each captures
+_STREAM_TALLY: dict[int, dict] = {}
 
 
 def tally() -> dict | None:
     """This thread's tally while it is inside `capturing`: ``{"launches":
-    {kernel: n}, "dispatches": {name: n}}``; else None."""
-    return getattr(_LOCAL, "tally", None)
+    {kernel: n}, "dispatches": {name: n}}``; else, on a stream being
+    captured (the autograd engine's thread in a captured backward), that
+    capture's tally; else None."""
+    own = getattr(_LOCAL, "tally", None)
+    if own is None and _STREAM_TALLY:
+        own = _STREAM_TALLY.get(torch.cuda.current_stream().cuda_stream)
+    return own
 
 
 def capture_id() -> int | None:
@@ -106,16 +116,24 @@ class capturing:
     """Context: this thread's kernel launches (`_build.CudaKernel.launch`)
     and dispatches count in a fresh tally of its own (`tally`, also the
     context's ``tally`` attribute), never in the shared counts or the
-    metrics registry: a graph's warm-up and capture runs. `capture_id`
-    numbers the context."""
+    metrics registry: a graph's warm-up and capture runs. With ``stream``
+    (the stream a graph is captured on) any thread's launches on that
+    stream count in the tally too. `capture_id` numbers the context."""
+
+    def __init__(self, stream=None):
+        self._stream = None if stream is None else stream.cuda_stream
 
     def __enter__(self):
-        self._was = tally(), capture_id()
+        self._was = getattr(_LOCAL, "tally", None), capture_id()
         self.tally = {"launches": {}, "dispatches": {}}
         self.capture_id = next(_CAPTURE_IDS)
         _LOCAL.tally, _LOCAL.capture_id = self.tally, self.capture_id
+        if self._stream is not None:
+            _STREAM_TALLY[self._stream] = self.tally
         return self
 
     def __exit__(self, *exc):
         _LOCAL.tally, _LOCAL.capture_id = self._was
+        if self._stream is not None:
+            _STREAM_TALLY.pop(self._stream, None)
         return False

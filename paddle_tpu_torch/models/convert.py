@@ -5,8 +5,11 @@ weight-only int8 leaf (anything with ``.q``, ``.scale`` and
 ``.dtype_name``, such as the JAX package's ``QuantizedLeaf``) becomes the
 port's `QuantizedLeaf` with the same int8 values and scales, bit for bit.
 A JAX ``Layer.state_dict()`` loads into the port's Layer of the same class
-by key (`layer_state_from_numpy`), a JAX ``Optimizer.state_dict()`` into
-the port's optimizer of the same class (`optimizer_state_from_numpy`)."""
+by key (`layer_state_from_numpy`; GPT-2 and BERT alike), a JAX
+``Optimizer.state_dict()`` into the port's optimizer of the same class
+(`optimizer_state_from_numpy`); the port's Layer comes back out as numpy
+arrays by key (`layer_state_to_numpy`), which the JAX Layer's
+``set_state_dict`` loads."""
 from __future__ import annotations
 
 import numpy as np
@@ -15,7 +18,8 @@ import torch
 from paddle_tpu_torch.quantization.serving import QuantizedLeaf
 
 __all__ = ["params_from_numpy", "train_state_from_numpy",
-           "layer_state_from_numpy", "optimizer_state_from_numpy"]
+           "layer_state_from_numpy", "layer_state_to_numpy",
+           "optimizer_state_from_numpy"]
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -91,6 +95,20 @@ def layer_state_from_numpy(layer, state: dict):
     for name, t in own.items():
         t._write(_to_tensor(np.asarray(state[name])).to(t._data.device))
     return layer
+
+
+def layer_state_to_numpy(layer) -> dict:
+    """``{key: np.ndarray}`` of the port's Layer (its ``state_dict()``,
+    on the host): what the JAX Layer of the same class loads with
+    ``set_state_dict``. bfloat16 values come out as float32 (exactly:
+    numpy has no bfloat16)."""
+    out = {}
+    for name, t in layer.state_dict().items():
+        d = t._data.detach()
+        if d.dtype == torch.bfloat16:
+            d = d.float()
+        out[name] = d.cpu().numpy()
+    return out
 
 
 def optimizer_state_from_numpy(optimizer, state: dict):

@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from paddle_tpu_torch.amp.state import amp_cast_inputs
 from paddle_tpu_torch.core.autograd import apply
 from paddle_tpu_torch.core.tensor import Tensor
 from paddle_tpu_torch.kernels import prng
@@ -33,8 +34,10 @@ __all__ = ["linear", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
 
 def linear(x, weight, bias=None, name=None):
     """``x @ weight + bias`` with ``weight`` [in, out] (the Paddle layout);
-    the bias is cast to x's dtype."""
-    x, weight = ensure_tensor(x), ensure_tensor(weight)
+    the bias is cast to x's dtype. Under `amp.auto_cast` x and weight are
+    cast first (`amp/state.py`, the JAX package's one cast site here)."""
+    x, weight = amp_cast_inputs("linear", ensure_tensor(x),
+                                ensure_tensor(weight))
     if bias is not None:
         bias = ensure_tensor(bias)
         if bias.dtype != x.dtype:

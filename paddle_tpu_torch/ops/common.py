@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.core import dtype as dtype_mod
+from paddle_tpu_torch.core import tensor as tensor_mod
 from paddle_tpu_torch.core.autograd import apply, is_grad_enabled
 from paddle_tpu_torch.core.tensor import Tensor, _is_scalar, to_torch
 
@@ -122,6 +123,7 @@ def rebind(x: Tensor, res: Tensor) -> Tensor:
     if x.is_leaf and x._data.requires_grad and res._data.grad_fn is None:
         x._write(res._data)          # a leaf under no_grad keeps itself
         return x
+    tensor_mod.note_write(x)
     x._data = res._data
     x._sg = res._sg
     x._install_hooks()

@@ -6,6 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from paddle_tpu_torch.amp.state import amp_cast_inputs
 from paddle_tpu_torch.core.autograd import apply
 from paddle_tpu_torch.core.tensor import Tensor, to_torch
 from paddle_tpu_torch.ops.common import ensure_tensor, promote_pair
@@ -21,6 +22,7 @@ __all__ = ["matmul", "bmm", "mv", "norm", "vector_norm", "matrix_norm",
 
 def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
     x, y = promote_pair(ensure_tensor(x), ensure_tensor(y))
+    x, y = amp_cast_inputs("matmul", x, y)
 
     def prim(a, b):
         if transpose_x and a.dim() > 1:

@@ -19,6 +19,7 @@ import torch
 
 from paddle_tpu_torch import device as device_mod
 from paddle_tpu_torch.core import dtype as dtype_mod
+from paddle_tpu_torch.core import tensor as tensor_mod
 from paddle_tpu_torch.core.autograd import apply
 from paddle_tpu_torch.core.tensor import Tensor
 from paddle_tpu_torch.kernels import prng
@@ -57,11 +58,22 @@ class Generator:
 
     def next_key(self, device=None) -> torch.Tensor:
         """Split the state; keep the first half, return the second (a [2]
-        int64 key) on ``device`` (the host when None)."""
+        int64 key) on ``device`` (the host when None). The split runs
+        where the state lives: the host, or the card once a `to_static`
+        step there has moved it (`move_to`), so that a captured graph
+        splits it in place on every replay."""
+        tensor_mod.note_write(self, "_key")
         k = prng.split(self._key)
         self._key = k[0]
         sub = k[1]
         return sub if device is None else sub.to(device)
+
+    def move_to(self, device):
+        """Keep the state on ``device`` from now on (the same two words:
+        the chain's draws do not depend on where it is split)."""
+        device = torch.device(device)
+        if self._key.device != device:
+            self._key = self._key.to(device)
 
 
 _default_generator = Generator(np.random.randint(0, 2**31 - 1))

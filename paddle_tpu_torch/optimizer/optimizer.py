@@ -16,6 +16,19 @@ Built without ``parameters`` an optimizer is the functional form a
 and reads the hyperparameters and ``state`` (``{state_dict name: {state
 name: tensor}}``) from here; ``step()`` then raises.
 
+The learning rate and the step count reach the update as 0-d float32
+tensors on the parameters' device, ``_lr_tensor`` and ``_step_tensor``
+(the JAX package's, `paddle_tpu/optimizer/optimizer.py:64-66`): outside a
+`jit.to_static` step ``step()`` writes the host's values into them; inside
+one the step count advances on the device and the rate is what was last
+synced (``set_lr``, a bound scheduler's ``step()``), so a captured CUDA
+graph bakes neither. ``amp.decorate(level="O2")`` sets
+``_use_master_weights``: a parameter that is not float32 is then updated
+through a float32 master copy, made from the copy ``decorate`` kept
+(``p._master``). Every read and rebind of an accumulator or master copy
+goes through the capture hooks of `core/tensor.py`, so `jit.to_static`
+finds them as the step's state.
+
 ``grad_clip`` (any object with a ``clip_norm`` attribute, such as the JAX
 package's ``ClipGradByGlobalNorm``; `AdamW` also takes the number as
 ``clip_norm``) clips by global norm: ``g * clip / max(norm, clip)`` over the
@@ -28,6 +41,7 @@ import collections
 
 import torch
 
+from paddle_tpu_torch.core import tensor as tensor_mod
 from paddle_tpu_torch.core.tensor import Tensor
 from paddle_tpu_torch.optimizer.lr import LRScheduler
 
@@ -78,9 +92,15 @@ class Optimizer:
         self.clip_norm = None if clip_norm is None else float(clip_norm)
         self._accumulators: dict = collections.defaultdict(dict)
         self._master_weights: dict = {}
+        self._use_master_weights = False
         self._global_step = 0
+        # made at the first step, on the parameters' device
+        self._lr_tensor = None
+        self._step_tensor = None
         self._name = name or type(self).__name__
         self.state: dict = {}
+        if isinstance(self._learning_rate, LRScheduler):
+            self._learning_rate._bind_optimizer(self)
 
     # ------------------------------------------------------------- lr
 
@@ -110,9 +130,15 @@ class Optimizer:
             raise RuntimeError("cannot set_lr when the lr is an "
                                "LRScheduler; call scheduler.step() instead")
         self._learning_rate = float(value)
+        self._sync_lr_tensor(self._learning_rate)
+
+    def _sync_lr_tensor(self, value):
+        if self._lr_tensor is not None and not tensor_mod.in_capture():
+            self._lr_tensor._data.fill_(float(value))
 
     def set_lr_scheduler(self, scheduler):
         self._learning_rate = scheduler
+        scheduler._bind_optimizer(self)
 
     # ------------------------------------------------------------- rules
 
@@ -142,20 +168,62 @@ class Optimizer:
     def _accumulator(self, name, p, init=None):
         store = self._accumulators[name]
         if id(p) not in store:
+            tensor_mod.note_write(store, id(p))
             store[id(p)] = self._functional_state_init(name, p._data) \
                 if init is None else init
+        else:
+            tensor_mod.note_read(store, id(p))
         return store[id(p)]
+
+    def _set_accumulator(self, name, p, value):
+        store = self._accumulators[name]
+        tensor_mod.note_write(store, id(p))
+        store[id(p)] = value
 
     def _src(self, p):
         """The float32 value the update runs on: the master copy of a
-        parameter that has one, else the parameter."""
-        m = self._master_weights.get(id(p))
-        return m if m is not None else p._data.detach().float()
+        parameter that has one (made here under master weights from the
+        copy `amp.decorate` kept), else the parameter."""
+        store = self._master_weights
+        if id(p) not in store and self._use_master_weights and \
+                p._data.dtype != torch.float32:
+            kept = getattr(p, "_master", None)
+            tensor_mod.note_write(store, id(p))
+            store[id(p)] = (kept._data if kept is not None
+                            else p._data).detach().float()
+        m = store.get(id(p))
+        if m is None:
+            return p._data.detach().float()
+        tensor_mod.note_read(store, id(p))
+        return m
 
     def _commit(self, p, new32):
         if id(p) in self._master_weights:
+            tensor_mod.note_write(self._master_weights, id(p))
             self._master_weights[id(p)] = new32
         p._data.copy_(new32.to(p._data.dtype))
+
+    def _lr_step(self):
+        """(lr, t): the rate and the step count as 0-d float32 tensors on
+        the parameters' device. Outside a `to_static` step they take the
+        host's values; inside one the count advances on the device."""
+        if self._lr_tensor is None:
+            dev = self._parameter_list[0]._data.device
+            self._lr_tensor = Tensor(torch.tensor(
+                self.get_lr(), dtype=torch.float32, device=dev),
+                _internal=True)
+            self._step_tensor = Tensor(torch.tensor(
+                self._global_step - 1, dtype=torch.int64, device=dev),
+                _internal=True)
+            self._lr_tensor.persistable = True
+            self._step_tensor.persistable = True
+        if tensor_mod.in_capture():
+            self._step_tensor._write(self._step_tensor._data + 1)
+        else:
+            self._lr_tensor._data.fill_(self.get_lr())
+            self._step_tensor._data.fill_(self._global_step)
+        tensor_mod.note_read(self._lr_tensor)
+        return self._lr_tensor._data, self._step_tensor._data.float()
 
     # ------------------------------------------------------------- step
 
@@ -184,6 +252,8 @@ class Optimizer:
                 f"{type(self).__name__} was built without parameters= (the "
                 "functional form a ScanTrainStep drives); pass "
                 "parameters=model.parameters() to step eagerly")
+        for p in self._parameter_list:
+            tensor_mod.note_read(p)
         return [(p, p._data.grad) for p in self._parameter_list
                 if not p.stop_gradient and p._data.grad is not None]
 
@@ -208,11 +278,12 @@ class Optimizer:
                    for p, g in pgs]
         pgs = self._clip(pgs)
         self._global_step += 1
-        lr = f32(self.get_lr())
-        t = f32(self._global_step)
+        if not pgs:
+            return
+        lr, t = self._lr_step()
         for p, g in pgs:
             plr, wd = self._lr_wd_of(p, lr)
-            self._update_param(p, g, f32(plr), f32(wd), t)
+            self._update_param(p, g, plr, f32(wd), t)
 
     def _update_param(self, p, g, lr, wd, t):
         names = self._fused_state_names()
@@ -220,7 +291,7 @@ class Optimizer:
         new_p, new_states = self._fused_update(self._src(p), g.float(),
                                                states, lr, wd, t)
         for n, s in zip(names, new_states):
-            self._accumulators[n][id(p)] = s
+            self._set_accumulator(n, p, s)
         self._commit(p, new_p)
 
     def minimize(self, loss, startup_program=None, parameters=None,
@@ -229,7 +300,9 @@ class Optimizer:
         self.step()
         return None, [(p, p.grad) for p in self._parameter_list]
 
-    def clear_grad(self, set_to_zero=True):
+    def clear_grad(self, set_to_zero=False):
+        """Drop every parameter's gradient (the JAX package's default), or
+        zero it in place with ``set_to_zero``."""
         for p in self._parameter_list or ():
             p.clear_grad(set_to_zero)
 
@@ -311,5 +384,8 @@ class Optimizer:
                                                        LRScheduler):
             self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
         self._global_step = int(state_dict.get("global_step", 0))
+        if self._step_tensor is not None:
+            self._step_tensor._data.fill_(self._global_step)
+            self._sync_lr_tensor(self.get_lr())
 
     load_state_dict = set_state_dict

@@ -24,16 +24,18 @@ __all__ = ["SGD", "Momentum", "Adam", "AdamW", "Adagrad", "Adamax",
 def _adam_update(p32, g32, m, v, vhat, lr, beta1, beta2, eps, t, wd,
                  decouple, amsgrad):
     """One Adam / AdamW step on float32 p32, g32, m, v (and vhat with
-    ``amsgrad``); lr, beta1, beta2, eps, t and wd are 0-d float32 tensors
-    on the host. Returns (new_p32, m, v, vhat)."""
+    ``amsgrad``); beta1, beta2, eps and wd are 0-d float32 tensors on the
+    host, lr and t 0-d float32 tensors on the host or on p32's device (the
+    optimizer's `_lr_step`, which a captured step reads on the card).
+    Returns (new_p32, m, v, vhat)."""
     c1, c2 = float(1 - beta1), float(1 - beta2)
     b1, b2 = float(beta1), float(beta2)
     if not decouple:
         g32 = g32 + float(wd) * p32
     m = b1 * m + c1 * g32
     v = b2 * v + c2 * g32 * g32
-    mhat = m / float(1 - beta1 ** t)
-    vv = v / float(1 - beta2 ** t)
+    mhat = m / (1 - torch.pow(b1, t))
+    vv = v / (1 - torch.pow(b2, t))
     if amsgrad:
         vhat = torch.maximum(vhat, vv)
         denom = torch.sqrt(vhat) + float(eps)
@@ -42,7 +44,7 @@ def _adam_update(p32, g32, m, v, vhat, lr, beta1, beta2, eps, t, wd,
     upd = mhat / denom
     if decouple:
         upd = upd + float(wd) * p32
-    return p32 - float(lr) * upd, m, v, vhat
+    return p32 - lr * upd, m, v, vhat
 
 
 class SGD(Optimizer):
@@ -255,8 +257,8 @@ class Lamb(Optimizer):
         r_norm = torch.linalg.vector_norm(r)
         trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
                             torch.ones_like(w_norm))
-        self._accumulators["moment1"][id(p)] = m
-        self._accumulators["moment2"][id(p)] = v
+        self._set_accumulator("moment1", p, m)
+        self._set_accumulator("moment2", p, v)
         self._commit(p, p32 - lr * trust * r)
 
 
@@ -291,5 +293,5 @@ class LarsMomentum(Momentum):
             new_p = p32 - (gg + self._momentum * v) * local_lr
         else:
             new_p = p32 - local_lr * v
-        self._accumulators["velocity"][id(p)] = v
+        self._set_accumulator("velocity", p, v)
         self._commit(p, new_p)

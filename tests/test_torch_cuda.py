@@ -2463,3 +2463,207 @@ def test_card_eager_generate_matches_cpu(card):
     want = cpu.generate(paddle.to_tensor(prompt, place="cpu"),
                         max_new_tokens=8).numpy()
     assert np.array_equal(got, want)
+
+
+# ------------------------------------------------------------ jit.to_static
+# A to_static step on the card runs its first EAGER_RUNS calls eagerly on
+# the capture stream, then captures one CUDA graph and replays it. Graph
+# and eager run the same kernels on the same values (the optimizer's rate
+# and step count are device tensors on both paths, the key chain splits on
+# the card on both), so they must agree bit for bit.
+
+def _static_gpt(card, amp, **over):
+    """A small GPT Layer on the card (head dim 64: the flash kernels'
+    tensor-core arms in bfloat16), AdamW, amp O2 bfloat16 when ``amp``,
+    and the bench's train step (undecorated)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device as tdevice
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(**dict(dict(vocab_size=512, hidden_size=256,
+                                num_layers=2, num_heads=4,
+                                intermediate_size=512,
+                                max_position_embeddings=128,
+                                hidden_dropout=0.0, attention_dropout=0.0),
+                           **over))
+    paddle.seed(0)
+    with tdevice.device_scope(card):
+        model = GPTForCausalLM(cfg)
+    opt = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=model.parameters())
+    if amp:
+        model, opt = paddle.amp.decorate(model, opt, level="O2",
+                                         dtype="bfloat16")
+
+    def step(x, y):
+        with paddle.amp.auto_cast(enable=amp, level="O2", dtype="bfloat16"):
+            _, loss = model(x, labels=y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return model, opt, step
+
+
+def _static_batch(card, k=None, b=4, s=128):
+    import paddle_tpu_torch as paddle
+    ids = np.random.default_rng(3).integers(0, 512, (b, s + 1))
+    x, y = ids[:, :-1], ids[:, 1:]
+    if k is not None:
+        x = np.broadcast_to(x, (k,) + x.shape).copy()
+        y = np.broadcast_to(y, (k,) + y.shape).copy()
+    return paddle.to_tensor(x, place=card), paddle.to_tensor(y, place=card)
+
+
+@pytest.mark.parametrize("amp", [False, True], ids=["f32", "o2_bf16"])
+def test_card_static_graph_equals_eager_steps(card, amp):
+    """6 to_static calls (2 eager, the capture, 3 replays) then
+    multi_steps(3) against 9 eager steps from the same seed: losses and
+    parameters bit for bit; the flash kernels' launches counted through
+    the replays (one of each a layer a step)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit.static_function import EAGER_RUNS
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    x, y = _static_batch(card)
+    xk, yk = _static_batch(card, k=3)
+    model, _, step = _static_gpt(card, amp)
+    eager = [step(x, y).numpy() for _ in range(9)]
+    want = {k: v.numpy() for k, v in model.state_dict().items()}
+    model, _, step = _static_gpt(card, amp)
+    static = paddle.jit.to_static(step)
+    before = cfa.FWD.launches, cfa.DQ.launches, cfa.DKV.launches
+    got = [static(x, y).numpy() for _ in range(6)]
+    got += list(static.multi_steps(3)(xk, yk).numpy())
+    prog = static.concrete_program(x, y)
+    assert prog.graph is not None and prog.graph.replays == 9 - EAGER_RUNS
+    assert (cfa.FWD.launches - before[0], cfa.DQ.launches - before[1],
+            cfa.DKV.launches - before[2]) == (2 * 9,) * 3
+    assert [a.tobytes() for a in got] == [a.tobytes() for a in eager]
+    for k, v in model.state_dict().items():
+        assert np.array_equal(v.numpy(), want[k]), k
+
+
+def test_card_static_key_chain_and_lr_across_replays(card):
+    """Hidden dropout 0.1: 5 static steps equal 5 eager steps bit for bit
+    and leave the key chain where the eager run does; a static dropout's
+    replays draw a new mask each; a rate set to 0 between replays stops
+    the next replay's update."""
+    import paddle_tpu_torch as paddle
+    x, y = _static_batch(card)
+    runs = {}
+    for static in (False, True):
+        model, opt, step = _static_gpt(card, True, hidden_dropout=0.1)
+        fn = paddle.jit.to_static(step) if static else step
+        losses = [fn(x, y).numpy().tobytes() for _ in range(5)]
+        runs[static] = (losses, paddle.get_rng_state()[0].numpy())
+        if static:
+            opt.set_lr(0.0)
+            w0 = {k: v.numpy() for k, v in model.state_dict().items()}
+            fn(x, y)
+            assert fn.concrete_program(x, y).graph.replays == 4
+            assert all(np.array_equal(v.numpy(), w0[k])
+                       for k, v in model.state_dict().items())
+    assert runs[True][0] == runs[False][0]
+    assert np.array_equal(runs[True][1], runs[False][1])
+
+    @paddle.jit.to_static
+    def drop(a):
+        return paddle.nn.functional.dropout(a, p=0.5)
+
+    ones = paddle.to_tensor(np.ones((8, 256), np.float32), place=card)
+    paddle.seed(1)
+    masks = [drop(ones).numpy() for _ in range(5)]
+    assert drop.concrete_program(ones).graph.replays == 3
+    paddle.seed(1)
+    eager = [paddle.nn.functional.dropout(ones, p=0.5).numpy()
+             for _ in range(5)]
+    assert all(np.array_equal(a, b) for a, b in zip(masks, eager))
+    assert all(not np.array_equal(a, b) for a, b in zip(masks, masks[1:]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_flash_bert_shape_matches_plain(card, dtype):
+    """The flash kernels at BERT-base's training shape (B=128, H=12,
+    S=128, D=64, non-causal) against their plain versions."""
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    case = (128 * 12, 128, 128, 64, False)
+    scale = 1.0 / np.sqrt(64)
+    q, k, v, do = _flash_inputs(case, card, dtype, seed=5)
+    out, lse = cfa.flash_fwd(q, k, v, scale, False)
+    rout, rlse = tfa._plain_flash_fwd(q, k, v, scale, False)
+    assert (out.float() - rout.float()).abs().max().item() <= \
+        _flash_tol(dtype, rout, 2e-5)
+    delta = (do.float() * rout.float()).sum(-1)
+    dq = cfa.flash_dq(q, k, v, do, rlse, delta, scale, False)
+    dk, dv = cfa.flash_dkv(q, k, v, do, rlse, delta, scale, False)
+    rdq = tfa._plain_flash_dq(q, k, v, do, rlse, delta, scale, False)
+    rdk, rdv = tfa._plain_flash_dkv(q, k, v, do, rlse, delta, scale, False)
+    for got, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert (got.float() - ref.float()).abs().max().item() <= \
+            _flash_tol(dtype, ref, 1e-4)
+
+
+def test_card_grad_scaler_float16_matches_cpu(card):
+    """GradScaler's float16 path on the card, on a model of Linear layers
+    (no attention: the flash kernels take no float16, ROADMAP A10),
+    against the same run on the CPU: the scale after every update and
+    which steps were skipped equal, the weights within 1e-3."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device as tdevice
+    rng = np.random.default_rng(7)
+    xs = [rng.standard_normal((4, 16)).astype(np.float16) for _ in range(8)]
+    for i in (2, 3, 6):
+        xs[i][0, 0] = np.inf
+    runs = {}
+    for where in (card, "cpu"):
+        paddle.seed(3)
+        with tdevice.device_scope(where):
+            model = paddle.nn.Sequential(paddle.nn.Linear(16, 32),
+                                         paddle.nn.Linear(32, 4))
+        model.to(dtype="float16")
+        opt = paddle.optimizer.SGD(learning_rate=1e-2,
+                                   parameters=model.parameters())
+        scaler = paddle.amp.GradScaler(init_loss_scaling=2.0 ** 10,
+                                       incr_every_n_steps=2,
+                                       decr_every_n_nan_or_inf=1)
+        scales, moved = [], []
+        for x in xs:
+            w0 = model[0].weight.numpy().copy()
+            with paddle.amp.auto_cast(dtype="float16"):
+                loss = model(paddle.to_tensor(x, place=where)).astype(
+                    "float32").sum()
+            scaler.scale(loss).backward()
+            scaler.minimize(opt, loss)
+            opt.clear_grad()
+            scales.append(scaler.get_init_loss_scaling())
+            moved.append(not np.array_equal(w0, model[0].weight.numpy()))
+        runs[str(where)] = (scales, moved, model[0].weight.numpy())
+    (cs, cm, cw), (ps, pm, pw) = runs[str(card)], runs["cpu"]
+    assert cs == ps and cm == pm and False in cm
+    assert np.abs(cw.astype(np.float64) - pw).max() <= 1e-3
+
+
+def test_card_static_failed_capture_raises(card):
+    """A step that reads a value back to the host (here through the torch
+    tensor, past the Tensor's own check) runs eagerly on its first calls
+    and then fails to capture: the call raises, nothing runs it eagerly
+    instead, and the card stays usable."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit.static_function import EAGER_RUNS
+    lin = paddle.nn.Linear(8, 8)
+    lin.to(card)
+
+    @paddle.jit.to_static
+    def step(a):
+        out = lin(a).sum()
+        out._data.item()
+        return out
+
+    a = paddle.to_tensor(np.ones((2, 8), np.float32), place=card)
+    for _ in range(EAGER_RUNS):
+        step(a)
+    with pytest.raises(RuntimeError, match="capturing the step step"):
+        step(a)
+    assert step.concrete_program(a).graph is None
+    assert float((a * 2).sum()) == 32.0
