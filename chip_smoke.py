@@ -173,6 +173,22 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    AdamW 2e-5, ``multi_steps(16)``, sequences/s, and 4 calls against 4
    eager steps bit for bit; its attention is the non-causal flash op
    (the ``bert`` flash case's shape).
+   ``train_resnet_static``: the bench's ResNet50 program
+   (`bench.py:233-261`, `vision/models/resnet.py`): B=256 at 224 x 224,
+   NCHW, Momentum 0.1 with weight decay 1e-4 on float32 masters, amp O2
+   bfloat16, ``multi_steps(8)``; images/s, step ms, MFU (3 x 2 x the
+   forward multiply-adds an image, counted from the convolution and
+   linear shapes, `resnet_macs`), peak memory, capture seconds, the eager
+   step beside it; the batch norm kernels 53 launches each a step through
+   the replays; 4 calls against 4 eager steps at B=32 under
+   ``cudnn.deterministic`` (losses, parameters, running statistics and
+   the key chain bit for bit, one more call at rate 0), and one float32
+   training call on the card against the port on the CPU at B=2
+   (RESNET_CPU_TOL). The batch norm kernels (``batch_norm_fwd``,
+   ``batch_norm_bwd``) get ``kernel`` lines at ResNet50's first and last
+   norm shapes (BN_CASES), float32 and bfloat16, against their plain
+   versions (BN_TOL), beside `torch.nn.functional.batch_norm` and
+   `aten.native_batch_norm_backward`.
    ``phase_seconds``: each group of phases' seconds, before the
    ``kernels`` line.
 8. ``incubate_parity``: the `incubate.nn` fused layers in float32 on the
@@ -414,6 +430,7 @@ from paddle_tpu_torch.inference.engine import (Cancelled, DecodeEngine,
                                                unpack_migration)
 from paddle_tpu_torch.inference.serve import InferenceServer, RemotePredictor
 from paddle_tpu_torch.kernels import _build, registry
+from paddle_tpu_torch.kernels import batch_norm as tbn
 from paddle_tpu_torch.kernels import dropout as tdrop
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import fused_layernorm as tfl
@@ -421,6 +438,7 @@ from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.kernels import prng
 from paddle_tpu_torch.kernels import rotary as trot
 from paddle_tpu_torch.kernels import sampling as smp
+from paddle_tpu_torch.kernels.cuda import batch_norm as cbn
 from paddle_tpu_torch.kernels.cuda import dropout as cdrop
 from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
 from paddle_tpu_torch.kernels.cuda import fused_layernorm as cln
@@ -467,8 +485,12 @@ REPLACES = {
     "fused_layernorm_fwd": "paddle_tpu/kernels/pallas/fused_layernorm.py:21",
     "fused_layernorm_bwd": "paddle_tpu/kernels/pallas/fused_layernorm.py:33",
     "rotary": "paddle_tpu/kernels/pallas/rotary.py:20",
-    # computed in XLA by the JAX package: no pl.pallas_call behind it
+    # computed in XLA by the JAX package: no pl.pallas_call behind them
     "dropout": "paddle_tpu/models/gpt.py:655 (_fdropout, XLA, not Pallas)",
+    "batch_norm_fwd": "paddle_tpu/nn/functional/norm.py:27 (batch_norm's "
+                      "training prim, XLA, not Pallas)",
+    "batch_norm_bwd": "paddle_tpu/nn/functional/norm.py:27 (the prim's "
+                      "gradient, XLA, not Pallas)",
 }
 # integer operations a second of the H100 SXM: 64 INT32 lanes an SM
 # (NVIDIA's Hopper white paper) x 132 SMs x 1.98 GHz, the boost clock of
@@ -573,6 +595,21 @@ TRAIN_BF16_GRAD_TOL = 2e-2
 INCUBATE_TOL = {"ln_fwd": 2e-5, "ln_bwd": 1e-4, "stack": 1e-4,
                 "rope": 1e-6}
 LN_KERNELS = ("fused_layernorm_fwd", "fused_layernorm_bwd")
+BN_KERNELS = ("batch_norm_fwd", "batch_norm_bwd")
+# the batch norm kernels' checks: ResNet50's largest norm at B=256 (bn1
+# over [256, 64, 112, 112]; the kernels line's case) and its last stage's
+# (7 x 7: one element a load); tolerances against the plain version on the
+# card, relative to the largest reference value when that exceeds 1:
+# outputs within 2e-5 in f32 and two bfloat16 steps (2^-6) in bf16, where
+# the plain version rounds to bf16 after each of its four ops (x - mean,
+# the division, the weight, the bias) and the kernel once; the
+# per-channel sums (dw, db) within 1e-4 in f32 and one bfloat16 step
+# (2^-7) in bf16, where the plain version's mean and variance come out of
+# `torch.var_mean` in bf16 (2^-9 apart from the kernel's f32 ones, and dw
+# scales with rstd)
+BN_CASES = (("bn1", (256, 64, 112, 112)), ("layer4", (256, 2048, 7, 7)))
+BN_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2.0 ** -6,
+                                                       2.0 ** -7)}
 # the sampler on the card against the CPU: one torch code on both, so bits,
 # uniforms and keys must be equal; each of the Gumbel noise's two logs
 # (CUDA's logf, the CPU's log) lies within one place of the true value, so
@@ -4677,19 +4714,22 @@ def sync_ms(fn):
 
 
 def static_vs_eager(dev, make, lr, batch, steps=PARITY_STEPS, loss=None,
-                    change_lr=False):
+                    change_lr=False, program=None):
     """``steps`` calls of the to_static step (`EAGER_RUNS` eager, the
     capture, replays) against ``steps`` eager steps of the same program
-    from the same seed (``make()`` builds the model): the losses and then
-    every parameter bit for bit, the key chain where the eager run leaves
-    it, and the graph's replays. With ``change_lr`` one more call at a
-    rate of 0 must leave every parameter as it was."""
+    from the same seed (``make()`` builds the model; ``program(model)``
+    gives (model, optimizer, step), `static_program` by default): the
+    losses and then every parameter and buffer bit for bit, the key chain
+    where the eager run leaves it, and the graph's replays. With
+    ``change_lr`` one more call at a rate of 0 must leave every parameter
+    as it was."""
     x, y = batch
     out = {}
     for static in (False, True):
         gc.collect()
         torch.cuda.empty_cache()
-        model, opt, step = static_program(make(), lr, loss)
+        model, opt, step = (program or (lambda m: static_program(
+            m, lr, loss)))(make())
         fn = paddle.jit.to_static(step) if static else step
         losses = [fn(x, y).numpy() for _ in range(steps)]
         out[static] = (losses, {k: v.numpy() for k, v in
@@ -4703,7 +4743,7 @@ def static_vs_eager(dev, make, lr, batch, steps=PARITY_STEPS, loss=None,
                 opt.set_lr(0.0)
                 fn(x, y)
                 held = all(np.array_equal(v.numpy(), out[True][1][k])
-                           for k, v in model.state_dict().items())
+                           for k, v in model.named_parameters())
         del model, opt, step, fn
     (el, ep, ek), (sl, sp, sk) = out[False], out[True]
     return {"steps": steps, "eager_losses": [float(a) for a in el],
@@ -4914,6 +4954,223 @@ def train_bert_static(dev, smi):
     return launches
 
 
+RESNET_BATCH, RESNET_K = 256, 8          # bench_resnet50's program
+RESNET_NORMS = 53                        # batch norms a ResNet50 forward
+RESNET_LR = 0.1
+RESNET_PARITY_BATCH = 32
+RESNET_CPU_BATCH = 2
+# the card against the port on the CPU, float32 at [2, 3, 224, 224]: the
+# logits relative to the CPU's largest, the loss absolute, the running
+# statistics relative to each one's largest, and each gradient's L2 error
+# over its norm. The CPU's own float32 run sits 1.2e-5, 9e-6 and at most
+# 1.6e-2 (gradients; the batch norms' backward cancels most of each
+# gradient at random weights) from its float64 run at this shape.
+RESNET_CPU_TOL = {"logits": 1e-4, "loss": 1e-4, "stats": 1e-4,
+                  "grad_l2": 5e-2}
+
+
+def resnet_model(dev):
+    """``resnet50(num_classes=1000)`` from ``paddle.seed(SEED)`` on
+    ``dev``."""
+    from paddle_tpu_torch.vision.models import resnet50
+    paddle.seed(SEED)
+    with tdevice.device_scope(dev):
+        return resnet50(num_classes=1000)
+
+
+def resnet_program(model):
+    """`bench_resnet50`'s program over ``model``: Momentum 0.1, momentum
+    0.9, weight decay 1e-4, ``amp.decorate(O2, bfloat16)``,
+    ``CrossEntropyLoss``, and the step under ``auto_cast(O2)``, not yet
+    decorated. Returns (model, optimizer, step)."""
+    opt = paddle.optimizer.Momentum(learning_rate=RESNET_LR, momentum=0.9,
+                                    parameters=model.parameters(),
+                                    weight_decay=1e-4)
+    model, opt = paddle.amp.decorate(model, opt, level="O2",
+                                     dtype="bfloat16")
+    loss_fn = paddle.nn.CrossEntropyLoss()
+
+    def step(x, y):
+        with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = loss_fn(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return model, opt, step
+
+
+def resnet_batches(dev, b, k):
+    """`bench_resnet50`'s batch: RandomState(0) images [b, 3, 224, 224]
+    (NCHW, float32) and labels of 1000 classes; one step's (x, y) and the
+    k-step stack of it, on the card."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(b, 3, 224, 224).astype(np.float32)
+    y = rng.randint(0, 1000, b).astype(np.int64)
+    one = [paddle.to_tensor(a, place=dev) for a in (x, y)]
+    stacked = [paddle.to_tensor(np.broadcast_to(a, (k,) + a.shape).copy(),
+                                place=dev) for a in (x, y)]
+    return one, stacked
+
+
+def resnet_macs(model, dev, hw=224):
+    """Forward multiply-adds a ``hw`` x ``hw`` image, from the shapes of
+    the model's convolutions (output elements x input channels a group x
+    kernel size) and linear layers (in x out), read by hooks over one eval
+    forward of one image."""
+    from paddle_tpu_torch.nn.layers.conv import _ConvNd
+    total = [0]
+
+    def conv(layer, inputs, out):
+        total[0] += int(np.prod(out.shape[1:])) * (
+            layer._in_channels // layer._groups) * int(
+                np.prod(layer._kernel_size))
+
+    def linear(layer, inputs, out):
+        total[0] += layer.in_features * layer.out_features
+
+    handles = [sub.register_forward_post_hook(
+        conv if isinstance(sub, _ConvNd) else linear)
+        for sub in model.sublayers()
+        if isinstance(sub, (_ConvNd, paddle.nn.Linear))]
+    model.eval()
+    with paddle.no_grad(), paddle.amp.auto_cast(level="O2",
+                                                dtype="bfloat16"):
+        model(paddle.to_tensor(np.zeros((1, 3, hw, hw), np.float32),
+                               place=dev))
+    model.train()
+    for h in handles:
+        h.remove()
+    return total[0]
+
+
+def resnet_vs_cpu(dev, b=RESNET_CPU_BATCH):
+    """One float32 training call (forward, loss, backward) of
+    ``resnet50`` on the card against the port on the CPU on the same
+    weights and images: logits, loss, running statistics and every
+    gradient within RESNET_CPU_TOL (TF32 off, as `main` sets it)."""
+    from paddle_tpu_torch.models import convert
+    cpu = torch.device("cpu")
+    host = resnet_model(cpu)
+    card = resnet_model(dev)
+    convert.layer_state_from_numpy(card, convert.layer_state_to_numpy(host))
+    rng = np.random.RandomState(1)
+    x = rng.randn(b, 3, 224, 224).astype(np.float32)
+    y = rng.randint(0, 1000, b).astype(np.int64)
+    res = {}
+    for model, d in ((host, cpu), (card, dev)):
+        logits = model(paddle.to_tensor(x, place=d))
+        loss = paddle.nn.CrossEntropyLoss()(logits,
+                                            paddle.to_tensor(y, place=d))
+        loss.backward()
+        res[d.type] = (logits.numpy().astype(np.float64), float(loss),
+                       {k: p.grad.numpy().astype(np.float64)
+                        for k, p in model.named_parameters()},
+                       {k: v.numpy().astype(np.float64) for k, v in
+                        model.state_dict().items()
+                        if k.endswith(("_mean", "_variance"))})
+    (hl, hloss, hg, hs), (cl, closs, cg, cs) = res["cpu"], res["cuda"]
+    errs = {"logits": float(np.abs(cl - hl).max() / np.abs(hl).max()),
+            "loss": abs(closs - hloss),
+            "stats": max(float(np.abs(cs[k] - v).max() / np.abs(v).max())
+                         for k, v in hs.items()),
+            "grad_l2": max(float(np.linalg.norm(cg[k] - g)
+                                 / np.linalg.norm(g)) for k, g in hg.items())}
+    del host, card
+    return {"batch": b, "errors": errs, "tolerances": RESNET_CPU_TOL,
+            "loss": closs, "ok": all(errs[k] <= RESNET_CPU_TOL[k]
+                                     for k in errs)}
+
+
+def cudnn_flags():
+    c = torch.backends.cudnn
+    return {"enabled": c.enabled, "benchmark": c.benchmark,
+            "deterministic": c.deterministic, "allow_tf32": c.allow_tf32,
+            "version": c.version()}
+
+
+def train_resnet_static(dev, smi):
+    """`bench_resnet50`'s program on the port (`bench.py:233-261`):
+    ``resnet50(num_classes=1000)`` from ``paddle.seed(SEED)`` on the card,
+    Momentum 0.1 (momentum 0.9, weight decay 1e-4) on float32 masters, amp
+    O2 bfloat16, ``CrossEntropyLoss``, the step ``to_static`` and
+    ``multi_steps(8)`` on one batch of B=256 at 224 x 224, NCHW: 2
+    warm-up and 3 timed calls, the same step eagerly beside it. Then
+    `static_vs_eager` at B=32 under ``cudnn.deterministic`` (losses,
+    parameters, the batch norms' running statistics and the key chain bit
+    for bit, one more call at rate 0), and `resnet_vs_cpu`. MFU counts 3 x
+    2 x the forward multiply-adds of an image (`resnet_macs`) over the
+    bfloat16 peak. The batch norm kernels launch once a norm a step (53),
+    counted through the graph's replays; every other kernel 0."""
+    from paddle_tpu_torch.jit.static_function import EAGER_RUNS
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (x, y), (xk, yk) = resnet_batches(dev, RESNET_BATCH, RESNET_K)
+    model, opt, step = resnet_program(resnet_model(dev))
+    n_params = sum(int(np.prod(p.shape)) for p in model.parameters())
+    static = paddle.jit.to_static(step)
+    step_k = static.multi_steps(RESNET_K)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms, losses = timed_static(step_k, xk, yk, RESNET_K, STATIC_CALLS)
+    launches = read_launches("train_resnet_static", {
+        k: RESNET_NORMS * STATIC_CALLS[1] * RESNET_K for k in BN_KERNELS})
+    prog = static.concrete_program(x, y)
+    peak = torch.cuda.max_memory_allocated(dev)
+    capture_s = prog.graph_seconds
+    slots = {id(h) for h, _, _ in prog.slots.values()}
+    stats_found = all(id(v) in slots for k, v in model.state_dict().items()
+                      if k.endswith(("_mean", "_variance")))
+    eager_ms = timed_eager(step, x, y, STATIC_EAGER_STEPS)
+    macs = resnet_macs(model, dev)
+    del model, opt, step, static, step_k, prog, xk, yk
+    step_ms = statistics.median(ms)
+    ips = RESNET_BATCH / (step_ms / 1e3)
+    flat = np.concatenate(losses).astype(np.float64)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        parity = static_vs_eager(
+            dev, lambda: resnet_model(dev), RESNET_LR,
+            resnet_batches(dev, RESNET_PARITY_BATCH, 1)[0], change_lr=True,
+            program=resnet_program)
+        parity["cudnn"] = cudnn_flags()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    vs_cpu = resnet_vs_cpu(dev)
+    ok = (bool(np.isfinite(flat).all()) and flat[-1] < flat[0]
+          and stats_found and parity["losses_bit_equal"]
+          and parity["params_bit_equal"] and parity["key_chain_equal"]
+          and parity["replays"] == PARITY_STEPS - EAGER_RUNS
+          and parity["zero_lr_held_params"] and vs_cpu["ok"])
+    line = {"phase": "train_resnet_static", "model": "resnet50",
+            "program": "bench_resnet50: amp O2 bf16, Momentum, to_static, "
+                       "multi_steps", "card": smi, "batch": RESNET_BATCH,
+            "image": [3, 224, 224], "multi_steps": RESNET_K,
+            "calls": list(STATIC_CALLS), "optimizer": "Momentum",
+            "learning_rate": RESNET_LR, "params": n_params,
+            "forward_macs_per_image": macs, "step_ms": ms,
+            "step_ms_p50": step_ms, "images_per_s": ips,
+            "mfu": ips * 3 * 2 * macs / H100_BF16_PEAK,
+            "peak_memory_bytes": peak, "capture_seconds": capture_s,
+            "running_stats_in_slots": stats_found, "launches": launches,
+            "first_loss": float(flat[0]), "last_loss": float(flat[-1]),
+            "ln_classes": math.log(1000),
+            "eager_step_ms": eager_ms,
+            "eager_step_ms_p50": statistics.median(eager_ms),
+            "eager_over_graph": statistics.median(eager_ms) / step_ms,
+            "vs_eager": parity, "vs_cpu": vs_cpu, "cudnn": cudnn_flags(),
+            "seconds": time.perf_counter() - t0, "clocks": card_clocks(),
+            "ok": ok}
+    emit(line)
+    if not ok:
+        raise SystemExit(f"train_resnet_static: {line}")
+    return launches
+
+
 def fc_out_product_ms(dev, timer, b=8, s=1024):
     """One microbatch's fc_out product, ``up @ W + b`` at [8, 1024, 3072] x
     [3072, 768] in bf16: what the "mlp" and "mlp_up" recompute settings
@@ -5016,6 +5273,80 @@ def check_dropout(dev, timer, smi, dtype, shape=DROPOUT_SHAPE):
                          f"outputs equal {out_equal}, grads equal "
                          f"{grad_equal}")
     return line
+
+
+def check_batch_norm(dev, timer, smi, dtype, case):
+    """The batch norm kernels against their plain versions
+    (`kernels/batch_norm.py`) at ``case`` (BN_CASES) in training: the
+    forward's output and statistics, and the backward's dx, dw and db,
+    within BN_TOL; weight and bias in x's dtype, as amp O2 leaves them.
+    Timed beside `torch.nn.functional.batch_norm` (cuDNN or PyTorch's
+    native kernel; float32 weight and running statistics) and
+    `aten.native_batch_norm_backward`: yardsticks the port never calls.
+    Returns {kernel: line}."""
+    name, shape = case
+    rng = np.random.default_rng(SEED + 11)
+    n, c = int(np.prod(shape)) // shape[1], shape[1]
+    x, dy = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(dev, dtype) for _ in "xd")
+    w = torch.from_numpy(rng.standard_normal(c, dtype=np.float32) + 1.0).to(
+        dev, dtype)
+    b = torch.from_numpy(rng.standard_normal(c, dtype=np.float32)).to(
+        dev, dtype)
+    x3, dy3 = tbn.view3(x, 1), tbn.view3(dy, 1)
+    eps = 1e-5
+    out_tol, sum_tol = BN_TOL[dtype]
+    got = tbn.train_fwd("cuda", x3, w, b, eps)
+    ref = tbn._plain_fwd(x3, w, b, eps)
+    gotb = tbn.train_bwd("cuda", x3, dy3, got[1], got[3], w)
+    refb = tbn._plain_bwd(x3, dy3, ref[1], ref[3], w)
+    torch.cuda.synchronize()
+    errs = {"y": (max_err(got[0], ref[0]), rel_tol(ref[0], out_tol)),
+            "mean": (max_err(got[1], ref[1]), rel_tol(ref[1], out_tol)),
+            "var": (max_err(got[2], ref[2]), rel_tol(ref[2], out_tol)),
+            "dx": (max_err(gotb[0], refb[0]), rel_tol(refb[0], out_tol)),
+            "dw": (max_err(gotb[1], refb[1]), rel_tol(refb[1], sum_tol)),
+            "db": (max_err(gotb[2], refb[2]), rel_tol(refb[2], sum_tol))}
+    w32, b32 = w.float(), b.float()
+    rm = torch.zeros(c, device=dev)
+    rv = torch.ones(c, device=dev)
+    _, save_mean, save_invstd = torch.ops.aten.native_batch_norm(
+        x, w32, b32, rm, rv, True, 0.1, eps)
+    item = x.element_size()
+    lines = {}
+    for kern, errs_of, fn, plain, lib, nbytes, ops in (
+            ("batch_norm_fwd", ("y", "mean", "var"),
+             lambda: cbn.batch_norm_fwd(x3, w32, b32, eps, dtype),
+             lambda: tbn._plain_fwd(x3, w, b, eps),
+             lambda: F.batch_norm(x, rm, rv, w32, b32, training=True,
+                                  eps=eps),
+             2 * n * c * item, 7 * n * c),
+            ("batch_norm_bwd", ("dx", "dw", "db"),
+             lambda: cbn.batch_norm_bwd(x3, dy3, got[1], got[3], w32),
+             lambda: tbn._plain_bwd(x3, dy3, ref[1], ref[3], w),
+             lambda: torch.ops.aten.native_batch_norm_backward(
+                 dy, x, w32, rm, rv, save_mean, save_invstd, True, eps,
+                 [True, True, True]),
+             3 * n * c * item, 8 * n * c)):
+        bms, by = bound(nbytes, ops, dtype)
+        ok = all(errs[k][0] <= errs[k][1] for k in errs_of)
+        line = {"phase": "kernel", "kernel": kern, "dtype": dtype_name(dtype),
+                "card": smi, "case": name, "shape": list(shape),
+                "errors": {k: errs[k][0] for k in errs_of},
+                "tolerances": {k: errs[k][1] for k in errs_of},
+                "within_tol": ok,
+                "max_abs_err": max(errs[k][0] for k in errs_of),
+                "kernel_ms": timer.ms(fn), "plain_ms": timer.ms(plain),
+                "library_ms": timer.ms(lib),
+                "library": "F.batch_norm" if kern == "batch_norm_fwd"
+                else "aten.native_batch_norm_backward",
+                "bound_ms": bms, "bound_by": by,
+                "bytes": nbytes}
+        emit(line)
+        if not ok:
+            raise SystemExit(f"{kern} {dtype} {name}: {line}")
+        lines[kern] = line
+    return lines
 
 
 def rel_tol(ref, tol):
@@ -6053,6 +6384,11 @@ def main():
             cases[(kern, dtype)] = line
         cases[("rotary", dtype)] = check_rope(dev, timer, dtype)
         cases[("dropout", dtype)] = check_dropout(dev, timer, smi, dtype)
+        for case in BN_CASES:
+            for kern, line in check_batch_norm(dev, timer, smi, dtype,
+                                               case).items():
+                cases[(kern, dtype, case[0])] = line
+        torch.cuda.empty_cache()
     del timer
     torch.cuda.empty_cache()
 
@@ -6126,6 +6462,11 @@ def main():
         for k in FLASH_KERNELS:
             launches[k] += phase_launches[k]
     mark("train_static")
+    # the bench's ResNet50 program: convolution, pooling and batch norm
+    # (no registry kernel on its path)
+    resnet_launches = train_resnet_static(dev, smi)
+    launches.update((k, resnet_launches[k]) for k in BN_KERNELS)
+    mark("train_resnet_static")
     torch.cuda.empty_cache()
     incubate_parity(dev)
     incubated = incubate_run(dev, smi)
@@ -6159,6 +6500,7 @@ def main():
     head.update((k, cases[(k, bf16, "train")]) for k in FLASH_KERNELS)
     head.update((k, cases[(k, bf16)]) for k in (*LN_KERNELS, "rotary",
                                                 "dropout"))
+    head.update((k, cases[(k, bf16, "bn1")]) for k in BN_KERNELS)
     summary = []
     for k in _build.kernels():
         h = head[k.source]

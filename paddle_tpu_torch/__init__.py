@@ -16,7 +16,8 @@ lists what of the JAX package is ported and what waits.
 import importlib as _importlib
 
 
-_SUBPACKAGES = ("device", "nn", "optimizer", "autograd", "amp", "jit")
+_SUBPACKAGES = ("device", "nn", "optimizer", "autograd", "amp", "jit",
+                "vision")
 
 
 def __getattr__(name):

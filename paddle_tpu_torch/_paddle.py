@@ -1,7 +1,8 @@
 """The Paddle front end the package's top level exports (loaded on first
 use by `paddle_tpu_torch.__getattr__`): dtypes, `Tensor`, `to_tensor`,
 `Parameter`, the grad switches, every op, the seed functions, the device
-functions, `nn`, `optimizer`, `autograd` and `PyLayer`."""
+functions, `nn`, `optimizer`, `autograd`, `PyLayer`, `amp`, `jit` and
+`vision`."""
 from paddle_tpu_torch.core.dtype import (  # noqa: F401
     bool_ as bool, uint8, int8, int16, int32, int64, float16, bfloat16,
     float32, float64, complex64, complex128, set_default_dtype,
@@ -24,6 +25,7 @@ from paddle_tpu_torch import autograd  # noqa: F401
 from paddle_tpu_torch.autograd import PyLayer  # noqa: F401
 from paddle_tpu_torch import amp  # noqa: F401
 from paddle_tpu_torch import jit  # noqa: F401
+from paddle_tpu_torch import vision  # noqa: F401
 
 __all__ = (["bool", "uint8", "int8", "int16", "int32", "int64", "float16",
             "bfloat16", "float32", "float64", "complex64", "complex128",
@@ -33,6 +35,7 @@ __all__ = (["bool", "uint8", "int8", "int16", "int32", "int64", "float16",
             "get_rng_state", "set_rng_state", "device", "CPUPlace",
             "CUDAPlace", "TPUPlace", "CUDAPinnedPlace", "set_device",
             "get_device", "is_compiled_with_cuda", "is_compiled_with_rocm",
-            "is_compiled_with_xpu", "nn", "optimizer", "autograd", "PyLayer", "amp", "jit"]
+            "is_compiled_with_xpu", "nn", "optimizer", "autograd", "PyLayer",
+            "amp", "jit", "vision"]
            + [n for n in _ops_all if n not in ("seed", "get_rng_state",
                                                "set_rng_state")])

@@ -1,8 +1,8 @@
 """Kernel registry of the port: named op -> its impls -> the impl one call
 takes (counterpart of `paddle_tpu/kernels/registry.py`, reduced to the ops
 of the ported slices: serving's two paged-attention ops and fused sampler,
-training's flash attention and hidden dropout, and the fused layernorm and
-rotary embedding of `incubate.nn`).
+training's flash attention and hidden dropout, the fused layernorm and
+rotary embedding of `incubate.nn`, and batch norm in training).
 
 The JAX registry chooses among impls by a forced flag, a viability probe
 and a measured winner. Here the choice is the tensor's device and nothing
@@ -44,6 +44,7 @@ OPS = {
     "fused_layernorm": ("plain", "cuda"),
     "fused_rope": ("plain", "cuda"),
     "fused_dropout": ("plain", "cuda"),
+    "batch_norm": ("plain", "cuda"),
     "fused_sampling": ("torch",),
 }
 

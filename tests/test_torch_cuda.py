@@ -2667,3 +2667,260 @@ def test_card_static_failed_capture_raises(card):
         step(a)
     assert step.concrete_program(a).graph is None
     assert float((a * 2).sum()) == 32.0
+
+
+# ------------------------------------------- convolution, pooling, batch norm
+
+def _vision_pair(card, fn, arrays, seed=9):
+    """``fn(*tensors)`` of the port on the card and on the CPU, f32 with
+    TF32 off: outputs and the gradients of ``sum(out * r)``."""
+    import paddle_tpu_torch as paddle
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    try:
+        for dev in (torch.device("cpu"), card):
+            ts = [paddle.to_tensor(a, place=dev,
+                                   stop_gradient=a.dtype.kind != "f")
+                  for a in arrays]
+            out = fn(*ts)
+            r = np.random.RandomState(seed).randn(*out.shape).astype(
+                np.float32)
+            (out * paddle.to_tensor(r, place=dev)).sum().backward()
+            res[dev.type] = (out.numpy(), [t.grad.numpy() for t in ts
+                                           if not t.stop_gradient])
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return res["cuda"], res["cpu"]
+
+
+def _vision_rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    same = (a == b)
+    return float(np.where(same, 0.0, np.abs(a - b)).max()
+                 / max(np.abs(np.where(np.isfinite(b), b, 0.0)).max(), 1e-30))
+
+
+VISION_CASES = {
+    "conv2d_same_stride2": ("conv2d", dict(padding="SAME", stride=2)),
+    "conv2d_groups_nhwc": ("conv2d", dict(padding=[1, 0, 0, 1], groups=2,
+                                          data_format="NHWC")),
+    "conv2d_transpose": ("conv2d_transpose", dict(padding=1, stride=2,
+                                                  output_padding=1)),
+    "max_pool2d": ("max_pool2d", dict(kernel_size=3, stride=2, padding=1)),
+    "max_pool2d_ceil": ("max_pool2d", dict(kernel_size=3, stride=2,
+                                           ceil_mode=True)),
+    "avg_pool2d_exclusive": ("avg_pool2d", dict(kernel_size=3, stride=2,
+                                                padding=[0, 1, 1, 2])),
+    "adaptive_avg_pool2d": ("adaptive_avg_pool2d", dict(output_size=(3, 2))),
+    "adaptive_max_pool2d": ("adaptive_max_pool2d", dict(output_size=3)),
+}
+
+
+@pytest.mark.parametrize("case", list(VISION_CASES))
+def test_card_conv_and_pooling_match_cpu(card, case):
+    """Convolution and pooling on the card against the port on the CPU,
+    float32 with TF32 off: outputs within 1e-5 and gradients within 1e-4
+    of the largest magnitude."""
+    import paddle_tpu_torch as paddle
+    name, kw = VISION_CASES[case]
+    rng = np.random.RandomState(3)
+    x = rng.randn(4, 8, 17, 15).astype(np.float32)
+    arrays = [x]
+    if name.startswith("conv"):
+        if kw.get("data_format") == "NHWC":
+            arrays[0] = x.transpose(0, 2, 3, 1).copy()
+        g = kw.get("groups", 1)
+        shape = (8, 6 // g, 3, 3) if "transpose" in name else (12, 8 // g,
+                                                              3, 3)
+        arrays.append(rng.randn(*shape).astype(np.float32))
+    fn = getattr(paddle.nn.functional, name)
+    (out, grads), (ref, rgrads) = _vision_pair(
+        card, lambda *ts: fn(*ts, **kw), arrays)
+    assert _vision_rel(out, ref) <= 1e-5
+    for g, r in zip(grads, rgrads):
+        assert _vision_rel(g, r) <= 1e-4
+
+
+@pytest.mark.parametrize("fmt", ["NCHW", "NHWC"])
+def test_card_batch_norm_matches_cpu(card, fmt):
+    """The training arm (the autograd Function) and eval on the card
+    against the CPU in float32: outputs within 1e-5, gradients within 1e-4,
+    running statistics within 1e-5."""
+    import paddle_tpu_torch as paddle
+    rng = np.random.RandomState(4)
+    x = (rng.randn(8, 16, 9, 7) * 3 + 1).astype(np.float32)
+    if fmt == "NHWC":
+        x = x.transpose(0, 2, 3, 1).copy()
+    w, b = rng.randn(16).astype(np.float32), rng.randn(16).astype(np.float32)
+    for training in (True, False):
+        stats = {}
+
+        def fn(a, wt, bs):
+            dev = a._data.device
+            rm = paddle.to_tensor(np.zeros(16, np.float32), place=dev)
+            rv = paddle.to_tensor(np.ones(16, np.float32), place=dev)
+            stats[dev.type] = (rm, rv)
+            return paddle.nn.functional.batch_norm(
+                a, rm, rv, wt, bs, training=training, data_format=fmt)
+
+        (out, grads), (ref, rgrads) = _vision_pair(card, fn, [x, w, b])
+        assert _vision_rel(out, ref) <= 1e-5
+        for g, r in zip(grads, rgrads):
+            assert _vision_rel(g, r) <= 1e-4
+        for a, r in zip(stats["cuda"], stats["cpu"]):
+            assert _vision_rel(a.numpy(), r.numpy()) <= 1e-5
+
+
+def test_card_batch_norm_bfloat16_under_o2(card):
+    """O2's batch norm on the card: bfloat16 input, weight and bias,
+    float32 running statistics that stay float32; the output and the
+    input's gradient bfloat16, within 2e-2 of the CPU's (both round the
+    normalized value to bfloat16) and the statistics within 1e-3."""
+    import paddle_tpu_torch as paddle
+    rng = np.random.RandomState(5)
+    x = (rng.randn(16, 32, 14, 14) * 2 + 0.5).astype(np.float32)
+    res = {}
+    for dev in (torch.device("cpu"), card):
+        bn = None
+        with paddle.device.device_scope(dev):
+            paddle.seed(0)
+            bn = paddle.nn.BatchNorm2D(32)
+        for p in bn.parameters():
+            p._write(p._data.detach().to(torch.bfloat16))
+        xs = paddle.to_tensor(x, place=dev).astype("bfloat16")
+        xs.stop_gradient = False
+        out = bn(xs)
+        r = np.random.RandomState(6).randn(*x.shape).astype(np.float32)
+        (out.astype("float32") * paddle.to_tensor(r, place=dev)).sum(
+        ).backward()
+        res[dev.type] = (out, xs.grad, bn._mean, bn._variance)
+    out, g, m, v = res["cuda"]
+    assert out.dtype == g.dtype == torch.bfloat16
+    assert m.dtype == v.dtype == torch.float32
+    assert _vision_rel(out.numpy(), res["cpu"][0].numpy()) <= 2e-2
+    assert _vision_rel(g.numpy(), res["cpu"][1].numpy()) <= 2e-2
+    for a, r in zip((m, v), res["cpu"][2:]):
+        assert _vision_rel(a.numpy(), r.numpy()) <= 1e-3
+
+
+def test_card_static_resnet_replays_keep_running_stats(card):
+    """`bench_resnet50`'s program at resnet18, B=8 at 64 x 64, under
+    ``cudnn.deterministic``: 5 to_static calls (2 eager, the capture, 2
+    replays) then multi_steps(2) against 7 eager steps from one seed:
+    losses, parameters and every batch norm's running statistics bit for
+    bit; the batch norm kernels launch once a norm (20) a step on both
+    paths, counted through the replays, and no other kernel launches."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit.static_function import EAGER_RUNS
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.vision.models import resnet18
+    rng = np.random.RandomState(0)
+    xa = rng.randn(8, 3, 64, 64).astype(np.float32)
+    ya = rng.randint(0, 10, 8).astype(np.int64)
+    x, y = (paddle.to_tensor(a, place=card) for a in (xa, ya))
+    xk, yk = (paddle.to_tensor(np.broadcast_to(a, (2,) + a.shape).copy(),
+                               place=card) for a in (xa, ya))
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    before = {k.source: k.launches for k in _build.kernels()}
+    runs = {}
+    try:
+        for static in (False, True):
+            paddle.seed(0)
+            with paddle.device.device_scope(card):
+                model = resnet18(num_classes=10)
+            opt = paddle.optimizer.Momentum(
+                learning_rate=0.1, momentum=0.9,
+                parameters=model.parameters(), weight_decay=1e-4)
+            model, opt = paddle.amp.decorate(model, opt, level="O2",
+                                             dtype="bfloat16")
+            loss_fn = paddle.nn.CrossEntropyLoss()
+
+            def step(a, b):
+                with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+                    loss = loss_fn(model(a), b)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                return loss
+
+            if static:
+                fn = paddle.jit.to_static(step)
+                losses = [fn(x, y).numpy() for _ in range(5)]
+                losses += list(fn.multi_steps(2)(xk, yk).numpy())
+                prog = fn.concrete_program(x, y)
+                assert prog.graph.replays == 7 - EAGER_RUNS
+            else:
+                losses = [step(x, y).numpy() for _ in range(7)]
+            runs[static] = ([np.asarray(a).tobytes() for a in losses],
+                            {k: v.numpy() for k, v in
+                             model.state_dict().items()})
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert runs[True][0] == runs[False][0]
+    for k, v in runs[False][1].items():
+        assert np.array_equal(runs[True][1][k], v), k
+    norms = 20 * 7 * 2                 # a norm a step, eager and static
+    assert {k.source: k.launches - before[k.source]
+            for k in _build.kernels()} == {
+        k.source: norms if k.source.startswith("batch_norm") else 0
+        for k in _build.kernels()}
+
+
+BN_KERNEL_CASES = {
+    "nchw_vec8": ((4, 32, 16, 16), 1, torch.bfloat16, torch.bfloat16),
+    "nchw_odd_inner": ((8, 16, 9, 7), 1, torch.float32, torch.float32),
+    "channels_last": ((4, 6, 5, 24), 3, torch.bfloat16, torch.bfloat16),
+    "nc": ((64, 24), 1, torch.float32, torch.float32),
+    "bf16_x_f32_weight": ((4, 8, 12, 12), 1, torch.bfloat16, torch.float32),
+    "no_affine": ((4, 8, 10, 10), 1, torch.bfloat16, None),
+}
+
+
+@pytest.mark.parametrize("case", list(BN_KERNEL_CASES))
+def test_card_batch_norm_kernels_match_plain(card, case):
+    """The batch norm kernels against their plain versions on the card
+    (chip_smoke.py's BN_TOL): output and statistics within 2e-5 (f32) or
+    two bfloat16 steps (2^-6) of the largest value when above 1, dx the
+    same, dw and db within 1e-4 (f32) or one bfloat16 step (2^-7); two
+    runs bit for bit (no atomics)."""
+    from paddle_tpu_torch.kernels import batch_norm as tbn
+    shape, ch, dtype, wdtype = BN_KERNEL_CASES[case]
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        card, dtype)
+    c = shape[ch]
+    w = b = None
+    if wdtype is not None:
+        w = torch.from_numpy(rng.standard_normal(c, dtype=np.float32)).to(
+            card, wdtype)
+        b = torch.from_numpy(rng.standard_normal(c, dtype=np.float32)).to(
+            card, wdtype)
+    x3 = tbn.view3(x, ch)
+    got = tbn.train_fwd("cuda", x3, w, b, 1e-5)
+    ref = tbn._plain_fwd(x3, w, b, 1e-5)
+    assert got[0].dtype == ref[0].dtype
+    dy = torch.from_numpy(rng.standard_normal(tuple(x3.shape),
+                                              dtype=np.float32)).to(
+        card, got[0].dtype)
+    gotb = tbn.train_bwd("cuda", x3, dy, got[1], got[3], w)
+    refb = tbn._plain_bwd(x3, dy, ref[1], ref[3], w)
+    out_tol, sum_tol = (2e-5, 1e-4) if dtype == torch.float32 else \
+        (2.0 ** -6, 2.0 ** -7)
+
+    def err(a, r):
+        return (a.float() - r.float()).abs().max().item()
+
+    def tol(r, t):
+        return t * max(1.0, r.float().abs().max().item())
+
+    for a, r in zip(got, ref):
+        assert err(a, r) <= tol(r, out_tol)
+    assert gotb[0].dtype == dtype
+    assert err(gotb[0], refb[0]) <= tol(refb[0], out_tol)
+    for a, r in zip(gotb[1:], refb[1:]):
+        assert err(a, r) <= tol(r, sum_tol)
+    again = tbn.train_bwd("cuda", x3, dy, got[1], got[3], w)
+    assert all(torch.equal(a, r) for a, r in zip(again, gotb))
+    assert torch.equal(tbn.train_fwd("cuda", x3, w, b, 1e-5)[0], got[0])

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels.cuda import batch_norm as cbn  # noqa: F401
 from paddle_tpu_torch.kernels.cuda import dropout as cdrop
 from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
 from paddle_tpu_torch.kernels.cuda import fused_layernorm as cln
@@ -207,10 +208,10 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         k.launch(*([None] * 7 + [1] * 6 + [None]))
     assert k.launches == before
-    sources = ["dropout", "flash_dkv", "flash_dq", "flash_fwd",
-               "fused_layernorm_bwd", "fused_layernorm_fwd", "paged_decode",
-               "paged_decode_int8", "paged_prefill", "paged_prefill_int8",
-               "rotary"]
+    sources = ["batch_norm_bwd", "batch_norm_fwd", "dropout", "flash_dkv",
+               "flash_dq", "flash_fwd", "fused_layernorm_bwd",
+               "fused_layernorm_fwd", "paged_decode", "paged_decode_int8",
+               "paged_prefill", "paged_prefill_int8", "rotary"]
     assert {x.source for x in _build.kernels()} >= set(sources)
     assert sorted(s.stem for s in _build.CSRC.glob("*.cu")) == sources
 

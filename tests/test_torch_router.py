@@ -554,8 +554,11 @@ def sc_heartbeat_expiry(s, tmp):
     toks = [cli.generate(rng.randint(0, 97, 4 + i).astype(np.int32),
                          max_new_tokens=4).tolist() for i in range(3)]
     cli.close()
+    # the membership that routed around the dead replica: read before the
+    # good one leaves, which the router's poll would see 50 ms later
+    ids = router.replica_ids()
     reg0.leave()
-    return {"tokens": toks, "ids": router.replica_ids()}
+    return {"tokens": toks, "ids": ids}
 
 
 def test_heartbeat_expiry_routes_around_dead_replica(models, tmp_path):

@@ -662,6 +662,10 @@ def sc_disagg_traced(s, prompt, drop):
         out = cli.generate(prompt, max_new_tokens=6, trace_id=tid,
                            parent_span=sc).tolist()
     cli.close()
+    # the prefill replica's engine thread ends its export (and lands its
+    # span) on its own time, after a dropped stream's fallback answer too
+    _wait_for(lambda: _by_name(s, tid, "engine.prefill_stream"),
+              timeout=10, msg="the prefill export")
     evs = _spans(s, tid)
     (fwd,) = _by_name(s, tid, "router.forward")
     rspan = fwd["args"]["span"]
