@@ -355,7 +355,7 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    from that checkpoint equals the uninterrupted run). ``train_elastic``:
    rank processes of this script (``--elastic-worker``, each its own
    CUDA context on the card; `run_elastic_worker` over the fleet's
-   TCPStore), 8 of the 16 rows a rank at world 2: ``world2`` (5 steps;
+   TCPStore), 8 of the 16 rows a rank at world 2: ``world2`` (4 steps;
    losses against one process with 2 microbatches on the same global
    batches, gate 2e-3, exactness reported; a second run from the step-2
    checkpoint equal to the first; step ms, the reducer's ms by piece and
@@ -366,12 +366,44 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    deadline and exits 23, `ElasticController` reforms the fleet at world
    1, which resumes from the step-2 checkpoint equal to one process
    restored from it; kill to `PeerLost`, reform to first step).
+   ``generate_fast`` and ``quant_comms`` (run after ``train_elastic``):
+   the JAX bench's decode, engine-decode and quantization rungs.
+   ``generate_fast``: `GPTForCausalLM.fast_generate`, one captured CUDA
+   graph a signature. `bench_decode` (GPT-2 small, float32, from
+   ``paddle.seed(0)``, B=8, S0=128, N=64, greedy): a capture call, then
+   the timed call: tokens/s, ms a token, the capture's seconds, kernels a
+   call and device ms (one more call under the profiler), the replay's
+   CUDA-event ms, peak and reserved memory; no registry kernel launches
+   (the program's attention is dense). `bench_engine_decode`: 8 prompts
+   of 128 as sequential B=1 calls and through a `DecodeEngine` (8 slots,
+   page 16): both tokens/s and their ratio, the bench's exact-token
+   assertion (the first divergence and the CPU's margin reported before
+   it raises), the engine's paged-kernel launches exact. Gates on
+   ``generate_eager``'s model and prompts: greedy tokens (8 signatures,
+   the reserved memory after each capture) and a sampled B=8 call
+   (FAST_SAMPLED) equal to eager `generate` on the card where the CPU's
+   margin exceeds MARGIN (`fast_margin`), a second call equal to the
+   first, ``wte`` written in place seen with no capture, a
+   `set_state_dict` that rebinds a frozen ``wte`` re-captured once and
+   equal to a fresh model with those weights. ``quant_comms``:
+   `bench_quant`'s three claims with its config (vocab 1024, hidden 256,
+   4 layers, S=48, N=24, page 16): the int8 pool's slots at the float32
+   pool's bytes (>= 1.9x) run as one engine, the margin-gated int8
+   prefill parity, a quantized all-reduce of a 2^20-value float32
+   gradient at >= 3x fewer ``collective.bytes`` within
+   `roundtrip_bound`; then a world-2 arm of `testing/collective_drill.py`
+   ranks on this card (every collective on CUDA tensors against numpy's
+   closed forms, the quantized ones within the sum of the ranks'
+   bounds, the byte counters against the JAX formula, ms a call of the
+   store transport, which is not NCCL).
 12. ``kernels``: per kernel, its source, the TPU kernel it replaces, its
    launches in the run of the path that uses it (serve for the float paged
    kernels, serve_int8 for the int8 ones, train, train_ckpt and
    train_elastic (every rank's) for the flash kernels, incubate for the
-   layernorm and rotary kernels, train_dropout for the dropout kernel) and
-   its numbers at that run's shapes.
+   layernorm and rotary kernels, train_dropout for the dropout kernel; the
+   float paged kernels also count ``generate_fast``'s engine and both
+   paged pairs ``quant_comms``'s engines) and its numbers at that run's
+   shapes.
 13. The last line: ``{"ok": true, "device": {...}}``.
 
 The card runs (4 to 11) are the paths of the main path: every
@@ -417,6 +449,7 @@ from torch.profiler import ProfilerActivity, profile
 import paddle_tpu_torch as paddle
 from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch.core.tensor import Tensor as PTensor, torch_state
+from paddle_tpu_torch.distributed import collective as tcoll
 from paddle_tpu_torch.distributed.fleet.elastic import NodeRegistry
 from paddle_tpu_torch.incubate.nn import (FusedLayerNorm,
                                           FusedMultiTransformer,
@@ -453,6 +486,7 @@ from paddle_tpu_torch.observability.usage import usage_log
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
                                            LinearWarmup)
+from paddle_tpu_torch.quantization import comms as tcomms
 from paddle_tpu_torch.quantization.serving import (QUANT_LOGIT_BOUND,
                                                    margin_gated_parity)
 from paddle_tpu_torch.serving.autoscale import (Autoscaler, AutoscalePolicy,
@@ -460,7 +494,7 @@ from paddle_tpu_torch.serving.autoscale import (Autoscaler, AutoscalePolicy,
 from paddle_tpu_torch.serving.disagg import (KVStreamAssembler,
                                              prompt_page_hashes)
 from paddle_tpu_torch.serving.router import Router
-from paddle_tpu_torch.testing import faults
+from paddle_tpu_torch.testing import collective_drill, faults
 from paddle_tpu_torch.train import (EXIT_PEER_LOST, H100_BF16_PEAK,
                                     CheckpointManager,
                                     ElasticController, PeerLost,
@@ -5660,7 +5694,7 @@ CKPT_LR = 1e-4
 CKPT_ROWS = 16                  # the global batch: 2 microbatches of 8
 CKPT_SEQ = 1024
 ELASTIC_DEADLINE_S = 20.0       # train_elastic's liveness deadline
-ELASTIC_STEPS = 5               # step 1 warms, steps 2-5 are timed
+ELASTIC_STEPS = 4               # step 1 warms, steps 2-4 are timed
 FLEET_TIMEOUT_S = 420           # one fleet launch's bound
 
 
@@ -6303,6 +6337,617 @@ def train_elastic(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------- decode
+# the bench's decode rungs (`bench.py:512-582`): GPT-2 small at full width
+# in float32 from paddle.seed(0), 256 positions
+DECODE_CFG = dict(hidden_size=768, num_layers=12, num_heads=12,
+                  intermediate_size=3072, max_position_embeddings=256,
+                  hidden_dropout=0.0, attention_dropout=0.0)
+DECODE_B, DECODE_S0, DECODE_N = 8, 128, 64          # bench_decode
+ENGINE_NREQ = 8                                     # bench_engine_decode
+FAST_SAMPLED = (0.8, 40, 3)                         # temperature, top_k, seed
+FAST_SAMPLED_SHAPE = (8, 128, 16)                   # B, S0, N
+
+
+def bench_decode(dev):
+    """`bench_decode` (`bench.py:512-535`) on the port: one capture call,
+    then the timed call. The bench wraps the ids with ``paddle.Tensor(...,
+    _internal=True)``, which takes a numpy array as it is only in the JAX
+    package; here ``paddle.to_tensor``. Returns the bench's two figures
+    and what the phase reads around them."""
+    paddle.seed(0)
+    B, S0, N = DECODE_B, DECODE_S0, DECODE_N
+    cfg = gpt_mod.GPTConfig(**DECODE_CFG)
+    with tdevice.device_scope(dev):
+        model = gpt_mod.GPTForCausalLM(cfg)
+    rng = np.random.RandomState(0)
+    ids = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (B, S0))
+                           .astype(np.int32), place=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = model.fast_generate(ids, max_new_tokens=N)     # capture
+    first = np.asarray(out.numpy())
+    prog = model._fast_decode_cache[(B, S0, N, 1.0, 0, "float32")]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = model.fast_generate(ids, max_new_tokens=N)
+    end.record()
+    toks = np.asarray(out.numpy())
+    dt = time.perf_counter() - t0
+    kernels, device_ms, host_calls = profiled(
+        lambda: model.fast_generate(ids, max_new_tokens=N))
+    fig = {"tokens_per_s": B * N / dt, "ms_per_token": dt / N * 1e3,
+           "call_ms": dt * 1e3, "replay_event_ms": start.elapsed_time(end),
+           "capture_seconds": prog.capture_seconds,
+           "kernels_a_call": kernels, "profiled_device_ms": device_ms,
+           "host_runtime_calls_a_call": host_calls,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+           "reserved_memory_bytes": torch.cuda.memory_reserved(dev),
+           "captures": prog.captures, "replays": prog.graph.replays,
+           "graph_kernel_launches": {k.source: n for k, n in
+                                     prog.graph.kernel_launches.items()},
+           "second_call_equal": bool(np.array_equal(first, toks)),
+           "shape_ok": toks.shape == (B, S0 + N)
+           and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())}
+    del model, out
+    return fig
+
+
+def bench_engine_decode(dev, phase):
+    """`bench_engine_decode` (`bench.py:537-582`) on the port: 8 requests
+    as sequential B=1 `fast_generate` calls, then through a
+    `DecodeEngine` (8 slots, page 16) on the card, and the bench's
+    assertion that the engine's first request equals `fast_generate`'s
+    tokens. Lines changed: ``paddle.to_tensor`` for ``paddle.Tensor(...,
+    _internal=True)``, and the engine's launches are read around its run
+    (`engine_launches`). On a failed assertion the first divergence and
+    the CPU's top-2 margin there are reported before it raises."""
+    paddle.seed(0)
+    NREQ, S0, N = ENGINE_NREQ, DECODE_S0, DECODE_N
+    cfg = gpt_mod.GPTConfig(**DECODE_CFG)
+    with tdevice.device_scope(dev):
+        model = gpt_mod.GPTForCausalLM(cfg)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, S0).astype(np.int32)
+               for _ in range(NREQ)]
+
+    def ids(p):
+        return paddle.to_tensor(p[None], place=dev)
+
+    model.fast_generate(ids(prompts[0]), max_new_tokens=N)   # capture
+    t0 = time.perf_counter()
+    for p in prompts:
+        out = model.fast_generate(ids(p), max_new_tokens=N)
+        np.asarray(out.numpy())
+    seq_tps = NREQ * N / (time.perf_counter() - t0)
+
+    eng = DecodeEngine(model, EngineConfig(
+        page_size=16, max_slots=NREQ, max_seq_len=S0 + N), device=dev)
+    eng.warmup(prompt_lens=[S0])
+    counters0 = dict(eng.counters)
+    reset_launches()                       # the engine's run
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=N) for p in prompts]
+    eng.run_until_idle()
+    eng_tps = NREQ * N / (time.perf_counter() - t0)
+    launches, expected, _ = engine_launches(eng, counters0, phase)
+    ref = np.asarray(model.fast_generate(ids(prompts[0]),
+                                         max_new_tokens=N).numpy())[0]
+    got = reqs[0].result(timeout=60)
+    rec = {"engine_tokens_per_s": eng_tps, "sequential_tokens_per_s": seq_tps,
+           "engine_over_sequential": eng_tps / seq_tps,
+           "launches": launches, "expected_launches": expected,
+           "tokens_equal": bool(np.array_equal(got, ref))}
+    if not rec["tokens_equal"]:
+        cpu_params = {k: v.cpu() for k, v in torch_state(model).items()}
+        rec["requests"] = compare_tokens([got], [ref], prompts[:1],
+                                         [(1.0, 0, 0)], cfg, cpu_params)
+        emit({"phase": phase, "arm": "engine_decode", **rec, "ok": False})
+    assert np.array_equal(got, ref)
+    del eng, model
+    return rec
+
+
+def fast_margin(cpu_params, cfg, context, t, row, rows, param):
+    """The CPU's top-2 margin at a `fast_generate` row's generated token
+    ``t`` after ``context``: of the logits for a greedy call; for a sampled
+    one, of the tempered, top-k masked logits plus the Gumbel noise that
+    row draws (one key for the call's ``rows`` rows, split once per earlier
+    token)."""
+    temp, top_k, seed = param
+    lg = prefill_logits(cpu_params, context, "cpu", cfg)[0][None]
+    if temp != 1.0 or top_k:
+        key = prng.prng_key(seed)
+        for _ in range(t):
+            key = prng.split(key)[0]
+        lg = lg / torch.full((), temp)
+        if top_k:
+            kth = lg.topk(top_k).values[..., -1:]
+            lg = torch.where(lg < kth, smp.NEG_INF, lg)
+        lg = lg + prng.gumbel(prng.split(key)[1],
+                              (rows, lg.shape[-1]))[row][None]
+    top2 = lg.topk(2).values[0]
+    return float(top2[0] - top2[1])
+
+
+def fast_vs_eager(fast, eager, prompts, param, cfg, cpu_params, rows=1):
+    """Per row: `fast_generate`'s tokens equal eager `generate`'s, else the
+    first divergence with the CPU's margin there (`fast_margin`); rows of
+    one call when ``rows`` > 1, else one call each."""
+    recs = []
+    for b, (p, a, w) in enumerate(zip(prompts, fast, eager)):
+        rec = {"prompt_len": len(p), "tokens_equal": bool(np.array_equal(a,
+                                                                          w))}
+        if not rec["tokens_equal"]:
+            t = int(np.flatnonzero(a != w)[0]) - len(p)
+            rec["first_divergence"] = {
+                "position": t, "cpu_margin": fast_margin(
+                    cpu_params, cfg, w[:len(p) + t], t,
+                    b if rows > 1 else 0, rows, param)}
+        recs.append(rec)
+    return recs
+
+
+def gated(recs):
+    return all(r["tokens_equal"] or r["first_divergence"]["cpu_margin"]
+               <= MARGIN for r in recs)
+
+
+def fast_arms(dev):
+    """The gates on `generate_eager`'s model (GPT-2 small, float32, seed
+    SEED) and prompts: greedy `fast_generate` (one signature a prompt
+    length, 8 captures) against eager `generate` on the card, margin-gated;
+    the reserved memory after each capture; a sampled B=8 call against
+    eager `generate` with the same parameters; ``wte`` perturbed in place
+    between two calls (new tokens, no capture); a `set_state_dict` that
+    rebinds a frozen ``wte`` (one re-capture, tokens equal to a fresh
+    model's with those weights)."""
+    with tdevice.device_scope(dev):
+        model = gpt_mod.gpt2_small(
+            generator=torch.Generator().manual_seed(SEED),
+            hidden_dropout=0.0, attention_dropout=0.0)
+    cfg = model.cfg
+    cpu_params = {k: v.cpu() for k, v in torch_state(model).items()}
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, min(VOCAB, cfg.vocab_size), n)
+               .astype(np.int32) for n in SERVE_LENS]
+    n = GENERATE_TOKENS
+
+    def ids(p):
+        return PTensor(torch.from_numpy(np.asarray(p)).to(dev))
+
+    fast, reserved, capture_s = [], [], []
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    for p in prompts:          # 8 signatures, one shared pool
+        fast.append(model.fast_generate(ids(p[None]), max_new_tokens=n)
+                    .numpy()[0])
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(dev) - reserved0)
+        capture_s.append(model._fast_decode_cache[
+            (1, len(p), n, 1.0, 0, "float32")].capture_seconds)
+    eager = [model.generate(ids(p[None]), max_new_tokens=n).numpy()[0]
+             for p in prompts]
+    greedy = fast_vs_eager(fast, eager, prompts, (1.0, 0, 0), cfg,
+                           cpu_params)
+    cached = len(model._fast_decode_cache)
+
+    b, s0, ns = FAST_SAMPLED_SHAPE
+    temp, top_k, seed = FAST_SAMPLED
+    batch = rng.integers(0, min(VOCAB, cfg.vocab_size), (b, s0)).astype(
+        np.int32)
+    kw = dict(max_new_tokens=ns, temperature=temp, top_k=top_k, seed=seed)
+    sf = model.fast_generate(ids(batch), **kw).numpy()
+    se = model.generate(ids(batch), **kw).numpy()
+    sampled = fast_vs_eager(sf, se, list(batch), FAST_SAMPLED, cfg,
+                            cpu_params, rows=b)
+
+    # wte written in place: the graph reads the new values
+    sig = (1, len(prompts[1]), n, 1.0, 0, "float32")
+    prog = model._fast_decode_cache[sig]
+    recaptures0 = metrics.counter("generate.recaptures").value
+    wte = model.gpt.wte.weight
+    noise = torch.randn(wte.shape, generator=torch.Generator().manual_seed(
+        SEED + 5)).to(dev) * 0.02
+    wte._write(wte._data + noise)
+    moved = model.fast_generate(ids(prompts[1][None]),
+                                max_new_tokens=n).numpy()[0]
+    moved_eager = model.generate(ids(prompts[1][None]),
+                                 max_new_tokens=n).numpy()[0]
+    in_place = {"tokens_changed": bool(not np.array_equal(moved, fast[1])),
+                "captures": prog.captures,
+                "recaptures": metrics.counter("generate.recaptures").value
+                - recaptures0,
+                "vs_eager": fast_vs_eager(
+                    [moved], [moved_eager], prompts[1:2], (1.0, 0, 0), cfg,
+                    {**cpu_params, "gpt.wte.weight": wte._data.cpu()})}
+
+    # a frozen wte rebound by set_state_dict: one re-capture
+    wte.stop_gradient = True
+    new = (wte._data + noise).detach().clone()
+    model.set_state_dict({"gpt.wte.weight": new})
+    rebound = model.gpt.wte.weight._data.data_ptr() == new.data_ptr()
+    after = model.fast_generate(ids(prompts[1][None]),
+                                max_new_tokens=n).numpy()[0]
+    with tdevice.device_scope(dev):
+        fresh = gpt_mod.gpt2_small(
+            generator=torch.Generator().manual_seed(SEED),
+            hidden_dropout=0.0, attention_dropout=0.0)
+    fresh.set_state_dict({"gpt.wte.weight": new.clone()})
+    want = fresh.fast_generate(ids(prompts[1][None]),
+                               max_new_tokens=n).numpy()[0]
+    rebind = {"rebound": rebound, "captures": prog.captures,
+              "recaptures": metrics.counter("generate.recaptures").value
+              - recaptures0 - in_place["recaptures"],
+              "tokens_equal_fresh_model": bool(np.array_equal(after, want)),
+              "tokens_changed": bool(not np.array_equal(after, moved))}
+    del model, fresh
+    return {"greedy": greedy, "signatures_cached": cached,
+            "reserved_bytes_over_weights_after_each_capture": reserved,
+            "capture_seconds": capture_s, "sampled": sampled,
+            "sampled_params": list(FAST_SAMPLED),
+            "sampled_shape": list(FAST_SAMPLED_SHAPE),
+            "in_place_write": in_place, "set_state_dict_rebind": rebind}
+
+
+def generate_fast(dev, smi):
+    """`fast_generate` on the card, one captured CUDA graph a signature:
+    the bench's `bench_decode` and `bench_engine_decode` (GPT-2 small,
+    float32, from ``paddle.seed(0)``) and the gates of `fast_arms`. Every
+    kernel's launch count is read around the decode runs (none: the
+    program's attention is dense, as in the JAX package) and around the
+    engine's run (the paged kernels, `engine_launches`)."""
+    phase = "generate_fast"
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()                       # bench_decode's run
+    decode = bench_decode(dev)
+    fast_launches = read_launches(phase, {})
+    arms = fast_arms(dev)
+    engine = bench_engine_decode(dev, phase)
+    ok = (decode["second_call_equal"] and decode["shape_ok"]
+          and decode["graph_kernel_launches"] == {}
+          and gated(arms["greedy"]) and gated(arms["sampled"])
+          and arms["signatures_cached"] == len(SERVE_LENS)
+          and arms["in_place_write"]["tokens_changed"]
+          and arms["in_place_write"]["captures"] == 1
+          and arms["in_place_write"]["recaptures"] == 0
+          and gated(arms["in_place_write"]["vs_eager"])
+          and arms["set_state_dict_rebind"]["rebound"]
+          and arms["set_state_dict_rebind"]["captures"] == 2
+          and arms["set_state_dict_rebind"]["recaptures"] == 1
+          and arms["set_state_dict_rebind"]["tokens_equal_fresh_model"]
+          and engine["tokens_equal"])
+    line = {"phase": phase, "model": "gpt2-small", "dtype": "float32",
+            "card": smi, "bench_decode": {
+                "batch": DECODE_B, "prompt": DECODE_S0,
+                "new_tokens": DECODE_N, **decode},
+            "bench_engine_decode": engine, **arms,
+            "margin_gate": MARGIN, "launches": fast_launches,
+            "clocks": card_clocks(), "ok": bool(ok)}
+    emit(line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit(f"{phase}: a gate failed")
+    return engine["launches"]
+
+
+# ----------------------------------------------------------------- quant
+QUANT_CFG = dict(vocab_size=1024, hidden_size=256, num_layers=4,
+                 num_heads=4, intermediate_size=1024,
+                 hidden_dropout=0.0, attention_dropout=0.0)
+QUANT_S, QUANT_N, QUANT_PS = 48, 24, 16           # bench.py:1024
+COMMS_NUMEL = 1 << 20                             # the bench's gradient
+DRILL_WORLD = 2
+
+
+def int8_kv_prefill_parity(model, cfg, prompt, pps, page_size, dev):
+    """`_int8_kv_prefill_parity` (`bench.py:968-995`) in torch: one
+    prefill on float32 pages against int8 pages and scales, the
+    margin-gated parity at its default bound. The bench passes one zero
+    pool as both K and V (JAX arrays are immutable); the port writes its
+    pools in place, so each gets its own."""
+    params = torch_state(model)
+    nh, dh = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    nl = cfg.num_layers
+    s0 = int(prompt.size)
+    need = -(-s0 // page_size)
+    npg = 1 + need
+    row = F.pad(torch.arange(1, npg, dtype=torch.int32, device=dev),
+                (0, pps - need))
+    ids = torch.from_numpy(np.asarray(prompt, np.int32)).to(dev)
+
+    def zeros(dtype, shape=(nl, npg, page_size, nh, dh)):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    lg_f = gpt_mod.prefill_step(params, ids, s0, row, zeros(torch.float32),
+                                zeros(torch.float32), cfg=cfg)[0]
+    lg_q = gpt_mod.prefill_step(
+        params, ids, s0, row, zeros(torch.int8), zeros(torch.int8),
+        cfg=cfg, k_scale=zeros(torch.float32, (nl, npg, page_size, nh)),
+        v_scale=zeros(torch.float32, (nl, npg, page_size, nh)))[0]
+    return margin_gated_parity(lg_f, lg_q)
+
+
+def bench_quant(dev):
+    """`bench_quant` (`bench.py:998-1110`) on the port: its three claims,
+    each asserted. Lines changed: the ids as torch tensors in the parity
+    harness (`int8_kv_prefill_parity`), and the gradient read back with
+    ``.numpy()`` / ``.cpu()`` where the bench calls ``np.asarray`` on a
+    device array (`bench.py:1093, 1101-1102`)."""
+    paddle.seed(0)
+    S, N, PS = QUANT_S, QUANT_N, QUANT_PS
+    cfg = gpt_mod.GPTConfig(**QUANT_CFG, max_position_embeddings=S + N)
+    with tdevice.device_scope(dev):
+        model = gpt_mod.GPTForCausalLM(cfg)
+    rng = np.random.RandomState(0)
+    prompt = rng.randint(0, cfg.vocab_size, S).astype(np.int32)
+
+    f32_slots = 4
+    probe = {}
+    for kvd in ("f32", "int8"):
+        e = DecodeEngine(model, EngineConfig(page_size=PS, max_slots=1,
+                                             max_seq_len=S + N,
+                                             kv_dtype=kvd), device=dev)
+        probe[kvd] = (e.kv_bytes_per_token, e.pages_per_slot)
+        del e
+    pps = probe["f32"][1]
+    page_bytes = {k: v[0] * PS for k, v in probe.items()}
+    pool_bytes = (1 + f32_slots * pps) * page_bytes["f32"]
+    int8_pages = pool_bytes // page_bytes["int8"]
+    int8_slots = int((int8_pages - 1) // pps)
+    slot_ratio = int8_slots / f32_slots
+    assert slot_ratio >= 1.9, (
+        f"int8 KV admits only {int8_slots} slots vs f32's {f32_slots} at "
+        f"{pool_bytes} pool bytes — expected >= 1.9x")
+
+    def run(kv_dtype, max_slots, num_pages, nreq):
+        eng = DecodeEngine(model, EngineConfig(
+            page_size=PS, max_slots=max_slots, max_seq_len=S + N,
+            num_pages=num_pages, prefix_cache=False, kv_dtype=kv_dtype),
+            device=dev)
+        eng.warmup(prompt_lens=[S])
+        r = eng.submit(prompt, max_new_tokens=2)       # prime execution
+        eng.run_until_idle(max_steps=100)
+        r.result(timeout=300)
+        prompts = [rng.randint(0, cfg.vocab_size, S).astype(np.int32)
+                   for _ in range(nreq)]
+        counters0 = dict(eng.counters)
+        reset_launches()                   # the engine's run
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=N) for p in prompts]
+        eng.run_until_idle(max_steps=4000)
+        outs = [r.result(timeout=300) for r in reqs]
+        dt = time.perf_counter() - t0
+        launches.append(engine_launches(eng, counters0, "quant_comms")[0])
+        return outs, nreq * N / dt
+
+    launches = []
+    f32_outs, f32_tps = run("f32", f32_slots, 1 + f32_slots * pps,
+                            f32_slots)
+    int8_outs, int8_tps = run("int8", int8_slots, int(int8_pages),
+                              int8_slots)
+
+    logit_diff, kv_quant_ok = int8_kv_prefill_parity(model, cfg, prompt,
+                                                     pps, PS, dev)
+    assert kv_quant_ok, (
+        f"int8 KV parity violated: logit diff {logit_diff:.4f} vs bound "
+        f"{QUANT_LOGIT_BOUND}")
+
+    with tdevice.device_scope(dev):
+        grad = paddle.to_tensor(rng.randn(COMMS_NUMEL).astype(np.float32))
+
+    def bytes_now():
+        snap = metrics.snapshot()["counters"]
+        return sum(v for k, v in snap.items()
+                   if k.startswith("collective.bytes"))
+    b0 = bytes_now()
+    tcoll.all_reduce(grad)
+    plain_bytes = bytes_now() - b0
+    with tdevice.device_scope(dev):
+        gq = paddle.to_tensor(grad.numpy().copy())
+    b1 = bytes_now()
+    tcoll.all_reduce(gq, quantized=True)
+    quant_bytes = bytes_now() - b1
+    payload_ratio = plain_bytes / max(1, quant_bytes)
+    assert payload_ratio >= 3.0, (
+        f"quantized allreduce moved {quant_bytes} bytes vs {plain_bytes} "
+        f"plain — expected >= 3x reduction")
+    err = np.abs(gq.numpy() - grad.numpy())
+    bound = tcomms.roundtrip_bound(grad._data).cpu().numpy()
+    assert (err <= bound + 1e-7).all(), "allreduce error outside the bound"
+
+    del model
+    return dict(slot_ratio=slot_ratio, f32_slots=f32_slots,
+                int8_slots=int8_slots, pool_bytes=int(pool_bytes),
+                f32_tok_s=f32_tps, int8_tok_s=int8_tps,
+                logit_diff=logit_diff, kv_quant_ok=kv_quant_ok,
+                payload_ratio=payload_ratio,
+                plain_bytes=int(plain_bytes), quant_bytes=int(quant_bytes),
+                requests_ok=all(len(o) == S + N for o in f32_outs + int8_outs)
+                and len(int8_outs) == int8_slots,
+                comms_max_err=float(err.max()),
+                comms_within_bound=bool((err <= bound + 1e-7).all()),
+                grad_device=str(grad._data.device),
+                launches={k: sum(ln[k] for ln in launches)
+                          for k in launches[0]})
+
+
+def round_trip(x, block, dev):
+    """One rank's codec round trip on ``dev`` (the device its rank ran
+    on: the card's scales may sit an ulp off the CPU's, ROADMAP C25) and
+    its bound."""
+    t = torch.from_numpy(x).to(dev)
+    return tcomms.dequantize_blockwise(
+        *tcomms.quantize_blockwise(t, block)).cpu().numpy(), \
+        tcomms.roundtrip_bound(t, block).cpu().numpy()
+
+
+def drill_checks(out, world, numel, dev):
+    """The world-2 drill's results (`testing/collective_drill.py`) against
+    numpy's closed forms; each quantized call against the sum of every
+    rank's codec round trip on ``dev`` (equal, reported) and within the
+    sum of their bounds of the exact result (the gate); the byte counters against the JAX package's formula (the
+    payload's bytes; a quantized call's int8 blocks and f32 scales)."""
+    xs = [collective_drill.inputs(r, numel) for r in range(world)]
+    arrays = [dict(np.load(os.path.join(out, f"rank{r}.npz")))
+              for r in range(world)]
+    recs = [json.load(open(os.path.join(out, f"rank{r}.json")))
+            for r in range(world)]
+    total = xs[0].copy()
+    for x in xs[1:]:
+        total = total + x
+    rows = numel // world
+    closed = {"all_reduce/sum": lambda r: total,
+              "all_reduce/avg": lambda r: total / np.float32(world),
+              "all_reduce/max": lambda r: np.max(xs, axis=0),
+              "all_reduce/min": lambda r: np.min(xs, axis=0),
+              "all_reduce/prod": lambda r: np.prod(xs, axis=0),
+              "broadcast": lambda r: xs[world - 1],
+              "scatter": lambda r: np.split(xs[0], world)[r],
+              "reduce_scatter": lambda r: np.sum(
+                  [np.split(x, world)[r] for x in xs], axis=0),
+              "alltoall_single": lambda r: np.concatenate(
+                  [np.split(x, world)[r] for x in xs])}
+    checks = {}
+    for name, fn in closed.items():
+        checks[name] = all(np.array_equal(arrays[r][f"{name}/0"], fn(r))
+                           for r in range(world))
+    checks["all_gather"] = all(np.array_equal(arrays[r][f"all_gather/{p}"],
+                                              xs[p])
+                               for r in range(world) for p in range(world))
+    checks["alltoall"] = all(np.array_equal(
+        arrays[r][f"alltoall/{p}"], np.split(xs[p], world)[r])
+        for r in range(world) for p in range(world))
+    sends = [collective_drill.alltoall_single_splits(p, world, numel)[0]
+             for p in range(world)]
+    checks["alltoall_single_uneven"] = all(np.array_equal(
+        arrays[r]["alltoall_single_uneven/0"], np.concatenate(
+            [np.split(xs[p], np.cumsum(sends[p])[:-1])[r]
+             for p in range(world)])) for r in range(world))
+    checks["p2p"] = all(np.array_equal(
+        arrays[r][f"p2p/{i}"], xs[(r - 1) % world] * np.float32(i + 1))
+        for r in range(world) for i in range(collective_drill.P2P_ROUNDS))
+    checks["isend_irecv"] = all(np.array_equal(
+        arrays[r]["isend_irecv/0"], xs[(r - 1) % world] + np.float32(1.0))
+        for r in range(world))
+    bf = [torch.from_numpy(x).bfloat16().float() for x in xs]
+    checks["all_reduce/sum_bf16"] = all(np.array_equal(
+        arrays[r]["all_reduce/sum_bf16/0"],
+        sum(bf[1:], bf[0]).bfloat16().float().numpy())
+        for r in range(world))
+    checks["all_gather_object"] = all(
+        rec["objects"] == [{"rank": p, "tag": "r" * (p + 1)}
+                           for p in range(world)] for rec in recs)
+    quant = {}
+    for op in ("sum", "avg"):
+        for block in collective_drill.QUANT_BLOCKS:
+            b = block or tcomms.DEFAULT_BLOCK
+            trips = [round_trip(x, b, dev) for x in xs]
+            want = trips[0][0].copy()
+            bound = trips[0][1].copy()
+            for dq, bd in trips[1:]:
+                want, bound = want + dq, bound + bd
+            exact = total
+            if op == "avg":
+                want, bound, exact = (v / np.float32(world)
+                                      for v in (want, bound, exact))
+            name = f"all_reduce_quantized/{op}/{block or 'default'}"
+            got = [arrays[r][f"{name}/0"] for r in range(world)]
+            nblocks = -(-numel // b)
+            quant[name] = {
+                "max_err": max(float(np.abs(g - exact).max()) for g in got),
+                "within_bound": all(bool((np.abs(g - exact)
+                                          <= bound + 1e-6).all())
+                                    for g in got),
+                "equal_round_trip_sum": all(np.array_equal(g, want)
+                                            for g in got),
+                "bytes_ok": all(rec["ops"][name]["counts"] == {
+                    "collective.calls{mode=eager,op=all_reduce}": 1,
+                    "collective.bytes{mode=eager,op=all_reduce}":
+                        nblocks * b + nblocks * 4,
+                    "collective.quantized_calls": 1} for rec in recs)}
+    nb = numel * 4
+    byte_ops = {"all_reduce/sum": ("all_reduce", nb),
+                "all_reduce/sum_bf16": ("all_reduce", numel * 2),
+                "all_gather": ("all_gather", nb),
+                "broadcast": ("broadcast", nb),
+                "reduce_scatter": ("reduce_scatter", nb),
+                "alltoall": ("alltoall", nb),
+                "alltoall_single": ("alltoall_single", nb),
+                "send/0": ("send", nb), "recv/0": ("recv", nb)}
+    checks["bytes"] = all(rec["ops"][name]["counts"] == {
+        f"collective.calls{{mode=eager,op={op}}}": 1,
+        f"collective.bytes{{mode=eager,op={op}}}": n}
+        for rec in recs for name, (op, n) in byte_ops.items())
+    checks["refusals"] = all(
+        rec["ops"][f"quantized_refused/{op}"]
+        == f"quantized all_reduce supports SUM/AVG, got {op!r}"
+        for rec in recs for op in ("max", "min", "prod"))
+    checks["tasks_done"] = all(rec["tasks_done"] == [True, True]
+                               for rec in recs)
+    checks["groups"] = all(rec["groups"]["new_group"] == list(range(world))
+                           and rec["groups"]["rank_in_g"] == rec["rank"]
+                           for rec in recs)
+    checks["on_the_card"] = all(rec["device"].startswith("cuda")
+                                for rec in recs)
+    ms = {name: statistics.median(rec["ops"][name]["seconds"] * 1e3
+                                  for rec in recs)
+          for name in recs[0]["ops"]
+          if isinstance(recs[0]["ops"][name], dict)}
+    return checks, quant, ms
+
+
+def quant_comms(dev, smi):
+    """`bench_quant`'s three claims on the card (`bench_quant`), then the
+    world-2 arm: two rank processes of `testing/collective_drill.py` on
+    this card, joined by `init_parallel_env` over the fleet's TCPStore as
+    `train_elastic`'s ranks are, run every collective on CUDA tensors of
+    COMMS_NUMEL values (`drill_checks`). NCCL cannot put two ranks on one
+    device, and the JAX transport is the key-value store: the arm's ms
+    a call are that host transport's, not NCCL's."""
+    phase = "quant_comms"
+    gc.collect()
+    torch.cuda.empty_cache()
+    figures = bench_quant(dev)
+    work = tempfile.mkdtemp(prefix="quant_comms_")
+    try:
+        t0 = time.perf_counter()
+        rcs = collective_drill.spawn(DRILL_WORLD, work, "cuda", COMMS_NUMEL,
+                                     env=worker_env(), timeout=600)
+        drill_s = time.perf_counter() - t0
+        logs = [open(os.path.join(work, f"rank{r}.log"),
+                     errors="replace").read()[-3000:]
+                for r in range(DRILL_WORLD)]
+        checks, quant, ms = drill_checks(work, DRILL_WORLD, COMMS_NUMEL,
+                                         dev) \
+            if rcs == [0] * DRILL_WORLD else ({}, {}, {})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ok = (figures["slot_ratio"] >= 1.9 and figures["kv_quant_ok"]
+          and figures["payload_ratio"] >= 3.0
+          and figures["comms_within_bound"] and figures["requests_ok"]
+          and rcs == [0] * DRILL_WORLD and bool(checks)
+          and all(checks.values())
+          and all(q["within_bound"] and q["bytes_ok"]
+                  for q in quant.values()))
+    emit({"phase": phase, "card": smi, "bench_quant": figures,
+          "world2": {"rcs": rcs, "numel": COMMS_NUMEL, "seconds": drill_s,
+                     "transport": "TCPStore through the host (not NCCL)",
+                     "checks": checks, "quantized": quant,
+                     "ms_a_call": ms},
+          "clocks": card_clocks(), "ok": bool(ok)})
+    if not ok:
+        for r, log in enumerate(logs):
+            sys.stderr.write(f"--- {phase} rank {r}:\n{log}\n")
+        raise SystemExit(f"{phase}: a claim or a check failed")
+    return figures["launches"]
+
+
 def nvidia_smi():
     """Card 0's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -6486,6 +7131,15 @@ def main():
         for k in FLASH_KERNELS:
             launches[k] += phase_launches[k]
         mark(name)
+    # after train_elastic: the bench's decode rungs (fast_generate as one
+    # graph a signature; the engine's paged kernels) and its quantization
+    # rung with the eager collectives
+    for k, n in generate_fast(dev, smi).items():
+        launches[k] += n
+    mark("generate_fast")
+    for k, n in quant_comms(dev, smi).items():
+        launches[k] += n
+    mark("quant_comms")
     emit({"phase": "phase_seconds", "seconds": seconds,
           "total": sum(seconds.values())})
 

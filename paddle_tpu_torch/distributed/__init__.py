@@ -1,10 +1,10 @@
 """Distributed pieces of the port (counterpart of `paddle_tpu/distributed/`):
-process bring-up over a TCPStore (`parallel.py`), the process-level
-allgather and the store's key-value client (`collective.py`), sharded
-checkpoints (`checkpoint.py`), the training fleet's liveness heartbeats
-(`liveness.py`) and the fleet's node registries and heartbeat watchers
-(`fleet/elastic.py`). The eager collectives, the mesh, ZeRO-1, ring and
-Ulysses attention, `launch`, `rpc`, `auto_parallel` and
+process bring-up over a TCPStore (`parallel.py`), the eager collectives
+over the store's key-value client with the quantized all-reduce
+(`collective.py`), sharded checkpoints (`checkpoint.py`), the training
+fleet's liveness heartbeats (`liveness.py`) and the fleet's node
+registries and heartbeat watchers (`fleet/elastic.py`). The mesh,
+ZeRO-1, ring and Ulysses attention, `launch`, `rpc`, `auto_parallel` and
 `fleet/meta_parallel` are ROADMAP A6."""
 from paddle_tpu_torch.distributed.parallel import (  # noqa: F401
     init_parallel_env, get_rank, get_world_size, is_initialized, barrier,

@@ -102,15 +102,13 @@ def is_initialized():
 
 def get_rank(group=None):
     if group is not None:
-        raise NotImplementedError(
-            "process groups are ROADMAP A6 (the eager collectives)")
+        return group.get_group_rank(get_rank())
     return int(os.environ.get("PADDLE_TRAINER_ID", "0"))
 
 
 def get_world_size(group=None):
     if group is not None:
-        raise NotImplementedError(
-            "process groups are ROADMAP A6 (the eager collectives)")
+        return group.world_size
     return int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
 
 

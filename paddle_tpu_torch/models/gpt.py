@@ -1,7 +1,9 @@
 """GPT-2 (counterpart of `paddle_tpu/models/gpt.py`): the model as Paddle
-Layers that train and generate eagerly (`GPTForCausalLM`), its serving
-step functions over a paged KV cache and its scanned training forward,
-`scan_hidden` / `scan_logits` / `scan_loss`.
+Layers that train and generate eagerly (`GPTForCausalLM`) or decode as
+one program a signature (`fast_generate`: `_fast_decode`, one captured
+CUDA graph on the card, `_FastDecode`), its serving step functions over
+a paged KV cache and its scanned training forward, `scan_hidden` /
+`scan_logits` / `scan_loss`.
 
 The weights keep the JAX package's layout and names, so carrying a JAX
 state_dict across is a copy (`models/convert.py`): ``x @ W`` with ``W``
@@ -28,6 +30,7 @@ dequantized where it is used (`_deq`).
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import torch
@@ -50,6 +53,7 @@ from paddle_tpu_torch.kernels.flash_attention import (NEG_INF,
 from paddle_tpu_torch.kernels.fused_ce import fused_linear_cross_entropy
 from paddle_tpu_torch.nn import functional as PF
 from paddle_tpu_torch.nn import initializer as I
+from paddle_tpu_torch.observability import metrics
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
            "GPTForCausalLM", "gpt2_small", "INIT_CACHE", "decode_step",
@@ -302,11 +306,82 @@ class GPTForCausalLM(pnn.Layer):
             out_ids.append(cur)
         return ops.concat(out_ids, axis=1)
 
-    def fast_generate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "fast_generate (decode as one compiled program) is not ported "
-            "(ROADMAP A7.4); serve through inference/engine.py::DecodeEngine "
-            "or decode eagerly with generate()")
+    @torch.no_grad()
+    def fast_generate(self, input_ids, max_new_tokens=32, temperature=1.0,
+                      top_k=0, seed=0):
+        """Decode as ONE program a signature: the JAX `fast_generate`.
+
+        The prefill and the whole decode loop (``max_new_tokens - 1`` steps,
+        unrolled) over a static ``[nl, B, S0+N, nh, dh]`` KV cache in the
+        weights' dtype, written in place a position a step; the prefill
+        attends with a dense f32 causal softmax, each step over the whole
+        cache with the ``arange(L) <= pos`` mask; sampling is
+        `_make_sampler`'s (greedy, or temperature then top-k), the key
+        split once per sampled token from ``PRNGKey(seed)``.
+
+        The program is cached per ``(B, S0, N, temperature, top_k, dtype)``
+        signature, at most 8, the oldest evicted first. On the CPU it runs
+        eagerly. On the card the first call of a signature captures it as
+        one CUDA graph (`_FastDecode`) and every call replays that graph
+        once. The graph reads the weights where they lay at its capture:
+        a weight written in place (`Tensor._write` of the same shape,
+        dtype and device) is seen by the next replay, and a call that
+        finds any weight rebound to other storage (a frozen parameter's
+        `set_state_dict`, `.to()`) captures again (``generate.recaptures``)
+        rather than replay over stale storage. A capture that fails
+        raises. Returns ``[B, S0 + N]`` ids in the input's dtype."""
+        self.eval()
+        cfg = self.cfg
+        x = ops.ensure_tensor(input_ids)
+        B, S0 = int(x.shape[0]), int(x.shape[1])
+        N = int(max_new_tokens)
+        if N < 1:
+            return input_ids
+        L = S0 + N
+        if L > cfg.max_position_embeddings:
+            raise ValueError(
+                f"fast_generate: prompt {S0} + max_new_tokens {N} exceeds "
+                f"max_position_embeddings={cfg.max_position_embeddings} — "
+                "positions past the table would silently clamp")
+        params = {k: t._data for k, t in self.state_dict().items()}
+        cdtype = params["gpt.wte.weight"].dtype
+        sig = (B, S0, N, float(temperature), int(top_k),
+               str(cdtype).replace("torch.", ""))
+        cache = self.__dict__.setdefault("_fast_decode_cache", {})
+        if sig not in cache and len(cache) >= 8:
+            # bound the per-model cache: callers with varying prompt
+            # lengths should bucket S0; oldest-first eviction keeps the
+            # worst case from growing without bound
+            cache.pop(next(iter(cache)))
+        prog = cache.get(sig)
+        compiled_now = prog is None
+        if prog is None:
+            prog = cache[sig] = _FastDecode(
+                cfg, N, _make_sampler(float(temperature), int(top_k)))
+            metrics.counter("generate.compile_count").inc()
+        ids = x._data
+        key = prng.prng_key(seed, ids.device)
+        t0 = time.perf_counter()
+        if ids.is_cuda:
+            compiled_now |= prog.ensure_graph(params, ids, key, self)
+            toks = prog.replay(ids, key)
+            torch.cuda.current_stream(ids.device).synchronize()
+        else:
+            toks = prog.run(params, ids, key)
+        dt = time.perf_counter() - t0
+        metrics.counter("generate.calls").inc()
+        metrics.counter("generate.tokens").inc(B * N)
+        if compiled_now:
+            # the signature's first call (or a re-capture): the capture
+            # dominates
+            metrics.histogram("generate.compile_seconds").observe(dt)
+            metrics.add_span("generate.compile", t0, dt, cat="compile")
+        else:
+            metrics.histogram("generate.decode_seconds").observe(dt)
+            metrics.gauge("generate.tokens_per_s").set(B * N / dt if dt > 0
+                                                       else 0.0)
+            metrics.add_span("generate.decode", t0, dt, cat="generate")
+        return ops.concat([x, Tensor(toks, _internal=True)], axis=1)
 
 
 def gpt2_small(generator: torch.Generator | None = None, **kwargs):
@@ -440,6 +515,121 @@ def _make_sampler(temperature, top_k):
                 split[..., 0, :]
         return logits.argmax(dim=-1), key
     return sample
+
+
+def _fast_decode(p, ids, key, cfg, n, sample):
+    """`fast_generate`'s program: the prompt ``ids`` [B, S0] and a key ->
+    the ``n`` new tokens [B, n] in ids' dtype. Every shape and position is
+    a Python int, so on the card the whole program is one graph."""
+    nl, nh = cfg.num_layers, cfg.num_heads
+    dh = cfg.hidden_size // nh
+    b, s0 = ids.shape
+    L = s0 + n
+    wte, wpe = p["gpt.wte.weight"], p["gpt.wpe.weight"]
+    kc = torch.zeros((nl, b, L, nh, dh), dtype=wte.dtype, device=wte.device)
+    vc = torch.zeros_like(kc)
+    scale = 1.0 / (dh ** 0.5)
+
+    # prefill: a causal pass over the prompt writes the cache's prefix
+    # (dense f32 softmax; decode reuses the same math)
+    x = wte[ids.long()] + wpe[None, :s0]                      # [B, S0, H]
+    causal = torch.ones((s0, s0), dtype=torch.bool,
+                        device=ids.device).tril()
+
+    def attend_prefill(i, q, k, v):
+        kc[i, :, :s0] = k
+        vc[i, :, :s0] = v
+        sc = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+        pr = torch.softmax(torch.where(causal, sc, NEG_INF), dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", pr, v.float()).to(q.dtype)
+
+    x = _block_stack(p, x, nl, nh, dh, attend_prefill)
+    tok, key = sample(_final_logits(p, x[:, -1]), key)
+    toks = [tok.to(ids.dtype)]
+    positions = torch.arange(L, device=ids.device)
+
+    # decode: one token a step, unrolled
+    for pos in range(s0, L - 1):
+        x = wte[toks[-1].long()] + wpe[pos][None, :]          # [B, H]
+        mask = positions <= pos
+
+        def attend(i, q, k, v):
+            kc[i, :, pos] = k
+            vc[i, :, pos] = v
+            sc = torch.einsum("bhd,blhd->bhl", q.float() * scale,
+                              kc[i].float())
+            pr = torch.softmax(torch.where(mask, sc, NEG_INF), dim=-1)
+            return torch.einsum("bhl,blhd->bhd", pr,
+                                vc[i].float()).to(q.dtype)
+
+        x = _block_stack(p, x, nl, nh, dh, attend)
+        tok, key = sample(_final_logits(p, x), key)
+        toks.append(tok.to(ids.dtype))
+    return torch.stack(toks, dim=1)
+
+
+def _weight_layout(params):
+    """What a captured graph assumes of the weights: each one's storage
+    address, shape, strides, dtype and device."""
+    return {k: (v.data_ptr(), tuple(v.shape), v.stride(), v.dtype, v.device)
+            for k, v in params.items()}
+
+
+class _FastDecode:
+    """One `fast_generate` signature's program. ``run`` is `_fast_decode`
+    eagerly (the CPU path and the body a capture records). On the card
+    ``ensure_graph`` captures it once as a `inference.graphs.StepGraph`
+    over static id and key buffers, on the capture stream, under the
+    lock that captures and replays of every graph of the process share;
+    the graphs of one model share one memory pool (they replay one at a
+    time and each keeps only its token buffer), so cached signatures do
+    not each hold a decode's temporaries. ``replay`` copies the ids and
+    key into the static buffers, replays once and returns a copy of the
+    tokens."""
+
+    def __init__(self, cfg, n, sample):
+        self.cfg, self.n, self.sample = cfg, n, sample
+        self.graph = None
+        self.capture_seconds = None
+        self.captures = 0
+
+    def run(self, params, ids, key):
+        return _fast_decode(params, ids, key, self.cfg, self.n, self.sample)
+
+    def ensure_graph(self, params, ids, key, model) -> bool:
+        """Capture unless a graph over these very weights exists; True
+        when this call captured."""
+        from paddle_tpu_torch.inference.graphs import StepGraph
+        layout = _weight_layout(params)
+        if self.graph is not None and layout == self.layout:
+            return False
+        if self.graph is not None:
+            metrics.counter("generate.recaptures").inc()
+        self.graph = None
+        self.ids, self.key = ids.clone(), key.clone()
+        pools = model.__dict__.setdefault("_fast_decode_pools", {})
+        pool = pools.get(ids.device)
+        if pool is None:
+            pool = pools[ids.device] = torch.cuda.graph_pool_handle()
+        t0 = time.perf_counter()
+        try:
+            self.graph = StepGraph(
+                lambda: self.run(params, self.ids, self.key), ids.device,
+                pool=pool)
+        except Exception as e:
+            raise RuntimeError(
+                f"fast_generate: capturing the decode program as a CUDA "
+                f"graph failed ({type(e).__name__}: {e}); nothing runs it "
+                "eagerly instead") from e
+        self.capture_seconds = time.perf_counter() - t0
+        self.layout = layout
+        self.captures += 1
+        return True
+
+    def replay(self, ids, key):
+        self.ids.copy_(ids)
+        self.key.copy_(key)
+        return self.graph().to(ids.dtype, copy=True)
 
 
 @torch.no_grad()

@@ -104,17 +104,19 @@ class BatchNorm3D(_BatchNormBase):
 
 class SyncBatchNorm(_BatchNormBase):
     """Cross-rank batch norm. At one rank it is `BatchNorm`, as in the
-    JAX package (whose GSPMD reduces over the global batch); training
-    across more than one rank needs the eager collectives and raises,
-    naming ROADMAP A6.1."""
+    JAX package. Training across more than one rank raises, naming
+    ROADMAP A12: the JAX `SyncBatchNorm` is `BatchNorm` and reduces over
+    the global batch only under GSPMD; in an eager multi-process run it
+    takes each rank's own statistics, which the port neither copies nor
+    replaces with a cross-rank sync of its own."""
 
     def forward(self, x):
         from paddle_tpu_torch.distributed.parallel import get_world_size
         if self.training and not self._use_global_stats and \
                 get_world_size() > 1:
             raise NotImplementedError(
-                "SyncBatchNorm across ranks needs the eager collectives "
-                "(ROADMAP A6.1); at one rank it is BatchNorm")
+                "SyncBatchNorm across ranks is not ported (ROADMAP A12: "
+                "SyncBatchNorm across ranks); at one rank it is BatchNorm")
         return super().forward(x)
 
     @classmethod

@@ -30,7 +30,7 @@ GPT_MATMUL_SUFFIXES = (
 )
 
 
-def margin_gated_parity(lg_ref, lg, bound):
+def margin_gated_parity(lg_ref, lg, bound=QUANT_LOGIT_BOUND):
     """-> ``(max_abs_diff, ok)``: ``lg`` within ``bound`` of the reference
     logits ``lg_ref``, and top-1 tokens identical wherever the reference's
     top-2 margin clears twice the bound (a margin inside 2x the bound means

@@ -2924,3 +2924,121 @@ def test_card_batch_norm_kernels_match_plain(card, case):
     again = tbn.train_bwd("cuda", x3, dy, got[1], got[3], w)
     assert all(torch.equal(a, r) for a, r in zip(again, gotb))
     assert torch.equal(tbn.train_fwd("cuda", x3, w, b, 1e-5)[0], got[0])
+
+
+# ------------------------------------------------- fast_generate, comms
+
+FAST_CFG = dict(vocab_size=97, hidden_size=32, num_layers=2, num_heads=2,
+                intermediate_size=64, max_position_embeddings=64)
+
+
+def _fast_pair(card):
+    """A tiny GPT on the CPU and the same weights on the card."""
+    from paddle_tpu_torch import device as tdevice
+    from paddle_tpu_torch.models import gpt as tgpt
+    with tdevice.device_scope("cpu"):
+        cpu = tgpt.GPTForCausalLM(tgpt.GPTConfig(**FAST_CFG), generator=
+                                  torch.Generator().manual_seed(3))
+    with tdevice.device_scope(card):
+        dev = tgpt.GPTForCausalLM(tgpt.GPTConfig(**FAST_CFG))
+    dev.set_state_dict({k: v._data for k, v in cpu.state_dict().items()})
+    return cpu, dev
+
+
+def _fast(model, ids, n, **kw):
+    from paddle_tpu_torch.core.tensor import Tensor
+    x = Tensor(torch.from_numpy(ids).to(
+        model.gpt.wte.weight._data.device))
+    return model.fast_generate(x, max_new_tokens=n, **kw).numpy()
+
+
+@pytest.mark.parametrize("kw", [{}, dict(temperature=0.8, top_k=5, seed=3)],
+                         ids=["greedy", "sampled"])
+def test_card_fast_generate_graph_matches_cpu(card, kw):
+    """One captured graph a signature, replayed once a call; its tokens
+    equal the CPU's eager program; a weight written in place is read by
+    the next replay; a rebound weight is captured again."""
+    cpu, dev = _fast_pair(card)
+    ids = np.random.RandomState(0).randint(0, 97, (2, 8)).astype(np.int32)
+    want = _fast(cpu, ids, 12, **kw)
+    got = _fast(dev, ids, 12, **kw)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(_fast(dev, ids, 12, **kw), want)
+    (prog,) = dev._fast_decode_cache.values()
+    assert prog.captures == 1 and prog.graph.replays == 2
+    delta = torch.from_numpy(np.random.RandomState(1).randn(97, 32)
+                             .astype(np.float32))
+    for model in (cpu, dev):
+        w = model.gpt.wte.weight
+        w._write(w._data + delta.to(w._data.device))
+    want = _fast(cpu, ids, 12, **kw)
+    np.testing.assert_array_equal(_fast(dev, ids, 12, **kw), want)
+    assert prog.captures == 1
+    w = dev.gpt.wte.weight
+    w.stop_gradient = True
+    new = (w._data * 1.5).clone()
+    dev.set_state_dict({"gpt.wte.weight": new})
+    cpu.set_state_dict({"gpt.wte.weight": new.cpu()})
+    np.testing.assert_array_equal(_fast(dev, ids, 12, **kw),
+                                  _fast(cpu, ids, 12, **kw))
+    assert prog.captures == 2
+
+
+def test_card_fast_generate_failed_capture_raises(card, monkeypatch):
+    """A program that reads a value back cannot be captured: the call
+    raises, and nothing falls back to the eager loop."""
+    from paddle_tpu_torch.models import gpt as tgpt
+    _, dev = _fast_pair(card)
+    real = tgpt._fast_decode
+
+    def reads_back(p, ids, key, cfg, n, sample):
+        int(ids.sum().item())
+        return real(p, ids, key, cfg, n, sample)
+    monkeypatch.setattr(tgpt, "_fast_decode", reads_back)
+    ids = np.zeros((1, 4), np.int32)
+    with pytest.raises(RuntimeError, match="capturing the decode program"):
+        _fast(dev, ids, 3)
+    (prog,) = dev._fast_decode_cache.values()
+    assert prog.graph is None
+    x = torch.ones(4, device=card)
+    assert float((x * 2).sum()) == 8.0
+
+
+@pytest.mark.parametrize("n,block", [(257, 256), (4096, 64), (1000, 1)])
+def test_card_codec_within_an_ulp_of_cpu(card, n, block):
+    """The blockwise codec on the card: each scale within one f32 ulp of
+    the CPU's (ROADMAP C25: CUDA divides by the host scalar 127 as a
+    product with its reciprocal), each round trip within its bound, and
+    the card's own round trip repeatable bit for bit."""
+    from paddle_tpu_torch.quantization import comms
+    x = torch.from_numpy(np.random.RandomState(n).randn(n).astype(
+        np.float32) * 3)
+    want = comms.quantize_blockwise(x, block)
+    got = comms.quantize_blockwise(x.to(card), block)
+    s, ws = got[1].cpu(), want[1]
+    assert ((s - ws).abs() <= ws * 2.0 ** -23).all()
+    back = comms.dequantize_blockwise(*got).cpu()
+    assert ((back - x).abs() <= comms.roundtrip_bound(x, block)
+            + 1e-5).all()
+    again = comms.quantize_blockwise(x.to(card), block)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+def test_card_local_collectives_stay_on_the_card(card):
+    """World 1: a plain all-reduce is the identity, a quantized one the
+    codec's round trip (the card's own, within its bound), on the card."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.core.tensor import Tensor
+    from paddle_tpu_torch.quantization import comms
+    x = np.random.RandomState(4).randn(3000).astype(np.float32)
+    t = Tensor(torch.from_numpy(x).to(card))
+    dist.all_reduce(t)
+    assert t._data.is_cuda and np.array_equal(t.numpy(), x)
+    q = Tensor(torch.from_numpy(x).to(card))
+    dist.all_reduce(q, op=dist.ReduceOp.AVG, quantized=True)
+    assert q._data.is_cuda
+    want = comms.dequantize_blockwise(*comms.quantize_blockwise(
+        torch.from_numpy(x).to(card)))
+    assert torch.equal(q._data, want)
+    bound = comms.roundtrip_bound(torch.from_numpy(x)).numpy()
+    assert (np.abs(q.numpy() - x) <= bound + 1e-5).all()
