@@ -336,7 +336,8 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    watchdog dump from the healthy loop and exactly one from a loop whose
    step sleeps 2 s past a 0.5 s deadline (``engine.step_delay``).
    ``train_ckpt`` and ``train_elastic`` (run after ``serve_router``):
-   GPT-2 small in bf16 on f32 masters, S=1024, AdamW over an
+   GPT-2 small's widths at 6 of its 12 layers (FT_LAYERS) in bf16 on
+   f32 masters, S=1024, AdamW over an
    `optimizer/lr.py` schedule (a warm-up into a cosine decay) that the
    checkpoints carry, the checkpoints under a temporary directory removed
    at the end. ``train_ckpt``, one process, B=16 as 2 microbatches,
@@ -396,10 +397,37 @@ it through `ScanTrainStep`, and prints one JSON object per line:
    closed forms, the quantized ones within the sum of the ranks'
    bounds, the byte counters against the JAX formula, ms a call of the
    store transport, which is not NCCL).
+   ``fit_hapi`` (after ``quant_comms``): the data pipeline and
+   `Model.fit` (`io`, `vision.datasets` / `transforms`, `metric`,
+   `hapi`), one line an arm, every DataLoader worker a spawn child that
+   reports whether it holds a CUDA context (it must not). ``gpt_fused``:
+   GPT-2 small as ``train`` trains it (bf16 on f32 masters, no dropout,
+   AdamW 1e-4, clip 1.0) fitted over 48 rows of 1025 ids from ``SEED``,
+   batch 8, ``accumulate_grad_batches=2``, 2 shm workers (3 steps of two
+   microbatches of 8): the parameters bit-equal to `ScanTrainStep
+   (microbatches=2)` stepped directly on the same three groups, a fit
+   preempted after epoch 0 by `CheckpointManager` and resumed by a fresh
+   Model bit-equal to an uninterrupted 2-epoch fit; tokens/s of the fit
+   and of the direct step (steady: from the first group's end to the
+   last's), the flash launches of the fit exact. ``resnet_fit``:
+   ``resnet50()`` in float32 on the eager route (Momentum 0.1, weight
+   decay 1e-4, ``CrossEntropyLoss``, ``Accuracy(topk=(1, 5))``) over
+   `FakeData` 256 x 256 images cropped to 224 (`RandomResizedCrop`,
+   `RandomHorizontalFlip`), batch 32: 4 seeded in-process steps under
+   ``cudnn.deterministic`` equal a hand-written loop over the same
+   batches (losses, accuracies, parameters and running statistics bit
+   for bit); then 8 steps with 4 shm workers: images/s and the share of
+   the loop blocked in the loader from the first batch's end to the
+   last's, the batch norm launches exact. ``dataloader``: `bench.py`'s
+   `bench_dataloader` rung (pump and overlap, in-process and with 4 shm
+   workers, batch 64), images/s, ``os.cpu_count()`` and the `Resize`
+   branch taken (PIL or numpy).
 12. ``kernels``: per kernel, its source, the TPU kernel it replaces, its
    launches in the run of the path that uses it (serve for the float paged
    kernels, serve_int8 for the int8 ones, train, train_ckpt and
-   train_elastic (every rank's) for the flash kernels, incubate for the
+   train_elastic (every rank's) and ``fit_hapi``'s ``gpt_fused`` fit for
+   the flash kernels, ``train_resnet_static`` and ``fit_hapi``'s timed
+   ``resnet_fit`` for the batch norm kernels, incubate for the
    layernorm and rotary kernels, train_dropout for the dropout kernel; the
    float paged kernels also count ``generate_fast``'s engine and both
    paged pairs ``quant_comms``'s engines) and its numbers at that run's
@@ -429,6 +457,7 @@ import glob
 import json
 import math
 import os
+import random
 import re
 import shutil
 import signal
@@ -5696,14 +5725,19 @@ CKPT_SEQ = 1024
 ELASTIC_DEADLINE_S = 20.0       # train_elastic's liveness deadline
 ELASTIC_STEPS = 4               # step 1 warms, steps 2-4 are timed
 FLEET_TIMEOUT_S = 420           # one fleet launch's bound
+# train_ckpt's and train_elastic's depth: 6 of GPT-2 small's 12 layers at
+# its full widths (cut for the script's time when fit_hapi came; their
+# checkpoint bytes and the elastic reducer's bytes a step shrink with it)
+FT_LAYERS = 6
 
 
 def ft_step(dev, microbatches=2, reducer=None, seed=SEED):
-    """GPT-2 small in bf16 on f32 masters, AdamW (clip 1.0) over an
-    `optimizer/lr.py` schedule (a 2-step linear warm-up into a cosine
-    decay), which the checkpoints carry."""
+    """GPT-2 small at FT_LAYERS layers in bf16 on f32 masters, AdamW (clip
+    1.0) over an `optimizer/lr.py` schedule (a 2-step linear warm-up into
+    a cosine decay), which the checkpoints carry."""
     model = host_gpt2_small(generator=torch.Generator().manual_seed(seed),
-                               hidden_dropout=0.0, attention_dropout=0.0)
+                            hidden_dropout=0.0, attention_dropout=0.0,
+                            num_layers=FT_LAYERS)
     sched = LinearWarmup(CosineAnnealingDecay(CKPT_LR, 20), 2, 1e-5, CKPT_LR)
     return ScanTrainStep(model.to(torch.bfloat16),
                          AdamW(learning_rate=sched, clip_norm=1.0),
@@ -5780,9 +5814,9 @@ def flip_byte(ckpt_dir):
     return shard
 
 
-def ft_launches(calls, microbatches=2, nl=12):
-    """A bf16 GPT-2 small step without dropout launches each flash kernel
-    once per layer per microbatch, bad steps included."""
+def ft_launches(calls, microbatches=2, nl=FT_LAYERS):
+    """A bf16 `ft_step` without dropout launches each flash kernel once per
+    layer per microbatch, bad steps included."""
     return {k: nl * microbatches * calls for k in FLASH_KERNELS}
 
 
@@ -5810,9 +5844,10 @@ def wait_procs(procs, phase, timeout=FLEET_TIMEOUT_S):
 
 
 def train_ckpt(dev, smi, train_line):
-    """`CheckpointManager` over GPT-2 small on the card, one process: B=16
-    as 2 microbatches, S=1024, bf16 on f32 masters, AdamW over the lr
-    schedule, ``every=2``, ``keep=2``, async saves. Arms ``resume``,
+    """`CheckpointManager` over `ft_step`'s GPT-2 small (FT_LAYERS layers)
+    on the card, one process: B=16 as 2 microbatches, S=1024, bf16 on f32
+    masters, AdamW over the lr schedule, ``every=2``, ``keep=2``, async
+    saves. Arms ``resume``,
     ``bad_steps``, ``sigterm`` (a worker process of this script) and
     ``corrupt``, one line each, then the phase's line."""
     phase = "train_ckpt"
@@ -6948,6 +6983,471 @@ def quant_comms(dev, smi):
     return figures["launches"]
 
 
+# ------------------------------------------ the data pipeline and Model.fit
+
+FIT_ROWS, FIT_SEQ = 48, 1024        # gpt_fused's dataset: 48 rows of 1025 ids
+FIT_BATCH, FIT_ACCUM = 8, 2         # 6 loader batches, 3 steps of 2 x 8
+FIT_WORKERS = 2
+FIT_LR = 1e-4                       # the train phase's AdamW (clip 1.0)
+RESNET_FIT_BATCH = 32
+RESNET_FIT_PARITY_STEPS = 4         # seeded, in-process, against a hand loop
+RESNET_FIT_TIMED_STEPS = 8          # with RESNET_FIT_WORKERS shm workers
+RESNET_FIT_WORKERS = 4
+DL_BATCH, DL_WORKERS = 64, 4        # bench_dataloader's
+DL_PUMP_SIZE, DL_OVERLAP_SIZE = 512, 2048
+DL_OVERLAP_DRAIN = 8                # batches drawn before the timed window
+
+_PROBED: dict = {}
+
+
+def note_worker(probe_dir, parent):
+    """In a process other than ``parent``: write whether it holds a CUDA
+    context into ``probe_dir/<pid>`` when that is new (a DataLoader worker
+    must never hold one). Called as a worker unpickles its dataset and at
+    each sample, so every worker reports, whether or not it fetched."""
+    pid = os.getpid()
+    if probe_dir is None or pid == parent:
+        return
+    state = bool(torch.cuda.is_initialized())
+    if _PROBED.get(pid) == state:
+        return
+    _PROBED[pid] = state
+    with open(os.path.join(probe_dir, str(pid)), "w") as f:
+        json.dump(state, f)
+
+
+class WorkerProbe:
+    """Mixin of the datasets workers fetch from: `note_worker` as the
+    worker unpickles the dataset and at each sample."""
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        note_worker(self.probe_dir, self.parent)
+
+
+def read_probes(probe_dir):
+    """{worker pid: CUDA initialised} since the last read; empties the
+    directory."""
+    out = {}
+    for name in os.listdir(probe_dir):
+        with open(os.path.join(probe_dir, name)) as f:
+            out[int(name)] = json.load(f)
+        os.remove(os.path.join(probe_dir, name))
+    return out
+
+
+class TokenRows(WorkerProbe, paddle.io.Dataset):
+    """FIT_ROWS rows of FIT_SEQ + 1 token ids drawn with numpy from ``SEED``
+    (ids, next-token labels). Module-level, as every dataset and
+    transform here: spawn workers unpickle them."""
+
+    def __init__(self, probe_dir=None):
+        rng = np.random.default_rng(SEED + 28)
+        self.rows = rng.integers(0, VOCAB, (FIT_ROWS, FIT_SEQ + 1)).astype(
+            np.int32)
+        self.probe_dir, self.parent = probe_dir, os.getpid()
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, i):
+        note_worker(self.probe_dir, self.parent)
+        return self.rows[i][:-1], self.rows[i][1:].astype(np.int64)
+
+
+class ProbedFakeData(WorkerProbe, paddle.vision.datasets.FakeData):
+    """`FakeData` whose workers report their CUDA state (`note_worker`)."""
+
+    def __init__(self, probe_dir=None, **kw):
+        super().__init__(**kw)
+        self.probe_dir, self.parent = probe_dir, os.getpid()
+
+    def __getitem__(self, idx):
+        note_worker(self.probe_dir, self.parent)
+        return super().__getitem__(idx)
+
+
+def _chw_to_hwc_u8(img):
+    """CHW float [0, 1] -> HWC uint8 (`bench.py`'s helper): the jitter
+    family works on image-range uint8 as on decoded inputs."""
+    return (img.transpose(1, 2, 0) * 255).astype(np.uint8)
+
+
+def _hwc_u8_to_chw(img):
+    return np.ascontiguousarray(
+        np.asarray(img, np.float32).transpose(2, 0, 1) / 255.0)
+
+
+def _host_collate(batch):
+    """The pipeline alone (workers and transport), not the host-to-card
+    copy: the images stacked as numpy (`bench.py`'s)."""
+    return np.stack([b[0] for b in batch])
+
+
+def resize_branch():
+    """The branch `vision.transforms.Resize` takes for uint8 images here:
+    PIL's C path when PIL imports, else the numpy bilinear."""
+    try:
+        from PIL import Image  # noqa: F401
+        return "pil"
+    except Exception:
+        return "numpy"
+
+
+class BatchClock(paddle.callbacks.Callback):
+    """A fit's train batches: each one's begin and end on the host clock
+    (the end after `train_batch`'s loss readback, or after a fused step's
+    group) and its logs."""
+
+    def __init__(self):
+        super().__init__()
+        self.begin, self.end, self.logs = [], [], []
+
+    def on_train_batch_begin(self, step, logs=None):
+        self.begin.append(time.perf_counter())
+
+    def on_train_batch_end(self, step, logs=None):
+        self.end.append(time.perf_counter())
+        self.logs.append(dict(logs or {}))
+
+
+def fit_gpt(dev, seed=SEED):
+    """GPT-2 small as `train_run` trains it (bf16 on f32 masters, no
+    dropout) on ``dev`` and a hapi Model over it with the eager AdamW."""
+    net = host_gpt2_small(generator=torch.Generator().manual_seed(seed),
+                          hidden_dropout=0.0, attention_dropout=0.0)
+    net = net.to(torch.bfloat16).to(dev)
+    opt = paddle.optimizer.AdamW(learning_rate=FIT_LR, clip_norm=1.0,
+                                 parameters=net.parameters())
+    return paddle.Model(net).prepare(optimizer=opt)
+
+
+def host_params(net):
+    return {k: v.detach().cpu() for k, v in torch_state(net).items()}
+
+
+def same_params(a, b):
+    return list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def fit_gpt_fused(dev, probe_dir):
+    """The fused route at full width: `Model.fit` over `TokenRows` with
+    FIT_WORKERS shm workers, k = FIT_ACCUM (3 steps of 2 microbatches of
+    8), against `ScanTrainStep(microbatches=2)` stepped directly on the
+    same three concatenated groups from the same weights; then a fit
+    preempted after epoch 0 by `CheckpointManager` and resumed by a fresh
+    Model against an uninterrupted 2-epoch fit. Returns the arm's line
+    and the flash launches of the main fit."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds = TokenRows(probe_dir=probe_dir)
+    hm = fit_gpt(dev)
+    clock = BatchClock()
+    reset_launches()
+    t0 = time.perf_counter()
+    hm.fit(ds, batch_size=FIT_BATCH, epochs=1, shuffle=False, verbose=0,
+           accumulate_grad_batches=FIT_ACCUM, num_workers=FIT_WORKERS,
+           callbacks=[clock])
+    torch.cuda.synchronize(dev)
+    fit_s = time.perf_counter() - t0
+    steps = FIT_ROWS // (FIT_BATCH * FIT_ACCUM)
+    expected = train_launches(hm.network.cfg, FIT_ACCUM, steps)
+    launches = read_launches("fit_hapi", expected)
+    workers = read_probes(probe_dir)
+    fused = hm._fused_step
+    fitted = host_params(hm.network)
+    del hm
+    # the direct step on the same groups
+    net = host_gpt2_small(generator=torch.Generator().manual_seed(SEED),
+                          hidden_dropout=0.0, attention_dropout=0.0)
+    step = ScanTrainStep(net.to(torch.bfloat16),
+                         AdamW(learning_rate=FIT_LR, clip_norm=1.0),
+                         microbatches=FIT_ACCUM, device=dev)
+    group = FIT_BATCH * FIT_ACCUM
+    ends = []
+    for g in range(steps):
+        rows = ds.rows[g * group:(g + 1) * group]
+        step.step(rows[:, :-1], rows[:, 1:].astype(np.int64))
+        ends.append(time.perf_counter())
+    step.sync_to_model()
+    direct = host_params(net)
+    fit_equal = same_params(fitted, direct)
+    tokens = group * FIT_SEQ
+    group_ends = clock.end[FIT_ACCUM - 1::FIT_ACCUM]
+    fit_tps = tokens * (steps - 1) / (group_ends[-1] - group_ends[0])
+    direct_tps = tokens * (steps - 1) / (ends[-1] - ends[0])
+    del step, net, fused, fitted, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    # preempted after epoch 0 and resumed, against an uninterrupted fit
+    root = tempfile.mkdtemp(prefix="fit_hapi_ckpt_")
+    try:
+        kw = dict(batch_size=FIT_BATCH, shuffle=False, verbose=0,
+                  accumulate_grad_batches=FIT_ACCUM)
+        ref = fit_gpt(dev)
+        ref.fit(ds, epochs=2, **kw)
+        want = host_params(ref.network)
+        del ref
+        part1 = fit_gpt(dev)
+        part1.fit(ds, epochs=1, checkpoint_manager=CheckpointManager(root),
+                  **kw)
+        del part1
+        part2 = fit_gpt(dev, seed=SEED + 77)
+        mgr = CheckpointManager(root)
+        part2.fit(ds, epochs=2, checkpoint_manager=mgr, **kw)
+        resumed = host_params(part2.network)
+        latest = mgr.latest()[0]
+        del part2
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    resume_equal = same_params(resumed, want)
+    del resumed, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = {"arm": "gpt_fused", "model": "gpt2-small", "dtype": "bfloat16",
+            "master_weights": "float32", "rows": FIT_ROWS, "seq": FIT_SEQ,
+            "batch_size": FIT_BATCH, "accumulate_grad_batches": FIT_ACCUM,
+            "optimizer_steps": steps, "num_workers": FIT_WORKERS,
+            "transport": "shm", "hidden_dropout": 0.0,
+            "fit_seconds": fit_s, "fit_tokens_per_s": fit_tps,
+            "direct_tokens_per_s": direct_tps,
+            "fit_over_direct": fit_tps / direct_tps,
+            "fit_bit_equal_direct": fit_equal,
+            "resume_bit_equal_uninterrupted": resume_equal,
+            "resume_latest_step": latest, "launches": launches,
+            "expected_launches": expected,
+            "workers_cuda_initialised": workers}
+    line["ok"] = bool(fit_equal and resume_equal and latest == 2 * steps
+                      and len(workers) == FIT_WORKERS
+                      and not any(workers.values()))
+    return line, {k: launches[k] for k in FLASH_KERNELS}
+
+
+def fit_transform(size=224):
+    T = paddle.vision.transforms
+    return T.Compose([_chw_to_hwc_u8, T.RandomResizedCrop(size),
+                      T.RandomHorizontalFlip(), _hwc_u8_to_chw])
+
+
+def resnet_fit_model(dev):
+    model = resnet_model(dev)
+    opt = paddle.optimizer.Momentum(learning_rate=RESNET_LR, momentum=0.9,
+                                    parameters=model.parameters(),
+                                    weight_decay=1e-4)
+    return model, opt
+
+
+def seed_host():
+    random.seed(SEED)
+    np.random.seed(SEED)
+
+
+def resnet_hand_loop(dev, ds, steps):
+    """The eager loop a user writes by hand over the same seeded batches:
+    `Model.train_batch`'s calls, one optimizer step a batch."""
+    model, opt = resnet_fit_model(dev)
+    loss_fn = paddle.nn.CrossEntropyLoss()
+    acc = paddle.metric.Accuracy(topk=(1, 5))
+    seed_host()
+    loader = paddle.io.DataLoader(ds, batch_size=RESNET_FIT_BATCH,
+                                  shuffle=True)
+    losses, accs = [], []
+    for i, (x, y) in enumerate(loader):
+        if i == steps:
+            break
+        model.train()
+        out = model(x)
+        loss = loss_fn(out, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        acc.update(acc.compute(out, y))
+        losses.append(float(loss.numpy()))
+        accs.append(acc.accumulate())
+    return losses, accs, host_params(model)
+
+
+def fit_resnet(dev, probe_dir):
+    """The eager route at full width: `resnet50()` in float32, Momentum,
+    `CrossEntropyLoss`, `Accuracy(topk=(1, 5))`, over `FakeData` images
+    of 256 x 256 cropped to 224 by the transforms. Seeded and in-process
+    (cuDNN deterministic), RESNET_FIT_PARITY_STEPS steps equal a hand loop
+    bit for bit; then RESNET_FIT_TIMED_STEPS steps with shm workers,
+    timed. Returns the arm's line and the batch norm launches of the timed
+    run."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = RESNET_FIT_BATCH * RESNET_FIT_PARITY_STEPS
+    ds = ProbedFakeData(size=n, image_shape=(3, 256, 256), num_classes=1000,
+                        transform=fit_transform())
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model, opt = resnet_fit_model(dev)
+        hm = paddle.Model(model).prepare(
+            optimizer=opt, loss=paddle.nn.CrossEntropyLoss(),
+            metrics=paddle.metric.Accuracy(topk=(1, 5)))
+        clock = BatchClock()
+        seed_host()
+        hm.fit(ds, batch_size=RESNET_FIT_BATCH, epochs=1, verbose=0,
+               callbacks=[clock])
+        fit_losses = [lg["loss"] for lg in clock.logs]
+        fit_accs = [lg["acc_top1"] for lg in clock.logs]
+        fitted = host_params(model)
+        hand_losses, hand_accs, hand = resnet_hand_loop(
+            dev, ds, RESNET_FIT_PARITY_STEPS)
+        flags = cudnn_flags()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    parity = {"losses_equal": fit_losses == hand_losses,
+              "accuracies_equal": fit_accs == hand_accs,
+              "params_bit_equal": same_params(fitted, hand),
+              "steps": RESNET_FIT_PARITY_STEPS, "cudnn": flags,
+              "losses": fit_losses,
+              "accuracies": [[float(v) for v in a] for a in fit_accs]}
+    del fitted, hand
+    timed = ProbedFakeData(probe_dir, size=RESNET_FIT_BATCH
+                           * RESNET_FIT_TIMED_STEPS,
+                           image_shape=(3, 256, 256), num_classes=1000,
+                           transform=fit_transform())
+    clock = BatchClock()
+    reset_launches()
+    t0 = time.perf_counter()
+    hm.fit(timed, batch_size=RESNET_FIT_BATCH, epochs=1, verbose=0,
+           num_workers=RESNET_FIT_WORKERS, callbacks=[clock])
+    wall = time.perf_counter() - t0
+    launches = read_launches("fit_hapi", {
+        k: RESNET_NORMS * RESNET_FIT_TIMED_STEPS for k in BN_KERNELS})
+    workers = read_probes(probe_dir)
+    # the steady window: from the first batch's end to the last's (the
+    # first batch waits for the workers to start)
+    window = clock.end[-1] - clock.end[0]
+    blocked = sum(b - e for b, e in zip(clock.begin[1:], clock.end[:-1]))
+    step_s = [e - b for b, e in zip(clock.begin, clock.end)]
+    del hm, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = {"arm": "resnet_fit", "model": "resnet50", "dtype": "float32",
+            "optimizer": "Momentum", "batch_size": RESNET_FIT_BATCH,
+            "image": [3, 224, 224], "source_image": [3, 256, 256],
+            "transforms": "RandomResizedCrop(224), RandomHorizontalFlip",
+            "resize_branch": resize_branch(), "parity": parity,
+            "timed_steps": RESNET_FIT_TIMED_STEPS,
+            "num_workers": RESNET_FIT_WORKERS, "transport": "shm",
+            "fit_seconds": wall,
+            "images_per_s": RESNET_FIT_BATCH * (RESNET_FIT_TIMED_STEPS - 1)
+            / window,
+            "loader_blocked_share": blocked / window,
+            "train_batch_ms_p50": statistics.median(step_s[1:]) * 1e3,
+            "first_batch_wait_s": clock.begin[0] - t0,
+            "launches": launches, "workers_cuda_initialised": workers,
+            "last_loss": clock.logs[-1]["loss"]}
+    line["ok"] = bool(parity["losses_equal"] and parity["accuracies_equal"]
+                      and parity["params_bit_equal"]
+                      and len(workers) == RESNET_FIT_WORKERS
+                      and not any(workers.values())
+                      and np.isfinite(line["last_loss"]))
+    return line, {k: launches[k] for k in BN_KERNELS}
+
+
+def bench_dataloader(dev, probe_dir):
+    """`bench.py:1768-1860` on the port: the raw pump (workers only
+    produce) and the overlap (each batch followed by a device step and a
+    synchronous readback: a bf16 [4096, 4096] product on the card, scaled
+    and summed in f32, read back with ``float()``), in-process and with
+    DL_WORKERS shm workers, on the bench's datasets at batch 64. Returns
+    the arm's line and no launches (no kernel of the port runs here)."""
+    T = paddle.vision.transforms
+    from paddle_tpu_torch.framework.flags import set_flags
+    aug = T.Compose([_chw_to_hwc_u8, T.RandomResizedCrop(224),
+                     T.RandomHorizontalFlip(), T.ColorJitter(0.4, 0.4, 0.4),
+                     _hwc_u8_to_chw])
+    ds = ProbedFakeData(probe_dir, size=DL_PUMP_SIZE,
+                        image_shape=(3, 256, 256), transform=aug)
+    aug_small = T.Compose([_chw_to_hwc_u8, T.RandomResizedCrop(28),
+                           T.RandomHorizontalFlip(), _hwc_u8_to_chw])
+    ds_small = ProbedFakeData(probe_dir, size=DL_OVERLAP_SIZE,
+                              image_shape=(3, 32, 32), transform=aug_small)
+    a = torch.ones((4096, 4096), dtype=torch.bfloat16, device=dev)
+
+    def device_step():
+        return float(((a @ a).float() * (1.0 / 4096)).sum())
+
+    def pump(num_workers, use_shared_memory):
+        dl = paddle.io.DataLoader(ds, batch_size=DL_BATCH,
+                                  num_workers=num_workers,
+                                  use_shared_memory=use_shared_memory,
+                                  drop_last=True, collate_fn=_host_collate)
+        it = iter(dl)
+        next(it)                      # worker start-up outside the window
+        n, t0 = 0, time.perf_counter()
+        for _ in it:
+            n += 1
+        return n * DL_BATCH / (time.perf_counter() - t0)
+
+    def overlap(num_workers):
+        device_step()
+        dl = paddle.io.DataLoader(ds_small, batch_size=DL_BATCH,
+                                  num_workers=num_workers,
+                                  use_shared_memory=num_workers > 0,
+                                  drop_last=True, collate_fn=_host_collate)
+        it = iter(dl)
+        for _ in range(DL_OVERLAP_DRAIN):
+            next(it)
+        n, t0 = 0, time.perf_counter()
+        for _ in it:
+            device_step()
+            n += 1
+        return n * DL_BATCH / (time.perf_counter() - t0)
+
+    set_flags({"FLAGS_dataloader_auto_fallback": False})
+    try:
+        figures = {"pump_in_process": pump(0, False),
+                   "pump_shm_workers": pump(DL_WORKERS, True)}
+        pump_workers = read_probes(probe_dir)
+        figures["overlap_in_process"] = overlap(0)
+        figures["overlap_shm_workers"] = overlap(DL_WORKERS)
+        overlap_workers = read_probes(probe_dir)
+    finally:
+        set_flags({"FLAGS_dataloader_auto_fallback": True})
+    del a
+    line = {"arm": "dataloader", "images_per_s": figures,
+            "batch_size": DL_BATCH, "num_workers": DL_WORKERS,
+            "cpu_count": os.cpu_count(), "resize_branch": resize_branch(),
+            "workers_cuda_initialised": {"pump": pump_workers,
+                                         "overlap": overlap_workers}}
+    line["ok"] = bool(
+        all(np.isfinite(v) and v > 0 for v in figures.values())
+        and len(pump_workers) == len(overlap_workers) == DL_WORKERS
+        and not any(pump_workers.values())
+        and not any(overlap_workers.values()))
+    return line, {}
+
+
+def fit_hapi(dev, smi):
+    """The data pipeline and `Model.fit` on the card (`io`, `vision`'s
+    datasets and transforms, `metric`, `hapi`): arms ``gpt_fused``,
+    ``resnet_fit`` and ``dataloader``, one line each. Every worker is a
+    spawn child and must not hold a CUDA context. Returns the flash and
+    batch norm launches of the two fits."""
+    probe_dir = tempfile.mkdtemp(prefix="fit_hapi_workers_")
+    launches = {}
+    try:
+        for arm in (fit_gpt_fused, fit_resnet, bench_dataloader):
+            t0 = time.perf_counter()
+            line, arm_launches = arm(dev, probe_dir)
+            launches.update(arm_launches)
+            line.update(phase="fit_hapi", card=smi,
+                        seconds=time.perf_counter() - t0,
+                        clocks=card_clocks())
+            emit(line)
+            if not line["ok"]:
+                raise SystemExit(f"fit_hapi {line['arm']}: {line}")
+    finally:
+        shutil.rmtree(probe_dir, ignore_errors=True)
+    return launches
+
+
 def nvidia_smi():
     """Card 0's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -7140,6 +7640,11 @@ def main():
     for k, n in quant_comms(dev, smi).items():
         launches[k] += n
     mark("quant_comms")
+    # after quant_comms: the data pipeline and Model.fit (io, vision's
+    # datasets and transforms, metric, hapi)
+    for k, n in fit_hapi(dev, smi).items():
+        launches[k] += n
+    mark("fit_hapi")
     emit({"phase": "phase_seconds", "seconds": seconds,
           "total": sum(seconds.values())})
 

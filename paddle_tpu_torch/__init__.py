@@ -17,7 +17,7 @@ import importlib as _importlib
 
 
 _SUBPACKAGES = ("device", "nn", "optimizer", "autograd", "amp", "jit",
-                "vision")
+                "vision", "io", "metric", "hapi")
 
 
 def __getattr__(name):

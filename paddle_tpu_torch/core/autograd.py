@@ -68,7 +68,40 @@ def apply(prim: Callable, *inputs, op_name: str = "", **static_kwargs):
     fn = functools.partial(prim, **static_kwargs) if static_kwargs else prim
     with torch.set_grad_enabled(record):
         out = fn(*arrays)
+    if _DEBUG_CHECKS:
+        _debug_check_outputs(op_name or getattr(prim, "__name__", "op"),
+                             list(out) if isinstance(out, (tuple, list))
+                             else [out])
     return wrap_outputs(out, stop_gradient=not record)
+
+
+_DEBUG_CHECKS = False     # flipped by flags.set_flags (check_nan_inf/benchmark)
+
+
+def _debug_check_outputs(op_name, outs):
+    """FLAGS_check_nan_inf / FLAGS_benchmark hooks at the dispatch point (ref
+    per-op nan/inf detection `eager/nan_inf_utils.cc`, gated the same way).
+    Eager only: a `to_static` capture checks nothing, as a JAX trace
+    checks nothing."""
+    from paddle_tpu_torch.framework.flags import flag_value
+    check = flag_value("check_nan_inf")
+    bench = flag_value("benchmark")
+    if not (check or bench) or _tensor_mod().in_capture():
+        return
+    for o in outs:
+        if not isinstance(o, torch.Tensor):
+            continue
+        if o.is_cuda and torch.cuda.is_current_stream_capturing():
+            return
+        if bench and o.is_cuda:
+            torch.cuda.synchronize(o.device)
+        if check and (o.is_floating_point() or o.is_complex()):
+            bad = ~torch.isfinite(o.detach())
+            if bool(bad.any()):
+                raise FloatingPointError(
+                    f"FLAGS_check_nan_inf: op '{op_name}' produced "
+                    f"{int(bad.sum())} non-finite value(s) in an output of "
+                    f"shape {tuple(o.shape)}")
 
 
 def wrap_outputs(out, stop_gradient):

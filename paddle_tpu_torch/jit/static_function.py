@@ -259,6 +259,11 @@ def _sig_of(args, kwargs):
 
     rec(args)
     rec(kwargs)
+    # a flag that changes what a step computes keys the program cache, or
+    # setting it after the first capture would go unseen (the other two
+    # of the JAX key, moe_dispatch and tpu_flash_impl, have one value here)
+    from paddle_tpu_torch.framework.flags import flag_value
+    parts.append(("F", flag_value("use_bfloat16_matmul")))
     return tuple(parts)
 
 
@@ -331,7 +336,9 @@ class StaticFunction:
         self._fn = function
         self._cache: dict[Any, list] = {}
         self._input_spec = input_spec
-        self._donate = True if donate_state is None else donate_state
+        from paddle_tpu_torch.framework.flags import flag_value
+        self._donate = flag_value("tpu_donate_buffers") \
+            if donate_state is None else donate_state
         functools.update_wrapper(self, function)
 
     def __get__(self, instance, owner):

@@ -9,6 +9,7 @@ import torch
 from paddle_tpu_torch.amp.state import amp_cast_inputs
 from paddle_tpu_torch.core.autograd import apply
 from paddle_tpu_torch.core.tensor import Tensor, to_torch
+from paddle_tpu_torch.framework.flags import flag_value
 from paddle_tpu_torch.ops.common import ensure_tensor, promote_pair
 
 __all__ = ["matmul", "bmm", "mv", "norm", "vector_norm", "matrix_norm",
@@ -29,8 +30,14 @@ def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
             a = a.transpose(-1, -2)
         if transpose_y and b.dim() > 1:
             b = b.transpose(-1, -2)
+        if use_bf16 and a.dtype == torch.float32:
+            # FLAGS_use_bfloat16_matmul: bf16 inputs, f32 accumulation (a
+            # product of two bf16 values is exact in f32)
+            return torch.matmul(a.to(torch.bfloat16).float(),
+                                b.to(torch.bfloat16).float())
         return torch.matmul(a, b)
 
+    use_bf16 = flag_value("use_bfloat16_matmul")
     return apply(prim, x, y, op_name="matmul")
 
 

@@ -97,6 +97,12 @@ Sites wired in the port (the JAX package's names and places):
                           allgather before publishing its contribution
                           (wedged-peer simulation: its heartbeat goes
                           stale and survivors raise typed `PeerLost`)
+``loader.stall``          `DataLoader`'s worker fetch behaves as if the
+                          stall window elapsed: first fire re-enqueues the
+                          in-flight batches (one bounded retry); a second
+                          fire WITHOUT a delivery in between raises typed
+                          `DataLoaderStalled` (any delivery re-arms the
+                          retry — "twice" means twice in a row)
 ========================  ====================================================
 """
 from __future__ import annotations

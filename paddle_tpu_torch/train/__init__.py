@@ -17,7 +17,8 @@ a dead peer into typed PeerLost, and the ElasticController that
 relaunches the fleet at the surviving world size from the last
 fleet-complete checkpoint.
 """
-from paddle_tpu_torch.train.scan_step import H100_BF16_PEAK, ScanTrainStep
+from paddle_tpu_torch.train.scan_step import (H100_BF16_PEAK, ScanTrainStep,
+                                              ScanUnsupported)
 from paddle_tpu_torch.train.fault_tolerance import (CheckpointCorrupt,
                                                     CheckpointIncomplete,
                                                     CheckpointManager,
@@ -27,7 +28,8 @@ from paddle_tpu_torch.train.elastic import (EXIT_PEER_LOST,
                                             PeerLost, elastic_worker_main,
                                             run_elastic_worker)
 
-__all__ = ["H100_BF16_PEAK", "ScanTrainStep", "CheckpointManager",
+__all__ = ["H100_BF16_PEAK", "ScanTrainStep", "ScanUnsupported",
+           "CheckpointManager",
            "TooManyBadSteps", "CheckpointCorrupt", "CheckpointIncomplete",
            "PeerLost", "FleetReducer", "ElasticController",
            "run_elastic_worker", "elastic_worker_main", "EXIT_PEER_LOST"]

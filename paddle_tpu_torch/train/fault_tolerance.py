@@ -28,8 +28,9 @@ step, synchronous checkpoint, clean exit" (the training mirror of serve's
 optimizer state, the optimizer step clock, the lr schedule's position,
 the PRNG key chain, and the data cursor — bit-identically on a single
 replica. (The port has no mesh yet: ZeRO-1 and the reshard on resume are
-ROADMAP A6/A8.3; a bound step whose hapi `Model.fit` route the JAX
-manager serves is ROADMAP A7.)
+ROADMAP A6/A8.3. `hapi.Model.fit(checkpoint_manager=)` binds the manager
+to its fused step and writes ``[epoch, batch]`` cursors, as the JAX
+package's does.)
 
 **Bad-step containment.** The step already skips the optimizer apply on
 any non-finite loss/grad (`ScanTrainStep`);
@@ -544,9 +545,11 @@ class CheckpointManager:
                     "the schedule from epoch 0")
             s.opt.learning_rate.set_state_dict(
                 _json.loads(loaded["meta/lr_sched"]))
+        s.opt._sync_lr_tensor(s.opt.get_lr())
         s.set_key_data(loaded["meta/rng"])
         s.consecutive_bad_steps = 0
         s.last_step_ok = True
+        s._dirty = True
         s.sync_to_model()
         self._resumed_from = d
         self._last_saved = n
@@ -633,9 +636,9 @@ class CheckpointManager:
             if info is not None and info.get("data_cursor") is not None:
                 cur = info["data_cursor"]
                 if isinstance(cur, (list, tuple)):
-                    # the JAX Model.fit writes [epoch, batch] — run()
-                    # cannot map it onto batch_fn's flat index space (the
-                    # port's hapi fit is ROADMAP A7)
+                    # Model.fit (hapi/model.py, either package's) writes
+                    # [epoch, batch] — run() cannot map it onto
+                    # batch_fn's flat index space
                     raise ValueError(
                         f"checkpoint at {info['path']} has data_cursor="
                         f"{cur!r}; CheckpointManager.run needs the flat "

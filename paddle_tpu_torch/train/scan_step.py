@@ -52,6 +52,17 @@ and observes ``train.step_seconds``. ``train.mfu`` divides by
 ``H100_BF16_PEAK`` on the card and by the JAX package's nominal 1e12
 FLOP/s on the CPU. `start_watchdog` arms a stall watchdog over the loop.
 
+`Model.fit` (`hapi/model.py`) drives the step over an eager optimizer
+(built with ``parameters=``): the step then reads and writes that
+optimizer's accumulators and master copies, where the functional form's
+live in ``optimizer.state``. `refresh_from_model` re-pulls both after an
+update made outside the step; ``dirty`` says the step holds updates the
+model has not seen. A (model, optimizer) the step cannot take raises
+`ScanUnsupported`, a ValueError, under the JAX step's conditions: not a
+`GPTForCausalLM`, attention dropout, an optimizer with no pure update,
+L1 decay, or learning rates or weight decays that differ across the
+layers of one stacked leaf.
+
 Not ported yet (ROADMAP A8): ZeRO-1 (A8.3), the CUDA graph of the whole
 step (A8.4), the other arms of the flash op (A8.5).
 """
@@ -62,19 +73,20 @@ import time
 import numpy as np
 import torch
 
-from paddle_tpu_torch.core.tensor import torch_state
+from paddle_tpu_torch.core import tensor as tensor_mod
+from paddle_tpu_torch.core.tensor import unwrap
 from paddle_tpu_torch.kernels import prng
 from paddle_tpu_torch.observability import metrics
 from paddle_tpu_torch.observability.flight_recorder import (Watchdog,
                                                             default_deadline,
                                                             flight)
-from paddle_tpu_torch.models.gpt import (analytic_flops_per_token,
-                                         check_trainable, scan_loss,
+from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
+                                         analytic_flops_per_token, scan_loss,
                                          stack_gpt_params, unstack_gpt_params)
 from paddle_tpu_torch.optimizer.optimizer import f32
 from paddle_tpu_torch.testing import faults
 
-__all__ = ["H100_BF16_PEAK", "ScanTrainStep"]
+__all__ = ["H100_BF16_PEAK", "ScanTrainStep", "ScanUnsupported"]
 
 H100_BF16_PEAK = 989e12     # FLOP/s, H100 SXM bf16 dense (NVIDIA data sheet)
 CPU_NOMINAL_PEAK = 1e12     # FLOP/s, the JAX package's nominal non-TPU peak
@@ -91,16 +103,28 @@ def _resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+class ScanUnsupported(ValueError):
+    """(model, optimizer, config) cannot take the scanned fused train-step
+    path; callers (`Model.fit`) take the eager route instead."""
+
+
 def _leaf_keys(tree):
     for grp in ("blocks", "top"):
         for k in tree[grp]:
             yield grp, k
 
 
+def _leaf_names(grp, key, num_layers):
+    """The state_dict names a stacked leaf holds, in layer order."""
+    return ([f"gpt.h.{i}.{key}" for i in range(num_layers)]
+            if grp == "blocks" else [key])
+
+
 class ScanTrainStep:
     """Train step for a `models/gpt.py::GPTForCausalLM` (a Paddle Layer,
-    whose weights it reads through `core.tensor.torch_state`) with an
-    `optimizer.AdamW` (its functional form: no ``parameters`` needed).
+    whose weights it reads through its ``state_dict``) with a fusable
+    optimizer: `optimizer.AdamW` in its functional form (no
+    ``parameters``), or any optimizer built over the model's parameters.
 
     The step holds a copy of the parameters stacked, as leaves on
     ``device``, and the optimizer state beside them, both seeded from the
@@ -116,8 +140,21 @@ class ScanTrainStep:
     def __init__(self, model, optimizer, *, microbatches=1,
                  use_loss_mask=False, seed=0, device=None,
                  grad_reducer=None):
+        if not isinstance(model, GPTForCausalLM):
+            raise ScanUnsupported(
+                f"scan train step needs GPTForCausalLM, got "
+                f"{type(model).__name__}")
+        if model.cfg.attention_dropout:
+            raise ScanUnsupported(
+                "attention_dropout > 0 has no scan-path implementation "
+                "(the JAX scan step refuses it too; ROADMAP A8.1)")
+        if not getattr(optimizer, "_FUSABLE", False) or \
+                not hasattr(optimizer, "functional_update"):
+            raise ScanUnsupported(
+                f"{type(optimizer).__name__} has no pure fused update")
+        if getattr(optimizer, "_l1_decay", 0.0):
+            raise ScanUnsupported("L1 decay is not scan-fusable")
         self.device = _resolve_device(device)
-        check_trainable(model.cfg)
         self.model, self.opt, self.cfg = model, optimizer, model.cfg
         self._state_names, self._update = optimizer.functional_update()
         self.microbatches = max(1, int(microbatches))
@@ -131,7 +168,14 @@ class ScanTrainStep:
         self._compiles = 0
         self._ran = False          # any step taken: JAX holds sorted trees
         self._grad_reducer = grad_reducer
-        self._load_state()
+        self._dirty = False
+        self.refresh_from_model()
+
+    @property
+    def dirty(self) -> bool:
+        """Steps were taken since the last `sync_to_model` /
+        `refresh_from_model`: the model does not hold the step's state."""
+        return self._dirty
 
     @property
     def compile_count(self) -> int:
@@ -176,20 +220,62 @@ class ScanTrainStep:
 
     # ------------------------------------------------------------- state io
 
-    def _load_state(self):
-        """Copy the model's parameters onto the device as stacked leaves, and
-        stack the optimizer state beside them from ``optimizer.state``:
-        zero moments where a name has none, and float32 masters (the
-        parameters' values where a name has none) unless every parameter
-        is float32."""
-        params = {n: t.to(self.device, copy=True)
-                  for n, t in torch_state(self.model).items()}
+    def _eager_opt(self) -> bool:
+        """The optimizer holds parameters (``parameters=``): its state lives
+        in its accumulators and master copies, not in ``state``."""
+        return self.opt._parameter_list is not None
+
+    def _saved_state(self, name, pobj) -> dict:
+        """``{state name: tensor or None}`` the optimizer holds for the
+        parameter ``pobj`` (state_dict name ``name``)."""
+        if not self._eager_opt():
+            return self.opt.state.get(name, {})
+        out = {s: self.opt._accumulators.get(s, {}).get(id(pobj))
+               for s in self._state_names}
+        master = self.opt._master_weights.get(id(pobj))
+        if master is None and getattr(pobj, "_master", None) is not None:
+            master = pobj._master._data
+        out["master"] = master
+        return out
+
+    def _leaf_meta(self, objs):
+        """Per stacked leaf: the learning-rate multiplier and the weight
+        decay the optimizer gives its parameters (one pair for all of a
+        leaf's layers, else `ScanUnsupported`), and whether the global-norm
+        clip counts its gradient."""
+        nl = self.cfg.num_layers
+        meta = {}
+        for grp, key in _leaf_keys(self._params):
+            pobjs = [objs[n] for n in _leaf_names(grp, key, nl)]
+            lws = {self.opt._lr_wd_of(p, 1.0) for p in pobjs}
+            if len(lws) != 1:
+                raise ScanUnsupported(
+                    f"per-layer lr/weight-decay differ across the stacked "
+                    f"leaf {key!r}: {sorted(lws)} — the scanned step "
+                    "updates all layers of a leaf with one (lr, wd)")
+            lr_mult, wd = lws.pop()
+            meta[(grp, key)] = {
+                "lr_mult": float(lr_mult), "wd": float(wd),
+                "need_clip": all(getattr(p, "need_clip", True)
+                                 for p in pobjs)}
+        return meta
+
+    def refresh_from_model(self):
+        """(Re)pull the model's parameters onto the device as stacked
+        leaves, and stack the optimizer's state beside them: zero moments
+        where a parameter has none, and float32 masters (the parameters'
+        values where a parameter has none) unless every parameter is
+        float32. Called at init and after any update made outside the
+        step (hapi's eager batches, ``set_state_dict``, `Model.load`)."""
+        objs = dict(self.model.state_dict())
+        params = {n: unwrap(t).detach().to(self.device, copy=True)
+                  for n, t in objs.items()}
         names = list(self._state_names)
         if any(p.dtype != torch.float32 for p in params.values()):
             names.append("master")
         per_state = {s: {} for s in names}
         for n, p in params.items():
-            saved = self.opt.state.get(n, {})
+            saved = self._saved_state(n, objs[n])
             for s in names:
                 v = saved.get(s)
                 if v is None:
@@ -197,30 +283,41 @@ class ScanTrainStep:
                 per_state[s][n] = v.to(self.device, torch.float32)
         stacked = {s: stack_gpt_params(d) for s, d in per_state.items()}
         self._params = stack_gpt_params(params)
+        self._meta = self._leaf_meta(objs)
         self._opt_state = {"blocks": {}, "top": {}}
         for grp, key in _leaf_keys(self._params):
             self._params[grp][key].requires_grad_(True)
             self._opt_state[grp][key] = {s: stacked[s][grp][key]
                                          for s in names}
+        self._dirty = False
         metrics.gauge("train.opt_state_bytes").set(self.opt_state_bytes())
         metrics.gauge("train.zero1").set(0.0)      # ZeRO-1 is ROADMAP A8.3
 
     def sync_to_model(self):
-        """Write the step's parameters into the model and its optimizer state
-        into ``optimizer.state``, per state_dict name."""
+        """Write the step's parameters into the model and its optimizer
+        state into the optimizer: its accumulators and master copies (the
+        eager form), or ``optimizer.state`` per state_dict name."""
         params = unstack_gpt_params(self._params)
+        objs = dict(self.model.state_dict())
         with torch.no_grad():
-            for name, t in torch_state(self.model).items():
-                t.copy_(params[name])
+            for name, t in objs.items():
+                unwrap(t).copy_(params[name])
         nl = self.cfg.num_layers
         for grp, key in _leaf_keys(self._opt_state):
             st = self._opt_state[grp][key]
-            names = ([f"gpt.h.{i}.{key}" for i in range(nl)]
-                     if grp == "blocks" else [key])
-            for i, n in enumerate(names):
-                self.opt.state[n] = {
-                    s: (v[i] if grp == "blocks" else v).detach().clone()
-                    for s, v in st.items()}
+            for i, n in enumerate(_leaf_names(grp, key, nl)):
+                vals = {s: (v[i] if grp == "blocks" else v).detach().clone()
+                        for s, v in st.items()}
+                if not self._eager_opt():
+                    self.opt.state[n] = vals
+                    continue
+                p = objs[n]
+                for s in self._state_names:
+                    self.opt._set_accumulator(s, p, vals[s])
+                if "master" in vals:
+                    tensor_mod.note_write(self.opt._master_weights, id(p))
+                    self.opt._master_weights[id(p)] = vals["master"]
+        self._dirty = False
 
     # ------------------------------------------------------------- the step
 
@@ -275,18 +372,21 @@ class ScanTrainStep:
         clip = self.opt.clip_norm
         if clip is not None:
             sq = torch.zeros((), dtype=torch.float32, device=self.device)
-            for g in grads:
-                sq = sq + torch.sum(g ** 2)
+            for gk, g in zip(keys, grads):
+                if self._meta[gk]["need_clip"]:
+                    sq = sq + torch.sum(g ** 2)
             scale = clip / torch.clamp(torch.sqrt(sq), min=clip)
             grads = [g * scale for g in grads]
         names = self._state_names
-        lr, wd = f32(self.opt.get_lr()), f32(self.opt._weight_decay)
+        lr = f32(self.opt.get_lr())
         t = f32(t)
         for (grp, k), g in zip(keys, grads):
             p, st = self._params[grp][k], self._opt_state[grp][k]
+            mt = self._meta[(grp, k)]
             p32 = st["master"] if "master" in st else p
             new_p32, new_st = self._update(p32, g, [st[n] for n in names],
-                                           lr, wd, t)
+                                           lr * mt["lr_mult"], f32(mt["wd"]),
+                                           t)
             st.update(zip(names, new_st))
             if "master" in st:
                 st["master"] = new_p32
@@ -384,6 +484,8 @@ class ScanTrainStep:
                       loss=lossf, ms=round(dt * 1e3, 3),
                       mfu=round(mfu, 5), compiled=bool(compiled))
         self.opt.global_step += 1
+        self.opt._sync_lr_tensor(self.opt.get_lr())
+        self._dirty = True
         return lossf
 
     def start_watchdog(self, deadline_s=None, dump_dir=None,

@@ -46,6 +46,7 @@ the largest value in float32 (one bfloat16 step in bfloat16). The
 FusedLayerNorm within 2e-5 (y) and 1e-4 (gradients), rope 1e-6, each
 relative to the largest value when above 1.
 """
+import os
 import time
 
 import numpy as np
@@ -3042,3 +3043,165 @@ def test_card_local_collectives_stay_on_the_card(card):
     assert torch.equal(q._data, want)
     bound = comms.roundtrip_bound(torch.from_numpy(x)).numpy()
     assert (np.abs(q.numpy() - x) <= bound + 1e-5).all()
+
+
+# ------------------------------------------- the data pipeline and Model.fit
+
+
+class _ProbedRows:
+    """Rows of numpy ids whose spawn workers write, as they unpickle the
+    dataset and at each sample, whether they hold a CUDA context
+    (module-level: it pickles into spawn workers)."""
+
+    def __init__(self, probe_dir, n=24):
+        self.probe_dir, self.parent, self.n = probe_dir, os.getpid(), n
+
+    def _note(self):
+        if os.getpid() != self.parent:
+            with open(os.path.join(self.probe_dir, str(os.getpid())),
+                      "w") as f:
+                f.write(str(torch.cuda.is_initialized()))
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._note()
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        self._note()
+        return np.full((5,), i, np.float32), np.array(i, np.int64)
+
+
+def test_card_shm_loader_tensors_on_card_workers_without_cuda(card,
+                                                             tmp_path):
+    """A shm DataLoader with spawn workers (the default) after the parent
+    holds a CUDA context: every batch is a Tensor on the card, in order,
+    and no worker initialised CUDA."""
+    import paddle_tpu_torch.io as tio
+    from paddle_tpu_torch.framework.flags import set_flags
+    torch.zeros(1, device=card)             # the parent holds a context
+    set_flags({"FLAGS_dataloader_auto_fallback": False})
+    try:
+        batches = list(tio.DataLoader(_ProbedRows(str(tmp_path)),
+                                      batch_size=4, num_workers=2))
+    finally:
+        set_flags({"FLAGS_dataloader_auto_fallback": True})
+    assert all(x._data.is_cuda and y._data.is_cuda for x, y in batches)
+    assert np.concatenate([y.numpy() for _, y in batches]).tolist() == \
+        list(range(24))
+    probes = [open(p).read() for p in tmp_path.iterdir()]
+    assert len(probes) == 2 and set(probes) == {"False"}
+
+
+def _card_fit_gpt(card, seed=5):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(vocab_size=97, hidden_size=128, num_layers=2,
+                    num_heads=2, intermediate_size=256,
+                    max_position_embeddings=128, hidden_dropout=0.0,
+                    attention_dropout=0.0)
+    with paddle.device.device_scope("cpu"):
+        return GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+            seed)).to(torch.bfloat16)
+
+
+def test_card_fused_fit_equals_direct_scan_step(card):
+    """`Model.fit` on the fused route (bf16 on f32 masters, k = 2 over
+    loader batches of 4) equals `ScanTrainStep(microbatches=2)` stepped
+    directly on the same concatenated groups, bit for bit, and launches
+    each flash kernel once a layer a microbatch."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.kernels.cuda import flash_attention as cfa
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.train import ScanTrainStep
+    ids = np.random.default_rng(7).integers(0, 97, (16, 129))
+    rows = [(r[:-1].astype(np.int32), r[1:].astype(np.int64)) for r in ids]
+    net = _card_fit_gpt(card).to(card)
+    hm = paddle.Model(net).prepare(optimizer=paddle.optimizer.AdamW(
+        learning_rate=1e-3, clip_norm=1.0, parameters=net.parameters()))
+
+    class Rows(paddle.io.Dataset):
+        def __len__(self):
+            return len(rows)
+
+        def __getitem__(self, i):
+            return rows[i]
+
+    before = (cfa.FWD.launches, cfa.DQ.launches, cfa.DKV.launches)
+    hm.fit(Rows(), batch_size=4, accumulate_grad_batches=2, shuffle=False,
+           verbose=0)
+    after = (cfa.FWD.launches, cfa.DQ.launches, cfa.DKV.launches)
+    assert [a - b for a, b in zip(after, before)] == [2 * 2 * 2] * 3
+    assert hm._fused_step.device.type == "cuda"
+    ref = _card_fit_gpt(card)
+    step = ScanTrainStep(ref, AdamW(learning_rate=1e-3, clip_norm=1.0),
+                         microbatches=2, device=card)
+    for g in range(2):
+        step.step(ids[g * 8:(g + 1) * 8, :-1].astype(np.int32),
+                  ids[g * 8:(g + 1) * 8, 1:].astype(np.int64))
+    step.sync_to_model()
+    want = torch_state(ref)
+    for k, v in torch_state(net).items():
+        assert torch.equal(v.cpu(), want[k].cpu()), k
+
+
+def test_card_eager_fit_batch_norm_matches_cpu(card):
+    """Eager `Model.fit` of a conv + BatchNorm2D + linear net: on the card
+    each step launches batch_norm_fwd and batch_norm_bwd once a norm, and
+    two Momentum steps from the same weights match the CPU's within
+    chip_smoke's RESNET_CPU_TOL: losses absolute, running statistics
+    relative to their largest, each parameter's update as an L2 error
+    over its norm (``grad_l2``)."""
+    import paddle_tpu_torch as paddle
+    from chip_smoke import RESNET_CPU_TOL
+    from paddle_tpu_torch.kernels.cuda import batch_norm as cbn
+    rng = np.random.RandomState(8)
+    x = rng.randn(16, 3, 12, 12).astype(np.float32)
+    y = rng.randint(0, 10, 16).astype(np.int64)
+    res = {}
+    for dev in (torch.device("cpu"), card):
+        with paddle.device.device_scope(dev):
+            paddle.seed(0)
+            nn = paddle.nn
+            net = nn.Sequential(nn.Conv2D(3, 8, 3, padding=1),
+                                nn.BatchNorm2D(8), nn.ReLU(),
+                                nn.Conv2D(8, 8, 3, stride=2),
+                                nn.BatchNorm2D(8), nn.ReLU(),
+                                nn.AdaptiveAvgPool2D(1), nn.Flatten(),
+                                nn.Linear(8, 10))
+            if dev.type == "cuda":
+                net.set_state_dict(res["cpu"][0])
+            init = {k: v.numpy().copy() for k, v in net.state_dict().items()}
+            hm = paddle.Model(net).prepare(
+                optimizer=paddle.optimizer.Momentum(
+                    learning_rate=0.1, parameters=net.parameters()),
+                loss=nn.CrossEntropyLoss())
+            clock = []
+
+            class Losses(paddle.callbacks.Callback):
+                def on_train_batch_end(self, step, logs=None):
+                    clock.append(logs["loss"])
+
+            before = (cbn.FWD.launches, cbn.BWD.launches)
+            hm.fit([(x[:8], y[:8]), (x[8:], y[8:])], epochs=1, verbose=0,
+                   callbacks=[Losses()])
+            launched = (cbn.FWD.launches - before[0],
+                        cbn.BWD.launches - before[1])
+            res[dev.type] = (init, clock, {k: v.numpy() for k, v in
+                                           net.state_dict().items()},
+                             launched)
+    (init, closs, cstate, claunch), (_, gloss, gstate, glaunch) = \
+        res["cpu"], res["cuda"]
+    assert claunch == (0, 0) and glaunch == (2 * 2, 2 * 2)
+    assert max(abs(a - b) for a, b in zip(closs, gloss)) <= \
+        RESNET_CPU_TOL["loss"]
+    for k, v in cstate.items():
+        if k.endswith(("_mean", "_variance")):
+            assert np.abs(gstate[k] - v).max() <= \
+                RESNET_CPU_TOL["stats"] * np.abs(v).max(), k
+        else:
+            step = v - init[k]
+            assert np.linalg.norm(gstate[k] - init[k] - step) <= \
+                RESNET_CPU_TOL["grad_l2"] * np.linalg.norm(step), k

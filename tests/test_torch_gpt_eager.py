@@ -187,7 +187,7 @@ def test_eager_loss_and_step_equal_scan_train_step():
     ts = ScanTrainStep(tgpt.GPTForCausalLM(tgpt.GPTConfig(**TINY)),
                        FunctionalAdamW(learning_rate=1e-3), device="cpu")
     ts.model.set_state_dict(tm.state_dict())
-    ts._load_state()
+    ts.refresh_from_model()
     opt = tp.optimizer.AdamW(learning_rate=1e-3, parameters=tm.parameters())
     _, loss = tm(tp.to_tensor(x), labels=tp.to_tensor(y))
     loss.backward()

@@ -44,6 +44,12 @@ print("LOADED", len([m for m in sys.modules if m.startswith("paddle_tpu_torch")]
 print("BAD", bad)
 print("SAMPLING", all(m in sys.modules for m in (
     "paddle_tpu_torch.kernels.prng", "paddle_tpu_torch.kernels.sampling")))
+print("HAPI", all(m in sys.modules for m in (
+    "paddle_tpu_torch.io", "paddle_tpu_torch.io.native_queue",
+    "paddle_tpu_torch.vision.datasets", "paddle_tpu_torch.vision.transforms",
+    "paddle_tpu_torch.metric", "paddle_tpu_torch.hapi",
+    "paddle_tpu_torch.hapi.model", "paddle_tpu_torch.hapi.callbacks",
+    "paddle_tpu_torch.framework.flags")))
 """
 
 
@@ -56,6 +62,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert int(r.stdout.split("LOADED ")[1].split()[0]) >= 20
     # the sampled and speculative serving modules are among those held
     assert "SAMPLING True" in r.stdout, r.stdout
+    # and the data pipeline, metric, hapi and flags modules
+    assert "HAPI True" in r.stdout, r.stdout
 
 
 _PREFIX_PROBE = r"""

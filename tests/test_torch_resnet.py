@@ -19,6 +19,8 @@ float32 path is held op by op in `tests/test_torch_conv.py`,
 `test_torch_pooling.py` and `test_torch_batch_norm.py`, and as the bench
 program in `tests/test_torch_resnet_program.py`.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -42,14 +44,31 @@ def _port_on_cpu():
         yield
 
 
+@contextlib.contextmanager
+def one_thread():
+    """torch on one intra-op thread for the block. A seeded draw is
+    thousands of small int64 ops: under the tier-1 run's six workers
+    their eight OpenMP threads a process stall each other, and the port's
+    seeded resnet50 takes 93-164 s there against 8.7 s on one thread. The
+    values do not depend on the thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pair(_port_on_cpu):
     """{package: resnet50(num_classes=10) from seed 0} and the JAX
     model's state on entry, as numpy arrays."""
     models = {}
-    for m, r in ((tp, tresnet), (jp, jresnet)):
-        m.seed(0)
-        models[m] = r.resnet50(num_classes=10)
+    tp.seed(0)
+    with one_thread():
+        models[tp] = tresnet.resnet50(num_classes=10)
+    jp.seed(0)
+    models[jp] = jresnet.resnet50(num_classes=10)
     state = {k: np.asarray(v._data) for k, v in
              models[jp].state_dict().items()}
     return models, state
@@ -77,8 +96,27 @@ def test_seeded_weights_and_buffers_equal_the_jax_draws(pair):
                                       err_msg=k)
 
 
+@pytest.fixture(scope="module")
+def other_draws(_port_on_cpu):
+    """The port's resnet50(num_classes=10) drawn from another seed (1),
+    once for the module: its state, which `_other_model` loads into a
+    model built without draws."""
+    tp.seed(1)
+    with one_thread():
+        model = tresnet.resnet50(num_classes=10)
+    return {k: v._data.clone() for k, v in model.state_dict().items()}
+
+
+def _other_model(draws):
+    with I.skip_draws():
+        model = tresnet.resnet50(num_classes=10)
+    for k, t in model.state_dict().items():
+        t._write(draws[k].clone())
+    return model
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_convert_carries_the_state_both_ways(pair, dtype):
+def test_convert_carries_the_state_both_ways(pair, other_draws, dtype):
     """The JAX state (every parameter and buffer; in bfloat16 the
     parameters cast) into a port model drawn from another seed, bit for
     bit; out of it again as numpy, which the JAX model loads."""
@@ -87,8 +125,9 @@ def test_convert_carries_the_state_both_ways(pair, dtype):
         state = {k: np.asarray(jnp.asarray(v).astype(jnp.bfloat16))
                  if not k.endswith(("_mean", "_variance")) else v
                  for k, v in state.items()}
-    tp.seed(1)
-    tm = tresnet.resnet50(num_classes=10)
+    tm = _other_model(other_draws)
+    assert not np.array_equal(tm.state_dict()["conv1.weight"].numpy(),
+                              state["conv1.weight"].astype(np.float32))
     convert.layer_state_from_numpy(tm, state)
     ts = tm.state_dict()
     for k, v in state.items():

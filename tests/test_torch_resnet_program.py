@@ -25,6 +25,8 @@ grows with the next ones. Tolerances:
   (1/64), the three within 1.0 (measured 0.016, 0.375, 0.625); the
   parameters bfloat16 and the running statistics float32 in both.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -36,6 +38,7 @@ from paddle_tpu.vision.models import resnet as jresnet
 
 import paddle_tpu_torch as tp
 from paddle_tpu_torch import device as tdevice
+from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.vision.models import resnet as tresnet
 
 STEPS = 3
@@ -48,11 +51,47 @@ def _port_on_cpu():
         yield
 
 
-def _program(m, res_mod, precision, seed=0):
+@contextlib.contextmanager
+def one_thread():
+    """torch on one intra-op thread for the block. A seeded draw is
+    thousands of small int64 ops: under the tier-1 run's six workers
+    their eight OpenMP threads a process stall each other (the port's
+    seeded resnet50: 93-164 s there against 8.7 s on one thread). The
+    values do not depend on the thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def port_draws(_port_on_cpu):
+    """The port's resnet18(num_classes=10) from seed 0, drawn once for the
+    module: its state and the generator's state after the draws, which
+    `_program` gives every port model it builds."""
+    tp.seed(0)
+    with one_thread():
+        model = tresnet.resnet18(num_classes=10)
+    return ({k: v._data.clone() for k, v in model.state_dict().items()},
+            tp.get_rng_state())
+
+
+def _program(m, res_mod, precision, draws=None):
     """`bench_resnet50`'s program on package ``m``, at resnet18 and 10
-    classes: (model, step)."""
-    m.seed(seed)
-    model = res_mod.resnet18(num_classes=10)
+    classes, from seed 0 (the port's from `port_draws`, ``draws``):
+    (model, step)."""
+    if m is tp:
+        with I.skip_draws():
+            model = res_mod.resnet18(num_classes=10)
+        state, rng = draws
+        for k, t in model.state_dict().items():
+            t._write(state[k].clone())
+        tp.set_rng_state(rng)
+    else:
+        m.seed(0)
+        model = res_mod.resnet18(num_classes=10)
     if precision == "f64":
         for p in model.parameters():
             p._write(p._data.astype(jnp.float64) if m is jp
@@ -84,7 +123,7 @@ def _batch(precision, b=8):
 
 
 @pytest.fixture(scope="module")
-def runs(_port_on_cpu):
+def runs(_port_on_cpu, port_draws):
     """(package, precision) -> (losses, {key: numpy state}, model), each
     run once, lazily."""
     cache = {}
@@ -92,7 +131,7 @@ def runs(_port_on_cpu):
     def get(m, precision):
         if (m, precision) not in cache:
             model, step = _program(m, tresnet if m is tp else jresnet,
-                                   precision)
+                                   precision, port_draws)
             static = m.jit.to_static(step)
             x, y = _batch(precision)
             losses = [float(static(m.to_tensor(x), m.to_tensor(y)))
@@ -147,7 +186,8 @@ def test_bench_program_o2_bfloat16_matches_jax(runs):
 
 
 @pytest.mark.parametrize("precision", ["f32", "o2_bf16"])
-def test_multi_steps_advance_running_stats_as_eager_steps(precision):
+def test_multi_steps_advance_running_stats_as_eager_steps(precision,
+                                                          port_draws):
     """``multi_steps(2)`` twice (discovery, then the state protocol) from
     one seed against 4 eager steps: losses, every parameter and every
     running statistic bit for bit; the batch norms' buffers are among the
@@ -157,7 +197,7 @@ def test_multi_steps_advance_running_stats_as_eager_steps(precision):
     ys = np.broadcast_to(y, (2,) + y.shape).copy()
     out = {}
     for static in (False, True):
-        model, step = _program(tp, tresnet, precision)
+        model, step = _program(tp, tresnet, precision, port_draws)
         if static:
             fn = tp.jit.to_static(step)
             k2 = fn.multi_steps(2)

@@ -44,7 +44,7 @@ from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models.convert import (params_from_numpy,
                                              train_state_from_numpy)
 from paddle_tpu_torch.optimizer import AdamW
-from paddle_tpu_torch.train import ScanTrainStep
+from paddle_tpu_torch.train import ScanTrainStep, ScanUnsupported
 from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch.core.tensor import torch_state
 
@@ -219,7 +219,7 @@ def test_training_refuses_what_is_not_ported(over, match):
         tgpt.scan_loss(stacked, ids, ids, cfg, training=True)
     # evaluation does not train: dropout and recompute do not apply
     tgpt.scan_loss(stacked, ids, ids, cfg, training=False)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ScanUnsupported, match=match):
         ScanTrainStep(tgpt.GPTForCausalLM(cfg), AdamW(), device="cpu")
 
 
